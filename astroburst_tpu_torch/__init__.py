@@ -1,0 +1,21 @@
+"""astroburst_tpu_torch — the PyTorch/CUDA port of astroburst_tpu.
+
+The JAX package ``astroburst_tpu`` stays the reference; this package
+reproduces its semantics on torch tensors. Plain tensor code is torch
+(cuFFT through ``torch.fft``, ``torch.sort``, elementwise ops); every
+Pallas kernel of the ported slice is a CUDA C++ kernel for Hopper
+(``csrc/``, built with nvcc for ``sm_90a`` at first use and bound with
+ctypes, see ``runtime/kernels.py``).
+
+Ported slice: align → stack → stretch
+(``parallel.pipeline.align_stack_stretch`` and
+``stacking.combine.stack_images``).
+
+The package never imports ``jax``. From ``astroburst_tpu`` it imports
+only the four JAX-free host modules ``constants``, ``dtypes``,
+``errors`` and ``ops.window``.
+"""
+
+__version__ = "0.1.0"
+
+from astroburst_tpu_torch.runtime import device as _device  # noqa: F401  (TF32 off)

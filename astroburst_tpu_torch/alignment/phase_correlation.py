@@ -1,0 +1,210 @@
+"""FFT phase correlation, coarse to fine
+(counterpart of astroburst_tpu/alignment/phase_correlation.py).
+
+Hann-windowed buffers → rfft2 → ε-guarded cross-power → irfft2 → peak
++ SNR confidence → circular unwrap + 3-point quadratic subpixel
+(phase_correlation.rs, math/subpixel.rs:18-84). Planes larger than
+512 on either axis are first correlated on coarse box-mean surfaces
+(kernel K1, alignment/coarse_kernel.py), which seed one 512² refine
+crop per target (kernel K2, ops/crop_kernel.py).
+
+The (8, 128) origin arithmetic of ``_crop_origin_static`` and
+``_refine_origin`` was chosen for TPU tiling, but it decides which
+pixels the refine crops hold, so it is kept verbatim: changing it
+moves the sub-pixel offsets.
+
+``phase_correlate_stack`` replaces both ``phase_correlate_stack_traced``
+and ``phase_correlate_stack_padded`` of the JAX package, which differ
+only in TPU layout.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from astroburst_tpu.ops.window import hann_periodic
+from astroburst_tpu_torch.alignment.coarse_kernel import (
+    coarse_downsample_stack, coarse_downsample_stack_plain, frame_stats_plain)
+from astroburst_tpu_torch.ops import fft as F
+from astroburst_tpu_torch.ops.crop_kernel import (gather_crops,
+                                                  gather_crops_plain)
+
+COARSE_MAX_DIM = 512        # phase_correlation.rs:10
+REFINE_CROP_SIZE = 512      # phase_correlation.rs:11
+CONFIDENCE_THRESHOLD = 2.0  # phase_correlation.rs:12
+EPSILON = 1e-15
+
+
+def _gate(mn: torch.Tensor, mx: torch.Tensor,
+          cnt: torch.Tensor) -> torch.Tensor:
+    """finite_count < 16 or range < 1e-10 (phase_correlation.rs:143-161)."""
+    return (cnt < 16) | (torch.abs(mx - mn) < 1e-10)
+
+
+def _is_constant_or_zero(img: torch.Tensor) -> torch.Tensor:
+    """The validity gate over the last two axes (NaN/inf excluded)."""
+    return _gate(*frame_stats_plain(img))
+
+
+def _windowed_padded(img: torch.Tensor, fft_rows: int,
+                     fft_cols: int) -> torch.Tensor:
+    """Hann-window (zeroing non-finite) and zero-pad (fft.rs:202-226)."""
+    rows, cols = img.shape[-2], img.shape[-1]
+    wy = torch.from_numpy(hann_periodic(rows)).to(img.device)
+    wx = torch.from_numpy(hann_periodic(cols)).to(img.device)
+    vals = torch.where(torch.isfinite(img), img, torch.zeros_like(img))
+    vals = vals * wy[:, None] * wx[None, :]
+    return torch.nn.functional.pad(vals, (0, fft_cols - cols,
+                                          0, fft_rows - rows))
+
+
+def _peak_neighbors(corr: torch.Tensor, py: torch.Tensor, px: torch.Tensor):
+    """Wraparound prev/next values on both axes (subpixel.rs:28-64)."""
+    rows, cols = corr.shape[-2], corr.shape[-1]
+    flat = corr.reshape(*corr.shape[:-2], rows * cols)
+
+    def at(y, x):
+        idx = y * cols + x
+        return torch.gather(flat, -1, idx[..., None])[..., 0]
+
+    center = at(py, px)
+    y_prev = at((py - 1) % rows, px)
+    y_next = at((py + 1) % rows, px)
+    x_prev = at(py, (px - 1) % cols)
+    x_next = at(py, (px + 1) % cols)
+    return center, y_prev, y_next, x_prev, x_next
+
+
+def _quadratic(prev, center, nxt):
+    """3-point parabola vertex, clamped to ±0.5 (subpixel.rs:18-26)."""
+    denom = 2.0 * (2.0 * center - prev - nxt)
+    small = torch.abs(denom) < 1e-15
+    off = torch.where(small, torch.zeros_like(denom),
+                      (prev - nxt) / torch.where(small,
+                                                 torch.ones_like(denom),
+                                                 denom))
+    return torch.clamp(off, -0.5, 0.5)
+
+
+def _peak_stats(corr: torch.Tensor):
+    """(argmax flat index, peak, sum, sum of squares) over the last two
+    axes; ties go to the lowest flat index (``torch.argmax`` returns the
+    first maximal index)."""
+    r, c = corr.shape[-2], corr.shape[-1]
+    flat = corr.reshape(*corr.shape[:-2], r * c)
+    idx = torch.argmax(flat, dim=-1)
+    peak = torch.gather(flat, -1, idx[..., None])[..., 0]
+    return idx, peak, flat.sum(dim=-1), (flat * flat).sum(dim=-1)
+
+
+def _corr_to_shift(corr: torch.Tensor, fft_rows: int, fft_cols: int):
+    """Peak + SNR confidence + circular unwrap + quadratic subpixel. The
+    variance keeps the one-pass sum/sumsq form of the JAX package."""
+    idx, peak_val, s, s2 = _peak_stats(corr)
+    py = torch.div(idx, fft_cols, rounding_mode="floor")
+    px = idx % fft_cols
+    n = fft_rows * fft_cols
+    mean = s / n
+    var = torch.clamp(s2 - s * mean, min=0.0) / max(n - 1, 1)
+    sigma = torch.sqrt(var)
+    confidence = torch.where(torch.abs(sigma) < 1e-15,
+                             torch.zeros_like(sigma),
+                             (peak_val - mean) / torch.clamp(sigma,
+                                                             min=1e-30))
+    center, yp, yn, xp, xn = _peak_neighbors(corr, py, px)
+    sub_dy = _quadratic(yp, center, yn)
+    sub_dx = _quadratic(xp, center, xn)
+    raw_dy = torch.where(py > fft_rows // 2, py - fft_rows, py).float()
+    raw_dx = torch.where(px > fft_cols // 2, px - fft_cols, px).float()
+    return raw_dy + sub_dy, raw_dx + sub_dx, confidence
+
+
+def correlate_single(a: torch.Tensor, b: torch.Tensor):
+    """Single-scale phase correlation of b [..., R, C] against a [R, C].
+
+    Returns (dy, dx, confidence) f32 with b's leading shape. With b
+    displaced by (+dy, +dx) relative to a, the peak lands at (+dy, +dx),
+    so shift_bicubic(b, dy, dx) maps b back onto a (align.rs:92-105).
+    ``rfft2``/``irfft2`` with ``s=`` cover odd (1-pixel) axes too.
+    """
+    rows, cols = a.shape[-2], a.shape[-1]
+    fft_rows = F.next_power_of_two(rows)
+    fft_cols = F.next_power_of_two(cols)
+    fa = torch.fft.rfft2(_windowed_padded(a, fft_rows, fft_cols))
+    fb = torch.fft.rfft2(_windowed_padded(b, fft_rows, fft_cols))
+    cr, ci = F.cross_power(fb.real, fb.imag, fa.real, fa.imag, EPSILON)
+    corr = torch.fft.irfft2(torch.complex(cr, ci), s=(fft_rows, fft_cols))
+    dy, dx, confidence = _corr_to_shift(corr, fft_rows, fft_cols)
+    bad = _is_constant_or_zero(a) | _is_constant_or_zero(b)
+    zero = torch.zeros_like(dy)
+    return (torch.where(bad, zero, dy), torch.where(bad, zero, dx),
+            torch.where(bad, zero, confidence))
+
+
+def _centered_crop_static(img: torch.Tensor, size: int) -> torch.Tensor:
+    rows, cols = img.shape[-2], img.shape[-1]
+    y0, x0 = _crop_origin_static(rows, cols, size)
+    return img[..., y0:y0 + min(size, rows), x0:x0 + min(size, cols)]
+
+
+def _crop_origin_static(rows: int, cols: int, size: int):
+    return ((max(rows // 2 - size // 2, 0) // 8) * 8,
+            (max(cols // 2 - size // 2, 0) // 128) * 128)
+
+
+def _refine_origin(cy: torch.Tensor, cx: torch.Tensor, rows: int, cols: int,
+                   size: int):
+    """Refine-crop origin rounded to the NEAREST (8, 128) multiple and
+    clamped to a tile-multiple upper bound (phase_correlation.py:294)."""
+    y0 = torch.div(cy - size // 2 + 4, 8, rounding_mode="floor") * 8
+    x0 = torch.div(cx - size // 2 + 64, 128, rounding_mode="floor") * 128
+    y0 = torch.clamp(y0, 0, (max(rows - size, 0) // 8) * 8)
+    x0 = torch.clamp(x0, 0, (max(cols - size, 0) // 128) * 128)
+    return y0, x0
+
+
+def phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor, *,
+                          plain: bool = False):
+    """Coarse-to-fine phase correlation of each frame of ``targets``
+    [N, H, W] against ``ref`` [H, W]. Returns (dys, dxs, confidences),
+    each f32 [N], on the inputs' device; nothing waits on the host.
+
+    On a CUDA stack the coarse surfaces and the per-frame validity gate
+    come from kernel K1 and the refine crops from kernel K2. ``plain``
+    runs their plain torch versions instead (to hold the kernels to
+    them on the card).
+    """
+    coarse = coarse_downsample_stack_plain if plain else \
+        coarse_downsample_stack
+    crop = gather_crops_plain if plain else gather_crops
+    n, rows, cols = targets.shape
+    if rows <= COARSE_MAX_DIM and cols <= COARSE_MAX_DIM:
+        return correlate_single(ref, targets)
+
+    ref_ds, by, bx, rmn, rmx, rcnt = coarse(ref[None], COARSE_MAX_DIM,
+                                            with_stats=True)
+    tgt_ds, _, _, tmn, tmx, tcnt = coarse(targets, COARSE_MAX_DIM,
+                                          with_stats=True)
+    cdy, cdx, _ = correlate_single(ref_ds[0], tgt_ds)
+
+    ref_cy = rows // 2
+    ref_cx = cols // 2
+    tgt_cy = torch.clamp(torch.round(ref_cy + cdy * by), 0,
+                         rows - 1).to(torch.int64)
+    tgt_cx = torch.clamp(torch.round(ref_cx + cdx * bx), 0,
+                         cols - 1).to(torch.int64)
+    tgt_y0, tgt_x0 = _refine_origin(tgt_cy, tgt_cx, rows, cols,
+                                    REFINE_CROP_SIZE)
+    s_r = min(REFINE_CROP_SIZE, rows)
+    s_c = min(REFINE_CROP_SIZE, cols)
+    crops = crop(targets, tgt_y0, tgt_x0, s_r, s_c)
+    ref_crop = _centered_crop_static(ref, REFINE_CROP_SIZE)
+    ref_y0, ref_x0 = _crop_origin_static(rows, cols, REFINE_CROP_SIZE)
+    rdy, rdx, rconf = correlate_single(ref_crop, crops)
+    dy = (tgt_y0 - ref_y0).float() + rdy
+    dx = (tgt_x0 - ref_x0).float() + rdx
+
+    bad = _gate(rmn, rmx, rcnt) | _gate(tmn, tmx, tcnt)
+    zero = torch.zeros_like(dy)
+    return (torch.where(bad, zero, dy), torch.where(bad, zero, dx),
+            torch.where(bad, zero, rconf))

@@ -1,0 +1,73 @@
+"""K2: per-frame crops for the phase-correlation refine stage.
+
+Counterpart of astroburst_tpu/ops/crop_kernel.py:gather_crops; the
+CUDA kernel is ``csrc/gather_crops.cu`` (header note there: what
+bounds it and how it is laid out). Crop k comes from frame
+``frame0 + k`` at origin (y0s[k], x0s[k]), clamped into the plane (an
+origin past the plane clamps down as ``jax.lax.dynamic_slice`` clamps
+it; a negative one clamps to 0 — the refine origins are never out of
+range). The origins stay on the device.
+
+``gather_crops`` launches the kernel for a CUDA tensor and runs
+``gather_crops_plain`` for a CPU tensor; it never falls back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from astroburst_tpu_torch.runtime import kernels as K
+
+
+def _check(stack: torch.Tensor, n_out: int, size_r: int, size_c: int,
+           frame0: int) -> None:
+    if stack.ndim != 3:
+        raise ValueError(f"stack must be [N, H, W], got {tuple(stack.shape)}")
+    _, h, w = stack.shape
+    if size_r > h or size_c > w or size_r < 1 or size_c < 1:
+        raise ValueError(f"crop ({size_r},{size_c}) does not fit the "
+                         f"plane ({h},{w})")
+    if frame0 < 0 or n_out < 1 or frame0 + n_out > stack.shape[0]:
+        raise ValueError(f"{n_out} crops from frame {frame0} exceed the "
+                         f"{stack.shape[0]}-frame stack")
+
+
+def gather_crops_plain(stack: torch.Tensor, y0s: torch.Tensor,
+                       x0s: torch.Tensor, size_r: int, size_c: int,
+                       frame0: int = 0) -> torch.Tensor:
+    """[len(y0s), size_r, size_c] crops by index arithmetic in torch."""
+    n_out = y0s.shape[0]
+    _check(stack, n_out, size_r, size_c, frame0)
+    _, h, w = stack.shape
+    dev = stack.device
+    y0 = torch.clamp(y0s.to(device=dev, dtype=torch.int64), 0, h - size_r)
+    x0 = torch.clamp(x0s.to(device=dev, dtype=torch.int64), 0, w - size_c)
+    rows = y0[:, None] + torch.arange(size_r, device=dev)[None, :]
+    cols = x0[:, None] + torch.arange(size_c, device=dev)[None, :]
+    frames = torch.arange(frame0, frame0 + n_out, device=dev)
+    return stack[frames[:, None, None], rows[:, :, None], cols[:, None, :]]
+
+
+def gather_crops(stack: torch.Tensor, y0s: torch.Tensor, x0s: torch.Tensor,
+                 size_r: int, size_c: int, frame0: int = 0) -> torch.Tensor:
+    """Crop k = stack[frame0 + k, y0s[k]:+size_r, x0s[k]:+size_c]."""
+    if not K.use_kernel(stack, "gather_crops"):
+        return gather_crops_plain(stack, y0s, x0s, size_r, size_c, frame0)
+    n_out = y0s.shape[0]
+    K.require_cuda_f32(stack, "stack", 3)
+    _check(stack, n_out, size_r, size_c, frame0)
+    if y0s.shape != (n_out,) or x0s.shape != (n_out,):
+        raise ValueError("y0s and x0s must be 1-D of equal length")
+    _, h, w = stack.shape
+    y0 = y0s.to(device=stack.device, dtype=torch.int32).contiguous()
+    x0 = x0s.to(device=stack.device, dtype=torch.int32).contiguous()
+    out = torch.empty((n_out, size_r, size_c), dtype=torch.float32,
+                      device=stack.device)
+    K.launch("abt_gather_crops", stack.data_ptr(), y0.data_ptr(),
+             x0.data_ptr(), n_out, h, w, size_r, size_c, frame0,
+             out.data_ptr(), K.stream_handle(stack))
+    gather_crops.launches += 1
+    return out
+
+
+gather_crops.launches = 0

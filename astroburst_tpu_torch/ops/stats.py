@@ -1,0 +1,56 @@
+"""Robust image statistics (counterpart of astroburst_tpu/ops/stats.py).
+
+Median and MAD are exact order statistics taken from ``torch.sort``
+(invalid pixels sort to the end as +inf), at the ranks of
+astroburst_tpu/ops/quantile.py:125-154:
+
+- ``exact_pair=False`` (the histogram path, stats.rs:100): the single
+  1-based rank ceil(n/2);
+- ``exact_pair=True`` (median.rs:27-43): the mean of ranks
+  floor((n+1)/2) and floor(n/2)+1.
+
+The JAX package's compare-count refinement (ops/quantile.py) and sort
+networks (ops/sort_network.py) exist only for the TPU and are not
+ported; the JAX value lies within range/8**6 (~4e-6 relative) of the
+exact one. The ranks are read with device-side indexing, so nothing
+here waits on the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from astroburst_tpu_torch.ops.masking import validity_mask
+
+
+def _rank_median(sorted_vals: torch.Tensor, count: torch.Tensor,
+                 exact_pair: bool) -> torch.Tensor:
+    """Median of the first ``count`` entries of an ascending 1-D tensor
+    (0 when count is 0)."""
+    if exact_pair:
+        r1 = torch.div(count + 1, 2, rounding_mode="floor")
+        r2 = torch.div(count, 2, rounding_mode="floor") + 1
+        v1 = sorted_vals[torch.clamp(r1 - 1, min=0)]
+        v2 = sorted_vals[torch.clamp(r2 - 1, min=0)]
+        med = (v1 + v2) * 0.5
+    else:
+        r = torch.div(count + 1, 2, rounding_mode="floor")  # ceil(n/2)
+        med = sorted_vals[torch.clamp(r - 1, min=0)]
+    return torch.where(count > 0, med, torch.zeros_like(med))
+
+
+def stats_core(x: torch.Tensor, exact_pair: bool):
+    """(min, max, sum, count, median, mad) of the valid pixels of x
+    (any shape), as 0-d tensors on x's device."""
+    flat = x.reshape(-1)
+    mask = validity_mask(flat)
+    count = mask.sum()
+    total = torch.where(mask, flat, torch.zeros_like(flat)).sum()
+    inf = torch.full_like(flat, float("inf"))
+    xm = torch.where(mask, flat, inf)
+    mn = xm.min()
+    mx = torch.where(mask, flat, -inf).max()
+    med = _rank_median(torch.sort(xm).values, count, exact_pair)
+    dev = torch.where(mask, torch.abs(flat - med), inf)
+    mad = _rank_median(torch.sort(dev).values, count, exact_pair)
+    return mn, mx, total, count, med, mad

@@ -1,0 +1,170 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+Every ``astroburst_tpu_torch/csrc/*.cu`` file is compiled with nvcc
+into ONE shared library with a plain C interface, loaded with ctypes.
+No source includes PyTorch's headers: a plain C file builds in seconds,
+one that includes them in minutes.
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+
+The library lands in ``build/astroburst_tpu_torch/<hash>/`` at the
+root of the checkout (``build/`` is git-ignored), keyed by a hash of
+the sources and flags, and is built at first use — never at import,
+since the CPU tests import every module on machines without nvcc.
+
+Calling convention of every C entry point: pointers and the CUDA
+stream are ``void*`` (``ctypes.c_void_p``; a Python int passed as a
+plain int would be cut to 32 bits), sizes are ``int``, and the return
+value is ``cudaGetLastError()`` right after the launch. ``launch``
+raises when it is not 0. Kernels run on PyTorch's current stream and
+nothing here synchronises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "astroburst_tpu_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry point → argtypes (restype is int: the cudaError_t code)
+SIGNATURES = {
+    # stack, dys, dxs, n, h, w, sigma_low, sigma_high, max_iter,
+    # out, rejected, stream
+    "abt_shift_clip": (_P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P),
+    # stack, n, h, w, by, bx, ds_r, ds_c, scale, with_stats,
+    # out, part_min, part_max, part_cnt, stream
+    "abt_coarse_box": (_P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                       _P, _P, _P, _P, _P),
+    # stack, y0s, x0s, n_out, h, w, size_r, size_c, frame0, out, stream
+    "abt_gather_crops": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+}
+
+
+@dataclass(frozen=True)
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    build_log: str        # nvcc/ptxas output (-Xptxas -v)
+    build_seconds: float  # 0.0 when the library was already built
+
+
+def sources() -> list[Path]:
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, /usr/local/cuda/bin, then PATH."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
+                           "kernels of astroburst_tpu_torch cannot be "
+                           "built")
+    return found
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build() -> tuple[Path, str, float]:
+    out_dir = BUILD_ROOT / source_hash()
+    lib_path = out_dir / "libastroburst_kernels.so"
+    log_path = out_dir / "build.log"
+    if lib_path.is_file() and log_path.is_file():
+        return lib_path, log_path.read_text(), 0.0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    tmp = out_dir / f".tmp.{os.getpid()}.so"
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (rc {res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib_path)
+    return lib_path, log, seconds
+
+
+@functools.cache
+def library() -> KernelLibrary:
+    """Build (once per source hash) and load the kernel library."""
+    path, log, seconds = _build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.abt_error_string.argtypes = [ctypes.c_int]
+    lib.abt_error_string.restype = ctypes.c_char_p
+    return KernelLibrary(lib, path, log, seconds)
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry ``name``; raise on a non-zero cudaError_t."""
+    lib = library().lib
+    status = getattr(lib, name)(*args)
+    if status != 0:
+        msg = lib.abt_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
+
+
+def require_cuda_f32(t: torch.Tensor, name: str, ndim: int) -> None:
+    """Validate a kernel input before its pointer goes to C."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def use_kernel(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU
+    tensor (run the plain version); raise for any other device."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {t.device}")

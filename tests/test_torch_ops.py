@@ -1,0 +1,303 @@
+"""PyTorch port (astroburst_tpu_torch) primitives against the JAX package.
+
+Inputs are made with numpy from a seed and fed to both packages (the
+torch side through convert.stack_from_numpy). The JAX Pallas kernels
+run in interpret mode, as their own tests run them; nothing in the JAX
+package changes. Tolerances:
+
+- elementwise ops (validity mask, Catmull-Rom, shift, STF): rtol 1e-6
+  (identical f32 formulas; XLA may contract to FMA);
+- median/MAD: the JAX compare-count value lies within range/8**6 of
+  the exact order statistic the port takes (ops/quantile.py:27-35), so
+  they are held to 2·range/8**6;
+- crops: bit-equal.
+"""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from astroburst_tpu.imaging import stf as jstf
+from astroburst_tpu.ops import fft as jfft
+from astroburst_tpu.ops import masking as jmask
+from astroburst_tpu.ops import resample as jres
+from astroburst_tpu.ops import stats as jstats
+from astroburst_tpu.ops.crop_kernel import gather_crops as jgather
+from astroburst_tpu.stacking.onepass_kernel import pad_stack_aligned
+from astroburst_tpu_torch import convert
+from astroburst_tpu_torch.imaging import stf as tstf
+from astroburst_tpu_torch.ops import fft as tfft
+from astroburst_tpu_torch.ops import masking as tmask
+from astroburst_tpu_torch.ops import resample as tres
+from astroburst_tpu_torch.ops import stats as tstats
+from astroburst_tpu_torch.ops.crop_kernel import (gather_crops,
+                                                  gather_crops_plain)
+from astroburst_tpu_torch.runtime import device as tdevice
+from astroburst_tpu_torch.runtime import kernels as K
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+CPU = torch.device("cpu")
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+
+def _plane(rng, h=96, w=130, nan_frac=0.02):
+    x = rng.normal(100, 5, (h, w)).astype(np.float32)
+    x[rng.random(x.shape) < nan_frac] = np.nan
+    return x
+
+
+# ---- package boundaries ----------------------------------------------------
+
+
+def test_port_imports_without_jax():
+    """Every module of the port imports with jax made unimportable."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "import astroburst_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert sys.modules['jax'] is None\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line where
+    there is no CUDA device, in the repo and alone in a directory."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120, env=env)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_device_policy_and_tf32():
+    assert tdevice.tf32_disabled()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tdevice.cuda_device()
+
+
+def test_kernel_signatures_match_sources():
+    """Each ctypes signature has one argtype per parameter of its
+    extern "C" entry, and every .cu entry has a signature."""
+    entries = {}
+    for p in K.sources():
+        text = p.read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            entries[m.group(1)] = len(m.group(2).split(","))
+    assert entries.keys() == K.SIGNATURES.keys()
+    for name, nargs in entries.items():
+        assert len(K.SIGNATURES[name]) == nargs, name
+    assert len(K.source_hash()) == 16
+
+
+def test_kernel_wrappers_reject_other_devices():
+    meta = torch.zeros((2, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        gather_crops(meta, torch.zeros(1, dtype=torch.int32),
+                     torch.zeros(1, dtype=torch.int32), 4, 4, 1)
+
+
+# ---- masking / resample / fft ------------------------------------------------
+
+
+def test_validity_mask_matches_jax(rng):
+    x = rng.normal(0, 1e-7, (40, 50)).astype(np.float32)
+    x[0, :5] = [np.nan, np.inf, -np.inf, 1e-7, 1.0000001e-7]
+    got = tmask.validity_mask(_t(x)).numpy()
+    want = np.asarray(jmask.validity_mask(jnp.asarray(x)))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_catmull_rom_matches_jax():
+    t = np.linspace(-3, 3, 241).astype(np.float32)
+    np.testing.assert_allclose(tres.catmull_rom(_t(t)).numpy(),
+                               np.asarray(jres.catmull_rom(jnp.asarray(t))),
+                               rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("dy,dx", [
+    (0.0, 0.0), (1e-13, -1e-13), (0.0, 2.5), (-3.25, 0.0), (4.7, -6.1),
+    (-0.5, 0.5), (15.0, -15.0), (120.0, 3.0), (-200.5, 0.25)])
+def test_shift_bicubic_matches_jax(rng, dy, dx):
+    img = _plane(rng)
+    got = tres.shift_bicubic(_t(img), dy, dx).numpy()
+    want = np.asarray(jres.shift_bicubic(jnp.asarray(img), dy, dx))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_shift_bicubic_batch_matches_vmap(rng):
+    stack = np.stack([_plane(rng, 64, 80) for _ in range(5)])
+    dys = np.float32([0.0, 1.5, -2.25, 7.0, -0.3])
+    dxs = np.float32([0.0, -4.5, 0.0, 3.75, 11.2])
+    got = tres.shift_bicubic_batch(_t(stack), _t(dys), _t(dxs)).numpy()
+    want = np.asarray(jres.shift_bicubic_batch(
+        jnp.asarray(stack), jnp.asarray(dys), jnp.asarray(dxs)))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_fft_helpers_match_jax(rng):
+    for n in (1, 2, 3, 511, 512, 513, 2206):
+        assert tfft.next_power_of_two(n) == jfft.next_power_of_two(n)
+    parts = [rng.normal(0, 1, (8, 9)).astype(np.float32) for _ in range(4)]
+    parts[0][0, 0] = parts[1][0, 0] = 0.0   # the ε guard
+    got = tfft.cross_power(*map(_t, parts), 1e-15)
+    want = jfft.cross_power(*map(jnp.asarray, parts), 1e-15)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-7)
+
+
+# ---- stats / STF ---------------------------------------------------------------
+
+
+def _stats_pair(x, exact_pair):
+    got = [v.item() for v in tstats.stats_core(_t(x), exact_pair)]
+    want = [float(v) for v in jstats.stats_core(jnp.asarray(x), exact_pair)]
+    return got, want
+
+
+@pytest.mark.parametrize("exact_pair", [False, True])
+@pytest.mark.parametrize("shape", [(150, 173), (64, 64)])
+def test_stats_core_matches_jax(rng, exact_pair, shape):
+    x = rng.gamma(2.0, 40.0, shape).astype(np.float32)
+    x[rng.random(shape) < 0.03] = np.nan
+    x[:3, :7] = 0.0                     # padding-level pixels are invalid
+    x[5, 5] = np.inf
+    got, want = _stats_pair(x, exact_pair)
+    mn, mx, total, count, med, mad = got
+    assert count == want[3]
+    assert mn == want[0] and mx == want[1]
+    assert total == pytest.approx(want[2], rel=1e-5)
+    tol = 2 * (mx - mn) / 8 ** 6
+    assert abs(med - want[4]) <= tol
+    assert abs(mad - want[5]) <= tol
+    valid = np.sort(x[np.isfinite(x) & (x > 1e-7)].astype(np.float64))
+    n = valid.size
+    if exact_pair:
+        exact = (valid[(n + 1) // 2 - 1] + valid[n // 2]) / 2
+    else:
+        exact = valid[-(-n // 2) - 1]
+    assert med == pytest.approx(exact, rel=1e-6)
+
+
+def test_stats_core_no_valid_pixels():
+    x = np.full((8, 8), np.nan, np.float32)
+    x[0, 0] = 0.0
+    got, want = _stats_pair(x, False)
+    assert got[3] == want[3] == 0
+    assert got[4] == want[4] == 0.0 and got[5] == want[5] == 0.0
+
+
+def test_auto_stf_matches_jax(rng):
+    cases = [(100.0, 2300.0, 120.0, 3.0, 1000), (0.0, 1.0, 0.5, 0.1, 10),
+             (5.0, 5.0 + 1e-31, 5.0, 0.0, 4), (1.0, 2.0, 1.9, 0.5, 0)]
+    for mn, mx, med, sig, cnt in cases:
+        got = tstf.auto_stf_traced(*(torch.tensor(v, dtype=torch.float32)
+                                     for v in (mn, mx, med, sig)),
+                                   torch.tensor(cnt))
+        want = jstf.auto_stf_traced(*(jnp.float32(v)
+                                      for v in (mn, mx, med, sig)),
+                                    jnp.int32(cnt))
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            assert g.item() == pytest.approx(float(w), rel=1e-6, abs=1e-7)
+
+
+def test_apply_stf_matches_jax(rng):
+    """Same parameters into both appliers: f32 within 1e-6, and the u8
+    preview off by at most 1 on at most 0.1% of pixels."""
+    x = rng.gamma(2.0, 40.0, (180, 210)).astype(np.float32)
+    x[rng.random(x.shape) < 0.02] = np.nan
+    x[:2] = 0.0
+    mn, mx, _t_, count, med, mad = tstats.stats_core(_t(x), False)
+    shadow, midtone = tstf.auto_stf_traced(
+        mn, mx, med, torch.clamp(mad * 1.4826, min=1e-30), count)
+    p = [v.item() for v in (mn, mx, shadow, midtone)]
+    jp = [jnp.float32(v) for v in p]
+    for as_u8 in (False, True):
+        got = tstf.apply_stf_traced(_t(x), *[torch.tensor(v) for v in p],
+                                    as_u8=as_u8).numpy()
+        want = np.asarray(jstf.apply_stf_traced(jnp.asarray(x), *jp,
+                                                as_u8=as_u8))
+        assert got.dtype == want.dtype
+        if as_u8:
+            d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+            assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ---- K2 crops ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("frame0", [0, 1])
+def test_gather_crops_plain_matches_jax_kernel(rng, frame0):
+    stack = rng.normal(0, 1, (4, 640, 1024)).astype(np.float32)
+    y0s = np.int32([8, 64, 0, 128][:4 - frame0])
+    x0s = np.int32([128, 0, 256, 512][:4 - frame0])
+    want = np.asarray(jgather(jnp.asarray(stack), jnp.asarray(y0s),
+                              jnp.asarray(x0s), 512, 512, interpret=True,
+                              frame0=frame0))
+    before = gather_crops.launches
+    got = gather_crops(convert.stack_from_numpy(stack, CPU),
+                       torch.from_numpy(y0s), torch.from_numpy(x0s),
+                       512, 512, frame0=frame0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert gather_crops.launches == before   # the CPU path launches nothing
+
+
+def test_gather_crops_plain_clamps_origins(rng):
+    """Origins past the plane clamp down as jax.lax.dynamic_slice clamps
+    them; negative origins clamp to 0 (the refine origins never are)."""
+    stack = rng.normal(0, 1, (2, 50, 60)).astype(np.float32)
+    got = gather_crops_plain(_t(stack), torch.tensor([45, -5]),
+                             torch.tensor([55, -1]), 20, 30)
+    want0 = jax.lax.dynamic_slice(jnp.asarray(stack[0]), (45, 55), (20, 30))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want0))
+    np.testing.assert_array_equal(got[1].numpy(), stack[1, :20, :30])
+
+
+# ---- convert ----------------------------------------------------------------------
+
+
+def test_stack_from_numpy_plain_and_ingest_layout(rng):
+    frames = rng.normal(100, 5, (3, 37, 50)).astype(np.float32)
+    plain = convert.stack_from_numpy(frames, CPU)
+    assert plain.dtype == torch.float32 and plain.is_contiguous()
+    np.testing.assert_array_equal(plain.numpy(), frames)
+    padded = pad_stack_aligned(jnp.asarray(frames))
+    assert padded.shape[1:] != frames.shape[1:]
+    cut = convert.stack_from_numpy(padded, CPU, true_shape=(37, 50))
+    assert cut.shape == (3, 37, 50) and cut.is_contiguous()
+    np.testing.assert_array_equal(cut.numpy(), frames)
+    with pytest.raises(ValueError):
+        convert.stack_from_numpy(frames[0], CPU)

@@ -1,0 +1,120 @@
+"""PyTorch port: the sigma clip and the plain version of kernel K3
+(shift + clip) against the JAX package.
+
+- ``sigma_clip_core`` against JAX ``sigma_clip_core``: rtol 1e-6 and
+  equal rejected counts (the same f32 operations in the same order);
+- K3's plain version against the one-pass Pallas kernel in interpret
+  mode (offsets within its ±16 clamp), and at N=24 with offsets up to
+  ±200 (the two-stage kernel's range) against JAX shift_bicubic +
+  sigma_clip_core, under the bound of tests/test_onepass_kernel.py:
+  at most 3 pixels differ by more than 5e-3, and the rejected counts by
+  at most 3 (borderline clip decisions flip on the last ulp when tap
+  sums run in another order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from astroburst_tpu.ops.resample import shift_bicubic as jshift
+from astroburst_tpu.stacking.combine import sigma_clip_core as jclip
+from astroburst_tpu.stacking.onepass_kernel import shift_clip_onepass as jk3
+from astroburst_tpu_torch.convert import stack_from_numpy
+from astroburst_tpu_torch.stacking.clip import sigma_clip_core
+from astroburst_tpu_torch.stacking.onepass_kernel import (
+    shift_clip_onepass, shift_clip_onepass_plain)
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+
+
+def _stack(rng, n, h, w, nan_frac=0.02):
+    s = rng.normal(100, 5, (n, h, w)).astype(np.float32)
+    s[rng.random(s.shape) < nan_frac] = np.nan
+    return s
+
+
+def _assert_close(got, ref, got_rej, ref_rej, max_flips=3):
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
+    flips = int((d > 5e-3).sum())
+    assert flips <= max_flips, f"{flips} pixels differ, max |d|={d.max()}"
+    assert abs(int(got_rej) - int(ref_rej)) <= max_flips
+
+
+def _clip_both(s, lo, hi, iters):
+    got, grej = sigma_clip_core(stack_from_numpy(s, CPU), lo, hi, iters)
+    want, wrej = jax.jit(lambda x: jclip(x, lo, hi, iters))(jnp.asarray(s))
+    return got.numpy(), int(grej), np.asarray(want), int(wrej)
+
+
+@pytest.mark.parametrize("n,lo,hi,iters,nan_frac", [
+    (8, 3.0, 3.0, 5, 0.0), (8, 2.5, 3.0, 5, 0.05), (16, 1.0, 1.5, 5, 0.02),
+    (5, 3.0, 3.0, 1, 0.1), (6, 3.0, 3.0, 0, 0.02), (2, 3.0, 3.0, 5, 0.0),
+    (1, 3.0, 3.0, 5, 0.0), (7, 0.3, 0.2, 5, 0.0)])
+def test_sigma_clip_core_matches_jax(rng, n, lo, hi, iters, nan_frac):
+    s = _stack(rng, n, 40, 57, nan_frac)
+    s[:, 0, 0] = np.nan                   # no finite value: 0
+    s[:, 0, 1] = 42.0                     # constant pixel
+    s[:-1, 0, 2] = np.nan                 # one finite value
+    s[0, 1, 1] = 1e4                      # an outlier
+    got, grej, want, wrej = _clip_both(s, lo, hi, iters)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert grej == wrej
+
+
+def test_sigma_clip_core_rejects_cosmic_ray(rng):
+    s = rng.normal(100, 1, (10, 8, 8)).astype(np.float32)
+    s[3, 4, 4] = 5000.0
+    got, rej = sigma_clip_core(torch.from_numpy(s))
+    assert abs(got[4, 4].item() - 100.0) < 2.0
+    assert rej.item() >= 1
+
+
+@pytest.mark.parametrize("seed_offset", [0, 1])
+def test_k3_plain_matches_onepass_interpret(rng, seed_offset):
+    """Offsets inside the TPU kernel's ±16 clamp, NaN pixels, a frame
+    with an exact zero offset besides frame 0."""
+    s = _stack(rng, 6, 130, 170)
+    dys = rng.uniform(-12, 12, 6).astype(np.float32)
+    dxs = rng.uniform(-12, 12, 6).astype(np.float32)
+    dys[0] = dxs[0] = 0.0
+    if seed_offset:
+        dys[3] = dxs[3] = 0.0
+        dys[1], dxs[1] = 16.0, -15.5
+    got, grej = shift_clip_onepass(stack_from_numpy(s, CPU),
+                                   torch.from_numpy(dys),
+                                   torch.from_numpy(dxs), 2.5, 3.0, 5)
+    want, wrej = jk3(jnp.asarray(s), jnp.asarray(dys), jnp.asarray(dxs),
+                     2.5, 3.0, 5, interpret=True)
+    _assert_close(got.numpy(), want, grej, wrej)
+
+
+def test_k3_plain_wide_offsets_many_frames(rng):
+    """N=24 with offsets up to ±200 (beyond the one-pass kernel's clamp,
+    inside the two-stage kernel's): no clamp, as shift_bicubic."""
+    s = _stack(rng, 24, 240, 260, nan_frac=0.01)
+    dys = rng.uniform(-200, 200, 24).astype(np.float32)
+    dxs = rng.uniform(-200, 200, 24).astype(np.float32)
+    dys[0] = dxs[0] = 0.0
+    got, grej = shift_clip_onepass_plain(stack_from_numpy(s, CPU),
+                                         torch.from_numpy(dys),
+                                         torch.from_numpy(dxs), 3.0, 3.0, 5)
+    shifted = jnp.stack([jshift(jnp.asarray(s[k]), float(dys[k]),
+                                float(dxs[k])) for k in range(24)])
+    want, wrej = jax.jit(lambda x: jclip(x, 3.0, 3.0, 5))(shifted)
+    _assert_close(got.numpy(), want, grej, wrej)
+
+
+def test_k3_wrapper_on_cpu_is_the_plain_version(rng):
+    s = _stack(rng, 4, 50, 60)
+    dys = np.float32([0.0, 1e-13, 2.5, -3.75])
+    dxs = np.float32([0.0, 0.0, -1.25, 30.0])
+    before = shift_clip_onepass.launches
+    a = shift_clip_onepass(torch.from_numpy(s), dys, dxs, 3.0, 3.0, 5)
+    b = shift_clip_onepass_plain(torch.from_numpy(s), dys, dxs, 3.0, 3.0, 5)
+    assert shift_clip_onepass.launches == before
+    np.testing.assert_array_equal(a[0].numpy(), b[0].numpy())
+    assert int(a[1]) == int(b[1])
