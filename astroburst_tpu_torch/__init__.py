@@ -7,13 +7,15 @@ Pallas kernel of the ported slice is a CUDA C++ kernel for Hopper
 (``csrc/``, built with nvcc for ``sm_90a`` at first use and bound with
 ctypes, see ``runtime/kernels.py``).
 
-Ported slice: align → stack → stretch
+Ported slices: align → stack → stretch
 (``parallel.pipeline.align_stack_stretch`` and
-``stacking.combine.stack_images``).
+``stacking.combine.stack_images``) and calibrate → drizzle → stretch
+(``stacking.calibration``, ``stacking.drizzle.drizzle_stack``).
 
-The package never imports ``jax``. From ``astroburst_tpu`` it imports
-only the four JAX-free host modules ``constants``, ``dtypes``,
-``errors`` and ``ops.window``.
+The package imports neither ``jax`` nor anything of ``astroburst_tpu``:
+the constants, records and errors it needs are its own copies
+(``constants``, ``dtypes``, ``errors``, ``ops.window``), held equal to
+the JAX package's by tests/test_torch_ops.py.
 """
 
 __version__ = "0.1.0"

@@ -15,24 +15,37 @@ moves the sub-pixel offsets.
 
 ``phase_correlate_stack`` replaces both ``phase_correlate_stack_traced``
 and ``phase_correlate_stack_padded`` of the JAX package, which differ
-only in TPU layout.
+only in TPU layout. ``phase_correlate`` is the host-level pair API.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
-from astroburst_tpu.ops.window import hann_periodic
 from astroburst_tpu_torch.alignment.coarse_kernel import (
     coarse_downsample_stack, coarse_downsample_stack_plain, frame_stats_plain)
 from astroburst_tpu_torch.ops import fft as F
 from astroburst_tpu_torch.ops.crop_kernel import (gather_crops,
                                                   gather_crops_plain)
+from astroburst_tpu_torch.ops.window import hann_periodic
 
 COARSE_MAX_DIM = 512        # phase_correlation.rs:10
 REFINE_CROP_SIZE = 512      # phase_correlation.rs:11
 CONFIDENCE_THRESHOLD = 2.0  # phase_correlation.rs:12
 EPSILON = 1e-15
+
+
+@dataclass(frozen=True)
+class PhaseCorrelationResult:
+    dy: float
+    dx: float
+    confidence: float
+
+
+def is_low_confidence(confidence: float) -> bool:
+    return confidence < CONFIDENCE_THRESHOLD
 
 
 def _gate(mn: torch.Tensor, mx: torch.Tensor,
@@ -76,11 +89,16 @@ def _peak_neighbors(corr: torch.Tensor, py: torch.Tensor, px: torch.Tensor):
 
 
 def _quadratic(prev, center, nxt):
-    """3-point parabola vertex, clamped to ±0.5 (subpixel.rs:18-26)."""
+    """3-point parabola vertex, clamped to ±0.5 (subpixel.rs:18-26):
+    (next − prev) / (2·(2·center − prev − next)), positive when the peak
+    leans towards ``nxt``. The JAX package's ``_quadratic`` has
+    (prev − next) over the same denominator, the vertex negated, so its
+    sub-pixel part points away from the true shift (ROADMAP C8); the
+    port follows the parabola."""
     denom = 2.0 * (2.0 * center - prev - nxt)
     small = torch.abs(denom) < 1e-15
     off = torch.where(small, torch.zeros_like(denom),
-                      (prev - nxt) / torch.where(small,
+                      (nxt - prev) / torch.where(small,
                                                  torch.ones_like(denom),
                                                  denom))
     return torch.clamp(off, -0.5, 0.5)
@@ -208,3 +226,14 @@ def phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor, *,
     zero = torch.zeros_like(dy)
     return (torch.where(bad, zero, dy), torch.where(bad, zero, dx),
             torch.where(bad, zero, rconf))
+
+
+def phase_correlate(reference, target) -> PhaseCorrelationResult:
+    """Host-level API: crop both [H, W] tensors to their common dims,
+    correlate on their device, fetch (dy, dx, confidence)."""
+    rows = min(reference.shape[0], target.shape[0])
+    cols = min(reference.shape[1], target.shape[1])
+    ref = reference[:rows, :cols].float().contiguous()
+    tgt = target[:rows, :cols].float().contiguous()
+    dy, dx, conf = phase_correlate_stack(ref, tgt[None])
+    return PhaseCorrelationResult(float(dy[0]), float(dx[0]), float(conf[0]))

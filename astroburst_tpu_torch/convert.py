@@ -1,9 +1,10 @@
 """Inputs carried from the JAX package to the port.
 
 The system has no learned weights: what crosses from JAX to torch is
-the data (frame stacks) and the configuration. ``StackConfig`` is
-shared as is (astroburst_tpu.dtypes). Tests and chip_smoke.py feed
-both packages through ``stack_from_numpy``.
+the data (frame stacks) and the configuration; the port's records
+(``dtypes.StackConfig``, ``DrizzleConfig``) have the JAX package's
+fields and defaults. Tests and chip_smoke.py feed both packages
+through ``stack_from_numpy``.
 """
 
 from __future__ import annotations

@@ -1,0 +1,81 @@
+"""Configuration records the port uses (its own copy of the types in
+astroburst_tpu/dtypes.py, reference: src-tauri/src/types/stacking.rs;
+tests/test_torch_ops.py holds them equal).
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+from typing import Optional
+
+from astroburst_tpu_torch import constants as C
+
+
+class AlignMethod(str, enum.Enum):
+    PHASE_CORRELATION = "phase_correlation"
+    AFFINE = "affine"
+
+    @staticmethod
+    def parse(s: Optional[str]) -> "AlignMethod":
+        if s and s.lower().startswith("aff"):
+            return AlignMethod.AFFINE
+        return AlignMethod.PHASE_CORRELATION
+
+
+class AlignmentMethod(str, enum.Enum):
+    NONE = "none"
+    PHASE_CORRELATION = "phase_correlation"
+    AFFINE = "affine"
+    # Zncc is vestigial in the reference (types/stacking.rs:31); it routes
+    # to Affine (core/stacking/drizzle.rs:302-306).
+    ZNCC = "zncc"
+
+    @staticmethod
+    def parse(s: Optional[str]) -> "AlignmentMethod":
+        if not s:
+            return AlignmentMethod.PHASE_CORRELATION
+        t = s.lower()
+        if t.startswith("aff") or t == "zncc":
+            return AlignmentMethod.AFFINE
+        if t == "none":
+            return AlignmentMethod.NONE
+        return AlignmentMethod.PHASE_CORRELATION
+
+
+@dataclass(frozen=True)
+class StackConfig:
+    sigma_low: float = 3.0
+    sigma_high: float = 3.0
+    max_iterations: int = 5
+    align: bool = True
+    alignment_method: AlignmentMethod = AlignmentMethod.PHASE_CORRELATION
+
+
+class DrizzleKernel(str, enum.Enum):
+    SQUARE = "square"
+    GAUSSIAN = "gaussian"
+    LANCZOS3 = "lanczos3"
+
+    @staticmethod
+    def parse(s: Optional[str]) -> "DrizzleKernel":
+        if not s:
+            return DrizzleKernel.SQUARE
+        t = s.lower()
+        if t == C.KERNEL_GAUSSIAN:
+            return DrizzleKernel.GAUSSIAN
+        if t in (C.KERNEL_LANCZOS3, C.KERNEL_LANCZOS):
+            return DrizzleKernel.LANCZOS3
+        return DrizzleKernel.SQUARE
+
+
+@dataclass(frozen=True)
+class DrizzleConfig:
+    scale: float = C.DEFAULT_DRIZZLE_SCALE
+    pixfrac: float = C.DEFAULT_DRIZZLE_PIXFRAC
+    kernel: DrizzleKernel = DrizzleKernel.SQUARE
+    sigma_low: float = C.DEFAULT_DRIZZLE_SIGMA
+    sigma_high: float = C.DEFAULT_DRIZZLE_SIGMA
+    sigma_iterations: int = C.DEFAULT_DRIZZLE_SIGMA_ITERS
+    align: bool = True
+    alignment_method: AlignmentMethod = AlignmentMethod.PHASE_CORRELATION

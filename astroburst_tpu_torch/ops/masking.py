@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from astroburst_tpu.constants import PADDING_THRESHOLD
+from astroburst_tpu_torch.constants import PADDING_THRESHOLD
 
 
 def validity_mask(x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,14 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 Every ``astroburst_tpu_torch/csrc/*.cu`` file is compiled with nvcc
-into ONE shared library with a plain C interface, loaded with ctypes.
-No source includes PyTorch's headers: a plain C file builds in seconds,
-one that includes them in minutes.
+into an object, one nvcc process per source, all started together; the
+objects are linked into ONE shared library with a plain C interface,
+loaded with ctypes. No source includes PyTorch's headers: a plain C
+file builds in seconds, one that includes them in minutes.
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <src>.o csrc/<src>.cu  (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> *.o
 
 The library lands in ``build/astroburst_tpu_torch/<hash>/`` at the
 root of the checkout (``build/`` is git-ignored), keyed by a hash of
@@ -39,8 +41,10 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "astroburst_tpu_torch"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +61,14 @@ SIGNATURES = {
                        _P, _P, _P, _P, _P),
     # stack, y0s, x0s, n_out, h, w, size_r, size_c, frame0, out, stream
     "abt_gather_crops": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    # cand_v, wys_t, wxs, n, taps_y, taps_x, h, w, cap, sigma_low,
+    # sigma_high, iterations, img, wgt, rej, stream
+    "abt_drizzle_finalize_fused": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                   _F, _I, _P, _P, _P, _P),
+    # cand_v, cand_w, m, h, w, cap, sigma_low, sigma_high, iterations,
+    # img, wgt, rej, stream
+    "abt_drizzle_finalize": (_P, _P, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P,
+                             _P),
 }
 
 
@@ -90,7 +102,7 @@ def nvcc() -> str:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -104,17 +116,38 @@ def _build() -> tuple[Path, str, float]:
     if lib_path.is_file() and log_path.is_file():
         return lib_path, log_path.read_text(), 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    tmp = out_dir / f".tmp.{os.getpid()}.so"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    tag = f".tmp.{os.getpid()}"
+    cu = [p for p in sources() if p.suffix == ".cu"]
+    objs = [out_dir / f"{tag}.{p.stem}.o" for p in cu]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src, obj in zip(cu, objs):  # one nvcc per source, in parallel
+        cmd = [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    logs, failed = [], []
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (rc {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    tmp = out_dir / f"{tag}.so"
+    if not failed:
+        cmd = [nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"nvcc link failed (rc {res.returncode}):\n"
+                          f"{' '.join(cmd)}\n{logs[-1]}")
     seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (rc {res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+        raise RuntimeError("\n".join(failed))
+    log = "".join(logs)
     log_path.write_text(log)
     os.replace(tmp, lib_path)
     return lib_path, log, seconds

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from astroburst_tpu.constants import MAD_TO_SIGMA
+from astroburst_tpu_torch.constants import MAD_TO_SIGMA
 
 
 def _select_axis0(stack: torch.Tensor, mask: torch.Tensor,

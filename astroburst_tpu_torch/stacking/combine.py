@@ -12,10 +12,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from astroburst_tpu.dtypes import StackConfig
-from astroburst_tpu.errors import InvalidInput
 from astroburst_tpu_torch.alignment.phase_correlation import (
     phase_correlate_stack)
+from astroburst_tpu_torch.dtypes import StackConfig
+from astroburst_tpu_torch.errors import InvalidInput
 from astroburst_tpu_torch.runtime.device import cuda_device
 from astroburst_tpu_torch.stacking.clip import sigma_clip_core
 from astroburst_tpu_torch.stacking.onepass_kernel import (

@@ -1,0 +1,319 @@
+"""PyTorch port: exact drizzle, its finalize kernels' plain versions
+(K7, K8) and ``drizzle_stack`` against the JAX package.
+
+Inputs are made with numpy from a seed and fed to both packages. The
+JAX Pallas finalize kernels run in interpret mode, the drizzle code
+on its XLA route, as the JAX package's own tests run them. Tolerances
+are the JAX package's own (tests/test_reference_impl.py:170-262):
+
+- image atol 2e-4 / rtol 1e-6; weight map atol 1e-5; rejected count
+  equal for the square kernel;
+- gaussian/lanczos3: rejected count within max(5, 5 %) — f32 exp/sin
+  of two libraries flip presence at the 1e-12 threshold
+  (test_reference_impl.py:180-184);
+- offsets within 1e-3 px of JAX's, whose phase correlation runs with
+  its sub-pixel step held to the parabola vertex
+  (``jax_parabola_vertex``, ROADMAP C8);
+- against the scatter oracle tests/reference_impl ``ref_drizzle``: the
+  tolerances of ``test_drizzle_exact_matches_scatter_oracle``.
+
+The CUDA kernels themselves run only on the card: chip_smoke.py holds
+them to these plain versions there.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from astroburst_tpu import dtypes as jdt
+from astroburst_tpu.stacking import drizzle as jdz
+from astroburst_tpu.stacking.drizzle_kernel import (
+    drizzle_finalize_fused as jk7, drizzle_finalize_pallas as jk8)
+from astroburst_tpu_torch import dtypes as tdt
+from astroburst_tpu_torch.convert import stack_from_numpy
+from astroburst_tpu_torch.stacking import drizzle as tdz
+from astroburst_tpu_torch.stacking import drizzle_kernel as tdk
+from tests.reference_impl import ref_drizzle
+from tests.test_torch_phase_correlation import (  # noqa: F401
+    jax_parabola_vertex)
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+KERNELS = ["square", "gaussian", "lanczos3"]
+
+
+def _frames(rng, n, h, w, outlier=True, nans=True):
+    frames = [rng.normal(10, 1, (h, w)).astype(np.float32) for _ in range(n)]
+    if outlier:
+        frames[1][h // 2, w // 2] = 300.0
+    if nans:
+        frames[0][3, 4] = np.nan
+        frames[2 % n][h - 4, w - 5] = np.nan
+        frames[-1][1, w - 2] = np.inf
+    return frames
+
+
+def _close(got, want, atol, rtol=0.0, what=""):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=atol,
+                               rtol=rtol, err_msg=what)
+
+
+def _rej_ok(kern, got, want):
+    if kern == "square":
+        return int(got) == int(want)
+    return abs(int(got) - int(want)) <= max(5, int(0.05 * int(want)))
+
+
+# ---- K7 / K8 plain versions against the Pallas kernels --------------------
+
+
+def _band(rng):
+    """Raw candidates of 4 frames of 8 x 64 at scale 2, pixfrac 1 (two
+    taps per axis): [4·2·2, 16, 128], with NaN/inf pixels and one
+    outlier, built by both packages."""
+    frames = _frames(rng, 4, 8, 64)
+    frames[2][2:4, 10:14] = np.nan
+    d_ys = np.float32([0.0, -0.35, 0.6, 0.15])
+    d_xs = np.float32([0.0, 0.2, -0.45, -0.7])
+    kern = jdt.DrizzleKernel.SQUARE
+    parts = [jdz._frame_candidates_raw(jnp.asarray(f), jnp.float32(dy),
+                                       jnp.float32(dx), 2.0, 1.0, kern, 16,
+                                       128)
+             for f, dy, dx in zip(frames, d_ys, d_xs)]
+    j_cand = np.concatenate([np.asarray(p[0]) for p in parts])
+    j_wys = np.concatenate([np.asarray(p[1]) for p in parts])
+    j_wxs = np.concatenate([np.asarray(p[2]) for p in parts])
+    t_cand, t_wys, t_wxs, taps = tdz._frame_candidates_raw(
+        stack_from_numpy(np.stack(frames), CPU), torch.from_numpy(d_ys),
+        torch.from_numpy(d_xs), 2.0, 1.0, tdt.DrizzleKernel.SQUARE, 16, 128)
+    assert taps == parts[0][3] == 2
+    np.testing.assert_array_equal(t_cand.numpy(), j_cand)
+    np.testing.assert_array_equal(t_wys.numpy(), j_wys)
+    np.testing.assert_array_equal(t_wxs.numpy(), j_wxs)
+    return j_cand, j_wys, j_wxs
+
+
+@pytest.mark.parametrize("iters", [0, 3, 5])
+def test_k7_plain_matches_pallas_interpret(rng, iters):
+    cand, wys, wxs = _band(rng)
+    cap = 8
+    want = jk7(jnp.asarray(cand), jnp.asarray(wys.T), jnp.asarray(wxs), 4, 2,
+               2, cap, 3.0, 3.0, iters, interpret=True, block_w=128)
+    got = tdk.drizzle_finalize_fused(
+        torch.from_numpy(cand), torch.from_numpy(np.ascontiguousarray(wys.T)),
+        torch.from_numpy(wxs), 4, 2, 2, cap, 3.0, 3.0, iters)
+    _close(got[0], want[0], 2e-4, 1e-6, "image")
+    _close(got[1], want[1], 1e-5, 0.0, "weight map")
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert int(got[2].sum()) > 0 if iters else int(got[2].sum()) == 0
+
+
+def test_k8_plain_matches_pallas_interpret(rng):
+    cand, wys, wxs = _band(rng)
+    w = (wys.reshape(4, 2, 1, 16, 1) * wxs.reshape(4, 1, 2, 1, 128)
+         ).reshape(16, 16, 128)
+    finite = np.isfinite(cand)
+    v = np.where(finite, cand, 0.0).astype(np.float32)
+    w = np.where(finite, w, 0.0).astype(np.float32)
+    want = jk8(jnp.asarray(v), jnp.asarray(w), 8, 2.5, 3.0, 5,
+               interpret=True, block_w=128)
+    got = tdk.drizzle_finalize(torch.from_numpy(v), torch.from_numpy(w), 8,
+                               2.5, 3.0, 5)
+    _close(got[0], want[0], 2e-4, 1e-6, "image")
+    _close(got[1], want[1], 1e-5, 0.0, "weight map")
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    # K7's plain version on the raw values gives the same planes
+    k7 = tdk.drizzle_finalize_fused(
+        torch.from_numpy(cand), torch.from_numpy(np.ascontiguousarray(wys.T)),
+        torch.from_numpy(wxs), 4, 2, 2, 8, 2.5, 3.0, 5)
+    for a, b in zip(got, k7):
+        assert torch.equal(a, b)
+
+
+def test_finalize_depth_limit_is_named():
+    tdk._check_common(512, 256, 5)   # 128 frames: the largest instance
+    with pytest.raises(ValueError, match="MAX_CAP=256"):
+        tdk._check_common(1032, 258, 5)
+    with pytest.raises(ValueError, match="cap"):
+        tdk._check_common(16, 0, 5)
+
+
+# ---- the exact and pre-averaging drizzle against JAX's XLA route ---------
+
+
+def _drizzle_args(rng, n=4, h=14, w=20):
+    frames = _frames(rng, n, h, w)
+    offs = [(0.0, 0.0), (0.4, -0.25), (-0.3, 0.6), (1.2, 0.8)][:n]
+    d_xs = np.float32([-o[0] for o in offs])
+    d_ys = np.float32([-o[1] for o in offs])
+    return np.stack(frames), d_ys, d_xs
+
+
+@pytest.mark.parametrize("kern", KERNELS)
+def test_drizzle_kernel_exact_matches_jax(rng, kern):
+    stack, d_ys, d_xs = _drizzle_args(rng)
+    jk = jdt.DrizzleKernel(kern)
+    ri, rw, rr = jdz._drizzle_kernel_exact(
+        jnp.asarray(stack), jnp.asarray(d_ys), jnp.asarray(d_xs), 2.0, 1.0,
+        jk, 28, 40, 3.0, 3.0, 3, band_rows=8, use_pallas=False)
+    ts = stack_from_numpy(stack, CPU)
+    for plain in (False, True):
+        gi, gw, gr = tdz._drizzle_kernel_exact(
+            ts, torch.from_numpy(d_ys), torch.from_numpy(d_xs), 2.0, 1.0,
+            tdt.DrizzleKernel(kern), 28, 40, 3.0, 3.0, 3, band_rows=8,
+            plain=plain)
+        assert gi.shape == (28, 40) and gw.shape == (28, 40)
+        _close(gi, ri, 2e-4, 1e-6, f"{kern} image plain={plain}")
+        _close(gw, rw, 1e-5, 0.0, f"{kern} weights plain={plain}")
+        assert _rej_ok(kern, gr, rr), (kern, int(gr), int(rr))
+
+
+@pytest.mark.parametrize("kern", KERNELS)
+def test_drizzle_preaverage_matches_jax(rng, kern):
+    stack, d_ys, d_xs = _drizzle_args(rng)
+    jk = jdt.DrizzleKernel(kern)
+    ri, rw, rr = jdz._drizzle_kernel(
+        jnp.asarray(stack), jnp.asarray(d_ys), jnp.asarray(d_xs), 1.5, 0.8,
+        jk, 21, 30, 2.5, 3.0, 4)
+    gi, gw, gr = tdz._drizzle_kernel(
+        stack_from_numpy(stack, CPU), torch.from_numpy(d_ys),
+        torch.from_numpy(d_xs), 1.5, 0.8, tdt.DrizzleKernel(kern), 21, 30,
+        2.5, 3.0, 4)
+    _close(gi, ri, 2e-4, 1e-6, f"{kern} image")
+    _close(gw, rw, 1e-5, 1e-6, f"{kern} weights")
+    assert _rej_ok(kern, gr, rr), (kern, int(gr), int(rr))
+
+
+def test_band_rows_move_the_result_only_by_rounding(rng):
+    """A band offsets d_y by − r0/scale, so the tap arithmetic of one
+    output row rounds differently with another band height: the planes
+    agree to f32 rounding, not bit for bit (ROADMAP C)."""
+    stack, d_ys, d_xs = _drizzle_args(rng)
+    ts = stack_from_numpy(stack, CPU)
+    args = (ts, torch.from_numpy(d_ys), torch.from_numpy(d_xs), 2.0, 0.7,
+            tdt.DrizzleKernel.SQUARE, 28, 40, 3.0, 3.0, 5)
+    a = tdz._drizzle_kernel_exact(*args, band_rows=8)
+    b = tdz._drizzle_kernel_exact(*args, band_rows=28)
+    _close(a[0], b[0], 2e-4, 1e-6, "image")
+    _close(a[1], b[1], 1e-5, 0.0, "weights")
+    assert int(a[2]) == int(b[2])
+
+
+@pytest.mark.parametrize("kern", KERNELS)
+def test_drizzle_exact_matches_scatter_oracle(rng, kern):
+    """The scatter oracle (tests/reference_impl/drizzle.py) on the
+    adversarial config scale=2, pixfrac=1, with its cosmic ray."""
+    frames = [rng.normal(10, 1, (16, 18)).astype(np.float32)
+              for _ in range(4)]
+    frames[1][8, 9] = 500.0
+    offs = [(0.0, 0.0), (0.35, -0.2), (-0.6, 0.45), (0.15, 0.7)]
+    ref_img, ref_wgt, ref_rej = ref_drizzle(frames, offs, 2.0, 1.0, kern,
+                                            3.0, 3.0, 3)
+    d_xs = torch.tensor([o[0] for o in offs], dtype=torch.float32)
+    d_ys = torch.tensor([o[1] for o in offs], dtype=torch.float32)
+    img, wgt, rej = tdz._drizzle_kernel_exact(
+        stack_from_numpy(np.stack(frames), CPU), d_ys, d_xs, 2.0, 1.0,
+        tdt.DrizzleKernel(kern), 32, 36, 3.0, 3.0, 3)
+    _close(img, ref_img, 2e-4, 2e-5, "image")
+    _close(wgt, ref_wgt, 1e-5, 1e-4, "weights")
+    assert abs(int(rej) - ref_rej) <= max(5, int(0.05 * ref_rej))
+
+
+# ---- drizzle_stack --------------------------------------------------------
+
+
+def _star_frames(rng, n=5, h=64, w=72):
+    """Dithered star fields: frame k is the scene moved by (dy_k, dx_k)
+    (sub-pixel, |d| < 2), rendered analytically, plus noise."""
+    dith = rng.uniform(-2, 2, (n, 2))
+    dith[0] = 0.0
+    ys = rng.uniform(6, h - 6, 25)
+    xs = rng.uniform(6, w - 6, 25)
+    amps = rng.uniform(200, 2000, 25)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    frames = []
+    for dy, dx in dith:
+        f = np.full((h, w), 100.0)
+        for sy, sx, a in zip(ys, xs, amps):
+            f += a * np.exp(-((yy - sy - dy) ** 2 + (xx - sx - dx) ** 2)
+                            / (2 * 1.3 ** 2))
+        frames.append((f + rng.normal(0, 1.0, (h, w))).astype(np.float32))
+    return frames, dith
+
+
+@pytest.mark.parametrize("pixfrac", [0.7, 0.5])
+def test_drizzle_stack_matches_jax(rng, pixfrac):
+    """Default config (exact capped-list route) and pixfrac 0.5, which
+    the auto-route sends to pre-averaging (1 + 0.5·2 ≤ 2)."""
+    frames, _ = _star_frames(rng)
+    want = jdz.drizzle_stack(frames, jdt.DrizzleConfig(pixfrac=pixfrac))
+    got = tdz.drizzle_stack(frames, tdt.DrizzleConfig(pixfrac=pixfrac),
+                            device=CPU)
+    assert got.output_dims == want.output_dims == (128, 144)
+    assert got.input_dims == want.input_dims
+    assert got.frame_count == want.frame_count == 5
+    assert got.output_scale == want.output_scale == 2.0
+    np.testing.assert_allclose(np.asarray(got.offsets),
+                               np.asarray(want.offsets), atol=1e-3)
+    _close(got.image, want.image, 2e-4, 1e-6, "image")
+    _close(got.weight_map, want.weight_map, 1e-5, 1e-6, "weights")
+    assert got.rejected_pixels == want.rejected_pixels
+
+
+def test_drizzle_stack_no_align_and_errors(rng):
+    frames = [np.full((16, 16), 5.0, np.float32) for _ in range(3)]
+    res = tdz.drizzle_stack(frames, tdt.DrizzleConfig(align=False),
+                            device=CPU)
+    assert res.output_dims == (32, 32)
+    np.testing.assert_allclose(res.image.numpy()[4:-4, 4:-4], 5.0, atol=1e-3)
+    from astroburst_tpu_torch.errors import InvalidInput
+    with pytest.raises(InvalidInput):
+        tdz.drizzle_stack(frames[:1], device=CPU)
+    with pytest.raises(InvalidInput):
+        tdz.drizzle_stack([np.ones((100, 100), np.float32),
+                           np.ones((80, 100), np.float32)], device=CPU)
+
+
+def test_drizzle_stack_affine_route_not_ported(rng):
+    frames, _ = _star_frames(rng, n=3)
+    for method in (tdt.AlignmentMethod.AFFINE, tdt.AlignmentMethod.ZNCC):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            tdz.drizzle_stack(frames, tdt.DrizzleConfig(
+                alignment_method=method), device=CPU)
+    # a constant frame fails the phase-correlation gate (confidence 0):
+    # JAX falls back to the affine route there
+    frames[2] = np.full_like(frames[2], 7.0)
+    with pytest.raises(NotImplementedError, match=r"frames \[2\]"):
+        tdz.drizzle_stack(frames, tdt.DrizzleConfig(), device=CPU)
+
+
+def test_drizzle_taps_match_jax_vectors():
+    """Per-axis tap vectors of every kernel, both forms, vectorized over
+    frames, equal JAX's per-frame vectors (exp/sin within 1e-6)."""
+    ds = np.float32([0.0, -0.37, 1.61, -2.2])
+    for kern in KERNELS:
+        jk, tk = jdt.DrizzleKernel(kern), tdt.DrizzleKernel(kern)
+        for scale, pixfrac in ((2.0, 0.7), (1.5, 1.0), (3.0, 0.4)):
+            half = pixfrac * scale * 0.5
+            for exact in (True, False):
+                taps, base = jdz._support_taps(scale, half, jk, exact)
+                assert (taps, base) == tdz._support_taps(scale, half, tk,
+                                                         exact)
+                jf = jdz._axis_taps_exact if exact else jdz._axis_weights
+                tf = tdz._axis_taps_exact if exact else tdz._axis_weights
+                ti, tw = tf(37, 19, torch.from_numpy(ds), scale, half, tk,
+                            taps, base)
+                for k, d in enumerate(ds):
+                    ref = jf(37, 19, jnp.float32(d), scale, half, jk, taps,
+                             base)
+                    for t, (ji, jw) in enumerate(ref):
+                        np.testing.assert_array_equal(ti[k, t].numpy(),
+                                                      np.asarray(ji))
+                        np.testing.assert_allclose(tw[k, t].numpy(),
+                                                   np.asarray(jw),
+                                                   atol=1e-6, rtol=1e-6)

@@ -79,6 +79,73 @@ def test_port_imports_without_jax():
     assert r.stdout.strip() == "ok"
 
 
+def _imported_modules(path: Path):
+    import ast
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.lineno, node.module
+
+
+def test_port_and_chip_smoke_import_nothing_of_jax_or_the_jax_package():
+    """No module of the port and no line of chip_smoke.py imports
+    ``astroburst_tpu``, ``jax`` or ``bench`` (AST scan, any depth)."""
+    files = sorted((REPO / "astroburst_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    bad = []
+    for f in files:
+        for line, mod in _imported_modules(f):
+            root = mod.split(".")[0]
+            if root in ("astroburst_tpu", "jax", "jaxlib", "bench"):
+                bad.append(f"{f.relative_to(REPO)}:{line} imports {mod}")
+    assert not bad, bad
+
+
+def test_port_constants_dtypes_errors_match_jax_package():
+    from astroburst_tpu import constants as jc
+    from astroburst_tpu import dtypes as jd
+    from astroburst_tpu import errors as je
+    from astroburst_tpu_torch import constants as tc
+    from astroburst_tpu_torch import dtypes as td
+    from astroburst_tpu_torch import errors as te
+    names = [n for n in vars(tc) if n.isupper()]
+    assert {"MAD_TO_SIGMA", "PADDING_THRESHOLD",
+            "DEFAULT_DRIZZLE_SCALE"} <= set(names)
+    for n in names:
+        assert getattr(tc, n) == getattr(jc, n), n
+    for name in ("AlignMethod", "AlignmentMethod", "DrizzleKernel"):
+        te_, je_ = getattr(td, name), getattr(jd, name)
+        assert [(m.name, m.value) for m in te_] == \
+            [(m.name, m.value) for m in je_], name
+        for s in (None, "", "aff", "Affine", "zncc", "none", "gaussian",
+                  "lanczos", "lanczos3", "square", "phase"):
+            assert te_.parse(s).value == je_.parse(s).value, (name, s)
+    import dataclasses
+    for name in ("StackConfig", "DrizzleConfig"):
+        got = dataclasses.asdict(getattr(td, name)())
+        want = dataclasses.asdict(getattr(jd, name)())
+        assert {k: getattr(v, "value", v) for k, v in got.items()} == \
+            {k: getattr(v, "value", v) for k, v in want.items()}, name
+    assert issubclass(te.InvalidInput, Exception)
+    assert te.InvalidInput.__name__ == je.InvalidInput.__name__
+    from astroburst_tpu.ops.window import hann_periodic as jh
+    from astroburst_tpu_torch.ops.window import hann_periodic as th
+    for n in (0, 1, 2, 7, 512):
+        np.testing.assert_array_equal(th(n), jh(n))
+
+
+def test_chip_smoke_frames_equal_bench_frames():
+    import bench
+    import chip_smoke
+    for n, h, w, seed in ((3, 40, 56, 3), (2, 64, 48, 11)):
+        np.testing.assert_array_equal(chip_smoke.make_frames(n, h, w, seed),
+                                      bench.make_frames(n, h, w, seed))
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     """chip_smoke.py exits non-zero and prints no result line where
     there is no CUDA device, in the repo and alone in a directory."""
@@ -118,10 +185,17 @@ def test_kernel_signatures_match_sources():
 
 
 def test_kernel_wrappers_reject_other_devices():
+    from astroburst_tpu_torch.stacking.drizzle_kernel import (
+        drizzle_finalize, drizzle_finalize_fused)
     meta = torch.zeros((2, 8, 8), device="meta")
     with pytest.raises(ValueError, match="device"):
         gather_crops(meta, torch.zeros(1, dtype=torch.int32),
                      torch.zeros(1, dtype=torch.int32), 4, 4, 1)
+    with pytest.raises(ValueError, match="device"):
+        drizzle_finalize_fused(meta[:1].repeat(4, 1, 1), meta[0, :, :2],
+                               meta[0, :2], 1, 2, 2, 4, 3.0, 3.0, 5)
+    with pytest.raises(ValueError, match="device"):
+        drizzle_finalize(meta, meta, 4, 3.0, 3.0, 5)
 
 
 # ---- masking / resample / fft ------------------------------------------------

@@ -12,6 +12,13 @@ matmuls multiply it by 0, and 0·NaN = NaN), while the port's direct
 box sum poisons only that pixel's box. On frames with NaN pixels the
 coarse surfaces therefore differ, and only the final offsets are
 compared (shifts ≤ ±12 px).
+
+The sub-pixel step is held to the parabola vertex (ROADMAP C8): JAX's
+``_quadratic`` returns the vertex negated, so every comparison here
+runs the JAX package with ``_quadratic`` replaced by the vertex formula
+(``jax_parabola_vertex``, also imported by the other port test files
+that compare offsets with JAX), and ``test_quadratic_is_the_vertex``
+holds the port's to a numpy parabola.
 """
 
 import jax
@@ -31,6 +38,30 @@ from astroburst_tpu_torch.convert import stack_from_numpy
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
+
+
+_JAX_QUADRATIC = jpc._quadratic
+
+
+def _jax_vertex(prev, center, nxt):
+    """JAX's _quadratic with the vertex's sign: (next − prev) over its
+    denominator (ROADMAP C8)."""
+    denom = 2.0 * (2.0 * center - prev - nxt)
+    small = jnp.abs(denom) < 1e-15
+    off = jnp.where(small, 0.0, (nxt - prev) / jnp.where(small, 1.0, denom))
+    return jnp.clip(off, -0.5, 0.5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_parabola_vertex():
+    """Run the JAX phase correlation with the vertex sign fixed for
+    every test of the module (its jit caches are cleared on entry and
+    exit, so no trace of either version leaks)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jpc, "_quadratic", _jax_vertex)
+        jax.clear_caches()
+        yield
+    jax.clear_caches()
 
 
 def _star_field(rng, h, w, n_stars=6, sigma2=8.0):
@@ -141,6 +172,46 @@ def test_peak_stats_tie_goes_to_lowest_index(rng):
     np.testing.assert_allclose(s2.numpy(), np.asarray(js2), rtol=1e-5)
 
 
+def test_quadratic_is_the_vertex():
+    """Samples of y = a·(x − v)² + c at x = −1, 0, 1 give back v."""
+    rng = np.random.default_rng(0)
+    v = rng.uniform(-0.5, 0.5, 200)
+    a = -rng.uniform(0.1, 5.0, 200)
+    c = rng.uniform(1.0, 10.0, 200)
+    p, m, q = (torch.from_numpy(a * (x - v) ** 2 + c) for x in (-1, 0, 1))
+    np.testing.assert_allclose(tpc._quadratic(p, m, q).numpy(), v,
+                               atol=1e-9)
+    pmq = [jnp.asarray(x.numpy(), jnp.float32) for x in (p, m, q)]
+    np.testing.assert_allclose(np.asarray(_jax_vertex(*pmq)), v, atol=1e-5)
+    # the JAX package's own step returns the vertex negated
+    np.testing.assert_allclose(np.asarray(_JAX_QUADRATIC(*pmq)), -v,
+                               atol=1e-5)
+
+
+def test_subpixel_shifts_are_recovered(rng):
+    """Frames moved by sub-pixel amounts (a smooth star field, rendered
+    analytically) come back within 0.15 px."""
+    h, w = 256, 288
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    stars = list(zip(rng.uniform(12, h - 12, 40), rng.uniform(12, w - 12, 40),
+                     rng.uniform(300, 3000, 40)))
+    shifts = [(0.3, -0.7), (1.45, 0.25), (-1.2, 1.9), (0.5, 0.5)]
+
+    def render(dy, dx):
+        f = np.full((h, w), 200.0)
+        for sy, sx, amp in stars:
+            f += amp * np.exp(-((yy - sy - dy) ** 2 + (xx - sx - dx) ** 2)
+                              / (2 * 1.6 ** 2))
+        return (f + rng.normal(0, 3.0, (h, w))).astype(np.float32)
+
+    ref = render(0.0, 0.0)
+    tgts = np.stack([render(dy, dx) for dy, dx in shifts])
+    dy, dx, _ = tpc.phase_correlate_stack(torch.from_numpy(ref),
+                                          stack_from_numpy(tgts, CPU))
+    np.testing.assert_allclose(np.stack([dy.numpy(), dx.numpy()], 1),
+                               shifts, atol=0.15)
+
+
 @pytest.mark.parametrize("shape", [(64, 96), (1, 64), (33, 1)])
 def test_correlate_single_matches_jax(rng, shape):
     a = rng.normal(0, 1, shape).astype(np.float32)
@@ -175,6 +246,23 @@ def test_stack_matches_traced_single_scale(rng):
     for g, wv in zip(got[:2], want[:2]):
         np.testing.assert_allclose(g, wv, atol=0.05)
     np.testing.assert_allclose(got[2], want[2], rtol=1e-3)
+
+
+def test_phase_correlate_host_api_matches_jax(rng):
+    """The pair API crops both planes to their common dims and returns
+    host floats; the confidence gate of drizzle reads them."""
+    base = _star_field(rng, 640, 1152)
+    tgt = np.roll(base, (-6, 9), (0, 1))[:630, :1140]
+    got = tpc.phase_correlate(torch.from_numpy(base), torch.from_numpy(tgt))
+    want = jpc.phase_correlate(base, tgt)
+    assert isinstance(got, tpc.PhaseCorrelationResult)
+    assert got.dy == pytest.approx(want.dy, abs=0.05)
+    assert got.dx == pytest.approx(want.dx, abs=0.05)
+    assert got.confidence == pytest.approx(want.confidence, rel=1e-3)
+    assert got.dy == pytest.approx(-6.0, abs=0.1)
+    assert got.dx == pytest.approx(9.0, abs=0.1)
+    assert not tpc.is_low_confidence(got.confidence)
+    assert tpc.is_low_confidence(1.99) and not tpc.is_low_confidence(2.0)
 
 
 def test_stack_constant_frame_gate(rng):

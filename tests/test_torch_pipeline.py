@@ -14,7 +14,8 @@ rejected counts within 3); data range exact; STF parameters within
 of the exact ones the port takes). Through those parameters the u8
 preview may move by one grey level where a pixel sits near a rounding
 boundary: ≤ 1 everywhere, on ≤ 0.5% of the pixels (measured ~0.12% on
-these frames).
+these frames). The JAX phase correlation runs with its sub-pixel step
+held to the parabola vertex (``jax_parabola_vertex``, ROADMAP C8).
 """
 
 import jax
@@ -25,17 +26,19 @@ import torch
 
 import bench
 from astroburst_tpu.dtypes import StackConfig
-from astroburst_tpu.errors import InvalidInput
 from astroburst_tpu.parallel.pipeline import (
     align_stack_stretch as jax_pipeline)
 from astroburst_tpu.stacking.combine import stack_images as jax_stack
 from astroburst_tpu_torch.alignment.coarse_kernel import (
     coarse_downsample_stack)
 from astroburst_tpu_torch.convert import stack_from_numpy
+from astroburst_tpu_torch.errors import InvalidInput
 from astroburst_tpu_torch.ops.crop_kernel import gather_crops
 from astroburst_tpu_torch.parallel import align_stack_stretch
 from astroburst_tpu_torch.stacking.combine import stack_images
 from astroburst_tpu_torch.stacking.onepass_kernel import shift_clip_onepass
+from tests.test_torch_phase_correlation import (  # noqa: F401
+    jax_parabola_vertex)
 
 torch.set_num_threads(1)
 

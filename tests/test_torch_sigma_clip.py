@@ -7,6 +7,8 @@
   mode (offsets within its ±16 clamp), and at N=24 with offsets up to
   ±200 (the two-stage kernel's range) against JAX shift_bicubic +
   sigma_clip_core, under the bound of tests/test_onepass_kernel.py:
+  (this bound also holds K3 to TPU kernels 5 and 6: the rolling-ring
+  one-pass kernel and the clip-only kernel at zero offsets)
   at most 3 pixels differ by more than 5e-3, and the rejected counts by
   at most 3 (borderline clip decisions flip on the last ulp when tap
   sums run in another order).
@@ -19,7 +21,10 @@ import pytest
 import torch
 
 from astroburst_tpu.ops.resample import shift_bicubic as jshift
+from astroburst_tpu.stacking.clip_kernel import sigma_clip_pallas as jclip6
 from astroburst_tpu.stacking.combine import sigma_clip_core as jclip
+from astroburst_tpu.stacking.rolling_kernel import (
+    pad_rows_rolling, ring_dims, shift_clip_rolling_padded as jk5)
 from astroburst_tpu.stacking.onepass_kernel import shift_clip_onepass as jk3
 from astroburst_tpu_torch.convert import stack_from_numpy
 from astroburst_tpu_torch.stacking.clip import sigma_clip_core
@@ -118,3 +123,44 @@ def test_k3_wrapper_on_cpu_is_the_plain_version(rng):
     assert shift_clip_onepass.launches == before
     np.testing.assert_array_equal(a[0].numpy(), b[0].numpy())
     assert int(a[1]) == int(b[1])
+
+
+@pytest.mark.parametrize("off_max,lo,hi,iters", [(6, 2.5, 3.0, 5),
+                                                 (16, 3.0, 3.0, 3)])
+def test_k3_plain_matches_rolling_kernel(rng, off_max, lo, hi, iters):
+    """TPU kernel 5, the rolling-ring schedule of the one-pass kernel,
+    on the shapes of tests/test_rolling_kernel.py: K3 replaces it.
+    Through the JAX dispatcher (``rolling=True`` on a stack padded for
+    the ring) and through the kernel itself."""
+    s = _stack(rng, 5, 100, 1300)
+    n, h, w = s.shape
+    dys = rng.uniform(-off_max, off_max, n).astype(np.float32)
+    dxs = rng.uniform(-off_max, off_max, n).astype(np.float32)
+    dys[0] = dxs[0] = 0.0
+    hp = pad_rows_rolling(h, 16, off_max)
+    wp = max(-(-w // 128) * 128, ring_dims(16, 1152, off_max)[1])
+    padded = jnp.pad(jnp.asarray(s), ((0, 0), (0, hp - h), (0, wp - w)))
+    want, wrej = jk5(padded, jnp.asarray(dys), jnp.asarray(dxs), h, w, lo,
+                     hi, iters, off_max=off_max, interpret=True)
+    via, vrej = jk3(padded, jnp.asarray(dys), jnp.asarray(dxs), lo, hi,
+                    iters, off_max=off_max, true_shape=(h, w),
+                    interpret=True, adaptive=False, rolling=True)
+    np.testing.assert_array_equal(np.asarray(via), np.asarray(want))
+    assert int(vrej) == int(wrej)
+    got, grej = shift_clip_onepass_plain(stack_from_numpy(s, CPU),
+                                         torch.from_numpy(dys),
+                                         torch.from_numpy(dxs), lo, hi, iters)
+    _assert_close(got.numpy(), want, grej, wrej)
+
+
+@pytest.mark.parametrize("n,lo,hi,iters", [(6, 3.0, 3.0, 5),
+                                           (9, 2.0, 2.5, 4)])
+def test_k3_at_zero_offsets_matches_clip_kernel(rng, n, lo, hi, iters):
+    """TPU kernel 6, the clip-only kernel: K3 at exact zero offsets."""
+    s = _stack(rng, n, 40, 300)
+    s[2, 5, 7] = 1e4
+    zeros = torch.zeros(n)
+    got, grej = shift_clip_onepass(stack_from_numpy(s, CPU), zeros, zeros,
+                                   lo, hi, iters)
+    want, wrej = jclip6(jnp.asarray(s), lo, hi, iters, interpret=True)
+    _assert_close(got.numpy(), want, grej, wrej)
