@@ -9,8 +9,11 @@ ctypes, see ``runtime/kernels.py``).
 
 Ported slices: align → stack → stretch
 (``parallel.pipeline.align_stack_stretch`` and
-``stacking.combine.stack_images``) and calibrate → drizzle → stretch
-(``stacking.calibration``, ``stacking.drizzle.drizzle_stack``).
+``stacking.combine.stack_images``), calibrate → drizzle → stretch
+(``stacking.calibration``, ``stacking.drizzle.drizzle_stack``) and star
+detection → affine alignment → warp (``analysis.detect_stars``,
+``alignment.affine.align_channel_affine`` and ``warp_image``,
+``alignment.pair.align_pair``).
 
 The package imports neither ``jax`` nor anything of ``astroburst_tpu``:
 the constants, records and errors it needs are its own copies

@@ -65,7 +65,7 @@ def coarse_downsample_stack(stack: torch.Tensor, max_dim: int,
     (min f32 [N], max f32 [N], count i32 [N])."""
     if not K.use_kernel(stack, "coarse_downsample_stack"):
         return coarse_downsample_stack_plain(stack, max_dim, with_stats)
-    K.require_cuda_f32(stack, "stack", 3)
+    K.require_cuda(stack, "stack", 3)
     n, h, w = stack.shape
     by, bx, ds_r, ds_c = box_plan(h, w, max_dim)
     dev = stack.device

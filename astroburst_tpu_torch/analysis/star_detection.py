@@ -1,0 +1,353 @@
+"""Star detection (counterpart of astroburst_tpu/analysis/star_detection.py).
+
+Reference: src-tauri/src/core/analysis/star_detection.rs — tile-based
+sigma-clipped background, threshold at bg + σ·k, 8-connected flood-fill
+components of 3..5000 px, flux-weighted centroid, second-moment
+FWHM = 2.3548·σ, eigenvalue eccentricity, SNR = peak/bg_σ,
+brightest-first 3 px dedup.
+
+The JAX package's design is kept, on torch tensors:
+
+1. background: the plane is cut into step × step tiles, each tile is
+   sorted (kernel K10, analysis/tile_sort_kernel.py, for every step)
+   and sigma-clipped as a contiguous interval of its sorted values; the
+   median and the MAD are exact rank selections (the MAD's deviations
+   |x − med| over the interval are sorted per tile: in IEEE f32
+   med − x equals |x − med|, so these are the values the JAX two-run
+   selection returns);
+2. peaks: 3 × 3 local maxima above the threshold with the JAX tie rule,
+   reduced to one candidate per 2 × 2 block, then the top ``max_peaks``
+   by a stable descending sort (value first, then flat index: the order
+   ``jax.lax.top_k`` gives; its two-level form is a TPU device that
+   selects the same set);
+3. per-peak window statistics (kernel K11, analysis/window_kernel.py);
+4. host-side brightest-first 3 px dedup of one fetched [10, max_peaks]
+   array (``_postprocess_packed``, numpy, a copy of the JAX function).
+
+``plain`` runs the kernels' plain torch versions instead (to hold the
+kernels to them on the card). ``dedupe_packed_device`` is not ported
+(ROADMAP A9).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from astroburst_tpu_torch.analysis.tile_sort_kernel import (sort_tiles,
+                                                            sort_tiles_plain)
+from astroburst_tpu_torch.analysis.window_kernel import (  # noqa: F401
+    HALF, WINDOW, window_stats, window_stats_plain)
+from astroburst_tpu_torch.constants import MAD_TO_SIGMA
+from astroburst_tpu_torch.runtime.device import as_f32
+
+FWHM_FACTOR = 2.3548200450309493
+MAX_PEAKS = 1024
+
+
+@dataclass
+class DetectedStar:
+    x: float
+    y: float
+    flux: float
+    fwhm: float
+    eccentricity: float
+    peak: float
+    npix: int
+    snr: float
+
+    def to_dict(self) -> dict:
+        return {"x": self.x, "y": self.y, "flux": self.flux,
+                "fwhm": self.fwhm, "eccentricity": self.eccentricity,
+                "peak": self.peak, "npix": self.npix, "snr": self.snr}
+
+
+@dataclass
+class DetectionResult:
+    stars: List[DetectedStar]
+    background_median: float
+    background_sigma: float
+    threshold_sigma: float
+    image_width: int
+    image_height: int
+
+
+# --- tile background ---------------------------------------------------------
+
+
+def _floordiv2(x: torch.Tensor) -> torch.Tensor:
+    return torch.div(x, 2, rounding_mode="floor")
+
+
+def _at(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """rows[t, idx[t]], the index clamped into the row."""
+    idx = torch.clamp(idx, 0, rows.shape[1] - 1)
+    return torch.gather(rows, 1, idx[:, None])[:, 0]
+
+
+def _interval_median(sorted_rows, lo, hi):
+    """Median of sorted_rows[t, lo[t]:hi[t]] with even-count averaging
+    (math/median.rs:27-43); 0 for an empty interval."""
+    cnt = hi - lo
+    v1 = _at(sorted_rows, lo + torch.clamp(_floordiv2(cnt - 1), min=0))
+    v2 = _at(sorted_rows, lo + torch.clamp(_floordiv2(cnt), min=0))
+    return torch.where(cnt > 0, (v1 + v2) * 0.5, 0.0)
+
+
+def _interval_mad(sorted_rows, lo, hi, med):
+    """Exact median absolute deviation of sorted_rows[t, lo:hi] with
+    even-count averaging: the deviations over the interval, sorted per
+    tile, at the two middle ranks."""
+    cnt = hi - lo
+    iota = torch.arange(sorted_rows.shape[1], device=sorted_rows.device)
+    window = (iota >= lo[:, None]) & (iota < hi[:, None])
+    dev = torch.sort(torch.where(window,
+                                 torch.abs(sorted_rows - med[:, None]),
+                                 float("inf")), dim=1).values
+    n = torch.clamp(cnt, min=1)
+    v1 = _at(dev, _floordiv2(n - 1))
+    v2 = _at(dev, _floordiv2(n))
+    return torch.where(cnt > 0, (v1 + v2) * 0.5, 0.0)
+
+
+def _tile_sigma_clipped(sorted_rows, valid_counts, kappa: float = 3.0,
+                        iterations: int = 2):
+    """Vectorized sigma_clipped_stats (math/sigma_clip.rs:4-34) over
+    pre-sorted tile rows; the retained set stays a contiguous interval."""
+    lo = torch.zeros_like(valid_counts, dtype=torch.int64)
+    hi = valid_counts.to(torch.int64)
+    for _ in range(iterations):
+        active = (hi - lo) >= 3
+        med = _interval_median(sorted_rows, lo, hi)
+        mad = _interval_mad(sorted_rows, lo, hi, med)
+        sig = torch.clamp(mad * MAD_TO_SIGMA, min=1e-30)
+        vlo = (med - kappa * sig)[:, None]
+        vhi = (med + kappa * sig)[:, None]
+        new_lo = (sorted_rows < vlo).sum(dim=1)
+        new_hi = (sorted_rows <= vhi).sum(dim=1)
+        lo = torch.where(active, torch.maximum(new_lo, lo), lo)
+        hi = torch.where(active, torch.minimum(new_hi, hi), hi)
+    empty = hi <= lo
+    med = _interval_median(sorted_rows, lo, hi)
+    mad = _interval_mad(sorted_rows, lo, hi, med)
+    sig = torch.clamp(mad * MAD_TO_SIGMA, min=1e-30)
+    return torch.where(empty, 0.0, med), torch.where(empty, 1.0, sig)
+
+
+def _background(image: torch.Tensor, tile_size: int, plain: bool = False):
+    """(median, sigma) of the background as 0-d f32 tensors on the
+    image's device (star_detection.py:_estimate_background_kernel)."""
+    rows, cols = image.shape
+    step = max(tile_size, 16)
+    ty = -(-rows // step)
+    tx = -(-cols // step)
+    padded = torch.nn.functional.pad(
+        image, (0, tx * step - cols, 0, ty * step - rows), value=float("nan"))
+    sorted_rows, counts = (sort_tiles_plain if plain else sort_tiles)(
+        padded, step)
+    med, sig = _tile_sigma_clipped(sorted_rows, counts)
+    # tiles with < 8 valid pixels are excluded (star_detection.rs:60)
+    ok = counts >= 8
+    mid = torch.clamp(_floordiv2(ok.sum()), max=ok.numel() - 1)
+    g_med = torch.sort(torch.where(ok, med, float("inf"))).values[mid]
+    g_sig = torch.sort(torch.where(ok, sig, float("inf"))).values[mid]
+    none = ~ok.any()
+    return (torch.where(none, 0.0, g_med),
+            torch.where(none, 1.0, torch.clamp(g_sig, min=1e-10)))
+
+
+def _tile_size(rows: int, cols: int) -> int:
+    return min(max(min(rows, cols) // 8, 32), 256)
+
+
+def estimate_background(image, tile_size: int,
+                        device: Optional[torch.device] = None):
+    """(median, sigma) of the tile background, as Python floats."""
+    med, sig = _background(as_f32(image, device), tile_size)
+    return float(med), float(sig)
+
+
+# --- peak detection + windowed moments ---------------------------------------
+
+
+def _local_maxima(img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """mask & (img ≥ all 8 neighbours, strictly > those at (dy, dx) >
+    (0, 0)); the 1-px border is never a peak (star_detection.py:225-252)."""
+    rows, cols = img.shape
+    p = torch.nn.functional.pad(img, (1, 1, 1, 1), value=float("-inf"))
+    strict = torch.ones_like(mask)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy == 0 and dx == 0:
+                continue
+            shifted = p[1 + dy:1 + dy + rows, 1 + dx:1 + dx + cols]
+            if (dy, dx) > (0, 0):
+                strict = strict & (img > shifted)
+            else:
+                strict = strict & (img >= shifted)
+    strict[0, :] = False
+    strict[-1, :] = False
+    strict[:, 0] = False
+    strict[:, -1] = False
+    return mask & strict
+
+
+def _peaks(image: torch.Tensor, threshold: torch.Tensor, max_peaks: int):
+    """Peak selection of star_detection.py:261-333: (py, px i32 [K],
+    values [K] f32 with -inf on dead slots, n_valid 0-d i32)."""
+    rows, cols = image.shape
+    dev = image.device
+    finite = torch.isfinite(image)
+    above = finite & (image > threshold)
+    peaks = _local_maxima(torch.where(finite, image, float("-inf")), above)
+    score = torch.where(peaks, image, float("-inf"))
+    # one candidate per 2×2 block: the tie rule above keeps 8-adjacent
+    # cells from both being peaks
+    r2 = -(-rows // 2) * 2
+    c2 = -(-cols // 2) * 2
+    sp = torch.nn.functional.pad(score, (0, c2 - cols, 0, r2 - rows),
+                                 value=float("-inf"))
+    cols_b = c2 // 2
+    bmax = sp.reshape(r2 // 2, 2, cols_b, 2).amax(dim=(1, 3)).reshape(-1)
+    k_flat = min(max_peaks, bmax.numel())
+    # jax.lax.top_k order: descending values, lower index first on ties
+    vals, bidx = torch.sort(bmax, descending=True, stable=True)
+    vals, bidx = vals[:k_flat], bidx[:k_flat]
+    if k_flat < max_peaks:
+        vals = torch.cat([vals, torch.full((max_peaks - k_flat,),
+                                           float("-inf"), device=dev)])
+        bidx = torch.cat([bidx, torch.zeros(max_peaks - k_flat,
+                                            dtype=bidx.dtype, device=dev)])
+    by = torch.div(bidx, cols_b, rounding_mode="floor")
+    bx = bidx - by * cols_b
+    flat = sp.reshape(-1)
+    base = 2 * by * c2 + 2 * bx
+    # row-major first match inside the block (top_k's index order)
+    off = torch.where(flat[base] == vals, 0,
+                      torch.where(flat[base + 1] == vals, 1,
+                                  torch.where(flat[base + c2] == vals, c2,
+                                              c2 + 1)))
+    idx = base + off
+    py = torch.div(idx, c2, rounding_mode="floor")
+    px = idx - py * c2
+    n_valid = torch.isfinite(vals).sum(dtype=torch.int32)
+    return py.to(torch.int32), px.to(torch.int32), vals, n_valid
+
+
+def _detect(image: torch.Tensor, tile_size: int, sigma_threshold: float,
+            max_peaks: int, plain: bool = False) -> torch.Tensor:
+    """Background, peaks, window statistics and the packed [10,
+    max_peaks] f32 record (star_detection.py:_detect_fused): rows cy,
+    cx, flux, fwhm, ecc, peak, npix, snr, valid, and (bg_med, bg_sig)
+    in the first two cells of the last row."""
+    bg_med, bg_sig = _background(image, tile_size, plain)
+    threshold = bg_med + sigma_threshold * bg_sig
+    py, px, vals, n_valid = _peaks(image, threshold, max_peaks)
+    stats9 = (window_stats_plain if plain else window_stats)(
+        image, py, px, threshold, bg_med, n_valid)
+    npixs, fluxes, cy, cx, r2m, sxx, syy, sxy, pvals = stats9.unbind(1)
+    safe_flux = torch.clamp(fluxes, min=1e-30)
+    fwhms = torch.sqrt(r2m / (2.0 * safe_flux)) * FWHM_FACTOR
+    trace = sxx + syy
+    det = torch.clamp(sxx * syy - sxy * sxy, min=0.0)
+    disc = torch.sqrt(torch.clamp(trace * trace / 4.0 - det, min=0.0))
+    l1 = trace / 2.0 + disc
+    l2 = torch.clamp(trace / 2.0 - disc, min=0.0)
+    eccs = torch.where(l1 > 1e-15, torch.clamp(torch.sqrt(torch.clamp(
+        1.0 - l2 / l1, min=0.0)), 0.0, 1.0), 0.0)
+    cys = cy + (py.to(torch.float32) - HALF)
+    cxs = cx + (px.to(torch.float32) - HALF)
+    snrs = torch.where(bg_sig <= 1e-300, 0.0, pvals / bg_sig)
+    valid = (torch.isfinite(vals) & (npixs >= 3) & (npixs <= 5000)
+             & (fluxes > 0.0) & (fwhms >= 0.5) & (fwhms <= 30.0))
+    bg_row = torch.zeros(max_peaks, dtype=torch.float32, device=image.device)
+    bg_row[0] = bg_med
+    bg_row[1] = bg_sig
+    return torch.stack([cys, cxs, fluxes, fwhms, eccs, pvals, npixs, snrs,
+                        valid.to(torch.float32), bg_row])
+
+
+def detect_stars(image, sigma_threshold: float = 5.0,
+                 max_peaks: int = MAX_PEAKS,
+                 device: Optional[torch.device] = None, *,
+                 plain: bool = False) -> DetectionResult:
+    """Full detection pipeline (star_detection.rs:86-248). ``image``
+    goes to ``device`` (default: its own device for a tensor, else
+    ``cuda_device()``); one host fetch."""
+    img = as_f32(image, device)
+    rows, cols = img.shape
+    if rows < 3 or cols < 3:
+        return DetectionResult([], 0.0, 1.0, sigma_threshold, cols, rows)
+    packed = _detect(img, _tile_size(rows, cols), float(sigma_threshold),
+                     max_peaks, plain).cpu().numpy()
+    return _postprocess_packed(packed, float(sigma_threshold), rows, cols)
+
+
+def detect_stars_pair(image_a, image_b, sigma_threshold: float = 5.0,
+                      max_peaks: int = MAX_PEAKS,
+                      device: Optional[torch.device] = None, *,
+                      plain: bool = False):
+    """detect_stars on two same-shape planes with one host fetch (the
+    alignment chain's detect × 2)."""
+    a = as_f32(image_a, device)
+    b = as_f32(image_b, a.device)
+    rows, cols = a.shape
+    if rows < 3 or cols < 3 or a.shape != b.shape:
+        return (detect_stars(a, sigma_threshold, max_peaks, plain=plain),
+                detect_stars(b, sigma_threshold, max_peaks, plain=plain))
+    tile = _tile_size(rows, cols)
+    both = torch.stack([
+        _detect(a, tile, float(sigma_threshold), max_peaks, plain),
+        _detect(b, tile, float(sigma_threshold), max_peaks, plain)]
+    ).cpu().numpy()
+    return (_postprocess_packed(both[0], float(sigma_threshold), rows, cols),
+            _postprocess_packed(both[1], float(sigma_threshold), rows, cols))
+
+
+def _postprocess_packed(packed: np.ndarray, sigma_threshold: float,
+                        rows: int, cols: int) -> DetectionResult:
+    """Brightest-first greedy 3-px dedup over a 3-px bucket grid
+    (star_detection.rs:215; a copy of the JAX package's host code)."""
+    (cys, cxs, fluxes, fwhms, eccs, pvals, npixs, snrs) = packed[:8]
+    valid = packed[8] > 0.5
+    bg_med, bg_sig = packed[9, 0], packed[9, 1]
+
+    order = np.argsort(-fluxes)  # brightest first (star_detection.rs:215)
+    cand = order[valid[order]]
+    oy = cys[cand].tolist()
+    ox = cxs[cand].tolist()
+    lfx, lfy = fluxes[cand].tolist(), fwhms[cand].tolist()
+    lec, lpk = eccs[cand].tolist(), pvals[cand].tolist()
+    lnp, lsn = npixs[cand].tolist(), snrs[cand].tolist()
+    grid: dict = {}
+    stars: List[DetectedStar] = []
+    for pos in range(len(oy)):
+        y = oy[pos]
+        x = ox[pos]
+        cy_i = int(y) // 3
+        cx_i = int(x) // 3
+        clash = False
+        for gy in (cy_i - 1, cy_i, cy_i + 1):
+            for gx in (cx_i - 1, cx_i, cx_i + 1):
+                for (sy, sx) in grid.get((gy, gx), ()):
+                    dy = sy - y
+                    dx = sx - x
+                    if dy * dy + dx * dx < 9.0:
+                        clash = True
+                        break
+                if clash:
+                    break
+            if clash:
+                break
+        if clash:
+            continue
+        grid.setdefault((cy_i, cx_i), []).append((y, x))
+        stars.append(DetectedStar(
+            x=x, y=y, flux=lfx[pos], fwhm=lfy[pos],
+            eccentricity=lec[pos], peak=lpk[pos],
+            npix=int(lnp[pos]), snr=lsn[pos]))
+    return DetectionResult(stars, float(bg_med), float(bg_sig),
+                           sigma_threshold, cols, rows)

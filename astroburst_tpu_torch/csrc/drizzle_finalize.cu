@@ -36,7 +36,13 @@
 // so a warp reads 32 neighbouring floats of each candidate plane
 // (coalesced). Live values never exceed cap = max(2n, 4), so they sit in
 // a per-thread array sized by the template bound CAPMAX (32/64/128/256,
-// picked from min(cap, m) by the entry point; the wrapper refuses more).
+// picked from min(cap, m) by the entry point). Above 256 (more than 128
+// frames) the live values go to a global scratch [depth, h, w] that the
+// wrapper allocates, laid out pixel-minor — value j of pixel o at
+// scratch[j * h * w + o] — so the threads of a warp touch neighbouring
+// words at every step; the arithmetic and its order are the same, so
+// that instance is bit-equal to the plain version too. It is slow (every
+// insertion-sort move is a global access): runs past 128 frames are rare.
 // Reading stops at the cap-th present push: later pushes can change
 // nothing. The values are insertion-sorted as they arrive; the MAD's
 // deviations |v - med| over a sorted window fall then rise (V shape), so
@@ -56,25 +62,19 @@ namespace {
 constexpr float kMadToSigma = 1.4826f;
 constexpr float kPresent = 1e-12f;
 
-template <int CAPMAX, bool FUSED>
-__global__ void __launch_bounds__(256)
-drizzle_finalize_kernel(const float* __restrict__ cand_v,
-                        const float* __restrict__ cand_w,
-                        const float* __restrict__ wys_t,
-                        const float* __restrict__ wxs, int n, int taps_y,
-                        int taps_x, int m, int h, int w, int cap,
-                        float sigma_low, float sigma_high, int iterations,
-                        float* __restrict__ img, float* __restrict__ wgt,
-                        int* __restrict__ rej) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const size_t plane = (size_t)h * (size_t)w;
-  const size_t o = (size_t)y * w + x;
-  (void)n;
-
+// One pixel's finalize. Its live value j is SV(j) = sv[j * stride]: a
+// per-thread array (stride 1) or a pixel-minor column of the global
+// scratch (stride h * w).
+#define SV(j) sv[(size_t)(j) * stride]
+template <bool FUSED>
+__device__ __forceinline__ void finalize_pixel(
+    float* sv, size_t stride, const float* __restrict__ cand_v,
+    const float* __restrict__ cand_w, const float* __restrict__ wys_t,
+    const float* __restrict__ wxs, int n, int taps_y, int taps_x, int m,
+    int w, int cap, float sigma_low, float sigma_high, int iterations,
+    int x, int y, size_t plane, size_t o, float* __restrict__ img,
+    float* __restrict__ wgt, int* __restrict__ rej) {
   // ---- presence, push-order cap, weight map, sorted live values ----
-  float sv[CAPMAX];
   int live = 0;
   int order = 0;
   float wsum = 0.0f;
@@ -99,11 +99,11 @@ drizzle_finalize_kernel(const float* __restrict__ cand_v,
     if (++order > cap) break;  // every later push is past the cap
     wsum = __fadd_rn(wsum, wk);
     int j = live - 1;
-    while (j >= 0 && sv[j] > v) {
-      sv[j + 1] = sv[j];
+    while (j >= 0 && SV(j) > v) {
+      SV(j + 1) = SV(j);
       --j;
     }
-    sv[j + 1] = v;
+    SV(j + 1) = v;
     ++live;
   }
   const int count0 = live;
@@ -117,15 +117,15 @@ drizzle_finalize_kernel(const float* __restrict__ cand_v,
     const int k1 = (cnt - 1) / 2;
     const int k2 = cnt / 2;
     const float med =
-        __fmul_rn(__fadd_rn(sv[lo + k1], sv[lo + k2]), 0.5f);
+        __fmul_rn(__fadd_rn(SV(lo + k1), SV(lo + k2)), 0.5f);
     // deviations fall over [lo, r) and rise over [r, hi): merge outwards
     int r = lo;
-    while (r < hi && sv[r] < med) ++r;
+    while (r < hi && SV(r) < med) ++r;
     int l = r - 1;
     float d1 = 0.0f, d2 = 0.0f;
     for (int s = 0; s <= k2; ++s) {
-      const float dl = l >= lo ? fabsf(__fsub_rn(sv[l], med)) : INFINITY;
-      const float dr = r < hi ? fabsf(__fsub_rn(sv[r], med)) : INFINITY;
+      const float dl = l >= lo ? fabsf(__fsub_rn(SV(l), med)) : INFINITY;
+      const float dr = r < hi ? fabsf(__fsub_rn(SV(r), med)) : INFINITY;
       float d;
       if (dl <= dr) {
         d = dl;
@@ -142,9 +142,9 @@ drizzle_finalize_kernel(const float* __restrict__ cand_v,
     const float vlo = __fsub_rn(med, __fmul_rn(sigma_low, sigma));
     const float vhi = __fadd_rn(med, __fmul_rn(sigma_high, sigma));
     int cut_lo = 0;
-    while (lo + cut_lo < hi && sv[lo + cut_lo] < vlo) ++cut_lo;
+    while (lo + cut_lo < hi && SV(lo + cut_lo) < vlo) ++cut_lo;
     int cut_hi = 0;
-    while (hi - 1 - cut_hi >= lo && sv[hi - 1 - cut_hi] > vhi) ++cut_hi;
+    while (hi - 1 - cut_hi >= lo && SV(hi - 1 - cut_hi) > vhi) ++cut_hi;
     lo += cut_lo;
     hi -= cut_hi;
     if (cut_lo + cut_hi == 0) break;  // stopped: a fixed point
@@ -155,11 +155,11 @@ drizzle_finalize_kernel(const float* __restrict__ cand_v,
   float result = 0.0f;
   if (final_cnt > 0) {
     float s = 0.0f;
-    for (int j = lo; j < hi; ++j) s = __fadd_rn(s, sv[j]);
+    for (int j = lo; j < hi; ++j) s = __fadd_rn(s, SV(j));
     result = __fdiv_rn(s, (float)final_cnt);
   } else if (count0 > 0) {
     float s = 0.0f;
-    for (int j = 0; j < count0; ++j) s = __fadd_rn(s, sv[j]);
+    for (int j = 0; j < count0; ++j) s = __fadd_rn(s, SV(j));
     result = __fdiv_rn(s, (float)count0);
   }
   img[o] = result;
@@ -167,11 +167,60 @@ drizzle_finalize_kernel(const float* __restrict__ cand_v,
   rej[o] = count0 - final_cnt;
 }
 
+#undef SV
+
+// Live values in a per-thread array of CAPMAX floats.
+template <int CAPMAX, bool FUSED>
+__global__ void __launch_bounds__(256)
+drizzle_finalize_kernel(const float* __restrict__ cand_v,
+                        const float* __restrict__ cand_w,
+                        const float* __restrict__ wys_t,
+                        const float* __restrict__ wxs, int n, int taps_y,
+                        int taps_x, int m, int h, int w, int cap,
+                        float sigma_low, float sigma_high, int iterations,
+                        float* __restrict__ img, float* __restrict__ wgt,
+                        int* __restrict__ rej) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t plane = (size_t)h * (size_t)w;
+  const size_t o = (size_t)y * w + x;
+  float sv[CAPMAX];
+  finalize_pixel<FUSED>(sv, 1, cand_v, cand_w, wys_t, wxs, n, taps_y, taps_x,
+                        m, w, cap, sigma_low, sigma_high, iterations, x, y,
+                        plane, o, img, wgt, rej);
+}
+
+// Live values in the global scratch [min(cap, m), h, w]. The minimum of
+// one block per SM lets ptxas use more than 32 registers: at the
+// default it spilled the 64-bit scratch addressing.
+template <bool FUSED>
+__global__ void __launch_bounds__(256, 1)
+drizzle_finalize_scratch_kernel(const float* __restrict__ cand_v,
+                                const float* __restrict__ cand_w,
+                                const float* __restrict__ wys_t,
+                                const float* __restrict__ wxs, int n,
+                                int taps_y, int taps_x, int m, int h, int w,
+                                int cap, float sigma_low, float sigma_high,
+                                int iterations, float* __restrict__ scratch,
+                                float* __restrict__ img,
+                                float* __restrict__ wgt,
+                                int* __restrict__ rej) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t plane = (size_t)h * (size_t)w;
+  const size_t o = (size_t)y * w + x;
+  finalize_pixel<FUSED>(scratch + o, plane, cand_v, cand_w, wys_t, wxs, n,
+                        taps_y, taps_x, m, w, cap, sigma_low, sigma_high,
+                        iterations, x, y, plane, o, img, wgt, rej);
+}
+
 template <bool FUSED>
 int launch(const float* cand_v, const float* cand_w, const float* wys_t,
            const float* wxs, int n, int taps_y, int taps_x, int m, int h,
            int w, int cap, float sigma_low, float sigma_high, int iterations,
-           float* img, float* wgt, int* rej, void* stream) {
+           float* scratch, float* img, float* wgt, int* rej, void* stream) {
   if (h <= 0 || w <= 0) return 0;
   const dim3 block(32, 8);
   const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
@@ -189,6 +238,10 @@ int launch(const float* cand_v, const float* cand_w, const float* wys_t,
     ABT_FINALIZE(128);
   else if (depth <= 256)
     ABT_FINALIZE(256);
+  else if (scratch != nullptr)
+    drizzle_finalize_scratch_kernel<FUSED><<<grid, block, 0, s>>>(
+        cand_v, cand_w, wys_t, wxs, n, taps_y, taps_x, m, h, w, cap,
+        sigma_low, sigma_high, iterations, scratch, img, wgt, rej);
   else
     return static_cast<int>(cudaErrorInvalidValue);
 #undef ABT_FINALIZE
@@ -198,28 +251,32 @@ int launch(const float* cand_v, const float* cand_w, const float* wys_t,
 }  // namespace
 
 // K7. cand_v [n*taps_y*taps_x, h, w] raw values, wys_t [h, n*taps_y],
-// wxs [n*taps_x, w]. Returns cudaGetLastError() after the launch;
-// min(cap, m) > 256 is refused.
+// wxs [n*taps_x, w]; scratch [min(cap, m), h, w] f32 when min(cap, m) >
+// 256, else unused (may be null). Returns cudaGetLastError() after the
+// launch; min(cap, m) > 256 without a scratch is refused.
 extern "C" int abt_drizzle_finalize_fused(const float* cand_v,
                                           const float* wys_t,
                                           const float* wxs, int n,
                                           int taps_y, int taps_x, int h,
                                           int w, int cap, float sigma_low,
                                           float sigma_high, int iterations,
-                                          float* img, float* wgt, int* rej,
+                                          float* scratch, float* img,
+                                          float* wgt, int* rej,
                                           void* stream) {
   return launch<true>(cand_v, nullptr, wys_t, wxs, n, taps_y, taps_x,
                       n * taps_y * taps_x, h, w, cap, sigma_low, sigma_high,
-                      iterations, img, wgt, rej, stream);
+                      iterations, scratch, img, wgt, rej, stream);
 }
 
-// K8. cand_v, cand_w [m, h, w]. Same return convention.
+// K8. cand_v, cand_w [m, h, w]; scratch as for K7. Same return
+// convention.
 extern "C" int abt_drizzle_finalize(const float* cand_v, const float* cand_w,
                                     int m, int h, int w, int cap,
                                     float sigma_low, float sigma_high,
-                                    int iterations, float* img, float* wgt,
-                                    int* rej, void* stream) {
+                                    int iterations, float* scratch,
+                                    float* img, float* wgt, int* rej,
+                                    void* stream) {
   return launch<false>(cand_v, cand_w, nullptr, nullptr, 1, 1, 1, m, h, w,
-                       cap, sigma_low, sigma_high, iterations, img, wgt, rej,
-                       stream);
+                       cap, sigma_low, sigma_high, iterations, scratch, img,
+                       wgt, rej, stream);
 }

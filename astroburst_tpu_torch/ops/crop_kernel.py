@@ -54,7 +54,7 @@ def gather_crops(stack: torch.Tensor, y0s: torch.Tensor, x0s: torch.Tensor,
     if not K.use_kernel(stack, "gather_crops"):
         return gather_crops_plain(stack, y0s, x0s, size_r, size_c, frame0)
     n_out = y0s.shape[0]
-    K.require_cuda_f32(stack, "stack", 3)
+    K.require_cuda(stack, "stack", 3)
     _check(stack, n_out, size_r, size_c, frame0)
     if y0s.shape != (n_out,) or x0s.shape != (n_out,):
         raise ValueError("y0s and x0s must be 1-D of equal length")

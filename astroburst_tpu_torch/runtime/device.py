@@ -12,6 +12,8 @@ decimal digits, which would break the repo's 1e-5 parity budget
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -32,3 +34,11 @@ def tf32_disabled() -> bool:
     """True when neither matmul nor cuDNN may use TF32."""
     return (not torch.backends.cuda.matmul.allow_tf32
             and not torch.backends.cudnn.allow_tf32)
+
+
+def as_f32(x, device: Optional[torch.device] = None) -> torch.Tensor:
+    """``x`` (a tensor or an array) as an f32 tensor on ``device``;
+    by default a tensor's own device, else ``cuda_device()``."""
+    if device is None:
+        device = x.device if isinstance(x, torch.Tensor) else cuda_device()
+    return torch.as_tensor(x).to(device=device, dtype=torch.float32)

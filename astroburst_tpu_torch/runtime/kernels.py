@@ -62,13 +62,20 @@ SIGNATURES = {
     # stack, y0s, x0s, n_out, h, w, size_r, size_c, frame0, out, stream
     "abt_gather_crops": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     # cand_v, wys_t, wxs, n, taps_y, taps_x, h, w, cap, sigma_low,
-    # sigma_high, iterations, img, wgt, rej, stream
+    # sigma_high, iterations, scratch, img, wgt, rej, stream
     "abt_drizzle_finalize_fused": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                   _F, _I, _P, _P, _P, _P),
+                                   _F, _I, _P, _P, _P, _P, _P),
     # cand_v, cand_w, m, h, w, cap, sigma_low, sigma_high, iterations,
-    # img, wgt, rej, stream
+    # scratch, img, wgt, rej, stream
     "abt_drizzle_finalize": (_P, _P, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P,
-                             _P),
+                             _P, _P),
+    # plane, ty, tx, step, chunk, n_chunks, scratch, out, counts, stream
+    "abt_tile_sort": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # image, h, w, pys, pxs, k, n_valid, threshold, bg_med, out, stream
+    "abt_window_stats": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P),
+    # ref_ratios, ref_verts, t_ref, tgt_ratios, tgt_verts, t_tgt, tol,
+    # split, votes, stream
+    "abt_triangle_vote": (_P, _P, _I, _P, _P, _I, _F, _I, _P, _P),
 }
 
 
@@ -180,12 +187,19 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
 
 
-def require_cuda_f32(t: torch.Tensor, name: str, ndim: int) -> None:
-    """Validate a kernel input before its pointer goes to C."""
+def ptr(t) -> int:
+    """A tensor's data pointer, or 0 (NULL) for an absent buffer."""
+    return 0 if t is None else t.data_ptr()
+
+
+def require_cuda(t: torch.Tensor, name: str, ndim: int,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Validate a kernel input (of ``dtype``, f32 by default) before its
+    pointer goes to C."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.ndim != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape "
                          f"{tuple(t.shape)}")

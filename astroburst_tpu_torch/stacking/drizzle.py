@@ -33,11 +33,11 @@ Differences from the JAX module, none of them in the arithmetic:
   f32 value: PyTorch may turn a division by a Python scalar on the card
   into a multiplication by its reciprocal, which would move the floor
   of a tap base;
-- drizzle alignment runs one ``phase_correlate_stack`` call for all
-  frames and fetches the offsets once. The affine route (the
-  low-confidence fallback and the AFFINE/ZNCC methods) needs
-  alignment/affine, not ported yet (ROADMAP A10): it raises
-  ``NotImplementedError`` instead of keeping a phase-correlation offset.
+- drizzle alignment by phase correlation runs one
+  ``phase_correlate_stack`` call for all frames and fetches the offsets
+  once; a frame whose confidence is low then takes the affine route
+  (``alignment/pair.estimate_offset(AFFINE)``) on its own, as every
+  frame does under the other alignment methods (drizzle.py:727-741).
 
 Band arithmetic is JAX's: each band offsets d_y by ``- r0/scale`` with
 ``r0`` an f32 multiple of ``band_rows``, so results depend on
@@ -53,11 +53,12 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from astroburst_tpu_torch.alignment.pair import estimate_offset
 from astroburst_tpu_torch.alignment.phase_correlation import (
-    CONFIDENCE_THRESHOLD, is_low_confidence, phase_correlate_stack)
+    is_low_confidence, phase_correlate_stack)
 from astroburst_tpu_torch.constants import MAD_TO_SIGMA
-from astroburst_tpu_torch.dtypes import (AlignmentMethod, DrizzleConfig,
-                                         DrizzleKernel)
+from astroburst_tpu_torch.dtypes import (AlignMethod, AlignmentMethod,
+                                         DrizzleConfig, DrizzleKernel)
 from astroburst_tpu_torch.errors import InvalidInput
 from astroburst_tpu_torch.runtime.device import cuda_device
 
@@ -465,12 +466,6 @@ def drizzle_stack(images: Sequence, config: DrizzleConfig = DrizzleConfig(),
         raise InvalidInput(
             f"Frame dimensions vary too much (rows: {max_rows - min_rows}px, "
             f"cols: {max_cols - min_cols}px, tolerance: {tolerance}px)")
-    if config.align and \
-            config.alignment_method != AlignmentMethod.PHASE_CORRELATION:
-        raise NotImplementedError(
-            f"drizzle alignment by {config.alignment_method.value} takes "
-            f"the affine route (alignment/affine), which is not ported yet "
-            f"(ROADMAP A10)")
 
     if device is None:
         first = images[0]
@@ -488,18 +483,18 @@ def drizzle_stack(images: Sequence, config: DrizzleConfig = DrizzleConfig(),
 
     offsets: List[Tuple[float, float]] = [(0.0, 0.0)]
     if config.align:
-        dys, dxs, confs = phase_correlate_stack(stack[0], stack[1:],
-                                                plain=plain)
-        dys, dxs, confs = torch.stack([dys, dxs, confs]).cpu().tolist()
-        low = [i + 1 for i, c in enumerate(confs) if is_low_confidence(c)]
-        if low:
-            raise NotImplementedError(
-                f"frames {low}: phase-correlation confidence below "
-                f"{CONFIDENCE_THRESHOLD}; the affine fallback "
-                f"(alignment/affine) is not ported yet (ROADMAP A10)")
-        offsets += [(dx, dy) for dy, dx in zip(dys, dxs)]
-        if progress is not None:
-            for i in range(1, n):
+        by_pc = config.alignment_method == AlignmentMethod.PHASE_CORRELATION
+        if by_pc:
+            pc = phase_correlate_stack(stack[0], stack[1:], plain=plain)
+            pc = torch.stack(pc).cpu().tolist()
+        for i in range(1, n):
+            if by_pc and not is_low_confidence(pc[2][i - 1]):
+                dy, dx = pc[0][i - 1], pc[1][i - 1]
+            else:   # low confidence, or AFFINE/ZNCC (drizzle.rs:302-306)
+                dy, dx, _ = estimate_offset(stack[0], stack[i],
+                                            AlignMethod.AFFINE, plain=plain)
+            offsets.append((dx, dy))
+            if progress is not None:
                 progress.tick_with_stage(f"align {i}/{n - 1}")
                 progress.check_cancelled()
     else:

@@ -14,8 +14,11 @@ presence = isfinite(v) & (w > 1e-12) for K7 and w > 1e-12 for K8 (K8
 takes the candidates as the JAX ``_frame_candidates`` makes them: a value
 whose weight passes the threshold is finite). The kernel keeps at most
 ``min(cap, m)`` live values per pixel in a per-thread array whose
-largest template size is ``MAX_CAP``; above it the wrappers raise. The
-TPU kernels' block-divisibility constraint does not exist here.
+largest template size is ``MAX_CAP``; above it (more than 128 frames at
+cap = 2n) the wrappers allocate a global scratch [min(cap, m), H, W]
+for the kernel's pixel-minor instance, which is slower and bit-equal
+too. The TPU kernels' block-divisibility constraint does not exist
+here.
 
 ``drizzle_finalize_fused`` and ``drizzle_finalize`` launch the kernel
 for a CUDA tensor and run the plain version for a CPU tensor; they
@@ -29,7 +32,7 @@ import torch
 from astroburst_tpu_torch.runtime import kernels as K
 from astroburst_tpu_torch.stacking.drizzle import _finalize_exact, _outer
 
-MAX_CAP = 256  # largest live-value array (csrc/drizzle_finalize.cu)
+MAX_CAP = 256  # largest local live-value array (csrc/drizzle_finalize.cu)
 
 
 def drizzle_finalize_fused_plain(cand_v_raw, wys_t, wxs, n: int, taps_y: int,
@@ -52,19 +55,20 @@ def drizzle_finalize_plain(cand_v, cand_w, cap: int, sigma_low: float,
                            iterations)
 
 
-def _check_common(m: int, cap: int, iterations: int) -> None:
+def _check_common(cap: int, iterations: int) -> None:
     if cap < 1 or iterations < 0:
         raise ValueError(f"cap must be >= 1 and iterations >= 0, got cap "
                          f"{cap}, iterations {iterations}")
-    if min(cap, m) > MAX_CAP:
-        raise ValueError(
-            f"the drizzle finalize kernel keeps at most MAX_CAP={MAX_CAP} "
-            f"live candidates per pixel (cap = max(2·frames, 4), so at "
-            f"most 128 frames); got min(cap, m) = {min(cap, m)}")
 
 
-def _outputs(h: int, w: int, device):
-    return (torch.empty((h, w), dtype=torch.float32, device=device),
+def _outputs(m: int, h: int, w: int, cap: int, device):
+    """(scratch or None, image, weight map, rejected map): the scratch
+    [min(cap, m), h, w] only where the live values outgrow MAX_CAP."""
+    depth = min(cap, m)
+    scratch = torch.empty((depth, h, w), dtype=torch.float32,
+                          device=device) if depth > MAX_CAP else None
+    return (scratch,
+            torch.empty((h, w), dtype=torch.float32, device=device),
             torch.empty((h, w), dtype=torch.float32, device=device),
             torch.empty((h, w), dtype=torch.int32, device=device))
 
@@ -80,9 +84,9 @@ def drizzle_finalize_fused(cand_v_raw, wys_t, wxs, n: int, taps_y: int,
         return drizzle_finalize_fused_plain(cand_v_raw, wys_t, wxs, n,
                                             taps_y, taps_x, cap, sigma_low,
                                             sigma_high, iterations)
-    K.require_cuda_f32(cand_v_raw, "cand_v_raw", 3)
-    K.require_cuda_f32(wys_t, "wys_t", 2)
-    K.require_cuda_f32(wxs, "wxs", 2)
+    K.require_cuda(cand_v_raw, "cand_v_raw", 3)
+    K.require_cuda(wys_t, "wys_t", 2)
+    K.require_cuda(wxs, "wxs", 2)
     m, h, w = cand_v_raw.shape
     if m != n * taps_y * taps_x or wys_t.shape != (h, n * taps_y) \
             or wxs.shape != (n * taps_x, w):
@@ -90,12 +94,12 @@ def drizzle_finalize_fused(cand_v_raw, wys_t, wxs, n: int, taps_y: int,
             f"shapes do not match: cand_v_raw {tuple(cand_v_raw.shape)}, "
             f"wys_t {tuple(wys_t.shape)}, wxs {tuple(wxs.shape)} for n={n}, "
             f"taps ({taps_y}, {taps_x})")
-    _check_common(m, cap, iterations)
-    img, wgt, rej = _outputs(h, w, cand_v_raw.device)
+    _check_common(cap, iterations)
+    scratch, img, wgt, rej = _outputs(m, h, w, cap, cand_v_raw.device)
     K.launch("abt_drizzle_finalize_fused", cand_v_raw.data_ptr(),
              wys_t.data_ptr(), wxs.data_ptr(), n, taps_y, taps_x, h, w, cap,
              float(sigma_low), float(sigma_high), int(iterations),
-             img.data_ptr(), wgt.data_ptr(), rej.data_ptr(),
+             K.ptr(scratch), img.data_ptr(), wgt.data_ptr(), rej.data_ptr(),
              K.stream_handle(cand_v_raw))
     drizzle_finalize_fused.launches += 1
     return img, wgt, rej
@@ -108,18 +112,18 @@ def drizzle_finalize(cand_v, cand_w, cap: int, sigma_low: float,
     if not K.use_kernel(cand_v, "drizzle_finalize"):
         return drizzle_finalize_plain(cand_v, cand_w, cap, sigma_low,
                                       sigma_high, iterations)
-    K.require_cuda_f32(cand_v, "cand_v", 3)
-    K.require_cuda_f32(cand_w, "cand_w", 3)
+    K.require_cuda(cand_v, "cand_v", 3)
+    K.require_cuda(cand_w, "cand_w", 3)
     if cand_w.shape != cand_v.shape:
         raise ValueError(f"cand_w {tuple(cand_w.shape)} differs from "
                          f"cand_v {tuple(cand_v.shape)}")
     m, h, w = cand_v.shape
-    _check_common(m, cap, iterations)
-    img, wgt, rej = _outputs(h, w, cand_v.device)
+    _check_common(cap, iterations)
+    scratch, img, wgt, rej = _outputs(m, h, w, cap, cand_v.device)
     K.launch("abt_drizzle_finalize", cand_v.data_ptr(), cand_w.data_ptr(),
              m, h, w, cap, float(sigma_low), float(sigma_high),
-             int(iterations), img.data_ptr(), wgt.data_ptr(), rej.data_ptr(),
-             K.stream_handle(cand_v))
+             int(iterations), K.ptr(scratch), img.data_ptr(), wgt.data_ptr(),
+             rej.data_ptr(), K.stream_handle(cand_v))
     drizzle_finalize.launches += 1
     return img, wgt, rej
 

@@ -47,7 +47,7 @@ def shift_clip_onepass(stack: torch.Tensor, dys, dxs,
     if not K.use_kernel(stack, "shift_clip_onepass"):
         return shift_clip_onepass_plain(stack, dys, dxs, sigma_low,
                                         sigma_high, max_iter)
-    K.require_cuda_f32(stack, "stack", 3)
+    K.require_cuda(stack, "stack", 3)
     n, h, w = stack.shape
     if not 1 <= n <= MAX_FRAMES:
         raise ValueError(f"shift_clip_onepass takes 1..{MAX_FRAMES} "

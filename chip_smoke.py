@@ -20,8 +20,13 @@ exits non-zero, and so does a machine without a CUDA device):
    NaN/inf pixels (every template instance of the kernel), K1 also on
    NaN/inf frames. K7 and K8 (the drizzle finalize) on one 1024-row
    band of the drizzle bench (10 x 4096^2 f32 → 8192^2: 40 candidates x
-   1024 x 8192), and at 10, 30, 60 and 128 frames with NaN/inf pixels
-   (every template instance);
+   1024 x 8192), and at 10, 30, 60, 128 and 150 frames with NaN/inf
+   pixels (every template instance; past 128 frames the global-scratch
+   one). K10 (tile sort) on a 4096^2 star field (256 tiles of 256^2),
+   on a 5655 x 2206 field (23 x 9 tiles, NaN padding), both with NaN/inf
+   pixels, and at 1000^2 (step 125); K11 (window statistics) on the
+   4096^2 field of ~3000 stars with NaN patches at 1024 peaks; K12
+   (triangle vote) at the full triangle count of 60 stars;
 4. main paths, each with every kernel launch counter reset just before
    and read just after: (a) ``align_stack_stretch`` on the bench
    workload and ``stack_images`` on 24 frames of 2048^2 (shifts up to
@@ -30,11 +35,21 @@ exits non-zero, and so does a machine without a CUDA device):
    10 calibrated lights of 4096^2 (a star field with sub-pixel dithers
    in +-2 px, rendered analytically), ``drizzle_stack`` with the
    default config (scale 2, pixfrac 0.7, square, 5 iterations: the
-   exact route), stats, auto-STF and u8; offsets against the dithers.
+   exact route), stats, auto-STF and u8; offsets against the dithers;
+   (c) star detection → affine alignment → warp: ``detect_stars`` on the
+   4096^2 field of ~3000 stars (BASELINE.md:13) and on a 5655 x 2206
+   field of 200 stars (BASELINE.md:26), isolated bright stars within
+   0.3 px of the generator; ``align_channel_affine`` + ``warp_image`` at
+   5655 x 2206 with 90 stars against the target of the JAX package's
+   affine bench (rotation 0.4 deg, shift (3.2, -2.1), noise 1.5, rendered
+   here on the card) and at 4096^2 with 80 stars (BASELINE.md:17), the
+   rotation recovered within 0.1 deg; ``drizzle_stack`` by the AFFINE
+   method on 4 dithered 1024^2 star fields, offsets within 0.15 px.
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``drizzle_stack`` as is, band 64, and ``_drizzle_kernel_exact`` at
-   band 1024, as the JAX package's drizzle bench ran it);
+   band 1024, as the JAX package's drizzle bench ran it; detection and
+   alignment with their host fetches);
 5. report: one JSON line of per-kernel results (launches on the main
    paths, error against the plain version, kernel / plain / bound /
    library times), the card's name and power limit, and the final
@@ -53,20 +68,28 @@ rejected map (the kernel keeps the plain version's order of every sum
 and cannot contract), weight map within rtol 1e-6. Offsets: within
 0.1 px of the generator's integer shifts, 0.15 px of the drizzle
 dithers, and 0.05 px between the kernel and plain paths. STF
-parameters: within 1e-4.
+parameters: within 1e-4. K10: sorted tiles and counts bit-equal. K11
+and detection: the valid set identical; cy, cx, flux, fwhm, peak, npix
+and snr within rel 1e-4, eccentricity within abs 0.01 (the JAX
+package's bound between its two forms: f32 sums in another order),
+recomputed in f64 from each side's second moments in the
+well-conditioned form (``check_packed``).
+K12: votes equal. Affine: the same method and inlier count on both
+paths, transform parameters within 1e-3.
 
 Bounds: the larger of the bytes a kernel must move (each input read
 once, each output written once) over 3.35 TB/s and the f32 operations
 counted for it over 67 TFLOP/s (the published peaks of one H100 SXM
 at 700 W). Library times: one PyTorch call computing
 the same function where there is one (K1: avg_pool2d for the box
-means; K2: one advanced-index gather), timed here and used nowhere in
-the port.
+means; K2: one advanced-index gather; K10: one torch.sort over the
+masked tiles), timed here and used nowhere in the port.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -78,6 +101,9 @@ N_FRAMES, H, W = 16, 5655, 2206          # bench.py:43-44
 BIG_N, BIG_HW, BIG_SHIFT = 24, 2048, 200  # stack_images workload
 DRZ_N, DRZ_HW, DRZ_BAND = 10, 4096, 1024  # bench_ops.py:366-397
 DRZ_SEED = 10
+DET_HW, DET_STARS = 4096, 3000         # BASELINE.md:13
+AFF_STARS_5K, AFF_STARS_4K = 90, 80    # bench_ops.py:299, BASELINE.md:17
+DRA_N, DRA_HW = 4, 1024                # drizzle by the AFFINE method
 FLIP_ATOL = 5e-3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -157,23 +183,141 @@ def make_frames(n, h, w, seed=3):
     return np.stack(frames)
 
 
-def render_stars(h, w, ys, xs, amps, dy, dx, sigma, device):
+def render_stars(h, w, ys, xs, amps, dy, dx, sigma, device, radius=7,
+                 halo=0.0):
     """[h, w] f32 sum of Gaussian stars (peak amps, centres (ys + dy,
-    xs + dx)), each evaluated analytically on a 15 x 15 window."""
+    xs + dx)), each evaluated analytically on a (2·radius + 1)^2
+    window; ``halo`` adds a wing of that fraction of the peak with 5x
+    the width (bench_ops.py:_star_field's halos)."""
     import torch
-    r = torch.arange(-7, 8, device=device)
+    r = torch.arange(-radius, radius + 1, device=device)
     cy = torch.as_tensor(ys + dy, dtype=torch.float64, device=device)
     cx = torch.as_tensor(xs + dx, dtype=torch.float64, device=device)
     iy = torch.round(cy).long()[:, None, None] + r[None, :, None]
     ix = torch.round(cx).long()[:, None, None] + r[None, None, :]
+    d2 = (iy - cy[:, None, None]) ** 2 + (ix - cx[:, None, None]) ** 2
+    s2 = 2.0 * sigma * sigma
     val = torch.as_tensor(amps, dtype=torch.float64, device=device)[
-        :, None, None] * torch.exp(
-        -((iy - cy[:, None, None]) ** 2 + (ix - cx[:, None, None]) ** 2)
-        / (2.0 * sigma * sigma))
+        :, None, None] * (torch.exp(-d2 / s2)
+                          + halo * torch.exp(-d2 / (25.0 * s2)))
     ok = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
     img = torch.zeros(h * w, dtype=torch.float64, device=device)
     img.index_put_(((iy * w + ix)[ok],), val[ok], accumulate=True)
     return img.reshape(h, w).float()
+
+
+def star_scene(h, w, n_stars, seed, device, amp=(300.0, 3000.0),
+               sigma=1.5, noise=5.0):
+    """A star field on the card: background 100 + noise, n_stars
+    Gaussian stars at uniform positions and peak amplitudes. Returns
+    (plane [h, w] f32, ys, xs, amps) with the generator's centres."""
+    import torch
+    rng = np.random.default_rng(seed)
+    ys = rng.uniform(8, h - 8, n_stars)
+    xs = rng.uniform(8, w - 8, n_stars)
+    amps = rng.uniform(*amp, n_stars)
+    g = torch.Generator(device=device).manual_seed(seed)
+    img = 100.0 + noise * torch.randn((h, w), generator=g, device=device)
+    return img + render_stars(h, w, ys, xs, amps, 0.0, 0.0, sigma,
+                              device), ys, xs, amps
+
+
+def affine_scene(h, w, n_stars, seed, device):
+    """The JAX package's affine bench pair (bench_ops.py:299-320),
+    rendered here on the card: a star field with halos (amp 5000 · (0.1
+    + Pareto(2) ≤ 9), FWHM 3), and the target sampled from it at the
+    nearest pixel (truncation) of a 0.4 deg rotation about the centre
+    plus a (3.2, -2.1) shift, with N(0, 1.5) noise."""
+    import torch
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    base = 100.0 + 5.0 * torch.randn((h, w), generator=g, device=device)
+    ys = rng.random(n_stars) * (h - 40) + 20
+    xs = rng.random(n_stars) * (w - 40) + 20
+    amps = 5000.0 * (0.1 + rng.pareto(2.0, n_stars).clip(max=9.0))
+    base = base + render_stars(h, w, ys, xs, amps, 0.0, 0.0, 3.0 / 2.3548,
+                               device, radius=14, halo=0.06)
+    th = math.radians(0.4)
+    ct, st = math.cos(th), math.sin(th)
+    cy, cx = h / 2.0, w / 2.0
+    yy = torch.arange(h, dtype=torch.float32, device=device)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=device)[None, :]
+    sx = ct * (xx - cx) - st * (yy - cy) + cx + 3.2
+    sy = st * (xx - cx) + ct * (yy - cy) + cy - 2.1
+    xi = torch.clamp(sx.to(torch.int64), 0, w - 1)
+    yi = torch.clamp(sy.to(torch.int64), 0, h - 1)
+    target = base[yi, xi] + 1.5 * torch.randn((h, w), generator=g,
+                                              device=device)
+    return base, target
+
+
+def isolated_bright(ys, xs, amps, h, w, min_amp, sep=15.0, margin=25.0,
+                    dead=()):
+    """Indices of generated stars with peak >= min_amp, no other star
+    within ``sep`` px, ``margin`` px inside the plane and outside the
+    ``dead`` rectangles (y0, y1, x0, x1) grown by the margin."""
+    d2 = (ys[:, None] - ys[None, :]) ** 2 + (xs[:, None] - xs[None, :]) ** 2
+    np.fill_diagonal(d2, np.inf)
+    keep = (amps >= min_amp) & (d2.min(axis=1) > sep * sep)
+    keep &= (ys > margin) & (ys < h - margin) & (xs > margin) & \
+        (xs < w - margin)
+    for y0, y1, x0, x1 in dead:
+        keep &= ~((ys > y0 - margin) & (ys < y1 + margin)
+                  & (xs > x0 - margin) & (xs < x1 + margin))
+    return np.flatnonzero(keep)
+
+
+def check_positions(what, det, ys, xs, idx, tol=0.3):
+    """Every generated star of ``idx`` has a detection within ``tol``
+    px; returns the largest distance."""
+    sy = np.array([s.y for s in det.stars])
+    sx = np.array([s.x for s in det.stars])
+    dist = np.sqrt(((ys[idx, None] - sy[None, :]) ** 2
+                    + (xs[idx, None] - sx[None, :]) ** 2).min(axis=1))
+    log(f"  {what}: {len(det.stars)} stars; {len(idx)} isolated bright "
+        f"generated stars, farthest detection {float(dist.max()):.4f} px")
+    if len(idx) < 10 or float(dist.max()) > tol:
+        raise AssertionError(f"{what}: isolated bright stars off by up to "
+                             f"{float(dist.max())} px (n={len(idx)})")
+    return float(dist.max())
+
+
+def ecc64(stats9):
+    """Eccentricity sqrt(1 - l2/l1) of [K, 9] window rows, in f64 with
+    the eigenvalue gap in the well-conditioned form
+    sqrt(((sxx - syy)/2)^2 + sxy^2). The f32 form of the detection,
+    sqrt(trace^2/4 - det), cancels: one ulp in a moment moves a round
+    star's ecc by a few 0.01 there."""
+    import torch
+    sxx, syy, sxy = stats9[:, 5:8].double().unbind(1)
+    half = (sxx + syy) / 2
+    disc = torch.sqrt(((sxx - syy) / 2) ** 2 + sxy ** 2)
+    l1 = half + disc
+    l2 = torch.clamp(half - disc, min=0.0)
+    return torch.where(l1 > 1e-15, torch.sqrt(torch.clamp(
+        (l1 - l2) / l1.clamp(min=1e-300), 0.0, 1.0)), 0.0)
+
+
+def check_packed(what, got, ref, got9, ref9) -> float:
+    """Packed detection records (kernel vs plain) and the window rows
+    they were made from: the valid set identical; cy, cx, flux, fwhm,
+    peak, npix, snr within rel 1e-4; the eccentricity (``ecc64`` of each
+    side's rows) within abs 0.01. Returns the largest relative error."""
+    import torch
+    if not torch.equal(got[8], ref[8]):
+        raise AssertionError(f"{what}: valid sets differ")
+    v = ref[8] > 0.5
+    worst = 0.0
+    for i in (0, 1, 2, 3, 5, 6, 7):
+        rel = (got[i] - ref[i]).abs() / ref[i].abs().clamp(min=1e-6)
+        worst = max(worst, float(torch.where(v, rel, 0.0).max()))
+    d_ecc = float(torch.where(v.cpu(), (ecc64(got9) - ecc64(ref9)).abs().cpu(),
+                              0.0).max())
+    log(f"  {what}: {int(v.sum())} valid, max rel err {worst:.3e}, ecc "
+        f"(f64 from the moments) max|d| {d_ecc:.3e}")
+    if worst >= 1e-4 or d_ecc >= 0.01:
+        raise AssertionError(f"{what}: beyond rel 1e-4 / ecc 0.01")
+    return worst
 
 
 def calibration_scene(n, hw, seed, device, n_cal=16):
@@ -345,14 +489,23 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                  "is false); this script runs only on the card")
 
+    from astroburst_tpu_torch.alignment import affine as AF
     from astroburst_tpu_torch.alignment.coarse_kernel import (
         box_plan, coarse_downsample_stack, coarse_downsample_stack_plain)
+    from astroburst_tpu_torch.alignment.vote_kernel import vote, vote_plain
+    from astroburst_tpu_torch.analysis import star_detection as SD
+    from astroburst_tpu_torch.analysis.tile_sort_kernel import (
+        sort_tiles, sort_tiles_plain)
+    from astroburst_tpu_torch.analysis.window_kernel import (
+        window_stats, window_stats_plain)
     from astroburst_tpu_torch.alignment.phase_correlation import (
         REFINE_CROP_SIZE, _refine_origin)
     from astroburst_tpu_torch.convert import stack_from_numpy
-    from astroburst_tpu_torch.dtypes import DrizzleConfig, DrizzleKernel
+    from astroburst_tpu_torch.dtypes import (AlignmentMethod, DrizzleConfig,
+                                             DrizzleKernel)
     from astroburst_tpu_torch.ops.crop_kernel import (gather_crops,
                                                       gather_crops_plain)
+    from astroburst_tpu_torch.ops.masking import validity_mask
     from astroburst_tpu_torch.parallel.pipeline import align_stack_stretch
     from astroburst_tpu_torch.runtime import kernels as K
     from astroburst_tpu_torch.runtime.device import (cuda_device,
@@ -394,7 +547,8 @@ def main() -> None:
             f"{stack_b} B stack, spills {sst}/{sld} B")
     built = {r[0].split("<")[0] for r in rows}
     want = {"shift_clip_kernel", "coarse_box_kernel", "gather_crops_kernel",
-            "drizzle_finalize_kernel"}
+            "drizzle_finalize_kernel", "tile_sort_kernel",
+            "window_stats_kernel", "triangle_vote_kernel"}
     if not want <= built:
         raise AssertionError(f"kernels missing from the build: "
                              f"{want - built}")
@@ -620,8 +774,9 @@ def main() -> None:
 
     # NaN/inf pixels at every template size of the finalize kernel:
     # min(cap, m) = 2n at 2 x 2 taps → 20, 60, 120, 256 (CAPMAX 32, 64,
-    # 128, 256); K8 gets the raw non-finite values at weight 0
-    for n in (10, 30, 60, 128):
+    # 128, 256) and 300 (past 128 frames: the global scratch); K8 gets
+    # the raw non-finite values at weight 0
+    for n in (10, 30, 60, 128, 150):
         e = rng.normal(100, 8, (n, 40, 72)).astype(np.float32)
         e[rng.random(e.shape) < 0.02] = np.nan
         e[: n // 2, 5, 9] = np.inf
@@ -642,14 +797,140 @@ def main() -> None:
         check_finalize(f"[K8] {tuple(cand.shape)}, NaN/inf at weight 0",
                        drizzle_finalize(cand, cand_w, *args[3:]),
                        drizzle_finalize_plain(cand, cand_w, *args[3:]))
+    # the global-scratch instance (150 frames, cap 300), timed
+    report["drizzle_finalize_fused"].update({
+        "shape_150_frames": list(cand.shape),
+        "ms_150_frames": cuda_ms(lambda: drizzle_finalize_fused(
+            cand, wys_t, wxs, *args), 10),
+        "plain_ms_150_frames": cuda_ms(lambda: drizzle_finalize_fused_plain(
+            cand, wys_t, wxs, *args), 3)})
     del es, cand, cand_w, dstack
+
+    # K10: the tile sort, bit-equal, at the detection path's steps
+    t0 = time.perf_counter()
+    field, f_ys, f_xs, f_amps = star_scene(DET_HW, DET_HW, DET_STARS, 21,
+                                           dev)
+    dead = [(r, r + 40, c, c + 60) for r, c in (
+        (DET_HW // 7, DET_HW // 5), (DET_HW // 2, 3 * DET_HW // 4),
+        (6 * DET_HW // 7, DET_HW // 20))]     # NaN patches
+    for y0, y1, x0, x1 in dead:
+        field[y0:y1, x0:x1] = float("nan")
+    field[3 * DET_HW // 10, 100:140] = float("inf")
+    field[77, 3 * DET_HW // 4] = float("-inf")
+    field5, g5_ys, g5_xs, g5_amps = star_scene(H, W, 200, 22, dev)
+    dead5 = [(H // 2, H // 2 + 30, W // 2, W // 2 + 40)]
+    for y0, y1, x0, x1 in dead5:
+        field5[y0:y1, x0:x1] = float("nan")
+    field5[10, :50] = float("inf")
+    log(f"[data] star fields {DET_HW}^2 x {DET_STARS} stars and {H}x{W} x "
+        f"200 stars (made in {time.perf_counter() - t0:.1f} s)")
+    k10_cases = []
+    for plane, step in ((field, 256), (field5, 256), (field[:1000, :1000],
+                                                      125)):
+        rows, cols = plane.shape
+        ty, tx = -(-rows // step), -(-cols // step)
+        padded = torch.nn.functional.pad(
+            plane, (0, tx * step - cols, 0, ty * step - rows),
+            value=float("nan")).contiguous()
+        got = sort_tiles(padded, step)
+        ref = sort_tiles_plain(padded, step)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"K10 differs from the plain version at "
+                                 f"{rows}x{cols}, step {step}")
+        log(f"[K10] sort_tiles {rows}x{cols} step {step} ({ty}x{tx} tiles): "
+            f"bit-equal, {int(ref[1].sum())} valid of {padded.numel()}")
+        k10_cases.append((padded, step))
+    padded, step = k10_cases[0]
+    nt = DET_HW // step
+    masked = torch.where(validity_mask(padded), padded, float("inf")).reshape(
+        nt, step, nt, step).permute(0, 2, 1, 3).reshape(nt * nt, step * step)
+    report["sort_tiles"] = {
+        "max_abs_err": 0.0, "shape": list(padded.shape), "step": step,
+        "ms": cuda_ms(lambda: sort_tiles(padded, step), 20),
+        "plain_ms": cuda_ms(lambda: sort_tiles_plain(padded, step), 5),
+        "library_ms": cuda_ms(lambda: torch.sort(masked, dim=1), 20),
+        "library": "torch.sort over the masked tiles"}
+    # bytes: the plane once, the sorted tiles and the counts once
+    report["sort_tiles"].update(zip(("bound_ms", "bound_by"), bound(
+        4 * 2 * padded.numel() + 4 * nt * nt, 0)))
+    for padded, step in k10_cases[1:]:
+        tag = f"{padded.shape[0]}x{padded.shape[1]}_step{step}"
+        report["sort_tiles"].update({
+            f"ms_{tag}": cuda_ms(lambda: sort_tiles(padded, step), 10),
+            f"plain_ms_{tag}": cuda_ms(lambda: sort_tiles_plain(padded, step),
+                                       3)})
+    del masked, k10_cases, padded
+
+    # K11: window statistics at the peaks of the 4096^2 field
+    bg_med, bg_sig = SD._background(field, SD._tile_size(DET_HW, DET_HW))
+    thr = bg_med + 5.0 * bg_sig
+    pys, pxs, pvals, n_valid = SD._peaks(field, thr, SD.MAX_PEAKS)
+    wargs = (field, pys, pxs, thr, bg_med, n_valid)
+    got = window_stats(*wargs)
+    ref = window_stats_plain(*wargs)
+    torch.cuda.synchronize()
+    nv = int(n_valid)
+    if not torch.equal(got[:, 0], ref[:, 0]) or \
+            not torch.allclose(got, ref, rtol=1e-4, atol=1e-3):
+        raise AssertionError("K11 differs from the plain version")
+    k11_err = check_packed(
+        f"[K11] window_stats {DET_HW}^2, {nv} live of {SD.MAX_PEAKS} peaks",
+        SD._detect(field, SD._tile_size(DET_HW, DET_HW), 5.0, SD.MAX_PEAKS),
+        SD._detect(field, SD._tile_size(DET_HW, DET_HW), 5.0, SD.MAX_PEAKS,
+                   plain=True), got, ref)
+    # bytes: each live window's pixels once, the centres and the [K, 9]
+    # rows; operations: two per window pixel for the threshold mask, the
+    # fill on 64-bit row masks (~17 per row and round, 20 rounds at
+    # most) and ~15 per member pixel for the moments
+    k11_ops = nv * (41 * 41 * 2 + 20 * 41 * 17) + 15 * float(ref[:nv, 0].sum())
+    report["window_stats"] = {
+        "max_abs_err": float((got - ref).abs().max()),
+        "max_rel_err_packed": k11_err, "live_peaks": nv,
+        "ms": cuda_ms(lambda: window_stats(*wargs), 50),
+        "plain_ms": cuda_ms(lambda: window_stats_plain(*wargs), 5),
+        "library_ms": None}
+    report["window_stats"].update(zip(("bound_ms", "bound_by"), bound(
+        4 * nv * 41 * 41 + 4 * (2 + 9) * SD.MAX_PEAKS, k11_ops)))
+
+    # K12: the vote at the full triangle count of 60 stars
+    vrng = np.random.default_rng(23)
+    stars_r = vrng.random((60, 2)) * 4000
+    rot = np.array([[math.cos(0.007), -math.sin(0.007)],
+                    [math.sin(0.007), math.cos(0.007)]])
+    stars_t = stars_r @ rot.T + np.array([3.2, -2.1]) + vrng.normal(
+        0, 0.05, (60, 2))
+    (rv, rr), (tv, tr) = (AF.build_triangles(x) for x in (stars_r, stars_t))
+    vargs = [torch.from_numpy(a).to(dev) for a in (
+        *AF._pad_tris(rv, rr)[::-1], *AF._pad_tris(tv, tr)[::-1])]
+    got = vote(*vargs)
+    ref = vote_plain(*vargs)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError("K12 votes differ from the plain version")
+    log(f"[K12] vote {len(rr)} x {len(tr)} triangles (padded to "
+        f"{AF.TRI_CAP}): equal, {int(got.sum())} votes, diagonal "
+        f"{int(got.diagonal().sum())}")
+    # operations: two differences, two abs, two compares per pair
+    report["vote"] = {
+        "max_abs_err": 0.0, "triangles": [len(rr), len(tr)],
+        "ms": cuda_ms(lambda: vote(*vargs), 20),
+        "plain_ms": cuda_ms(lambda: vote_plain(*vargs), 3),
+        "library_ms": None}
+    report["vote"].update(zip(("bound_ms", "bound_by"), bound(
+        sum(a.numel() * 4 for a in vargs) + 4 * 64 * 64,
+        6 * len(rr) * len(tr))))
+    del vargs
 
     # ---- 4a. main paths of the earlier slice, through the kernels ------
     counters = {"shift_clip": shift_clip_onepass,
                 "coarse_box": coarse_downsample_stack,
                 "gather_crops": gather_crops,
                 "drizzle_finalize_fused": drizzle_finalize_fused,
-                "drizzle_finalize": drizzle_finalize}
+                "drizzle_finalize": drizzle_finalize,
+                "sort_tiles": sort_tiles,
+                "window_stats": window_stats,
+                "vote": vote}
     big_list = [torch.as_tensor(f, device=dev) for f in big_frames]
     del big_frames
     torch.cuda.synchronize()
@@ -810,6 +1091,140 @@ def main() -> None:
         f"{ms_bp:.3f} ms (peak {peak_bp / 2**30:.2f} GiB)")
     log(f"[time] {smi}: calibrate (16+16+16 masters, {DRZ_N} lights) → "
         f"drizzle_stack → stats/STF/u8: {ms_full:.3f} ms")
+    del bias, darks, flats, lights, calibrated, cal_stack, dres
+
+    # ---- 4c. star detection → affine alignment → warp ----------------
+    t0 = time.perf_counter()
+    a5_ref, a5_tgt = affine_scene(H, W, AFF_STARS_5K, 8, dev)
+    a4_ref, a4_tgt = affine_scene(DET_HW, DET_HW, AFF_STARS_4K, 24, dev)
+    drng = np.random.default_rng(25)
+    a_dith = drng.uniform(-2.0, 2.0, (DRA_N, 2))
+    a_dith[0] = 0.0
+    d_ys_g = drng.uniform(10, DRA_HW - 10, 300)
+    d_xs_g = drng.uniform(10, DRA_HW - 10, 300)
+    d_amps = drng.uniform(300.0, 3000.0, 300)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    a_frames = [100.0 + render_stars(DRA_HW, DRA_HW, d_ys_g, d_xs_g, d_amps,
+                                     dy, dx, 1.5, dev)
+                + 3.0 * torch.randn((DRA_HW, DRA_HW), generator=gen,
+                                    device=dev) for dy, dx in a_dith]
+    torch.cuda.synchronize()
+    log(f"[data] affine pairs {H}x{W} x {AFF_STARS_5K} stars and "
+        f"{DET_HW}^2 x {AFF_STARS_4K} stars, {DRA_N} dithered {DRA_HW}^2 "
+        f"frames (made in {time.perf_counter() - t0:.1f} s)")
+    drz_affine = DrizzleConfig(alignment_method=AlignmentMethod.AFFINE)
+
+    def affine_path(plain=False):
+        out = {"det4k": SD.detect_stars(field, plain=plain),
+               "det5k": SD.detect_stars(field5, plain=plain)}
+        for tag, ref_, tgt_ in (("5k", a5_ref, a5_tgt),
+                                ("4k", a4_ref, a4_tgt)):
+            res = AF.align_channel_affine(ref_, tgt_, plain=plain)
+            out[f"aff{tag}"] = res
+            out[f"warp{tag}"] = AF.warp_image(tgt_, res.transform,
+                                              *ref_.shape)
+        out["drizzle"] = drizzle_stack(a_frames, drz_affine, plain=plain)
+        return out
+
+    for fn in counters.values():
+        fn.launches = 0
+    ap = affine_path()
+    torch.cuda.synchronize()
+    launches_affine = {name: fn.launches for name, fn in counters.items()}
+    log(f"[path] kernel launches in detect_stars + align_channel_affine + "
+        f"warp_image + drizzle_stack(AFFINE): {launches_affine}")
+    for name in ("sort_tiles", "window_stats", "vote"):
+        if launches_affine[name] < 1:
+            raise AssertionError(f"{name} never ran: {launches_affine}")
+
+    det_err = {
+        "4k": check_positions(
+            f"[path] detect_stars {DET_HW}^2", ap["det4k"], f_ys, f_xs,
+            isolated_bright(f_ys, f_xs, f_amps, DET_HW, DET_HW, 2700.0,
+                            dead=dead)),
+        "5k": check_positions(
+            f"[path] detect_stars {H}x{W}", ap["det5k"], g5_ys, g5_xs,
+            isolated_bright(g5_ys, g5_xs, g5_amps, H, W, 1000.0,
+                            dead=dead5))}
+    scenes = {"5k": a5_ref, "4k": a4_ref}
+    for tag in ("5k", "4k"):
+        res = ap[f"aff{tag}"]
+        rot = res.transform.rotation_deg()
+        log(f"[path] align_channel_affine {tag}: {res.method}, "
+            f"{res.matched_stars} matched, {res.inliers} inliers, residual "
+            f"{res.residual_px:.4f} px, rotation {rot:.4f} deg, transform "
+            f"{[round(v, 5) for v in res.transform.as_tuple()]}")
+        if res.method not in ("affine", "rigid") or \
+                abs(abs(rot) - 0.4) > 0.1:
+            raise AssertionError(f"affine {tag}: {res}")
+        warped = ap[f"warp{tag}"]
+        if warped.shape != scenes[tag].shape or \
+                not bool(torch.isfinite(warped).all()):
+            raise AssertionError(f"warp {tag}: not a finite plane of the "
+                                 f"reference's shape")
+    adoff = np.asarray(ap["drizzle"].offsets)[:, ::-1]
+    adoff_err = float(np.abs(adoff - a_dith).max())
+    log(f"[path] drizzle_stack(AFFINE) {DRA_N}x{DRA_HW}^2 offsets vs "
+        f"dithers: max|d|={adoff_err:.4f} px")
+    if adoff_err > 0.15 or not bool(torch.isfinite(
+            ap["drizzle"].image).all()):
+        raise AssertionError(f"drizzle AFFINE offsets off by {adoff_err}")
+
+    # the same entry points through the plain versions on the card
+    pp = affine_path(plain=True)
+    torch.cuda.synchronize()
+    for tag in ("det4k", "det5k"):
+        # the same stars; their brightest-first order may swap where two
+        # fluxes agree to f32 rounding, so each is matched to its nearest
+        a = np.array([(s.y, s.x, s.flux) for s in ap[tag].stars])
+        b = np.array([(s.y, s.x, s.flux) for s in pp[tag].stars])
+        if len(a) != len(b):
+            raise AssertionError(f"{tag}: {len(a)} stars through the "
+                                 f"kernels, {len(b)} plain")
+        d2 = ((a[:, None, :2] - b[None, :, :2]) ** 2).sum(axis=2)
+        near = d2.argmin(axis=1)
+        d_pos = float(np.sqrt(d2.min(axis=1)).max())
+        d_flux = float((np.abs(a[:, 2] - b[near, 2]) / b[near, 2]).max())
+        log(f"  [path] {tag} kernel vs plain: {len(a)} stars, positions "
+            f"max|d| {d_pos:.2e} px, flux max rel {d_flux:.2e}")
+        if len(set(near.tolist())) != len(a) or d_pos > 1e-3 or \
+                d_flux > 1e-4:
+            raise AssertionError(f"{tag}: kernel and plain detections "
+                                 f"differ")
+    d_aff = {}
+    for tag in ("aff5k", "aff4k"):
+        a, b = ap[tag], pp[tag]
+        d_aff[tag] = float(np.abs(np.subtract(a.transform.as_tuple(),
+                                              b.transform.as_tuple())).max())
+        if (a.method, a.inliers, a.matched_stars) != \
+                (b.method, b.inliers, b.matched_stars) or d_aff[tag] > 1e-3:
+            raise AssertionError(f"{tag}: kernel {a} vs plain {b}")
+    d_doff = float(np.abs(np.asarray(ap["drizzle"].offsets)
+                          - np.asarray(pp["drizzle"].offsets)).max())
+    log(f"[path] affine kernel vs plain: same stars, methods and inliers; "
+        f"transform max|d| {d_aff}, drizzle offsets max|d| {d_doff:.2e}")
+    if d_doff > 1e-3:
+        raise AssertionError("drizzle AFFINE offsets differ from plain")
+    del pp
+
+    times_c = {}
+    for name, fn, reps in (
+            ("detect_stars_4096", lambda p: SD.detect_stars(field, plain=p),
+             5),
+            ("detect_stars_5655x2206",
+             lambda p: SD.detect_stars(field5, plain=p), 5),
+            ("align_channel_affine+warp_5655x2206",
+             lambda p: AF.warp_image(a5_tgt, AF.align_channel_affine(
+                 a5_ref, a5_tgt, plain=p).transform, H, W), 3),
+            ("align_channel_affine+warp_4096",
+             lambda p: AF.warp_image(a4_tgt, AF.align_channel_affine(
+                 a4_ref, a4_tgt, plain=p).transform, DET_HW, DET_HW), 3),
+            ("drizzle_stack_affine_4x1024",
+             lambda p: drizzle_stack(a_frames, drz_affine, plain=p), 2)):
+        times_c[name] = (cuda_ms(lambda: fn(False), reps),
+                         cuda_ms(lambda: fn(True), max(1, reps - 2)))
+        log(f"[time] {smi}: {name} kernels {times_c[name][0]:.3f} ms | "
+            f"plain {times_c[name][1]:.3f} ms (host fetches included)")
     if "jax" in sys.modules or "astroburst_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
 
@@ -827,23 +1242,34 @@ def main() -> None:
         "drizzle_finalize": (
             "astroburst_tpu_torch/csrc/drizzle_finalize.cu",
             "astroburst_tpu/stacking/drizzle_kernel.py:339"),
+        "sort_tiles": ("astroburst_tpu_torch/csrc/tile_sort.cu",
+                       "astroburst_tpu/analysis/tile_sort_kernel.py:81"),
+        "window_stats": ("astroburst_tpu_torch/csrc/window_stats.cu",
+                         "astroburst_tpu/analysis/window_kernel.py:274"),
+        "vote": ("astroburst_tpu_torch/csrc/triangle_vote.cu",
+                 "astroburst_tpu/alignment/vote_kernel.py:104"),
     }
+    paths = {"align_stack_stretch+stack_images": launches_stack,
+             "calibrate+drizzle_stack": launches_drizzle,
+             "detect_stars+align_channel_affine+warp_image"
+             "+drizzle_stack(AFFINE)": launches_affine}
     kernels = []
     for name, (source, replaces) in meta.items():
+        by_path = {path: counts[name] for path, counts in paths.items()}
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces,
-                 "launches": launches_stack[name] + launches_drizzle[name],
-                 "launches_by_path": {
-                     "align_stack_stretch+stack_images":
-                         launches_stack[name],
-                     "calibrate+drizzle_stack": launches_drizzle[name]}}
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path}
         entry.update(report[name])
         kernels.append(entry)
     kernels[0]["also_replaces"] = [
         "astroburst_tpu/stacking/fused_kernel.py:223",
         "astroburst_tpu/stacking/rolling_kernel.py:226",
         "astroburst_tpu/stacking/clip_kernel.py:183"]
-    kernels[-1]["on_main_path"] = False   # K8: the JAX tests' entry only
+    kernels[4]["on_main_path"] = False    # K8: the JAX tests' entry only
+    paths_ms = {name: {"kernels_ms": k, "plain_ms": pl}
+                for name, (k, pl) in times_c.items()}
+    log(f"[path] detection/affine entry points: {json.dumps(paths_ms)}; "
+        f"farthest isolated-star detection {det_err} px")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

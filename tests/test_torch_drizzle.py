@@ -136,11 +136,37 @@ def test_k8_plain_matches_pallas_interpret(rng):
 
 
 def test_finalize_depth_limit_is_named():
-    tdk._check_common(512, 256, 5)   # 128 frames: the largest instance
-    with pytest.raises(ValueError, match="MAX_CAP=256"):
-        tdk._check_common(1032, 258, 5)
+    """Past MAX_CAP live values (more than 128 frames) the kernel takes
+    its global-scratch instance: only an invalid cap or iteration count
+    is refused."""
+    tdk._check_common(256, 5)        # 128 frames: the largest local array
+    tdk._check_common(258, 5)        # 129 frames: the global scratch
     with pytest.raises(ValueError, match="cap"):
-        tdk._check_common(16, 0, 5)
+        tdk._check_common(0, 5)
+    with pytest.raises(ValueError, match="iterations"):
+        tdk._check_common(4, -1)
+
+
+def test_exact_drizzle_above_128_frames_matches_jax(rng):
+    """130 frames (cap 260 > MAX_CAP): the plain finalize has no depth
+    limit, and neither has the kernel now (chip_smoke.py holds its
+    global-scratch instance to this plain version on the card)."""
+    n = 130
+    stack = np.stack(_frames(rng, n, 6, 8))
+    d_ys = rng.uniform(-0.6, 0.6, n).astype(np.float32)
+    d_xs = rng.uniform(-0.6, 0.6, n).astype(np.float32)
+    d_ys[0] = d_xs[0] = 0.0
+    ri, rw, rr = jdz._drizzle_kernel_exact(
+        jnp.asarray(stack), jnp.asarray(d_ys), jnp.asarray(d_xs), 2.0, 1.0,
+        jdt.DrizzleKernel.SQUARE, 12, 16, 3.0, 3.0, 3, band_rows=12,
+        use_pallas=False)
+    gi, gw, gr = tdz._drizzle_kernel_exact(
+        stack_from_numpy(stack, CPU), torch.from_numpy(d_ys),
+        torch.from_numpy(d_xs), 2.0, 1.0, tdt.DrizzleKernel.SQUARE, 12, 16,
+        3.0, 3.0, 3, band_rows=12)
+    _close(gi, ri, 2e-4, 1e-6, "image")
+    _close(gw, rw, 1e-5, 1e-6, "weight map")   # sums of 520 weights
+    assert int(gr) == int(rr) > 0
 
 
 # ---- the exact and pre-averaging drizzle against JAX's XLA route ---------
@@ -279,17 +305,69 @@ def test_drizzle_stack_no_align_and_errors(rng):
                            np.ones((80, 100), np.float32)], device=CPU)
 
 
+def _affine_frames(rng, n=3, h=160, w=176):
+    """A star field bright and wide enough for the affine chain (60
+    stars), frame k moved by sub-pixel dithers, rendered analytically."""
+    dith = rng.uniform(-1.5, 1.5, (n, 2))
+    dith[0] = 0.0
+    ys = rng.uniform(12, h - 12, 60)
+    xs = rng.uniform(12, w - 12, 60)
+    amps = rng.uniform(400, 3000, 60)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    frames = []
+    for dy, dx in dith:
+        f = np.full((h, w), 100.0)
+        for sy, sx, a in zip(ys, xs, amps):
+            f += a * np.exp(-((yy - sy - dy) ** 2 + (xx - sx - dx) ** 2)
+                            / (2 * 1.5 ** 2))
+        frames.append((f + rng.normal(0, 1.5, (h, w))).astype(np.float32))
+    return frames, dith
+
+
+def _assert_drizzle_matches(got, want):
+    """Offsets within 1e-3 px; image and rejected count at this file's
+    tolerances. The weight map moves with the offsets: under the default
+    config (scale 2, 2 × 2 taps) one frame's weight wy·wx at a pixel
+    moves by at most 2·scale·|Δd| per tap (each per-axis overlap moves by
+    scale·|Δd| and is at most 1), so the map gets 1e-5 + n·4·2·2·max|Δd|
+    (the affine route's offsets differ from JAX's at f32 centroid
+    rounding, a few 1e-6 px)."""
+    d_off = np.abs(np.asarray(got.offsets) - np.asarray(want.offsets))
+    assert d_off.max() <= 1e-3
+    _close(got.image, want.image, 2e-4, 1e-6, "image")
+    _close(got.weight_map, want.weight_map,
+           1e-5 + got.frame_count * 16 * d_off.max(), 1e-6, "weights")
+    assert got.rejected_pixels == want.rejected_pixels
+
+
 def test_drizzle_stack_affine_route_not_ported(rng):
-    frames, _ = _star_frames(rng, n=3)
-    for method in (tdt.AlignmentMethod.AFFINE, tdt.AlignmentMethod.ZNCC):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            tdz.drizzle_stack(frames, tdt.DrizzleConfig(
-                alignment_method=method), device=CPU)
-    # a constant frame fails the phase-correlation gate (confidence 0):
-    # JAX falls back to the affine route there
+    """A low-confidence frame takes the affine route, as in JAX. (The
+    name dates from when this route raised NotImplementedError, ROADMAP
+    C9; it is kept so the test's history stays one line.) A constant
+    frame fails the phase-correlation gate (confidence 0), and that
+    frame alone goes to alignment/pair.estimate_offset(AFFINE); there
+    the starless frame falls back to the identity."""
+    frames, _ = _affine_frames(rng)
     frames[2] = np.full_like(frames[2], 7.0)
-    with pytest.raises(NotImplementedError, match=r"frames \[2\]"):
-        tdz.drizzle_stack(frames, tdt.DrizzleConfig(), device=CPU)
+    cfg = (tdt.DrizzleConfig(), jdt.DrizzleConfig())
+    got = tdz.drizzle_stack(frames, cfg[0], device=CPU)
+    want = jdz.drizzle_stack(frames, cfg[1])
+    assert got.offsets[2] == (0.0, 0.0)
+    _assert_drizzle_matches(got, want)
+
+
+@pytest.mark.parametrize("method", ["affine", "zncc"])
+def test_drizzle_stack_affine_methods_match_jax(rng, method):
+    """AFFINE and ZNCC send every frame to the affine route; its offsets
+    recover the dithers."""
+    frames, dith = _affine_frames(rng)
+    got = tdz.drizzle_stack(frames, tdt.DrizzleConfig(
+        alignment_method=tdt.AlignmentMethod(method)), device=CPU)
+    want = jdz.drizzle_stack(frames, jdt.DrizzleConfig(
+        alignment_method=jdt.AlignmentMethod(method)))
+    _assert_drizzle_matches(got, want)
+    np.testing.assert_allclose(np.asarray(got.offsets)[:, ::-1], dith,
+                               atol=0.15)
 
 
 def test_drizzle_taps_match_jax_vectors():

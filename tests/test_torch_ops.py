@@ -96,6 +96,10 @@ def test_port_and_chip_smoke_import_nothing_of_jax_or_the_jax_package():
     files = sorted((REPO / "astroburst_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    for new in ("analysis/star_detection.py", "analysis/tile_sort_kernel.py",
+                "analysis/window_kernel.py", "alignment/affine.py",
+                "alignment/pair.py", "alignment/vote_kernel.py"):
+        assert REPO / "astroburst_tpu_torch" / new in files, new
     bad = []
     for f in files:
         for line, mod in _imported_modules(f):
