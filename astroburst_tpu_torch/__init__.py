@@ -13,7 +13,10 @@ Ported slices: align → stack → stretch
 (``stacking.calibration``, ``stacking.drizzle.drizzle_stack``) and star
 detection → affine alignment → warp (``analysis.detect_stars``,
 ``alignment.affine.align_channel_affine`` and ``warp_image``,
-``alignment.pair.align_pair``).
+``alignment.pair.align_pair``), star mask → masked stretch
+(``imaging.masked_stretch``, ``imaging.star_mask``) and the parity
+drizzle (``stacking.drizzle.drizzle_exact_parity``). Every Pallas
+kernel of the JAX package has its CUDA counterpart.
 
 The package imports neither ``jax`` nor anything of ``astroburst_tpu``:
 the constants, records and errors it needs are its own copies

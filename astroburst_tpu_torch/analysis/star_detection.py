@@ -22,11 +22,12 @@ The JAX package's design is kept, on torch tensors:
    selects the same set);
 3. per-peak window statistics (kernel K11, analysis/window_kernel.py);
 4. host-side brightest-first 3 px dedup of one fetched [10, max_peaks]
-   array (``_postprocess_packed``, numpy, a copy of the JAX function).
+   array (``_postprocess_packed``, numpy, a copy of the JAX function),
+   or, for the masked stretch, ``dedupe_packed_device``: the same accept
+   set with the packed array left on the device.
 
 ``plain`` runs the kernels' plain torch versions instead (to hold the
-kernels to them on the card). ``dedupe_packed_device`` is not ported
-(ROADMAP A9).
+kernels to them on the card).
 """
 
 from __future__ import annotations
@@ -305,6 +306,45 @@ def detect_stars_pair(image_a, image_b, sigma_threshold: float = 5.0,
     ).cpu().numpy()
     return (_postprocess_packed(both[0], float(sigma_threshold), rows, cols),
             _postprocess_packed(both[1], float(sigma_threshold), rows, cols))
+
+
+def dedupe_packed_device(packed: torch.Tensor,
+                         scan_cap: int = 512) -> torch.Tensor:
+    """Brightest-first 3 px greedy dedupe of the packed candidates
+    (star_detection.py:492-534), reproducing ``_postprocess_packed``'s
+    accept set. Returns accepted [max_peaks] bool on the packed array's
+    device.
+
+    A valid candidate with no other valid candidate within 3 px can
+    neither suppress nor be suppressed: it is accepted, in parallel
+    (one [K, K] pair test on the device). Only the conflicted subset
+    depends on the order: its first ``scan_cap`` members in flux-
+    descending order (a stable sort, as ``jnp.argsort``; the dimmest
+    conflicted extras past the cap are dropped, as in JAX) run the
+    greedy scan ON THE HOST, over one fetch of their positions — the
+    scan is sequential in JAX too, and a few hundred steps of tiny
+    device kernels would cost more than the fetch."""
+    cys, cxs, fluxes = packed[0], packed[1], packed[2]
+    valid = packed[8] > 0.5
+    dy = cys[:, None] - cys[None, :]
+    dx = cxs[:, None] - cxs[None, :]
+    pair = valid[:, None] & valid[None, :] & (dy * dy + dx * dx < 9.0)
+    pair.fill_diagonal_(False)
+    conflicted = pair.any(dim=1) & valid
+    del dy, dx, pair
+    accepted = valid & ~conflicted
+
+    score = torch.where(conflicted, -fluxes, float("inf"))
+    order = torch.sort(score, stable=True).indices[:scan_cap]
+    sub = torch.stack([cys[order], cxs[order],
+                       conflicted[order].to(torch.float32)]).cpu().numpy()
+    ys, xs, val = sub[0], sub[1], sub[2] > 0.5
+    acc = np.zeros(order.shape[0], bool)
+    for i in np.flatnonzero(val):     # f32 distances, as on the device
+        dd = (ys - ys[i]) * (ys - ys[i]) + (xs - xs[i]) * (xs - xs[i])
+        acc[i] = not bool((acc & (dd < np.float32(9.0))).any())
+    accepted[order] |= torch.from_numpy(acc).to(accepted.device)
+    return accepted
 
 
 def _postprocess_packed(packed: np.ndarray, sigma_threshold: float,

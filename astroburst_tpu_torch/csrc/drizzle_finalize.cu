@@ -7,24 +7,10 @@
 //     (K8: values with materialized weights)
 // with one templated kernel and two C entry points.
 //
-// What it computes, per output pixel (y, x) of [m, h, w] candidates in
-// the reference's push order (frame, y-tap, x-tap; drizzle.rs:121-195):
-//   - presence: K7 isfinite(v) && wy[y, f*ty+t] * wx[f*tx+u, x] > 1e-12,
-//     K8 w[k, y, x] > 1e-12;
-//   - the first `cap` present pushes are kept: their weights summed in
-//     push order (the weight map), their values sorted ascending;
-//   - clip passes on the sorted window [lo, hi) while it holds >= 3
-//     values: even-averaging median of the window, MAD as the same rank
-//     pair of |v - med| over the window, sigma = max(MAD * 1.4826,
-//     1e-10), cut values below med - sigma_low*sigma and above
-//     med + sigma_high*sigma; a pass that cuts nothing ends the clip;
-//   - image = mean of the survivors (summed ascending), else the mean of
-//     all kept values, else 0; rejected = kept - survivors.
-// The plain torch version is stacking/drizzle.py:_finalize_exact; the
-// products, sums and bounds here are written with __fmul_rn/__fadd_rn/
-// __fsub_rn so nvcc cannot contract them to FMA, and every sum runs in
-// the plain version's order, so image, weight map and rejected map match
-// it bit for bit.
+// What it computes per output pixel, and how its live values are kept:
+// drizzle_finalize.cuh (shared with K9, drizzle_gather.cu). Presence of
+// push k = (f, t, u) of [m, h, w] candidates: K7 isfinite(v) &&
+// wy[y, f*ty+t] * wx[f*tx+u, x] > 1e-12, K8 w[k, y, x] > 1e-12.
 //
 // What bounds it on the H100: bytes. Each candidate is read once
 // (K7 at the bench band, 40 x 1024 x 8192 f32, is 1.34 GB, ~0.4 ms at
@@ -38,136 +24,50 @@
 // a per-thread array sized by the template bound CAPMAX (32/64/128/256,
 // picked from min(cap, m) by the entry point). Above 256 (more than 128
 // frames) the live values go to a global scratch [depth, h, w] that the
-// wrapper allocates, laid out pixel-minor — value j of pixel o at
-// scratch[j * h * w + o] — so the threads of a warp touch neighbouring
-// words at every step; the arithmetic and its order are the same, so
-// that instance is bit-equal to the plain version too. It is slow (every
-// insertion-sort move is a global access): runs past 128 frames are rare.
-// Reading stops at the cap-th present push: later pushes can change
-// nothing. The values are insertion-sorted as they arrive; the MAD's
-// deviations |v - med| over a sorted window fall then rise (V shape), so
-// a two-pointer walk out from the median gives their k-th smallest
-// without a second sort. A pixel leaves the clip loop at its own fixed
-// point (fewer than 3 values, or a pass that cut nothing): every later
-// pass would be the identity, so the early exit is exact. The TPU
-// kernel's bitonic networks existed because a TPU has no per-lane
-// control flow. Building the candidates in the kernel (TPU kernel 9's
-// idea) would remove their round trip through HBM; that is later work.
+// wrapper allocates, laid out pixel-minor; the arithmetic and its order
+// are the same, so that instance is bit-equal to the plain version too.
+// It is slow (every insertion-sort move is a global access): runs past
+// 128 frames are rare. The TPU kernel's bitonic networks existed because
+// a TPU has no per-lane control flow. K9 builds the candidates in the
+// kernel instead, which removes their round trip through HBM.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "drizzle_finalize.cuh"
 
 namespace {
 
-constexpr float kMadToSigma = 1.4826f;
-constexpr float kPresent = 1e-12f;
+using abt_drizzle::finalize_pixel;
+using abt_drizzle::kPresent;
 
-// One pixel's finalize. Its live value j is SV(j) = sv[j * stride]: a
-// per-thread array (stride 1) or a pixel-minor column of the global
-// scratch (stride h * w).
-#define SV(j) sv[(size_t)(j) * stride]
+// Push k of one pixel, read from the candidate tensor.
 template <bool FUSED>
-__device__ __forceinline__ void finalize_pixel(
-    float* sv, size_t stride, const float* __restrict__ cand_v,
-    const float* __restrict__ cand_w, const float* __restrict__ wys_t,
-    const float* __restrict__ wxs, int n, int taps_y, int taps_x, int m,
-    int w, int cap, float sigma_low, float sigma_high, int iterations,
-    int x, int y, size_t plane, size_t o, float* __restrict__ img,
-    float* __restrict__ wgt, int* __restrict__ rej) {
-  // ---- presence, push-order cap, weight map, sorted live values ----
-  int live = 0;
-  int order = 0;
-  float wsum = 0.0f;
-  const int per_frame = taps_y * taps_x;
-  for (int k = 0; k < m; ++k) {
-    const float v = cand_v[(size_t)k * plane + o];
-    float wk;
-    bool present;
+struct ListCands {
+  const float* __restrict__ cand_v;
+  const float* __restrict__ cand_w;
+  const float* __restrict__ wys_t;
+  const float* __restrict__ wxs;
+  int n, taps_y, taps_x, w, x, y;
+  size_t plane, o;
+
+  __device__ __forceinline__ bool operator()(int k, float& v,
+                                             float& wk) const {
     if (FUSED) {
+      const int per_frame = taps_y * taps_x;
       const int f = k / per_frame;
       const int r = k - f * per_frame;
       const int t = r / taps_x;
       const int u = r - t * taps_x;
       wk = __fmul_rn(wys_t[(size_t)y * (n * taps_y) + f * taps_y + t],
                      wxs[(size_t)(f * taps_x + u) * w + x]);
-      present = isfinite(v) && wk > kPresent;
-    } else {
-      wk = cand_w[(size_t)k * plane + o];
-      present = wk > kPresent;
+      if (!(wk > kPresent)) return false;
+      v = cand_v[(size_t)k * plane + o];
+      return isfinite(v);
     }
-    if (!present) continue;
-    if (++order > cap) break;  // every later push is past the cap
-    wsum = __fadd_rn(wsum, wk);
-    int j = live - 1;
-    while (j >= 0 && SV(j) > v) {
-      SV(j + 1) = SV(j);
-      --j;
-    }
-    SV(j + 1) = v;
-    ++live;
+    wk = cand_w[(size_t)k * plane + o];
+    if (!(wk > kPresent)) return false;
+    v = cand_v[(size_t)k * plane + o];
+    return true;
   }
-  const int count0 = live;
-
-  // ---- clip passes on the sorted window [lo, hi) ----
-  int lo = 0;
-  int hi = count0;
-  for (int it = 0; it < iterations; ++it) {
-    const int cnt = hi - lo;
-    if (cnt < 3) break;  // inactive now and in every later pass
-    const int k1 = (cnt - 1) / 2;
-    const int k2 = cnt / 2;
-    const float med =
-        __fmul_rn(__fadd_rn(SV(lo + k1), SV(lo + k2)), 0.5f);
-    // deviations fall over [lo, r) and rise over [r, hi): merge outwards
-    int r = lo;
-    while (r < hi && SV(r) < med) ++r;
-    int l = r - 1;
-    float d1 = 0.0f, d2 = 0.0f;
-    for (int s = 0; s <= k2; ++s) {
-      const float dl = l >= lo ? fabsf(__fsub_rn(SV(l), med)) : INFINITY;
-      const float dr = r < hi ? fabsf(__fsub_rn(SV(r), med)) : INFINITY;
-      float d;
-      if (dl <= dr) {
-        d = dl;
-        --l;
-      } else {
-        d = dr;
-        ++r;
-      }
-      if (s == k1) d1 = d;
-      if (s == k2) d2 = d;
-    }
-    const float mad = __fmul_rn(__fadd_rn(d1, d2), 0.5f);
-    const float sigma = fmaxf(__fmul_rn(mad, kMadToSigma), 1e-10f);
-    const float vlo = __fsub_rn(med, __fmul_rn(sigma_low, sigma));
-    const float vhi = __fadd_rn(med, __fmul_rn(sigma_high, sigma));
-    int cut_lo = 0;
-    while (lo + cut_lo < hi && SV(lo + cut_lo) < vlo) ++cut_lo;
-    int cut_hi = 0;
-    while (hi - 1 - cut_hi >= lo && SV(hi - 1 - cut_hi) > vhi) ++cut_hi;
-    lo += cut_lo;
-    hi -= cut_hi;
-    if (cut_lo + cut_hi == 0) break;  // stopped: a fixed point
-  }
-
-  // ---- outputs ----
-  const int final_cnt = hi - lo;
-  float result = 0.0f;
-  if (final_cnt > 0) {
-    float s = 0.0f;
-    for (int j = lo; j < hi; ++j) s = __fadd_rn(s, SV(j));
-    result = __fdiv_rn(s, (float)final_cnt);
-  } else if (count0 > 0) {
-    float s = 0.0f;
-    for (int j = 0; j < count0; ++j) s = __fadd_rn(s, SV(j));
-    result = __fdiv_rn(s, (float)count0);
-  }
-  img[o] = result;
-  wgt[o] = wsum;
-  rej[o] = count0 - final_cnt;
-}
-
-#undef SV
+};
 
 // Live values in a per-thread array of CAPMAX floats.
 template <int CAPMAX, bool FUSED>
@@ -185,10 +85,11 @@ drizzle_finalize_kernel(const float* __restrict__ cand_v,
   if (x >= w || y >= h) return;
   const size_t plane = (size_t)h * (size_t)w;
   const size_t o = (size_t)y * w + x;
+  const ListCands<FUSED> cands{cand_v, cand_w, wys_t, wxs, n, taps_y,
+                               taps_x, w,      x,     y,   plane, o};
   float sv[CAPMAX];
-  finalize_pixel<FUSED>(sv, 1, cand_v, cand_w, wys_t, wxs, n, taps_y, taps_x,
-                        m, w, cap, sigma_low, sigma_high, iterations, x, y,
-                        plane, o, img, wgt, rej);
+  finalize_pixel(sv, 1, cands, m, cap, sigma_low, sigma_high, iterations, o,
+                 img, wgt, rej);
 }
 
 // Live values in the global scratch [min(cap, m), h, w]. The minimum of
@@ -211,9 +112,10 @@ drizzle_finalize_scratch_kernel(const float* __restrict__ cand_v,
   if (x >= w || y >= h) return;
   const size_t plane = (size_t)h * (size_t)w;
   const size_t o = (size_t)y * w + x;
-  finalize_pixel<FUSED>(scratch + o, plane, cand_v, cand_w, wys_t, wxs, n,
-                        taps_y, taps_x, m, w, cap, sigma_low, sigma_high,
-                        iterations, x, y, plane, o, img, wgt, rej);
+  const ListCands<FUSED> cands{cand_v, cand_w, wys_t, wxs, n, taps_y,
+                               taps_x, w,      x,     y,   plane, o};
+  finalize_pixel(scratch + o, plane, cands, m, cap, sigma_low, sigma_high,
+                 iterations, o, img, wgt, rej);
 }
 
 template <bool FUSED>
@@ -236,8 +138,8 @@ int launch(const float* cand_v, const float* cand_w, const float* wys_t,
     ABT_FINALIZE(64);
   else if (depth <= 128)
     ABT_FINALIZE(128);
-  else if (depth <= 256)
-    ABT_FINALIZE(256);
+  else if (depth <= abt_drizzle::kMaxLocalCap)
+    ABT_FINALIZE(abt_drizzle::kMaxLocalCap);
   else if (scratch != nullptr)
     drizzle_finalize_scratch_kernel<FUSED><<<grid, block, 0, s>>>(
         cand_v, cand_w, wys_t, wxs, n, taps_y, taps_x, m, h, w, cap,

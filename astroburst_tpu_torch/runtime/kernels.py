@@ -69,6 +69,12 @@ SIGNATURES = {
     # scratch, img, wgt, rej, stream
     "abt_drizzle_finalize": (_P, _P, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P,
                              _P, _P),
+    # stack, sy, sx, wys_t, wxs, n, taps, s, in_h, in_w, cap, sigma_low,
+    # sigma_high, iterations, scratch, img, wgt, rej, stream
+    "abt_drizzle_gather": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                           _F, _I, _P, _P, _P, _P, _P),
+    # xs, ys, radii, y0s, x0s, order, seg, softness, h, w, out, stream
+    "abt_star_mask": (_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P),
     # plane, ty, tx, step, chunk, n_chunks, scratch, out, counts, stream
     "abt_tile_sort": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # image, h, w, pys, pxs, k, n_valid, threshold, bg_med, out, stream

@@ -43,6 +43,12 @@ Band arithmetic is JAX's: each band offsets d_y by ``- r0/scale`` with
 ``r0`` an f32 multiple of ``band_rows``, so results depend on
 ``band_rows`` at the 1e-4 level near r0 ≈ 4096 in both packages
 (ROADMAP C).
+
+``drizzle_exact_parity`` is the exact route without candidates, for an
+integer scale: kernel K9 (stacking/drizzle_gather_kernel.py) gathers
+each output pixel's candidates from the stack by per-parity integer
+shifts and finalizes them as K7 does. As in the JAX package it is
+opt-in: ``drizzle_stack`` does not route to it.
 """
 
 from __future__ import annotations
@@ -137,6 +143,19 @@ def _axis_weights(n_out: int, n_in: int, d: torch.Tensor, scale: float,
     return torch.stack(idxs, dim=1), torch.stack(ws, dim=1)
 
 
+def _exact_base(n_out: int, d: torch.Tensor, scale: float, half: float,
+                kernel: DrizzleKernel, base_off: int) -> torch.Tensor:
+    """Input index of tap 0 for every frame and output cell, unclamped:
+    [n, n_out] int64 (the push range's lower end, drizzle.rs:75-78)."""
+    o = torch.arange(n_out, dtype=torch.float32, device=d.device)[None, :]
+    d = d[:, None]
+    if kernel == DrizzleKernel.SQUARE:
+        lower = _div(o - half, scale) - d
+    else:
+        lower = _div(o - 1.0 - half, scale) - d
+    return torch.floor(lower).to(torch.int64) + base_off
+
+
 def _axis_taps_exact(n_out: int, n_in: int, d: torch.Tensor, scale: float,
                      half: float, kernel: DrizzleKernel, taps: int,
                      base_off: int):
@@ -146,12 +165,8 @@ def _axis_taps_exact(n_out: int, n_in: int, d: torch.Tensor, scale: float,
     the kernel weight evaluated at the cell. Returns (index
     [n, taps, n_out] int64, weight [n, taps, n_out] f32)."""
     o = torch.arange(n_out, dtype=torch.float32, device=d.device)[None, :]
+    base = _exact_base(n_out, d, scale, half, kernel, base_off)
     d = d[:, None]
-    if kernel == DrizzleKernel.SQUARE:
-        lower = _div(o - half, scale) - d
-    else:
-        lower = _div(o - 1.0 - half, scale) - d
-    base = torch.floor(lower).to(torch.int64) + base_off
     idxs, ws = [], []
     for t in range(taps):
         ix = base + t
@@ -366,6 +381,101 @@ def _drizzle_kernel_exact(stack, d_ys, d_xs, scale: float, pixfrac: float,
         wgt[rows] = bw
         rejected += br.sum()
     return img[:out_rows], wgt[:out_rows], rejected
+
+
+def _plan_parity(in_rows: int, in_cols: int, d_ys, d_xs, scale: float,
+                 pixfrac: float, kernel: DrizzleKernel, out_rows: int,
+                 out_cols: int):
+    """Parity plan of the gather+finalize kernel K9
+    (stacking/drizzle_gather_kernel.py), or None where it does not
+    apply — in exactly the cases of the JAX ``_plan_parity``
+    (drizzle.py:493-560).
+
+    For an INTEGER scale S, output index o = S·q + p gives
+    floor((S·q + c')/S − d) = q + floor(c'/S − d), so each (frame, tap)
+    candidate gather is a pure shift per parity. The identity is
+    VERIFIED against the f32 per-cell base indices (at large o the f32
+    evaluation can drift across binades): any drift → None. None also
+    for a non-integer scale, an output that is not S× the input, and
+    shifts that spread over more than 32 px across the frames (the JAX
+    span bucket). The tap vectors are the banded route's own
+    ``_axis_taps_exact``, in f32 on the CPU (the JAX package's numpy
+    copy, ``_np_axis_taps_exact``, is the same formula).
+
+    Returns dict(s, taps, s_row, s_col: [n, S] int32 — tap 0's input
+    index at q = 0 per frame and parity; wys_t [out_rows, n·taps] and
+    wxs [n·taps, out_cols] f32 — the weights of the full output grid,
+    in K7's layout). The JAX plan's block geometry (window origins,
+    padded sizes) has no counterpart."""
+    s = int(round(scale))
+    if abs(scale - s) > 1e-9 or s < 1:
+        return None
+    if out_rows != in_rows * s or out_cols != in_cols * s:
+        return None
+    d_ys = torch.as_tensor(d_ys, dtype=torch.float32).cpu().reshape(-1)
+    d_xs = torch.as_tensor(d_xs, dtype=torch.float32).cpu().reshape(-1)
+    n = d_ys.shape[0]
+    half = pixfrac * scale * 0.5
+    taps, base_off = _support_taps(scale, half, kernel, exact=True)
+
+    def axis(n_out, n_in, ds):
+        base = _exact_base(n_out, ds, scale, half, kernel, base_off)
+        par = base.reshape(n, n_out // s, s)          # [n, q, p]
+        shifts = par[:, 0, :]
+        q = torch.arange(n_out // s)[None, :, None]
+        if not torch.equal(par, shifts[:, None, :] + q):
+            return None                               # f32 floor drift
+        _, w = _axis_taps_exact(n_out, n_in, ds, scale, half, kernel, taps,
+                                base_off)
+        span = int((shifts.max(dim=0).values - shifts.min(dim=0).values)
+                   .max())
+        return shifts.to(torch.int32), w.reshape(n * taps, n_out), span
+
+    rows = axis(out_rows, in_rows, d_ys)
+    if rows is None:
+        return None
+    cols = axis(out_cols, in_cols, d_xs)
+    if cols is None:
+        return None
+    if -(-max(rows[2], cols[2], 1) // 8) * 8 > 32:
+        return None   # pathological offsets: the general path
+    return dict(s=s, taps=taps, s_row=rows[0], s_col=cols[0],
+                wys_t=rows[1].T.contiguous(), wxs=cols[1].contiguous())
+
+
+def _interleave_parity(planes: torch.Tensor, s: int) -> torch.Tensor:
+    """[S², h, w] parity planes → [S·h, S·w]: out[S·r + pr, S·c + pc] =
+    planes[pr·S + pc][r, c]."""
+    _, h, w = planes.shape
+    return planes.reshape(s, s, h, w).permute(2, 0, 3, 1).reshape(s * h,
+                                                                  s * w)
+
+
+def drizzle_exact_parity(stack, d_ys, d_xs, scale: float, pixfrac: float,
+                         kernel: DrizzleKernel, out_rows: int, out_cols: int,
+                         sigma_low: float, sigma_high: float,
+                         sigma_iterations: int, *, plain: bool = False):
+    """Exact drizzle through the parity-decomposed gather+finalize
+    kernel K9: no candidate tensor exists. ``d_ys``/``d_xs`` are the
+    per-frame offsets (fetched to the host for the plan). Returns
+    (image, weight map, rejected: 0-d int64 tensor) — the exact banded
+    route's result, with no band offset (``_drizzle_kernel_exact`` at
+    one band) — or None where the plan does not apply. ``plain`` runs
+    K9's plain version (to hold the kernel to it on the card). Opt-in,
+    as in the JAX package: ``drizzle_stack`` does not route here."""
+    from astroburst_tpu_torch.stacking.drizzle_gather_kernel import (
+        drizzle_gather_finalize, drizzle_gather_finalize_plain)
+    n, in_rows, in_cols = stack.shape
+    plan = _plan_parity(in_rows, in_cols, d_ys, d_xs, scale, pixfrac,
+                        kernel, out_rows, out_cols)
+    if plan is None:
+        return None
+    dev = stack.device
+    fn = drizzle_gather_finalize_plain if plain else drizzle_gather_finalize
+    img, wgt, rej = fn(stack, *(plan[k].to(dev) for k in (
+        "s_row", "s_col", "wys_t", "wxs")), plan["taps"], max(2 * n, 4),
+        sigma_low, sigma_high, sigma_iterations)
+    return img, wgt, rej.sum(dtype=torch.int64)
 
 
 def _drizzle_frame(frames, d_ys, d_xs, scale: float, pixfrac: float,

@@ -22,11 +22,16 @@ exits non-zero, and so does a machine without a CUDA device):
    band of the drizzle bench (10 x 4096^2 f32 → 8192^2: 40 candidates x
    1024 x 8192), and at 10, 30, 60, 128 and 150 frames with NaN/inf
    pixels (every template instance; past 128 frames the global-scratch
-   one). K10 (tile sort) on a 4096^2 star field (256 tiles of 256^2),
+   one), and K9 (the parity drizzle: candidates gathered in the kernel)
+   on the full output of the drizzle bench (10 x 4096^2 → 8192^2) and at
+   150 frames with NaN/inf pixels. K10 (tile sort) on a 4096^2 star
+   field (256 tiles of 256^2),
    on a 5655 x 2206 field (23 x 9 tiles, NaN padding), both with NaN/inf
    pixels, and at 1000^2 (step 125); K11 (window statistics) on the
-   4096^2 field of ~3000 stars with NaN patches at 1024 peaks; K12
-   (triangle vote) at the full triangle count of 60 stars;
+   4096^2 field of ~3000 stars with NaN patches at 1024 peaks; K13 (the
+   star mask) on the star records the masked stretch paints on that
+   field (4096 peaks) and on 4096 synthetic slots; K12 (triangle vote)
+   at the full triangle count of 60 stars;
 4. main paths, each with every kernel launch counter reset just before
    and read just after: (a) ``align_stack_stretch`` on the bench
    workload and ``stack_images`` on 24 frames of 2048^2 (shifts up to
@@ -44,12 +49,20 @@ exits non-zero, and so does a machine without a CUDA device):
    affine bench (rotation 0.4 deg, shift (3.2, -2.1), noise 1.5, rendered
    here on the card) and at 4096^2 with 80 stars (BASELINE.md:17), the
    rotation recovered within 0.1 deg; ``drizzle_stack`` by the AFFINE
-   method on 4 dithered 1024^2 star fields, offsets within 0.15 px.
+   method on 4 dithered 1024^2 star fields, offsets within 0.15 px;
+   (d) star mask → masked stretch: ``masked_stretch`` on the 4096^2
+   field fixed x10 (convergence_threshold 0) and at the default
+   threshold, ``masked_stretch_rgb_shared`` on three channels made from
+   it: stars masked, output in [0, 1], background within 0.02 of 0.25;
+   (e) ``drizzle_exact_parity`` on the calibrated lights of (b) with
+   the offsets ``drizzle_stack`` found, and on the drizzle bench stack,
+   against ``_drizzle_kernel_exact`` at one band (no band offset).
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``drizzle_stack`` as is, band 64, and ``_drizzle_kernel_exact`` at
-   band 1024, as the JAX package's drizzle bench ran it; detection and
-   alignment with their host fetches);
+   band 1024, as the JAX package's drizzle bench ran it, and at one
+   band; detection, alignment and the masked stretch with their host
+   fetches);
 5. report: one JSON line of per-kernel results (launches on the main
    paths, error against the plain version, kernel / plain / bound /
    library times), the card's name and power limit, and the final
@@ -75,7 +88,13 @@ package's bound between its two forms: f32 sums in another order),
 recomputed in f64 from each side's second moments in the
 well-conditioned form (``check_packed``).
 K12: votes equal. Affine: the same method and inlier count on both
-paths, transform parameters within 1e-3.
+paths, transform parameters within 1e-3. K13: bit-equal. K9: as K7.
+The parity drizzle against the one-band exact route: the JAX package's
+tolerances (tests/test_reference_impl.py:295-299: image atol 2e-4 /
+rtol 1e-6, weights atol 1e-5, rejected equal). The masked stretch,
+kernel path against plain path: the same stars, iterations and
+convergence, coverage within 1e-5 and image within 1e-3 (the paths'
+detections differ at f32 rounding; see ``masked_stretch_path``).
 
 Bounds: the larger of the bytes a kernel must move (each input read
 once, each output written once) over 3.35 TB/s and the f32 operations
@@ -104,6 +123,8 @@ DRZ_SEED = 10
 DET_HW, DET_STARS = 4096, 3000         # BASELINE.md:13
 AFF_STARS_5K, AFF_STARS_4K = 90, 80    # bench_ops.py:299, BASELINE.md:17
 DRA_N, DRA_HW = 4, 1024                # drizzle by the AFFINE method
+MS_PEAKS = 4096                        # masked_stretch.py:206
+MS_SCALE = 4000.0   # the star field / 4000: background 0.025, peaks < 0.8
 FLIP_ATOL = 5e-3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -458,6 +479,239 @@ def check_finalize(what: str, got, ref) -> dict:
     return {"max_abs_err": d_img, "weights_max_abs_err": d_wgt}
 
 
+def check_star_mask(field, max_peaks: int) -> dict:
+    """K13 against its plain version, bit-equal: on the star records the
+    masked stretch paints on ``field`` (detection at ``max_peaks``,
+    device dedupe, FWHM filter, radius FWHM·2.5, softness 4) and on 4096
+    synthetic slots (up to 200 px off the plane, 10 % zero radii, radii
+    up to 40). Returns the report entry."""
+    import torch
+    from astroburst_tpu_torch.analysis import star_detection as SD
+    from astroburst_tpu_torch.imaging.masked_stretch import (
+        MaskedStretchConfig, _mask_config, _paint_records)
+    from astroburst_tpu_torch.imaging.star_mask_kernel import (
+        HALF, _anchors, _bin_stars, paint_mask, paint_mask_plain)
+    from astroburst_tpu_torch.runtime import kernels as K
+    h, w = field.shape
+    dev = field.device
+    packed = SD._detect(field, SD._tile_size(h, w), 5.0, max_peaks)
+    xs, ys, radii, n = _paint_records(packed,
+                                      _mask_config(MaskedStretchConfig()))
+    srng = np.random.default_rng(26)
+    k = 4096
+    syn = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+        srng.uniform(-200, w + 200, k), srng.uniform(-200, h + 200, k),
+        np.where(srng.random(k) < 0.1, 0.0, srng.uniform(0, 40, k))))
+    sets = {"detection": (xs, ys, radii), "synthetic": syn}
+    for tag, rec in sets.items():
+        got = paint_mask(*rec, 4.0, h, w)
+        ref = paint_mask_plain(*rec, 4.0, h, w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K13 differs from the plain version on "
+                                 f"the {tag} stars")
+        log(f"[K13] paint_mask {h}x{w}, {tag}: {int((rec[2] > 0).sum())} "
+            f"painted of {rec[0].numel()} slots, bit-equal, coverage "
+            f"{float((got > 0.01).float().mean()):.4f}")
+    # the launch alone, the torch binning of the wrapper made once
+    y0, x0 = _anchors(xs, ys, h, w)
+    order, seg, _, _ = _bin_stars(y0, x0, radii > 0.0, h, w)
+    plane = torch.empty((h, w), device=dev)
+
+    def launch_alone():
+        K.launch("abt_star_mask", xs.data_ptr(), ys.data_ptr(),
+                 radii.data_ptr(), y0.data_ptr(), x0.data_ptr(),
+                 order.data_ptr(), seg.data_ptr(), 4.0, h, w,
+                 plane.data_ptr(), K.stream_handle(plane))
+
+    entry = {"max_abs_err": 0.0, "stars": int(n), "slots": xs.numel(),
+             "ms": cuda_ms(lambda: paint_mask(xs, ys, radii, 4.0, h, w), 20),
+             "ms_launch_alone": cuda_ms(launch_alone, 20),
+             "plain_ms": cuda_ms(lambda: paint_mask_plain(xs, ys, radii,
+                                                          4.0, h, w), 3),
+             "ms_synthetic_4096": cuda_ms(lambda: paint_mask(*syn, 4.0, h, w),
+                                          20),
+             "library_ms": None}
+    # bytes: the three star rows and the plane; operations: ~14 per pixel
+    # of each painted window inside the plane
+    y0 = torch.clamp(torch.round(ys), 0, h)
+    x0 = torch.clamp(torch.round(xs), 0, w)
+    rows = torch.clamp(y0 + HALF, max=h) - torch.clamp(y0 - HALF, min=0)
+    cols = torch.clamp(x0 + HALF, max=w) - torch.clamp(x0 - HALF, min=0)
+    cover = float(torch.where(radii > 0, rows * cols, 0.0).sum())
+    entry.update(zip(("bound_ms", "bound_by"), bound(
+        4 * h * w + 12 * xs.numel(), 14 * cover)))
+    return entry
+
+
+def parity_args(stack, d_ys, d_xs, pixfrac: float, iterations: int = 5):
+    """K9's arguments for the exact square drizzle of ``stack`` at scale
+    2: the plan's shifts and weights (stacking/drizzle.py:_plan_parity)
+    on the stack's device, taps, cap = 2n, sigma 3/3."""
+    from astroburst_tpu_torch.dtypes import DrizzleKernel
+    from astroburst_tpu_torch.stacking.drizzle import _plan_parity
+    n, h, w = stack.shape
+    plan = _plan_parity(h, w, d_ys, d_xs, 2.0, pixfrac, DrizzleKernel.SQUARE,
+                        2 * h, 2 * w)
+    if plan is None:
+        raise AssertionError("the parity plan refused the drizzle bench")
+    return (stack, *(plan[k].to(stack.device) for k in (
+        "s_row", "s_col", "wys_t", "wxs")), plan["taps"], max(2 * n, 4),
+        3.0, 3.0, iterations)
+
+
+def check_drizzle_gather(dstack, dd_ys, dd_xs, rng) -> dict:
+    """K9 against its plain version at the drizzle bench (the full
+    output of 10 x 4096^2 → 8192^2, pixfrac 0.7) and at 150 frames of
+    40 x 72 with NaN/inf pixels (the global-scratch instance): image and
+    rejected map bit-equal, weights within rtol 1e-6. Returns the
+    report entry."""
+    import torch
+    from astroburst_tpu_torch.stacking.drizzle_gather_kernel import (
+        drizzle_gather_finalize, drizzle_gather_finalize_plain)
+    args = parity_args(dstack, dd_ys, dd_xs, 0.7)
+    got = drizzle_gather_finalize(*args)
+    ref = drizzle_gather_finalize_plain(*args)
+    torch.cuda.synchronize()
+    n, h, w = dstack.shape
+    entry = check_finalize(f"[K9] drizzle_gather_finalize {n}x{h}x{w} -> "
+                           f"{tuple(got[0].shape)}", got, ref)
+    out_px = got[0].numel()
+    m = n * args[5] ** 2
+    del got, ref
+    entry.update({
+        "ms": cuda_ms(lambda: drizzle_gather_finalize(*args), 5),
+        "plain_ms": cuda_ms(lambda: drizzle_gather_finalize_plain(*args), 1),
+        "library_ms": None, "shape": [n, h, w], "candidates": m})
+    # bytes: the stack, the shifts and weight tables, three output
+    # planes; operations: w = wy·wx per candidate and the weight sum
+    entry.update(zip(("bound_ms", "bound_by"), bound(
+        4 * (dstack.numel() + args[3].numel() + args[4].numel()
+             + 2 * args[1].numel()) + 12 * out_px, 2 * m * out_px)))
+    n = 150
+    e = rng.normal(100, 8, (n, 40, 72)).astype(np.float32)
+    e[rng.random(e.shape) < 0.02] = np.nan
+    e[: n // 2, 5, 9] = np.inf
+    e[1, 20, 30] = -np.inf
+    e[2, 10, 10] = 5000.0
+    es = torch.as_tensor(e, device=dstack.device)
+    ed = rng.uniform(-2, 2, (2, n)).astype(np.float32)
+    args = parity_args(es, ed[0], ed[1], 1.0)[:-3] + (2.5, 3.0, 5)
+    check_finalize(f"[K9] {n}x40x72 -> (80, 144), NaN/inf pixels",
+                   drizzle_gather_finalize(*args),
+                   drizzle_gather_finalize_plain(*args))
+    entry.update({
+        "ms_150_frames": cuda_ms(lambda: drizzle_gather_finalize(*args), 10),
+        "plain_ms_150_frames": cuda_ms(
+            lambda: drizzle_gather_finalize_plain(*args), 3)})
+    return entry
+
+
+def masked_stretch_path(field, counters):
+    """Path (d): ``masked_stretch`` on ``field`` fixed x10
+    (convergence_threshold 0, the JAX bench's configuration) and at the
+    default threshold, and ``masked_stretch_rgb_shared`` on three
+    channels made from it; kernel launches counted over exactly these
+    calls. ``field`` is the star field scaled into [0, 1): the reference
+    stretches normalized data, and its luminance protection compares the
+    image itself with the 0.85 ceiling, so raw counts (~100) would mark
+    every pixel a star and leave no background to measure. Then the same calls through the plain versions: the same
+    stars, iterations and convergence, coverage within 1e-5, images
+    within 1e-3. The two paths' detections differ at f32 rounding (K11's
+    sums in another order: centroids up to 2.4e-4 px apart at 4096^2),
+    and the soft edges move with them, by up to ~1e-4 at softness 4; K13
+    itself is bit-equal on the same records (phase 3). Returns
+    (launches, times, max image difference, max coverage
+    difference)."""
+    import torch
+    from astroburst_tpu_torch.imaging.masked_stretch import (
+        MaskedStretchConfig, masked_stretch, masked_stretch_rgb_shared)
+    fixed = MaskedStretchConfig(convergence_threshold=0.0)
+    conv = MaskedStretchConfig()
+    g = torch.Generator(device=field.device).manual_seed(27)
+    rgb = (field, 0.8 * field + 5e-4 * torch.randn(
+        field.shape, generator=g, device=field.device), 1.2 * field - 4e-3)
+
+    def run(plain=False):
+        out = {"x10": masked_stretch(field, fixed, plain=plain),
+               "converged": masked_stretch(field, conv, plain=plain)}
+        rgb_res = masked_stretch_rgb_shared(*rgb, conv, plain=plain)
+        for c in "rgb":
+            out[f"rgb_{c}"] = rgb_res[c]
+        return out
+
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    res = run()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"[path] kernel launches in masked_stretch (x10, converged) + "
+        f"masked_stretch_rgb_shared: {launches}")
+    for name in ("paint_mask", "sort_tiles", "window_stats"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never ran: {launches}")
+    for tag, r in res.items():
+        lo, hi = float(r.image.min()), float(r.image.max())
+        log(f"[path] masked_stretch {tag}: {r.stars_masked} stars, "
+            f"coverage {r.mask_coverage:.4f}, {r.iterations_run} "
+            f"iterations, converged {r.converged}, background "
+            f"{r.final_background:.6f}, image in [{lo:.3g}, {hi:.3g}]")
+        if r.stars_masked < 1 or lo < 0.0 or hi > 1.0 or \
+                abs(r.final_background - 0.25) > 0.02 or \
+                r.image.shape != field.shape:
+            raise AssertionError(f"masked_stretch {tag}: {r}")
+    if res["x10"].iterations_run != 10 or res["x10"].converged:
+        raise AssertionError("the fixed x10 run stopped early")
+    ref = run(plain=True)
+    torch.cuda.synchronize()
+    d_img = d_cov = 0.0
+    for tag, r in res.items():
+        p = ref[tag]
+        d = float((r.image - p.image).abs().max())
+        d_img = max(d_img, d)
+        d_cov = max(d_cov, abs(r.mask_coverage - p.mask_coverage))
+        if (r.stars_masked, r.iterations_run, r.converged) != \
+                (p.stars_masked, p.iterations_run, p.converged) or \
+                d_cov > 1e-5 or d > 1e-3:
+            raise AssertionError(f"masked_stretch {tag}: kernel {r} vs "
+                                 f"plain {p}")
+    log(f"[path] masked_stretch kernel vs plain: same stars, iterations "
+        f"and convergence; image max|d| {d_img:.3e}, coverage max|d| "
+        f"{d_cov:.3e}")
+    times = {}
+    for name, fn, reps in (
+            ("masked_stretch_x10", lambda p: masked_stretch(
+                field, fixed, plain=p), 5),
+            ("masked_stretch_converged", lambda p: masked_stretch(
+                field, conv, plain=p), 5),
+            ("masked_stretch_rgb_shared", lambda p: masked_stretch_rgb_shared(
+                *rgb, conv, plain=p), 3)):
+        times[name] = (cuda_ms(lambda: fn(False), reps),
+                       cuda_ms(lambda: fn(True), max(1, reps - 2)))
+    return launches, times, d_img, d_cov
+
+
+def check_parity_drizzle(what, got, want) -> dict:
+    """``drizzle_exact_parity`` against ``_drizzle_kernel_exact`` at one
+    band: image atol 2e-4 / rtol 1e-6, weights atol 1e-5, rejected count
+    equal (tests/test_reference_impl.py:295-299)."""
+    import torch
+    if got is None:
+        raise AssertionError(f"{what}: the parity plan refused")
+    d_img = float((got[0] - want[0]).abs().max())
+    d_wgt = float((got[1] - want[1]).abs().max())
+    bit = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"  {what}: image max|d|={d_img:.3e}, weights max|d|={d_wgt:.3e}, "
+        f"rejected {int(got[2])} vs {int(want[2])}; bit-equal {bit}")
+    if not (torch.allclose(got[0], want[0], rtol=1e-6, atol=2e-4)
+            and torch.allclose(got[1], want[1], rtol=0.0, atol=1e-5)
+            and int(got[2]) == int(want[2])):
+        raise AssertionError(f"{what}: beyond the JAX test's tolerances")
+    return {"max_abs_err": d_img, "weights_max_abs_err": d_wgt,
+            "bit_equal": bit}
+
+
 def stf_preview(img):
     """stats_core → auto-STF → u8 stretch of one plane: (stf [2], u8)."""
     import torch
@@ -520,6 +774,10 @@ def main() -> None:
         drizzle_finalize_fused_plain, drizzle_finalize_plain)
     from astroburst_tpu_torch.stacking.onepass_kernel import (
         shift_clip_onepass, shift_clip_onepass_plain)
+    from astroburst_tpu_torch.imaging.star_mask_kernel import paint_mask
+    from astroburst_tpu_torch.stacking.drizzle import drizzle_exact_parity
+    from astroburst_tpu_torch.stacking.drizzle_gather_kernel import (
+        drizzle_gather_finalize)
 
     # ---- 1. device ---------------------------------------------------
     t_start = time.perf_counter()
@@ -548,7 +806,8 @@ def main() -> None:
     built = {r[0].split("<")[0] for r in rows}
     want = {"shift_clip_kernel", "coarse_box_kernel", "gather_crops_kernel",
             "drizzle_finalize_kernel", "tile_sort_kernel",
-            "window_stats_kernel", "triangle_vote_kernel"}
+            "window_stats_kernel", "triangle_vote_kernel",
+            "drizzle_gather_kernel", "star_mask_kernel"}
     if not want <= built:
         raise AssertionError(f"kernels missing from the build: "
                              f"{want - built}")
@@ -652,8 +911,11 @@ def main() -> None:
     e0, f0 = check_flips(f"[K3] shift_clip at zero offsets vs "
                          f"sigma_clip_core {N_FRAMES}x{H}x{W}", N_FRAMES,
                          got[0], ref[0], got[1], ref[1])
-    report["shift_clip"].update({"max_abs_err_zero_offsets": e0,
-                                 "flips_zero_offsets": f0})
+    report["shift_clip"].update({
+        "max_abs_err_zero_offsets": e0, "flips_zero_offsets": f0,
+        "ms_zero_offsets": cuda_ms(lambda: shift_clip_onepass(
+            stack, zeros, zeros), 10),
+        "plain_ms_zero_offsets": cuda_ms(lambda: sigma_clip_core(stack), 3)})
     big = stack_from_numpy(np.stack(big_frames), dev)
     boffs = rng.uniform(-BIG_SHIFT, BIG_SHIFT, (2, BIG_N)).astype(np.float32)
     bdys, bdxs = (torch.as_tensor(o, device=dev) for o in boffs)
@@ -804,7 +1066,11 @@ def main() -> None:
             cand, wys_t, wxs, *args), 10),
         "plain_ms_150_frames": cuda_ms(lambda: drizzle_finalize_fused_plain(
             cand, wys_t, wxs, *args), 3)})
-    del es, cand, cand_w, dstack
+    del es, cand, cand_w
+
+    # K9 at the drizzle bench: the full 8192^2 output, no candidates
+    report["drizzle_gather_finalize"] = check_drizzle_gather(
+        dstack, dd_ys, dd_xs, rng)
 
     # K10: the tile sort, bit-equal, at the detection path's steps
     t0 = time.perf_counter()
@@ -893,6 +1159,11 @@ def main() -> None:
     report["window_stats"].update(zip(("bound_ms", "bound_by"), bound(
         4 * nv * 41 * 41 + 4 * (2 + 9) * SD.MAX_PEAKS, k11_ops)))
 
+    # K13: the star mask of the masked stretch's own records, on the
+    # field in [0, 1) (see masked_stretch_path)
+    ms_field = field / MS_SCALE
+    report["paint_mask"] = check_star_mask(ms_field, MS_PEAKS)
+
     # K12: the vote at the full triangle count of 60 stars
     vrng = np.random.default_rng(23)
     stars_r = vrng.random((60, 2)) * 4000
@@ -930,7 +1201,9 @@ def main() -> None:
                 "drizzle_finalize": drizzle_finalize,
                 "sort_tiles": sort_tiles,
                 "window_stats": window_stats,
-                "vote": vote}
+                "vote": vote,
+                "paint_mask": paint_mask,
+                "drizzle_gather_finalize": drizzle_gather_finalize}
     big_list = [torch.as_tensor(f, device=dev) for f in big_frames]
     del big_frames
     torch.cuda.synchronize()
@@ -1091,7 +1364,56 @@ def main() -> None:
         f"{ms_bp:.3f} ms (peak {peak_bp / 2**30:.2f} GiB)")
     log(f"[time] {smi}: calibrate (16+16+16 masters, {DRZ_N} lights) → "
         f"drizzle_stack → stats/STF/u8: {ms_full:.3f} ms")
-    del bias, darks, flats, lights, calibrated, cal_stack, dres
+    del bias, darks, flats, lights, calibrated, dres
+
+    # ---- 4e. the parity drizzle (K9): calibrated lights, drizzle bench ---
+    bench_args = (dstack, dd_ys, dd_xs, 2.0, 0.7, DrizzleKernel.SQUARE,
+                  out_hw, out_hw, 3.0, 3.0, 5)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    par_cal = drizzle_exact_parity(*exact_args)
+    par_bench = drizzle_exact_parity(*bench_args)
+    torch.cuda.synchronize()
+    launches_parity = {name: fn.launches for name, fn in counters.items()}
+    log(f"[path] kernel launches in drizzle_exact_parity (calibrated "
+        f"lights, drizzle bench): {launches_parity}")
+    if launches_parity["drizzle_gather_finalize"] < 2:
+        raise AssertionError(f"drizzle_gather_finalize did not run on "
+                             f"both stacks: {launches_parity}")
+    parity_err = {}
+    for tag, got, a in (("calibrated", par_cal, exact_args),
+                        ("bench", par_bench, bench_args)):
+        want = _drizzle_kernel_exact(*a, band_rows=out_hw)   # K7, one band
+        parity_err[tag] = check_parity_drizzle(
+            f"[path] drizzle_exact_parity {tag} vs one-band "
+            f"_drizzle_kernel_exact", got, want)
+        if not bool(torch.isfinite(got[0]).all()):
+            raise AssertionError(f"parity drizzle {tag}: image not finite")
+    del par_cal, par_bench, want
+    torch.cuda.reset_peak_memory_stats()
+    ms_par = cuda_ms(lambda: drizzle_exact_parity(*exact_args), 5)
+    peak_par = torch.cuda.max_memory_allocated()
+    ms_par_p = cuda_ms(lambda: drizzle_exact_parity(*exact_args, plain=True),
+                       1)
+    ms_par_b = cuda_ms(lambda: drizzle_exact_parity(*bench_args), 5)
+    torch.cuda.reset_peak_memory_stats()
+    ms_one = cuda_ms(lambda: _drizzle_kernel_exact(*exact_args,
+                                                   band_rows=out_hw), 1)
+    peak_one = torch.cuda.max_memory_allocated()
+    log(f"[time] {smi}: drizzle_exact_parity {DRZ_N}x{DRZ_HW}^2 -> "
+        f"{out_hw}^2 (plan and its offsets fetch included) calibrated "
+        f"lights {ms_par:.3f} ms (peak {peak_par / 2**30:.2f} GiB), bench "
+        f"stack {ms_par_b:.3f} ms | plain {ms_par_p:.3f} ms | beside "
+        f"drizzle_stack band 64 {ms_d:.3f} ms, _drizzle_kernel_exact band "
+        f"{DRZ_BAND} {ms_b:.3f} ms and one band {ms_one:.3f} ms (peak "
+        f"{peak_one / 2**30:.2f} GiB)")
+    times_parity = {"drizzle_exact_parity_calibrated": (ms_par, ms_par_p),
+                    "drizzle_exact_parity_bench": (ms_par_b, None),
+                    "drizzle_stack_band64": (ms_d, ms_dp),
+                    "drizzle_kernel_exact_band1024": (ms_b, ms_bp),
+                    "drizzle_kernel_exact_one_band": (ms_one, None)}
+    del cal_stack, dstack, exact_args, bench_args
 
     # ---- 4c. star detection → affine alignment → warp ----------------
     t0 = time.perf_counter()
@@ -1225,6 +1547,13 @@ def main() -> None:
                          cuda_ms(lambda: fn(True), max(1, reps - 2)))
         log(f"[time] {smi}: {name} kernels {times_c[name][0]:.3f} ms | "
             f"plain {times_c[name][1]:.3f} ms (host fetches included)")
+
+    # ---- 4d. star mask → masked stretch on the 4096^2 field ----------
+    launches_mask, times_mask, d_ms_img, d_ms_cov = masked_stretch_path(
+        ms_field, counters)
+    for name, (k, p) in times_mask.items():
+        log(f"[time] {smi}: {name} {DET_HW}^2 kernels {k:.3f} ms | plain "
+            f"{p:.3f} ms (host fetches included)")
     if "jax" in sys.modules or "astroburst_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
 
@@ -1248,11 +1577,19 @@ def main() -> None:
                          "astroburst_tpu/analysis/window_kernel.py:274"),
         "vote": ("astroburst_tpu_torch/csrc/triangle_vote.cu",
                  "astroburst_tpu/alignment/vote_kernel.py:104"),
+        "paint_mask": ("astroburst_tpu_torch/csrc/star_mask.cu",
+                       "astroburst_tpu/imaging/star_mask_kernel.py:87"),
+        "drizzle_gather_finalize": (
+            "astroburst_tpu_torch/csrc/drizzle_gather.cu",
+            "astroburst_tpu/stacking/drizzle_gather_kernel.py:209"),
     }
     paths = {"align_stack_stretch+stack_images": launches_stack,
              "calibrate+drizzle_stack": launches_drizzle,
              "detect_stars+align_channel_affine+warp_image"
-             "+drizzle_stack(AFFINE)": launches_affine}
+             "+drizzle_stack(AFFINE)": launches_affine,
+             "masked_stretch(x10,converged)+masked_stretch_rgb_shared":
+                 launches_mask,
+             "drizzle_exact_parity(calibrated,bench)": launches_parity}
     kernels = []
     for name, (source, replaces) in meta.items():
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -1270,6 +1607,14 @@ def main() -> None:
                 for name, (k, pl) in times_c.items()}
     log(f"[path] detection/affine entry points: {json.dumps(paths_ms)}; "
         f"farthest isolated-star detection {det_err} px")
+    log(f"[path] masked stretch entry points: " + json.dumps(
+        {n: {"kernels_ms": k, "plain_ms": p} for n, (k, p)
+         in times_mask.items()}) + f"; kernel vs plain image max|d| "
+        f"{d_ms_img:.3e}, coverage max|d| {d_ms_cov:.3e}")
+    log(f"[path] parity drizzle entry points: " + json.dumps(
+        {n: {"kernels_ms": k, "plain_ms": p} for n, (k, p)
+         in times_parity.items()}) + f"; against the one-band exact "
+        f"route: {json.dumps(parity_err)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -17,6 +17,12 @@ are the JAX package's own (tests/test_reference_impl.py:170-262):
 - against the scatter oracle tests/reference_impl ``ref_drizzle``: the
   tolerances of ``test_drizzle_exact_matches_scatter_oracle``.
 
+The parity drizzle (``drizzle_exact_parity``, K9's plain version)
+against JAX's, whose Pallas kernel runs in interpret mode, at the
+tolerances of tests/test_reference_impl.py:295-299 (image atol 2e-4 /
+rtol 1e-6, weights atol 1e-5, rejected count equal), and bit-equal to
+the port's own one-band ``_drizzle_kernel_exact``.
+
 The CUDA kernels themselves run only on the card: chip_smoke.py holds
 them to these plain versions there.
 """
@@ -36,6 +42,7 @@ from astroburst_tpu.stacking.drizzle_kernel import (
 from astroburst_tpu_torch import dtypes as tdt
 from astroburst_tpu_torch.convert import stack_from_numpy
 from astroburst_tpu_torch.stacking import drizzle as tdz
+from astroburst_tpu_torch.stacking import drizzle_gather_kernel as tdg
 from astroburst_tpu_torch.stacking import drizzle_kernel as tdk
 from tests.reference_impl import ref_drizzle
 from tests.test_torch_phase_correlation import (  # noqa: F401
@@ -340,13 +347,11 @@ def _assert_drizzle_matches(got, want):
     assert got.rejected_pixels == want.rejected_pixels
 
 
-def test_drizzle_stack_affine_route_not_ported(rng):
-    """A low-confidence frame takes the affine route, as in JAX. (The
-    name dates from when this route raised NotImplementedError, ROADMAP
-    C9; it is kept so the test's history stays one line.) A constant
-    frame fails the phase-correlation gate (confidence 0), and that
-    frame alone goes to alignment/pair.estimate_offset(AFFINE); there
-    the starless frame falls back to the identity."""
+def test_drizzle_stack_low_confidence_frame_takes_affine_route(rng):
+    """A low-confidence frame takes the affine route, as in JAX. A
+    constant frame fails the phase-correlation gate (confidence 0), and
+    that frame alone goes to alignment/pair.estimate_offset(AFFINE);
+    there the starless frame falls back to the identity."""
     frames, _ = _affine_frames(rng)
     frames[2] = np.full_like(frames[2], 7.0)
     cfg = (tdt.DrizzleConfig(), jdt.DrizzleConfig())
@@ -395,3 +400,131 @@ def test_drizzle_taps_match_jax_vectors():
                         np.testing.assert_allclose(tw[k, t].numpy(),
                                                    np.asarray(jw),
                                                    atol=1e-6, rtol=1e-6)
+
+
+# ---- the parity drizzle (K9) ------------------------------------------------
+
+
+def _parity_args(rng, n=4, h=14, w=20):
+    """tests/test_reference_impl.py:276-284's case: NaN pixels, an
+    outlier, negative and fractional offsets."""
+    frames = [rng.normal(10, 1, (h, w)).astype(np.float32) for _ in range(n)]
+    frames[1][7, 9] = 300.0
+    frames[0][3, 4] = np.nan
+    frames[2][10, 15] = np.nan
+    offs = [(0.0, 0.0), (0.4, -0.25), (-0.3, 0.6), (1.2, 0.8)][:n]
+    return (np.stack(frames), np.float32([-o[1] for o in offs]),
+            np.float32([-o[0] for o in offs]))
+
+
+@pytest.mark.parametrize("kern", KERNELS)
+def test_drizzle_exact_parity_matches_jax(rng, kern):
+    stack, d_ys, d_xs = _parity_args(rng)
+    want = jdz.drizzle_exact_parity(
+        jnp.asarray(stack), d_ys.tolist(), d_xs.tolist(), 2.0, 1.0,
+        jdt.DrizzleKernel(kern), 28, 40, 3.0, 3.0, 3, interpret=True)
+    ts = stack_from_numpy(stack, CPU)
+    args = (ts, torch.from_numpy(d_ys), torch.from_numpy(d_xs), 2.0, 1.0,
+            tdt.DrizzleKernel(kern), 28, 40, 3.0, 3.0, 3)
+    got = tdz.drizzle_exact_parity(*args)
+    assert want is not None and got is not None
+    assert got[0].shape == got[1].shape == (28, 40)
+    _close(got[0], want[0], 2e-4, 1e-6, f"{kern} image")
+    _close(got[1], want[1], 1e-5, 0.0, f"{kern} weights")
+    assert int(got[2]) == int(want[2]) > 0
+    # the port's banded route at one band (no band offset): bit-equal
+    band = tdz._drizzle_kernel_exact(*args, band_rows=28)
+    for a, b in zip(got, band):
+        assert torch.equal(a, b), kern
+    for a, b in zip(got, tdz.drizzle_exact_parity(*args, plain=True)):
+        assert torch.equal(a, b), kern
+
+
+def test_drizzle_exact_parity_bench_config_matches_jax(rng):
+    """The bench configuration (scale 2, pixfrac 0.7, square, 5
+    iterations: 2 taps a side) at 10 frames of 32 x 48, offsets in
+    +-2 px."""
+    stack = rng.normal(100, 8, (10, 32, 48)).astype(np.float32)
+    d_ys = rng.uniform(-2, 2, 10).astype(np.float32)
+    d_xs = rng.uniform(-2, 2, 10).astype(np.float32)
+    kern = jdt.DrizzleKernel.SQUARE
+    want = jdz.drizzle_exact_parity(jnp.asarray(stack), d_ys.tolist(),
+                                    d_xs.tolist(), 2.0, 0.7, kern, 64, 96,
+                                    3.0, 3.0, 5, interpret=True)
+    got = tdz.drizzle_exact_parity(
+        stack_from_numpy(stack, CPU), d_ys, d_xs, 2.0, 0.7,
+        tdt.DrizzleKernel.SQUARE, 64, 96, 3.0, 3.0, 5)
+    _close(got[0], want[0], 2e-4, 1e-6, "image")
+    _close(got[1], want[1], 1e-5, 0.0, "weights")
+    assert int(got[2]) == int(want[2])
+
+
+def test_parity_plan_matches_jax_plan(rng):
+    """Shifts equal to the JAX plan's; the full-grid weights, taken at
+    each parity, equal its per-parity weight matrices."""
+    d_ys = [0.0, -0.37, 1.61, -2.2]
+    d_xs = [0.0, 0.52, -1.3, 1.9]
+    for kern in KERNELS:
+        want = jdz._plan_parity(9, 11, d_ys, d_xs, 2.0, 0.7,
+                                jdt.DrizzleKernel(kern), 18, 22)
+        got = tdz._plan_parity(9, 11, d_ys, d_xs, 2.0, 0.7,
+                               tdt.DrizzleKernel(kern), 18, 22)
+        assert got["s"] == want["s"] == 2 and got["taps"] == want["taps"]
+        np.testing.assert_array_equal(got["s_row"].numpy(), want["s_row"])
+        np.testing.assert_array_equal(got["s_col"].numpy(), want["s_col"])
+        for p in range(2):
+            np.testing.assert_allclose(got["wys_t"][p::2].numpy(),
+                                       want["wy_mats"][p], atol=1e-6,
+                                       rtol=1e-6)
+            np.testing.assert_allclose(got["wxs"][:, p::2].numpy().T,
+                                       want["wx_mats"][p], atol=1e-6,
+                                       rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["scale_1.5", "not_scale_times_input",
+                                  "span_over_32", "span_32"])
+def test_drizzle_exact_parity_none_where_jax_none(rng, case):
+    """None in exactly the cases of the JAX plan: a non-integer scale, an
+    output that is not S x the input, shifts spread over more than 32 px
+    (and a result at a spread of exactly 32)."""
+    stack = rng.normal(10, 1, (2, 8, 8)).astype(np.float32)
+    scale, out_r, out_c = 2.0, 16, 16
+    d_ys, d_xs = [0.0, 0.3], [0.0, -0.2]
+    if case == "scale_1.5":
+        scale, out_r, out_c = 1.5, 12, 12
+    elif case == "not_scale_times_input":
+        out_r = 15
+    elif case == "span_over_32":
+        d_ys = [0.0, 33.0]
+    else:
+        d_xs = [0.0, 32.0]
+    want = jdz.drizzle_exact_parity(
+        jnp.asarray(stack), d_ys, d_xs, scale, 1.0, jdt.DrizzleKernel.SQUARE,
+        out_r, out_c, 3.0, 3.0, 3, interpret=True)
+    got = tdz.drizzle_exact_parity(
+        stack_from_numpy(stack, CPU), d_ys, d_xs, scale, 1.0,
+        tdt.DrizzleKernel.SQUARE, out_r, out_c, 3.0, 3.0, 3)
+    assert (got is None) == (want is None)
+    assert (got is None) == (case != "span_32")
+    if got is not None:
+        _close(got[0], want[0], 2e-4, 1e-6, "image")
+        _close(got[1], want[1], 1e-5, 0.0, "weights")
+        assert int(got[2]) == int(want[2])
+
+
+def test_parity_plain_refuses_out_of_plane_taps():
+    """A tap whose input index falls outside the plane is never present,
+    whatever weight it is given (the kernel refuses the index too)."""
+    stack = torch.ones((1, 4, 4))
+    # tap 0 at index -1 for parity 0, 3 for parity 1; two taps per axis
+    base = torch.tensor([[-1, 3]], dtype=torch.int32)
+    wys_t = torch.ones((8, 2))
+    wxs = torch.ones((2, 8))
+    img, wgt, rej = tdg.drizzle_gather_finalize(stack, base, base, wys_t,
+                                                wxs, 2, 4, 3.0, 3.0, 3)
+    assert img.shape == (8, 8)
+    assert float(wgt[0, 0]) == 1.0       # rows/cols -1, 0: one inside
+    assert float(wgt[2, 2]) == 4.0       # rows/cols 0, 1: all inside
+    assert float(wgt[1, 1]) == 1.0       # rows/cols 3, 4: one inside
+    assert float(wgt[3, 3]) == 0.0       # rows/cols 4, 5: none
+    assert float(img[3, 3]) == 0.0 and float(img[2, 2]) == 1.0

@@ -98,7 +98,10 @@ def test_port_and_chip_smoke_import_nothing_of_jax_or_the_jax_package():
     assert len(files) > 20
     for new in ("analysis/star_detection.py", "analysis/tile_sort_kernel.py",
                 "analysis/window_kernel.py", "alignment/affine.py",
-                "alignment/pair.py", "alignment/vote_kernel.py"):
+                "alignment/pair.py", "alignment/vote_kernel.py",
+                "imaging/star_mask.py", "imaging/star_mask_kernel.py",
+                "imaging/masked_stretch.py",
+                "stacking/drizzle_gather_kernel.py"):
         assert REPO / "astroburst_tpu_torch" / new in files, new
     bad = []
     for f in files:
@@ -200,6 +203,12 @@ def test_kernel_wrappers_reject_other_devices():
                                meta[0, :2], 1, 2, 2, 4, 3.0, 3.0, 5)
     with pytest.raises(ValueError, match="device"):
         drizzle_finalize(meta, meta, 4, 3.0, 3.0, 5)
+    from astroburst_tpu_torch.stacking.drizzle_gather_kernel import (
+        drizzle_gather_finalize)
+    base = torch.zeros((2, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        drizzle_gather_finalize(meta, base, base, meta[0, :, :4],
+                                meta[0, :4], 2, 4, 3.0, 3.0, 5)
 
 
 # ---- masking / resample / fft ------------------------------------------------
