@@ -11,10 +11,8 @@ The JAX package's design is kept, on torch tensors:
 1. background: the plane is cut into step × step tiles, each tile is
    sorted (kernel K10, analysis/tile_sort_kernel.py, for every step)
    and sigma-clipped as a contiguous interval of its sorted values; the
-   median and the MAD are exact rank selections (the MAD's deviations
-   |x − med| over the interval are sorted per tile: in IEEE f32
-   med − x equals |x − med|, so these are the values the JAX two-run
-   selection returns);
+   median and the MAD are exact rank selections, the MAD's by JAX's
+   two-run partition search over per-tile gathers (no sort);
 2. peaks: 3 × 3 local maxima above the threshold with the JAX tie rule,
    reduced to one candidate per 2 × 2 block, then the top ``max_peaks``
    by a stable descending sort (value first, then flat index: the order
@@ -98,20 +96,78 @@ def _interval_median(sorted_rows, lo, hi):
     return torch.where(cnt > 0, (v1 + v2) * 0.5, 0.0)
 
 
+PROBES = 256   # partition probes a round of _sel_deviation_ranks
+
+
+def _probe_rounds(p: int) -> int:
+    """Rounds of PROBES probes that narrow a partition range of up to
+    ``p`` to one point: each leaves at most ceil(span / PROBES) − 1."""
+    rounds = 0
+    while p > 0:
+        p = -(-p // PROBES) - 1
+        rounds += 1
+    return rounds
+
+
+def _sel_deviation_ranks(sorted_rows, med, lo, split, hi, ks):
+    """Exact 0-based rank-k elements of the deviation multiset
+    {|sorted_rows[t, i] − med[t]| : lo ≤ i < hi}, for [T, R] ranks
+    ``ks`` (the JAX package's ``_sel_deviation_ranks``,
+    astroburst_tpu/analysis/star_detection.py:84).
+
+    The deviations form two ascending runs, A[i] = med − row[split−1−i]
+    (the values below med, walking down) and B[j] = row[split+j] − med;
+    in f32, med − x equals |x − med|, so this is the multiset's own
+    values. The k-th smallest takes a from A and m − a from B (m = k +
+    1), for the largest a in [max(m − lb, 0), min(m, la)] with
+    A[a−1] ≤ B[m−a], a predicate that holds up to that a and fails
+    after it. JAX bisects it in 18 rounds of one probe; here each round
+    tests PROBES evenly spaced a at once (one gather of [T, R, PROBES]
+    rows) and keeps the gap after the last that holds, so 2 rounds
+    cover a 256² tile: the same partition, with ~25 small launches
+    where bisection takes ~400."""
+    t, p = sorted_rows.shape
+    med = med[:, None, None]
+    m = ks + 1
+    a_lo = torch.clamp(m - (hi - split)[:, None], min=0)
+    a_hi = torch.minimum(m, (split - lo)[:, None])
+    j = torch.arange(1, PROBES + 1, device=sorted_rows.device)
+    for _ in range(_probe_rounds(p)):
+        step = torch.clamp(-torch.div(a_lo - a_hi, PROBES,
+                                      rounding_mode="floor"), min=1)
+        a = a_lo[..., None] + j * step[..., None]            # [T, R, K]
+        below = split[:, None, None] - a                     # A[a − 1]
+        above = below + m[..., None]                         # B[m − a]
+        rows = torch.gather(sorted_rows, 1, torch.clamp(
+            torch.cat([below, above], dim=1).reshape(t, -1), 0, p - 1))
+        ra, rb = rows.reshape(t, 2, *a.shape[1:]).unbind(1)
+        holds = (a <= a_hi[..., None]) & ((med - ra) <= (rb - med))
+        a_lo = a_lo + holds.sum(dim=-1) * step
+        a_hi = torch.minimum(a_lo + step - 1, a_hi)
+    ia = split[:, None] - a_lo                               # A[a − 1]
+    ib = split[:, None] + m - a_lo - 1                       # B[m − a − 1]
+    rows = torch.gather(sorted_rows, 1, torch.clamp(
+        torch.cat([ia, ib], dim=1), 0, p - 1))
+    va = torch.where(a_lo > 0, med[:, :, 0] - rows[:, :ks.shape[1]],
+                     float("-inf"))
+    vb = torch.where(m - a_lo > 0, rows[:, ks.shape[1]:] - med[:, :, 0],
+                     float("-inf"))
+    return torch.maximum(va, vb)
+
+
 def _interval_mad(sorted_rows, lo, hi, med):
     """Exact median absolute deviation of sorted_rows[t, lo:hi] with
-    even-count averaging: the deviations over the interval, sorted per
-    tile, at the two middle ranks."""
+    even-count averaging (the JAX package's ``_interval_mad``): the
+    split below med by a binary search of the sorted rows (the count of
+    window values below med), then both middle ranks of the deviations
+    by ``_sel_deviation_ranks``. Nothing is sorted."""
     cnt = hi - lo
-    iota = torch.arange(sorted_rows.shape[1], device=sorted_rows.device)
-    window = (iota >= lo[:, None]) & (iota < hi[:, None])
-    dev = torch.sort(torch.where(window,
-                                 torch.abs(sorted_rows - med[:, None]),
-                                 float("inf")), dim=1).values
+    below = torch.searchsorted(sorted_rows, med[:, None].contiguous())[:, 0]
+    split = torch.minimum(torch.maximum(below, lo), hi)
     n = torch.clamp(cnt, min=1)
-    v1 = _at(dev, _floordiv2(n - 1))
-    v2 = _at(dev, _floordiv2(n))
-    return torch.where(cnt > 0, (v1 + v2) * 0.5, 0.0)
+    ks = torch.stack([_floordiv2(n - 1), _floordiv2(n)], dim=1)
+    vv = _sel_deviation_ranks(sorted_rows, med, lo, split, hi, ks)
+    return torch.where(cnt > 0, (vv[:, 0] + vv[:, 1]) * 0.5, 0.0)
 
 
 def _tile_sigma_clipped(sorted_rows, valid_counts, kappa: float = 3.0,

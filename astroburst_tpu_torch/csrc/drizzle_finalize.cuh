@@ -1,6 +1,10 @@
 // The exact drizzle's per-pixel finalize, shared by K7/K8
 // (drizzle_finalize.cu: candidates read from a [m, h, w] tensor) and K9
 // (drizzle_gather.cu: candidates gathered from the stack in the kernel).
+// It stands for the per-pixel loop that the TPU kernels
+// astroburst_tpu/stacking/drizzle_kernel.py:drizzle_finalize_fused and
+// astroburst_tpu/stacking/drizzle_gather_kernel.py:
+// drizzle_gather_finalize_parity run over (8, 128) VMEM tiles.
 //
 // What it computes, per output pixel over its m candidates in the
 // reference's push order (frame, y-tap, x-tap; drizzle.rs:121-195):
@@ -17,24 +21,46 @@
 // products, sums and bounds are written with __fmul_rn/__fadd_rn/
 // __fsub_rn so nvcc cannot contract them to FMA, and every sum runs in
 // the plain version's order, so the image, weight map and rejected map
-// match it bit for bit.
+// match it bit for bit. How a candidate is found is the caller's: it
+// says whether push k is present (its weight wk > 1e-12 and its value v
+// finite) and sets v and wk; a caller loads the value only after the
+// weight passed, so a push of weight 0 is never read. A pixel leaves
+// the clip loop at its own fixed point (fewer than 3 values, or a pass
+// that cut nothing): every later pass would be the identity, so the
+// early exit is exact. Reading stops at the cap-th present push: later
+// pushes change nothing.
 //
-// How a candidate is found is the caller's: `cands(k, v, wk)` returns
-// whether push k is present (its weight wk > 1e-12 and its value v
-// finite) and sets v and wk. A caller loads the value only after the
-// weight passed, so a push of weight 0 is never read.
+// What bounds it on the H100: the per-pixel work, not the bytes (the
+// candidates are read once, three planes written once). Two forms:
 //
-// Live values never exceed cap, so they sit in a per-thread array (stride
-// 1) or, past the largest local array, in a pixel-minor column of a
-// global scratch (stride h * w: value j of pixel o at scratch[j*h*w + o],
-// so the threads of a warp touch neighbouring words at every step).
-// Reading stops at the cap-th present push: later pushes change nothing.
-// The values are insertion-sorted as they arrive; the MAD's deviations
-// |v - med| over a sorted window fall then rise (V shape), so a
-// two-pointer walk out from the median gives their k-th smallest without
-// a second sort. A pixel leaves the clip loop at its own fixed point
-// (fewer than 3 values, or a pass that cut nothing): every later pass
-// would be the identity, so the early exit is exact.
+// finalize_pixel: the live values in memory at a stride — a column of a
+// per-block shared buffer (K9's depths 33..256: s[j * blockDim + tid],
+// so a warp's lanes always hit 32 different banks), a per-thread local
+// array (K7/K8), or a pixel-minor column of a global scratch past 256
+// (stride h * w). The values are insertion-sorted as they arrive; the
+// MAD's deviations over a sorted window fall then rise (V shape), so a
+// two-pointer walk out from the median gives their k-th smallest. Every
+// step indexes the array by a runtime value: in local memory that
+// spills through L1 to L2 and dominates the kernel's time.
+//
+// RegLive<CAP> (K9's depths <= 32): the live values in a register
+// array whose every subscript is a compile-time constant (all loops
+// over it unrolled), so it never touches local memory; the caller walks
+// its pushes itself (push / full / finish):
+//   - arrival: a present push is inserted by a median-of-three min/max
+//     over all CAP slots (slots past `live` hold +inf);
+//   - the median's two ranks and the MAD's two ranks are read by select
+//     chains;
+//   - the MAD: the window's deviations, +inf outside it, fall then rise,
+//     a bitonic sequence, so one bitonic merge (log2 P half-cleaner
+//     stages of min/max over P = next power of two >= CAP slots) sorts
+//     them; f32 subtraction rounds symmetrically, so |v - med| equals
+//     med - v below the median and the multiset is the walk's;
+//   - the cuts count the window values below vlo and above vhi (the
+//     window is sorted, so these are the walk's prefix and suffix);
+//   - the sums add the window's values in index order with predicated
+//     __fadd_rn, the plain version's order.
+// Its cost is ~3 CAP operations a push and ~25 CAP a clip pass.
 
 #pragma once
 
@@ -133,5 +159,154 @@ __device__ __forceinline__ void finalize_pixel(
 
 // Largest per-thread live-value array; past it the global scratch.
 constexpr int kMaxLocalCap = 256;
+
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
+
+// Bit i set for lo <= i < hi (0 <= lo, hi <= 32): one mask per pass, so
+// each slot's window test is a bit test.
+__device__ __forceinline__ unsigned window_bits(int lo, int hi) {
+  const unsigned below_hi = hi >= 32 ? ~0u : (1u << hi) - 1u;
+  const unsigned below_lo = lo >= 32 ? ~0u : (1u << lo) - 1u;
+  return lo < hi ? below_hi & ~below_lo : 0u;
+}
+
+// v[idx] of a register array, 0 <= idx < N, by a tree of selects on
+// the bits of idx (depth log2 N, fewer than N selects). Every loop has
+// constant bounds, so nvcc unrolls it and no subscript is a runtime
+// value (a recursive form was left uninlined, which put the array on
+// the stack).
+template <int N>
+__device__ __forceinline__ float reg_at(const float (&v)[N], int idx) {
+  float w[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) w[i] = v[i];
+  int len = N;  // w[0, len) still holds candidates
+#pragma unroll
+  for (int h = pow2_at_least(N) / 2; h > 0; h /= 2) {
+    const bool bit = (idx & h) != 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (i < h && i + h < len) w[i] = bit ? w[i + h] : w[i];
+    len = len < h ? len : h;
+  }
+  return w[0];
+}
+
+// finalize_pixel with the live values in registers, depth min(cap, m)
+// <= CAP: the caller calls push() for each present push in order while
+// full() is false (a present push once full ends its walk: every later
+// push is past the cap), then finish().
+template <int CAP>
+struct RegLive {
+  float v[CAP];   // ascending; slots past `live` hold +inf
+  int live = 0;
+  int cap;
+  float wsum = 0.0f;  // the kept pushes' weights, in push order
+
+  __device__ __forceinline__ explicit RegLive(int cap_) : cap(cap_) {
+#pragma unroll
+    for (int i = 0; i < CAP; ++i) v[i] = INFINITY;
+  }
+
+  __device__ __forceinline__ bool full() const { return live == cap; }
+
+  // insert x: slot i becomes the median of v[i-1], v[i] and x,
+  // max(v[i-1], min(v[i], x)) — two min/max a slot, no compare or
+  // select (the +inf slots past `live` stay +inf but the first). Equal
+  // values are bit-equal except +-0, whose order changes no output: the
+  // sums start at +0, and a zero median gives the same deviations and
+  // bounds.
+  __device__ __forceinline__ void push(float x, float wk) {
+    wsum = __fadd_rn(wsum, wk);
+#pragma unroll
+    for (int i = CAP - 1; i > 0; --i) v[i] = fmaxf(v[i - 1], fminf(v[i], x));
+    v[0] = fminf(v[0], x);
+    ++live;
+  }
+
+  __device__ __forceinline__ void finish(float sigma_low, float sigma_high,
+                                         int iterations, size_t o,
+                                         float* __restrict__ img,
+                                         float* __restrict__ wgt,
+                                         int* __restrict__ rej) const {
+    const int count0 = live;
+    // ---- clip passes on the sorted window [lo, hi) ----
+    int lo = 0;
+    int hi = count0;
+    for (int it = 0; it < iterations; ++it) {
+      const int cnt = hi - lo;
+      if (cnt < 3) break;  // inactive now and in every later pass
+      const int k1 = (cnt - 1) / 2;
+      const int k2 = cnt / 2;
+      const float med = __fmul_rn(
+          __fadd_rn(reg_at(v, lo + k1), reg_at(v, lo + k2)), 0.5f);
+      // deviations, +inf outside the window: they fall, then rise, a
+      // bitonic run; a bitonic merge over P = pow2 >= CAP slots sorts
+      // it, skipping the exchanges with the implicit +inf slots past CAP
+      // (they change nothing). When CAP < P the ranks wanted, k2 <=
+      // CAP / 2 < P / 2, lie in the lower half after the first stage,
+      // so only that half is merged on.
+      constexpr int P = pow2_at_least(CAP);
+      constexpr int KEEP = CAP < P ? P / 2 : P;
+      const unsigned win = window_bits(lo, hi);
+      float d[CAP];
+#pragma unroll
+      for (int i = 0; i < CAP; ++i)
+        d[i] = (win >> i) & 1u ? fabsf(__fsub_rn(v[i], med)) : INFINITY;
+#pragma unroll
+      for (int j = P / 2; j > 0; j /= 2) {
+#pragma unroll
+        for (int i = 0; i < CAP; ++i) {
+          if ((i & j) == 0 && i + j < CAP && (j == P / 2 || i + j < KEEP)) {
+            const float a = d[i];
+            const float b = d[i + j];
+            d[i] = fminf(a, b);
+            d[i + j] = fmaxf(a, b);
+          }
+        }
+      }
+      const float mad = __fmul_rn(__fadd_rn(reg_at(d, k1), reg_at(d, k2)),
+                                  0.5f);
+      const float sigma = fmaxf(__fmul_rn(mad, kMadToSigma), 1e-10f);
+      const float vlo = __fsub_rn(med, __fmul_rn(sigma_low, sigma));
+      const float vhi = __fadd_rn(med, __fmul_rn(sigma_high, sigma));
+      // the array is sorted: values < vlo are a prefix [0, below), values
+      // <= vhi a prefix [0, upto); their overlaps with the window are
+      // the walk's cuts
+      int below = 0;
+      int upto = 0;
+#pragma unroll
+      for (int i = 0; i < CAP; ++i) {
+        below += v[i] < vlo;
+        upto += v[i] <= vhi;
+      }
+      const int cut_lo = (below < lo ? lo : below > hi ? hi : below) - lo;
+      const int cut_hi = hi - (upto < lo ? lo : upto > hi ? hi : upto);
+      lo += cut_lo;
+      hi -= cut_hi;
+      if (cut_lo + cut_hi == 0) break;  // stopped: a fixed point
+    }
+
+    // ---- outputs ----
+    const int final_cnt = hi - lo;
+    float result = 0.0f;
+    if (final_cnt > 0 || count0 > 0) {
+      const unsigned win = final_cnt > 0 ? window_bits(lo, hi)
+                                         : window_bits(0, count0);
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < CAP; ++i)
+        if ((win >> i) & 1u) s = __fadd_rn(s, v[i]);
+      result = __fdiv_rn(s, (float)(final_cnt > 0 ? final_cnt : count0));
+    }
+    img[o] = result;
+    wgt[o] = wsum;
+    rej[o] = count0 - final_cnt;
+  }
+};
 
 }  // namespace abt_drizzle

@@ -11,7 +11,8 @@ exits non-zero, and so does a machine without a CUDA device):
 2. build: nvcc builds every kernel of ``astroburst_tpu_torch/csrc`` for
    sm_90a, one process per source, all started together; registers,
    shared memory and spills of each kernel and the build seconds are
-   printed, and a kernel that spills fails the run;
+   printed, and a kernel that spills, or a register instance of K9
+   with a stack frame, fails the run;
 3. kernels: each CUDA kernel against its plain torch version on the
    card, at the shapes of the main paths. K1-K3 on the bench workload
    (16 frames of 5655 x 2206 f32), K3 also at zero offsets against
@@ -22,12 +23,20 @@ exits non-zero, and so does a machine without a CUDA device):
    band of the drizzle bench (10 x 4096^2 f32 → 8192^2: 40 candidates x
    1024 x 8192), and at 10, 30, 60, 128 and 150 frames with NaN/inf
    pixels (every template instance; past 128 frames the global-scratch
-   one), and K9 (the parity drizzle: candidates gathered in the kernel)
-   on the full output of the drizzle bench (10 x 4096^2 → 8192^2) and at
-   150 frames with NaN/inf pixels. K10 (tile sort) on a 4096^2 star
-   field (256 tiles of 256^2),
-   on a 5655 x 2206 field (23 x 9 tiles, NaN padding), both with NaN/inf
-   pixels, and at 1000^2 (step 125); K11 (window statistics) on the
+   one), K7 also on drizzle_stack's own band of 64 rows (40 x 64 x
+   8192), and K9 (the parity drizzle: candidates gathered in the kernel)
+   on the full output of the drizzle bench (10 x 4096^2 → 8192^2, the
+   register instance), in each of its instances (registers at depth 4 to
+   32 in steps of 4, shared memory at 40 and 200, the global scratch at
+   300) on
+   stacks quantised so that ties are many, with +-0.0 and NaN/inf
+   pixels, and at 20 x 1024^2 → 2048^2 (shared memory). K10 (tile sort)
+   on tiles the fields do not reach (all equal, all invalid, one valid
+   value, +-inf rows, values at exactly 1e-7, ties) at steps 16, 64, 90,
+   125, 128, 129, 200 and 256 (every plan of the cluster radix route)
+   and 363 (the chunked route), on a 4096^2 star field (256 tiles of
+   256^2), on a 5655 x 2206 field (23 x 9 tiles, NaN padding), both with
+   NaN/inf pixels, and at 1000^2 (step 125); K11 (window statistics) on the
    4096^2 field of ~3000 stars with NaN patches at 1024 peaks; K13 (the
    star mask) on the star records the masked stretch paints on that
    field (4096 peaks) and on 4096 synthetic slots; K12 (triangle vote)
@@ -89,9 +98,10 @@ recomputed in f64 from each side's second moments in the
 well-conditioned form (``check_packed``).
 K12: votes equal. Affine: the same method and inlier count on both
 paths, transform parameters within 1e-3. K13: bit-equal. K9: as K7.
-The parity drizzle against the one-band exact route: the JAX package's
-tolerances (tests/test_reference_impl.py:295-299: image atol 2e-4 /
-rtol 1e-6, weights atol 1e-5, rejected equal). The masked stretch,
+The parity drizzle against the one-band exact route: bit-equal, and
+within the JAX package's tolerances (tests/test_reference_impl.py:
+295-299: image atol 2e-4 / rtol 1e-6, weights atol 1e-5, rejected
+equal). The masked stretch,
 kernel path against plain path: the same stars, iterations and
 convergence, coverage within 1e-5 and image within 1e-3 (the paths'
 detections differ at f32 rounding; see ``masked_stretch_path``).
@@ -101,8 +111,9 @@ once, each output written once) over 3.35 TB/s and the f32 operations
 counted for it over 67 TFLOP/s (the published peaks of one H100 SXM
 at 700 W). Library times: one PyTorch call computing
 the same function where there is one (K1: avg_pool2d for the box
-means; K2: one advanced-index gather; K10: one torch.sort over the
-masked tiles), timed here and used nowhere in the port.
+means; K2: one advanced-index gather; K10 and its chunked route: one
+torch.sort over the masked tiles), timed here and used nowhere in the
+port.
 """
 
 from __future__ import annotations
@@ -119,6 +130,7 @@ import numpy as np
 N_FRAMES, H, W = 16, 5655, 2206          # bench.py:43-44
 BIG_N, BIG_HW, BIG_SHIFT = 24, 2048, 200  # stack_images workload
 DRZ_N, DRZ_HW, DRZ_BAND = 10, 4096, 1024  # bench_ops.py:366-397
+DRZ_BAND64 = 64                          # drizzle_stack's own band
 DRZ_SEED = 10
 DET_HW, DET_STARS = 4096, 3000         # BASELINE.md:13
 AFF_STARS_5K, AFF_STARS_4K = 90, 80    # bench_ops.py:299, BASELINE.md:17
@@ -560,12 +572,34 @@ def parity_args(stack, d_ys, d_xs, pixfrac: float, iterations: int = 5):
         3.0, 3.0, iterations)
 
 
+K9_INSTANCES = tuple((n, f"registers, CAP {2 * n}") for n in range(2, 17, 2)) \
+    + ((20, "shared memory, 32 x 8"), (100, "shared memory, 32 x 2"),
+       (150, "global scratch"))
+
+
+def k9_stack(n: int, rng, h: int = 40, w: int = 72) -> np.ndarray:
+    """[n, h, w] values quantised to 4 (ties in every window), with
+    +-0.0, NaN, +inf in half the frames of one pixel, -inf and a
+    5000 outlier."""
+    e = np.round(rng.normal(100, 8, (n, h, w)) / 4.0).astype(np.float32) * 4
+    e[rng.random(e.shape) < 0.03] = 0.0
+    e[rng.random(e.shape) < 0.03] = -0.0
+    e[rng.random(e.shape) < 0.02] = np.nan
+    e[: n // 2, 5, 9] = np.inf
+    e[1 % n, 20, 30] = -np.inf
+    e[2 % n, 10, 10] = 5000.0
+    return e
+
+
 def check_drizzle_gather(dstack, dd_ys, dd_xs, rng) -> dict:
-    """K9 against its plain version at the drizzle bench (the full
-    output of 10 x 4096^2 → 8192^2, pixfrac 0.7) and at 150 frames of
-    40 x 72 with NaN/inf pixels (the global-scratch instance): image and
-    rejected map bit-equal, weights within rtol 1e-6. Returns the
-    report entry."""
+    """K9 against its plain version: at the drizzle bench (the full
+    output of 10 x 4096^2 → 8192^2, pixfrac 0.7: depth 20, the register
+    instance of CAP 20) and, on ``k9_stack`` stacks of 40 x 72 → 80 x
+    144, in every instance (K9_INSTANCES: depth 2n at 2 x 2 taps, cap
+    2n: registers at CAP 4 to 32, shared memory, the global scratch);
+    image and rejected map bit-equal, weights within rtol 1e-6.
+    Timed at the bench, at 150 frames (scratch) and at 20 frames of
+    1024^2 → 2048^2 (the shared instance). Returns the report entry."""
     import torch
     from astroburst_tpu_torch.stacking.drizzle_gather_kernel import (
         drizzle_gather_finalize, drizzle_gather_finalize_plain)
@@ -588,23 +622,150 @@ def check_drizzle_gather(dstack, dd_ys, dd_xs, rng) -> dict:
     entry.update(zip(("bound_ms", "bound_by"), bound(
         4 * (dstack.numel() + args[3].numel() + args[4].numel()
              + 2 * args[1].numel()) + 12 * out_px, 2 * m * out_px)))
-    n = 150
-    e = rng.normal(100, 8, (n, 40, 72)).astype(np.float32)
-    e[rng.random(e.shape) < 0.02] = np.nan
-    e[: n // 2, 5, 9] = np.inf
-    e[1, 20, 30] = -np.inf
-    e[2, 10, 10] = 5000.0
-    es = torch.as_tensor(e, device=dstack.device)
-    ed = rng.uniform(-2, 2, (2, n)).astype(np.float32)
-    args = parity_args(es, ed[0], ed[1], 1.0)[:-3] + (2.5, 3.0, 5)
-    check_finalize(f"[K9] {n}x40x72 -> (80, 144), NaN/inf pixels",
-                   drizzle_gather_finalize(*args),
-                   drizzle_gather_finalize_plain(*args))
+    for n, inst in K9_INSTANCES:
+        es = torch.as_tensor(k9_stack(n, rng), device=dstack.device)
+        ed = rng.uniform(-2, 2, (2, n)).astype(np.float32)
+        args = parity_args(es, ed[0], ed[1], 1.0)[:-3] + (2.5, 3.0, 5)
+        check_finalize(f"[K9] {n}x40x72 -> (80, 144), depth {2 * n}, "
+                       f"{inst}; ties, +-0, NaN/inf",
+                       drizzle_gather_finalize(*args),
+                       drizzle_gather_finalize_plain(*args))
     entry.update({
         "ms_150_frames": cuda_ms(lambda: drizzle_gather_finalize(*args), 10),
         "plain_ms_150_frames": cuda_ms(
             lambda: drizzle_gather_finalize_plain(*args), 3)})
+    gen = torch.Generator(device=dstack.device).manual_seed(28)
+    es = torch.randn((20, 1024, 1024), generator=gen,
+                     device=dstack.device) * 8.0 + 100.0
+    ed = rng.uniform(-2, 2, (2, 20)).astype(np.float32)
+    args = parity_args(es, ed[0], ed[1], 0.7)
+    got = drizzle_gather_finalize(*args)
+    ref = drizzle_gather_finalize_plain(*args)
+    torch.cuda.synchronize()
+    check_finalize("[K9] 20x1024x1024 -> (2048, 2048), depth 40, shared "
+                   "memory", got, ref)
+    del got, ref
+    entry["ms_shared_20x1024"] = cuda_ms(
+        lambda: drizzle_gather_finalize(*args), 5)
     return entry
+
+
+K10_STEPS = (16, 64, 90, 125, 128, 129, 200, 256)   # every radix plan
+K10_CHUNKED_STEP = 363          # past 8 x 8192 keys: the chunked route
+
+
+def k10_plane(step: int, rng) -> np.ndarray:
+    """A [2·step, 3·step] plane of six tiles the star fields do not
+    reach: gamma values with NaN, a +inf row and a -inf row; all equal;
+    all invalid (NaN, 0, -inf, exactly 1e-7); a single valid value;
+    +-inf rows between values at exactly 1e-7 and one ulp above; and
+    values quantised to 8 (ties everywhere)."""
+    x = rng.gamma(2.0, 50.0, (2 * step, 3 * step)).astype(np.float32)
+    tiles = [x[r * step:(r + 1) * step, c * step:(c + 1) * step]
+             for r in range(2) for c in range(3)]
+    t = tiles[0]
+    t[rng.random(t.shape) < 0.05] = np.nan
+    t[0, :] = np.inf
+    t[step // 2, :] = -np.inf
+    tiles[1][:] = 123.25
+    t = tiles[2]
+    t[:] = np.nan
+    t[::3, :] = 0.0
+    t[1::3, ::2] = -np.inf
+    t[2::3, ::5] = np.float32(1e-7)
+    t = tiles[3]
+    t[:] = np.nan
+    t[step // 3, step // 2] = 7.0
+    t = tiles[4]
+    t[rng.random(t.shape) < 0.2] = np.float32(1e-7)
+    t[rng.random(t.shape) < 0.1] = np.nextafter(np.float32(1e-7),
+                                                np.float32(1))
+    t[::7, :] = np.inf
+    t[3::7, :] = -np.inf
+    t = tiles[5]
+    t[:] = np.round(t / 8.0) * 8.0
+    return x
+
+
+def check_tile_sort(field, field5, rng) -> tuple:
+    """K10 against its plain version, sorted tiles and counts bit-equal:
+    the radix route at every step of K10_STEPS on a ``k10_plane`` (every
+    tile plan: 1 block of 256 or 512 threads, clusters of 2, 4 and 8)
+    and on the main path's planes — the 4096^2 field (256 tiles of
+    256^2), the 5655 x 2206 field padded to 5888 x 2304 (207 tiles) and
+    1000^2 at step 125 — and the chunked route at step
+    K10_CHUNKED_STEP. Returns the report entries of both routes."""
+    import torch
+    from astroburst_tpu_torch.analysis.tile_sort_kernel import (
+        _tile_plan, sort_tiles, sort_tiles_chunked, sort_tiles_plain)
+    from astroburst_tpu_torch.ops.masking import validity_mask
+    dev = field.device
+
+    def padded_of(plane, step):
+        rows, cols = plane.shape
+        ty, tx = -(-rows // step), -(-cols // step)
+        return torch.nn.functional.pad(
+            plane, (0, tx * step - cols, 0, ty * step - rows),
+            value=float("nan")).contiguous()
+
+    def masked_tiles(padded, step):
+        ty, tx = padded.shape[0] // step, padded.shape[1] // step
+        return torch.where(validity_mask(padded), padded, float(
+            "inf")).reshape(ty, step, tx, step).permute(0, 2, 1, 3).reshape(
+            ty * tx, step * step)
+
+    def check(what, padded, step):
+        got = sort_tiles(padded, step)
+        ref = sort_tiles_plain(padded, step)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"K10 differs from the plain version: "
+                                 f"{what}, step {step}")
+        plan = _tile_plan(step * step)
+        log(f"[K10] sort_tiles {what} step {step} "
+            f"({padded.numel() // step ** 2} tiles, "
+            f"{'cluster x threads ' + str(plan) if plan else 'chunked'}): "
+            f"bit-equal, {int(ref[1].sum())} valid of {padded.numel()}")
+
+    for step in K10_STEPS + (K10_CHUNKED_STEP,):
+        check("adversarial tiles", torch.as_tensor(k10_plane(step, rng),
+                                                   device=dev), step)
+    cases = {"4096x4096_step256": (padded_of(field, 256), 256),
+             "5888x2304_step256": (padded_of(field5, 256), 256),
+             "1000x1000_step125": (padded_of(field[:1000, :1000], 125), 125)}
+    for tag, (padded, step) in cases.items():
+        check(tag, padded, step)
+    entry = {"max_abs_err": 0.0, "library": "torch.sort over the masked "
+             "tiles", "steps_checked": list(K10_STEPS)}
+    for i, (tag, (padded, step)) in enumerate(cases.items()):
+        masked = masked_tiles(padded, step)
+        times = {"ms": cuda_ms(lambda: sort_tiles(padded, step), 20),
+                 "library_ms": cuda_ms(lambda: torch.sort(masked, dim=1), 20),
+                 "plain_ms": cuda_ms(lambda: sort_tiles_plain(padded, step),
+                                     5)}
+        # bytes: the plane once, the sorted tiles and the counts once
+        times["bound_ms"], times["bound_by"] = bound(
+            4 * 2 * padded.numel() + 4 * padded.numel() // step ** 2, 0)
+        if i == 0:
+            entry.update(times, shape=list(padded.shape), step=step)
+        else:
+            entry.update({f"{k}_{tag}": v for k, v in times.items()
+                          if k != "bound_by"})
+        del masked
+    step = K10_CHUNKED_STEP
+    padded = torch.as_tensor(k10_plane(step, rng), device=dev)
+    masked = masked_tiles(padded, step)
+    chunked = {"max_abs_err": 0.0, "shape": list(padded.shape), "step": step,
+               "ms": cuda_ms(lambda: sort_tiles(padded, step), 10),
+               "plain_ms": cuda_ms(lambda: sort_tiles_plain(padded, step), 5),
+               "library_ms": cuda_ms(lambda: torch.sort(masked, dim=1), 10),
+               "library": "torch.sort over the masked tiles",
+               "on_main_path": False}
+    chunked.update(zip(("bound_ms", "bound_by"), bound(
+        4 * 2 * padded.numel() + 4 * 6, 0)))
+    if sort_tiles_chunked.launches < 1:
+        raise AssertionError("the chunked route never ran")
+    return entry, chunked
 
 
 def masked_stretch_path(field, counters):
@@ -708,6 +869,8 @@ def check_parity_drizzle(what, got, want) -> dict:
             and torch.allclose(got[1], want[1], rtol=0.0, atol=1e-5)
             and int(got[2]) == int(want[2])):
         raise AssertionError(f"{what}: beyond the JAX test's tolerances")
+    if not bit:
+        raise AssertionError(f"{what}: not bit-equal to the one-band route")
     return {"max_abs_err": d_img, "weights_max_abs_err": d_wgt,
             "bit_equal": bit}
 
@@ -749,7 +912,7 @@ def main() -> None:
     from astroburst_tpu_torch.alignment.vote_kernel import vote, vote_plain
     from astroburst_tpu_torch.analysis import star_detection as SD
     from astroburst_tpu_torch.analysis.tile_sort_kernel import (
-        sort_tiles, sort_tiles_plain)
+        sort_tiles, sort_tiles_chunked)
     from astroburst_tpu_torch.analysis.window_kernel import (
         window_stats, window_stats_plain)
     from astroburst_tpu_torch.alignment.phase_correlation import (
@@ -759,7 +922,6 @@ def main() -> None:
                                              DrizzleKernel)
     from astroburst_tpu_torch.ops.crop_kernel import (gather_crops,
                                                       gather_crops_plain)
-    from astroburst_tpu_torch.ops.masking import validity_mask
     from astroburst_tpu_torch.parallel.pipeline import align_stack_stretch
     from astroburst_tpu_torch.runtime import kernels as K
     from astroburst_tpu_torch.runtime.device import (cuda_device,
@@ -806,14 +968,22 @@ def main() -> None:
     built = {r[0].split("<")[0] for r in rows}
     want = {"shift_clip_kernel", "coarse_box_kernel", "gather_crops_kernel",
             "drizzle_finalize_kernel", "tile_sort_kernel",
-            "window_stats_kernel", "triangle_vote_kernel",
-            "drizzle_gather_kernel", "star_mask_kernel"}
+            "tile_sort_chunked_kernel", "window_stats_kernel",
+            "triangle_vote_kernel", "drizzle_gather_kernel",
+            "drizzle_gather_shared_kernel", "drizzle_gather_scratch_kernel",
+            "star_mask_kernel"}
     if not want <= built:
         raise AssertionError(f"kernels missing from the build: "
                              f"{want - built}")
     spills = [r[0] for r in rows if r[4] or r[5]]
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
+    # K9's register instances keep their live values out of local memory
+    framed = [r[0] for r in rows
+              if r[0].startswith("drizzle_gather_kernel<") and r[3]]
+    if framed:
+        raise AssertionError(f"register instances with a stack frame: "
+                             f"{framed}")
 
     # ---- 3. kernels vs plain at the main paths' shapes -----------------
     t0 = time.perf_counter()
@@ -1012,6 +1182,23 @@ def main() -> None:
                                                 bound(
         4 * (m * band_px + wys_t.numel() + wxs.numel()) + 12 * band_px,
         2 * m * band_px)))
+    # K7 at drizzle_stack's own band of 64 rows (40 x 64 x 8192)
+    cand64, wys64, wxs64, _ = _frame_candidates_raw(
+        dstack, dd_ys - r0 / 2.0, dd_xs, 2.0, 0.7, DrizzleKernel.SQUARE,
+        DRZ_BAND64, out_hw)
+    wys64_t = wys64.T.contiguous()
+    check_finalize(f"[K7] drizzle_finalize_fused {tuple(cand64.shape)}",
+                   drizzle_finalize_fused(cand64, wys64_t, wxs64, *fin_args),
+                   drizzle_finalize_fused_plain(cand64, wys64_t, wxs64,
+                                                *fin_args))
+    band64_px = DRZ_BAND64 * out_hw
+    report["drizzle_finalize_fused"].update({
+        "ms_band64": cuda_ms(lambda: drizzle_finalize_fused(
+            cand64, wys64_t, wxs64, *fin_args), 50),
+        "bound_ms_band64": bound(4 * (m * band64_px + wys64_t.numel()
+                                      + wxs64.numel()) + 12 * band64_px,
+                                 2 * m * band64_px)[0]})
+    del cand64
     cand_v, cand_w = _masked_candidates(cand, _outer(
         wys.reshape(DRZ_N, taps, DRZ_BAND), wxs.reshape(DRZ_N, taps, out_hw)))
     got = drizzle_finalize(cand_v, cand_w, cap, 3.0, 3.0, 5)
@@ -1090,43 +1277,8 @@ def main() -> None:
     field5[10, :50] = float("inf")
     log(f"[data] star fields {DET_HW}^2 x {DET_STARS} stars and {H}x{W} x "
         f"200 stars (made in {time.perf_counter() - t0:.1f} s)")
-    k10_cases = []
-    for plane, step in ((field, 256), (field5, 256), (field[:1000, :1000],
-                                                      125)):
-        rows, cols = plane.shape
-        ty, tx = -(-rows // step), -(-cols // step)
-        padded = torch.nn.functional.pad(
-            plane, (0, tx * step - cols, 0, ty * step - rows),
-            value=float("nan")).contiguous()
-        got = sort_tiles(padded, step)
-        ref = sort_tiles_plain(padded, step)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
-            raise AssertionError(f"K10 differs from the plain version at "
-                                 f"{rows}x{cols}, step {step}")
-        log(f"[K10] sort_tiles {rows}x{cols} step {step} ({ty}x{tx} tiles): "
-            f"bit-equal, {int(ref[1].sum())} valid of {padded.numel()}")
-        k10_cases.append((padded, step))
-    padded, step = k10_cases[0]
-    nt = DET_HW // step
-    masked = torch.where(validity_mask(padded), padded, float("inf")).reshape(
-        nt, step, nt, step).permute(0, 2, 1, 3).reshape(nt * nt, step * step)
-    report["sort_tiles"] = {
-        "max_abs_err": 0.0, "shape": list(padded.shape), "step": step,
-        "ms": cuda_ms(lambda: sort_tiles(padded, step), 20),
-        "plain_ms": cuda_ms(lambda: sort_tiles_plain(padded, step), 5),
-        "library_ms": cuda_ms(lambda: torch.sort(masked, dim=1), 20),
-        "library": "torch.sort over the masked tiles"}
-    # bytes: the plane once, the sorted tiles and the counts once
-    report["sort_tiles"].update(zip(("bound_ms", "bound_by"), bound(
-        4 * 2 * padded.numel() + 4 * nt * nt, 0)))
-    for padded, step in k10_cases[1:]:
-        tag = f"{padded.shape[0]}x{padded.shape[1]}_step{step}"
-        report["sort_tiles"].update({
-            f"ms_{tag}": cuda_ms(lambda: sort_tiles(padded, step), 10),
-            f"plain_ms_{tag}": cuda_ms(lambda: sort_tiles_plain(padded, step),
-                                       3)})
-    del masked, k10_cases, padded
+    report["sort_tiles"], report["sort_tiles_chunked"] = check_tile_sort(
+        field, field5, rng)
 
     # K11: window statistics at the peaks of the 4096^2 field
     bg_med, bg_sig = SD._background(field, SD._tile_size(DET_HW, DET_HW))
@@ -1200,6 +1352,7 @@ def main() -> None:
                 "drizzle_finalize_fused": drizzle_finalize_fused,
                 "drizzle_finalize": drizzle_finalize,
                 "sort_tiles": sort_tiles,
+                "sort_tiles_chunked": sort_tiles_chunked,
                 "window_stats": window_stats,
                 "vote": vote,
                 "paint_mask": paint_mask,
@@ -1573,6 +1726,9 @@ def main() -> None:
             "astroburst_tpu/stacking/drizzle_kernel.py:339"),
         "sort_tiles": ("astroburst_tpu_torch/csrc/tile_sort.cu",
                        "astroburst_tpu/analysis/tile_sort_kernel.py:81"),
+        "sort_tiles_chunked": (
+            "astroburst_tpu_torch/csrc/tile_sort.cu",
+            "astroburst_tpu/analysis/tile_sort_kernel.py:81"),
         "window_stats": ("astroburst_tpu_torch/csrc/window_stats.cu",
                          "astroburst_tpu/analysis/window_kernel.py:274"),
         "vote": ("astroburst_tpu_torch/csrc/triangle_vote.cu",
@@ -1602,7 +1758,9 @@ def main() -> None:
         "astroburst_tpu/stacking/fused_kernel.py:223",
         "astroburst_tpu/stacking/rolling_kernel.py:226",
         "astroburst_tpu/stacking/clip_kernel.py:183"]
-    kernels[4]["on_main_path"] = False    # K8: the JAX tests' entry only
+    for entry in kernels:   # K8: the JAX tests' entry only
+        if entry["name"] == "drizzle_finalize":
+            entry["on_main_path"] = False
     paths_ms = {name: {"kernels_ms": k, "plain_ms": pl}
                 for name, (k, pl) in times_c.items()}
     log(f"[path] detection/affine entry points: {json.dumps(paths_ms)}; "

@@ -1,11 +1,13 @@
 """PyTorch port: star detection and its kernels' plain versions (K10 tile
-sort, K11 window statistics) against the JAX package.
+sort, K11 window statistics) against the JAX package, K10's tile plan,
+and the exact MAD selection against the sort form it replaced.
 
 Inputs are made with numpy from a seed and fed to both packages; the
 JAX Pallas kernels run in interpret mode, the rest on the XLA route, as
 the JAX package's own tests run them. Tolerances:
 
 - tile sort and valid counts: bit-equal;
+- the MAD selection against the per-tile sort of deviations: bit-equal;
 - background (median, sigma): abs 1e-5 / 1e-6, the JAX package's bound
   between its two background forms (test_star_detection.py:117-131);
 - the packed detection: the valid set identical; cy, cx, flux, fwhm,
@@ -129,11 +131,123 @@ def test_sort_tiles_chunk_plan(step):
         assert chunk == tts.MAX_CHUNK
 
 
+@pytest.mark.parametrize("step", [16, 32, 64, 90, 100, 125, 128, 129, 200,
+                                  256, 257, 1000])
+def test_sort_tiles_radix_plan(step):
+    """The radix route's tile plan: the smallest cluster of 1, 2, 4 or 8
+    blocks that holds the tile, the fewest threads (256 or 512) that
+    hold a block's share, 16 keys a thread; one block up to 8192 keys
+    (step <= 90), 8 at 256^2; past 8 full blocks the chunked route
+    (None)."""
+    n = step * step
+    per_block = tts.MAX_THREADS * tts.KEYS_PER_THREAD
+    plan = tts._tile_plan(n)
+    if n > tts.MAX_CLUSTER * per_block:
+        assert plan is None and step > 256
+        return
+    csize, threads = plan
+    assert csize in (1, 2, 4, 8) and threads in (256, 512)
+    assert csize * threads * tts.KEYS_PER_THREAD >= n
+    if csize > 1:
+        assert (csize // 2) * per_block < n and threads == tts.MAX_THREADS
+    if threads > tts.MIN_THREADS:
+        assert csize * (threads // 2) * tts.KEYS_PER_THREAD < n
+    assert (csize == 1) == (step <= 90)
+    if step == 256:
+        assert plan == (8, 512)
+
+
 def test_sort_tiles_rejects_bad_input():
     with pytest.raises(ValueError, match="device"):
         tts.sort_tiles(torch.zeros((64, 64), device="meta"), 32)
     with pytest.raises(ValueError, match="step"):
         tts.sort_tiles(torch.zeros((64, 60)), 32)
+
+
+# ---- the exact MAD selection ------------------------------------------------
+
+
+def _mad_by_sort(sorted_rows, lo, hi, med):
+    """The MAD as the two middle ranks of the window's deviations
+    |x − med| sorted per tile (the form ``_interval_mad`` replaced)."""
+    cnt = hi - lo
+    iota = torch.arange(sorted_rows.shape[1])
+    window = (iota >= lo[:, None]) & (iota < hi[:, None])
+    dev = torch.sort(torch.where(window, torch.abs(sorted_rows - med[:, None]),
+                                 float("inf")), dim=1).values
+    n = torch.clamp(cnt, min=1)
+    v1 = tsd._at(dev, tsd._floordiv2(n - 1))
+    v2 = tsd._at(dev, tsd._floordiv2(n))
+    return torch.where(cnt > 0, (v1 + v2) * 0.5, 0.0)
+
+
+def _mad_rows(case, rng):
+    """(sorted rows with +inf tails, lo, hi) for one selection case."""
+    t, p = 12, 700
+    x = rng.gamma(2.0, 50.0, (t, p)).astype(np.float32)
+    valid = rng.integers(p // 2, p + 1, t)
+    lo = np.zeros(t, np.int64)
+    hi = valid.copy()
+    if case == "odd_and_even":
+        hi = valid - (np.arange(t) % 2)
+    elif case == "empty":
+        lo = rng.integers(0, p // 2, t)
+        hi = lo.copy()
+    elif case in ("one", "two"):
+        lo = rng.integers(0, p // 2, t)
+        hi = lo + (1 if case == "one" else 2)
+    elif case == "heavy_ties":
+        x = (np.round(x / 25.0) * 25.0 + 1.0).astype(np.float32)
+        x[:, : p // 3] = 100.0
+    elif case == "inf_tails":
+        valid = rng.integers(0, 40, t)
+        hi = valid
+    elif case == "lo_positive":
+        lo = rng.integers(1, p // 3, t)
+        hi = np.maximum(lo, valid - rng.integers(0, p // 4, t))
+    elif case == "full_256_tile":
+        t, p = 3, 65536
+        x = rng.normal(100.0, 8.0, (t, p)).astype(np.float32)
+        valid = np.array([p, p - 1000, p // 2])
+        lo = np.array([0, 7, 300])
+        hi = valid - np.array([0, 3, 4])
+    for i in range(t):
+        x[i, valid[i]:] = np.inf
+    return (torch.from_numpy(np.sort(x, axis=1)), torch.from_numpy(lo),
+            torch.from_numpy(hi))
+
+
+@pytest.mark.parametrize("case", ["odd_and_even", "empty", "one", "two",
+                                  "heavy_ties", "inf_tails", "lo_positive",
+                                  "full_256_tile"])
+def test_interval_mad_matches_sort_form(case):
+    """The partition search over the two deviation runs gives the sort
+    form's values, bit for bit: the same multiset's same ranks."""
+    rows, lo, hi = _mad_rows(case, np.random.default_rng(17))
+    med = tsd._interval_median(rows, lo, hi)
+    got = tsd._interval_mad(rows, lo, hi, med)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _mad_by_sort(rows, lo, hi, med).numpy())
+
+
+def test_interval_mad_sorts_nothing(monkeypatch):
+    rows, lo, hi = _mad_rows("lo_positive", np.random.default_rng(3))
+    med = tsd._interval_median(rows, lo, hi)
+    want = _mad_by_sort(rows, lo, hi, med)
+
+    def no_sort(*a, **k):
+        raise AssertionError("_interval_mad sorted")
+
+    monkeypatch.setattr(torch, "sort", no_sort)
+    np.testing.assert_array_equal(tsd._interval_mad(rows, lo, hi, med).numpy(),
+                                  want.numpy())
+
+
+@pytest.mark.parametrize("p,rounds", [(1, 1), (256, 1), (257, 2),
+                                      (15625, 2), (65536, 2), (65792, 2),
+                                      (65793, 3)])
+def test_probe_rounds_cover_the_tile(p, rounds):
+    assert tsd._probe_rounds(p) == rounds
 
 
 # ---- background ------------------------------------------------------------
