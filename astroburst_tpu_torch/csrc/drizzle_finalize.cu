@@ -12,24 +12,40 @@
 // push k = (f, t, u) of [m, h, w] candidates: K7 isfinite(v) &&
 // wy[y, f*ty+t] * wx[f*tx+u, x] > 1e-12, K8 w[k, y, x] > 1e-12.
 //
-// What bounds it on the H100: bytes. Each candidate is read once
-// (K7 at the bench band, 40 x 1024 x 8192 f32, is 1.34 GB, ~0.4 ms at
-// 3.35 TB/s; K8 reads the weights as well), the outputs are 3 planes.
-// The work per pixel is small: at most cap insertions, a few clip
-// passes of O(cap) compares on a sorted array.
+// What bounds it on the H100: in principle bytes. Each candidate is read
+// at most once (K7 at a 1024-row band of the drizzle bench, 40 x 1024 x
+// 8192 f32, is 1.34 GB, ~0.4 ms at 3.35 TB/s; a pixel's walk stops at
+// its cap-th present push, so at cap 20 about half of it is read; K8
+// reads the weights as well), the outputs are 3 planes. The work per
+// pixel is at most cap insertions and a few clip passes.
 //
 // Design: one thread owns one output pixel, blocks of 32 x 8 threads,
 // so a warp reads 32 neighbouring floats of each candidate plane
-// (coalesced). Live values never exceed cap = max(2n, 4), so they sit in
-// a per-thread array sized by the template bound CAPMAX (32/64/128/256,
-// picked from min(cap, m) by the entry point). Above 256 (more than 128
-// frames) the live values go to a global scratch [depth, h, w] that the
-// wrapper allocates, laid out pixel-minor; the arithmetic and its order
-// are the same, so that instance is bit-equal to the plain version too.
-// It is slow (every insertion-sort move is a global access): runs past
-// 128 frames are rare. The TPU kernel's bitonic networks existed because
-// a TPU has no per-lane control flow. K9 builds the candidates in the
-// kernel instead, which removes their round trip through HBM.
+// (coalesced). A pixel's live values never exceed depth = min(cap, m)
+// (cap = max(2n, 4)); three instances by that depth, as K9's
+// (drizzle_gather.cu), chosen in `launch`:
+//   - depth <= 32: drizzle_finalize_kernel<CAP, FUSED>, CAP the depth
+//     rounded up to a multiple of 4, the live values in registers
+//     (RegLive, drizzle_finalize.cuh), at most 128 registers
+//     (__launch_bounds__(256, 2)). The pushes are walked kBatch at a
+//     time: the batch's weights, then the values of those whose weight
+//     passed, are loaded before any is pushed, so a thread has kBatch
+//     loads in flight instead of one (the walk is otherwise a chain of
+//     dependent HBM round trips). A value read past the cap-th present
+//     push is never used;
+//   - depth 33..256: drizzle_finalize_shared_kernel, the live values in
+//     a pixel-minor column of dynamic shared memory (finalize_pixel at
+//     stride `threads`), blocks of 32 x shared_block_rows(depth);
+//   - depth > 256 (more than 128 frames): drizzle_finalize_scratch_kernel,
+//     the live values in a global scratch [depth, h, w] that the
+//     wrapper allocates, laid out pixel-minor. It is slow (every
+//     insertion-sort move is a global access): runs past 128 frames are
+//     rare.
+// Every instance keeps the push order, the arithmetic and its order, so
+// each is bit-equal to the plain version. The TPU kernel's bitonic
+// networks existed because a TPU has no per-lane control flow. K9 builds
+// the candidates in the kernel instead, which removes their round trip
+// through HBM.
 
 #include "drizzle_finalize.cuh"
 
@@ -69,17 +85,73 @@ struct ListCands {
   }
 };
 
-// Live values in a per-thread array of CAPMAX floats.
-template <int CAPMAX, bool FUSED>
+#define ABT_FINALIZE_PARAMS                                               \
+  const float *__restrict__ cand_v, const float *__restrict__ cand_w,     \
+      const float *__restrict__ wys_t, const float *__restrict__ wxs,     \
+      int n, int taps_y, int taps_x, int m, int h, int w, int cap,        \
+      float sigma_low, float sigma_high, int iterations
+
+constexpr int kBatch = 4;  // pushes whose loads a register walk overlaps
+
+// Depth <= CAP <= 32: the live values in registers, the pushes k = (f *
+// taps_y + t) * taps_x + u walked in order, kBatch at a time.
+template <int CAP, bool FUSED>
+__global__ void __launch_bounds__(256, 2)
+drizzle_finalize_kernel(ABT_FINALIZE_PARAMS, float* __restrict__ img,
+                        float* __restrict__ wgt, int* __restrict__ rej) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t plane = (size_t)h * (size_t)w;
+  const size_t o = (size_t)y * w + x;
+  const float* __restrict__ wy_row =
+      FUSED ? wys_t + (size_t)y * (n * taps_y) : nullptr;
+  abt_drizzle::RegLive<CAP> lv(cap);
+  int f = 0, t = 0, u = 0;  // push k0 + i's frame and taps (FUSED)
+  for (int k0 = 0; k0 < m && !lv.full(); k0 += kBatch) {
+    float v[kBatch], wk[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int k = k0 + i;
+      wk[i] = 0.0f;
+      v[i] = 0.0f;
+      if (k < m) {
+        if (FUSED) {
+          wk[i] = __fmul_rn(wy_row[f * taps_y + t],
+                            wxs[(size_t)(f * taps_x + u) * w + x]);
+          if (++u == taps_x) {
+            u = 0;
+            if (++t == taps_y) {
+              t = 0;
+              ++f;
+            }
+          }
+        } else {
+          wk[i] = cand_w[(size_t)k * plane + o];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i)
+      if (wk[i] > kPresent) v[i] = cand_v[(size_t)(k0 + i) * plane + o];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const bool present = wk[i] > kPresent && (!FUSED || isfinite(v[i]));
+      if (present && !lv.full()) lv.push(v[i], wk[i]);
+    }
+  }
+  lv.finish(sigma_low, sigma_high, iterations, o, img, wgt, rej);
+}
+
+// Depth 33..256: the live values in a pixel-minor column of dynamic
+// shared memory, [depth][threads].
+template <bool FUSED>
 __global__ void __launch_bounds__(256)
-drizzle_finalize_kernel(const float* __restrict__ cand_v,
-                        const float* __restrict__ cand_w,
-                        const float* __restrict__ wys_t,
-                        const float* __restrict__ wxs, int n, int taps_y,
-                        int taps_x, int m, int h, int w, int cap,
-                        float sigma_low, float sigma_high, int iterations,
-                        float* __restrict__ img, float* __restrict__ wgt,
-                        int* __restrict__ rej) {
+drizzle_finalize_shared_kernel(ABT_FINALIZE_PARAMS,
+                               float* __restrict__ img,
+                               float* __restrict__ wgt,
+                               int* __restrict__ rej) {
+  extern __shared__ float s_live[];
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= w || y >= h) return;
@@ -87,9 +159,10 @@ drizzle_finalize_kernel(const float* __restrict__ cand_v,
   const size_t o = (size_t)y * w + x;
   const ListCands<FUSED> cands{cand_v, cand_w, wys_t, wxs, n, taps_y,
                                taps_x, w,      x,     y,   plane, o};
-  float sv[CAPMAX];
-  finalize_pixel(sv, 1, cands, m, cap, sigma_low, sigma_high, iterations, o,
-                 img, wgt, rej);
+  const int threads = blockDim.x * blockDim.y;
+  finalize_pixel(s_live + threadIdx.y * blockDim.x + threadIdx.x,
+                 (size_t)threads, cands, m, cap, sigma_low, sigma_high,
+                 iterations, o, img, wgt, rej);
 }
 
 // Live values in the global scratch [min(cap, m), h, w]. The minimum of
@@ -97,13 +170,8 @@ drizzle_finalize_kernel(const float* __restrict__ cand_v,
 // default it spilled the 64-bit scratch addressing.
 template <bool FUSED>
 __global__ void __launch_bounds__(256, 1)
-drizzle_finalize_scratch_kernel(const float* __restrict__ cand_v,
-                                const float* __restrict__ cand_w,
-                                const float* __restrict__ wys_t,
-                                const float* __restrict__ wxs, int n,
-                                int taps_y, int taps_x, int m, int h, int w,
-                                int cap, float sigma_low, float sigma_high,
-                                int iterations, float* __restrict__ scratch,
+drizzle_finalize_scratch_kernel(ABT_FINALIZE_PARAMS,
+                                float* __restrict__ scratch,
                                 float* __restrict__ img,
                                 float* __restrict__ wgt,
                                 int* __restrict__ rej) {
@@ -118,35 +186,55 @@ drizzle_finalize_scratch_kernel(const float* __restrict__ cand_v,
                  iterations, o, img, wgt, rej);
 }
 
+#undef ABT_FINALIZE_PARAMS
+
 template <bool FUSED>
 int launch(const float* cand_v, const float* cand_w, const float* wys_t,
            const float* wxs, int n, int taps_y, int taps_x, int m, int h,
            int w, int cap, float sigma_low, float sigma_high, int iterations,
            float* scratch, float* img, float* wgt, int* rej, void* stream) {
   if (h <= 0 || w <= 0) return 0;
-  const dim3 block(32, 8);
-  const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int depth = cap < m ? cap : m;
-#define ABT_FINALIZE(CAPMAX)                                              \
-  drizzle_finalize_kernel<CAPMAX, FUSED><<<grid, block, 0, s>>>(         \
-      cand_v, cand_w, wys_t, wxs, n, taps_y, taps_x, m, h, w, cap,         \
-      sigma_low, sigma_high, iterations, img, wgt, rej)
-  if (depth <= 32)
-    ABT_FINALIZE(32);
-  else if (depth <= 64)
-    ABT_FINALIZE(64);
-  else if (depth <= 128)
-    ABT_FINALIZE(128);
-  else if (depth <= abt_drizzle::kMaxLocalCap)
-    ABT_FINALIZE(abt_drizzle::kMaxLocalCap);
-  else if (scratch != nullptr)
+  const bool shared = depth > 32 && depth <= abt_drizzle::kMaxSharedCap;
+  const dim3 block(32, shared ? abt_drizzle::shared_block_rows(depth) : 8);
+  const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
+#define ABT_FINALIZE_ARGS                                                  \
+  cand_v, cand_w, wys_t, wxs, n, taps_y, taps_x, m, h, w, cap, sigma_low,  \
+      sigma_high, iterations
+  if (depth <= 32) {  // CAP = depth rounded up to a multiple of 4
+#define ABT_REGS(CAP)                                                     \
+  case CAP / 4:                                                           \
+    drizzle_finalize_kernel<CAP, FUSED><<<grid, block, 0, s>>>(            \
+        ABT_FINALIZE_ARGS, img, wgt, rej);                                \
+    break
+    switch ((depth + 3) / 4) {
+      case 0:
+      ABT_REGS(4);
+      ABT_REGS(8);
+      ABT_REGS(12);
+      ABT_REGS(16);
+      ABT_REGS(20);
+      ABT_REGS(24);
+      ABT_REGS(28);
+      ABT_REGS(32);
+    }
+#undef ABT_REGS
+  } else if (shared) {
+    const size_t smem = (size_t)block.x * block.y * depth * sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        drizzle_finalize_shared_kernel<FUSED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    drizzle_finalize_shared_kernel<FUSED><<<grid, block, smem, s>>>(
+        ABT_FINALIZE_ARGS, img, wgt, rej);
+  } else if (scratch != nullptr) {
     drizzle_finalize_scratch_kernel<FUSED><<<grid, block, 0, s>>>(
-        cand_v, cand_w, wys_t, wxs, n, taps_y, taps_x, m, h, w, cap,
-        sigma_low, sigma_high, iterations, scratch, img, wgt, rej);
-  else
+        ABT_FINALIZE_ARGS, scratch, img, wgt, rej);
+  } else {
     return static_cast<int>(cudaErrorInvalidValue);
-#undef ABT_FINALIZE
+  }
+#undef ABT_FINALIZE_ARGS
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,19 +34,21 @@
 // candidates are read once, three planes written once). Two forms:
 //
 // finalize_pixel: the live values in memory at a stride — a column of a
-// per-block shared buffer (K9's depths 33..256: s[j * blockDim + tid],
-// so a warp's lanes always hit 32 different banks), a per-thread local
-// array (K7/K8), or a pixel-minor column of a global scratch past 256
-// (stride h * w). The values are insertion-sorted as they arrive; the
-// MAD's deviations over a sorted window fall then rise (V shape), so a
-// two-pointer walk out from the median gives their k-th smallest. Every
-// step indexes the array by a runtime value: in local memory that
-// spills through L1 to L2 and dominates the kernel's time.
+// per-block shared buffer (K7/K8 and K9 at depths 33..256: s[j *
+// blockDim + tid], so a warp's lanes always hit 32 different banks;
+// blocks of 32 x shared_block_rows(depth), at most 64 KiB), or a
+// pixel-minor column of a global scratch past 256 (stride h * w). The
+// values are insertion-sorted as they arrive; the MAD's deviations over
+// a sorted window fall then rise (V shape), so a two-pointer walk out
+// from the median gives their k-th smallest. Every step indexes the
+// column by a runtime value, which shared memory serves at its latency
+// (a per-thread local array, an earlier form of K7, spilled through L1
+// to L2 and set the kernel's time).
 //
-// RegLive<CAP> (K9's depths <= 32): the live values in a register
-// array whose every subscript is a compile-time constant (all loops
-// over it unrolled), so it never touches local memory; the caller walks
-// its pushes itself (push / full / finish):
+// RegLive<CAP> (K7/K8 and K9 at depths <= 32): the live values in a
+// register array whose every subscript is a compile-time constant (all
+// loops over it unrolled, reg_select.cuh), so it never touches local
+// memory; the caller walks its pushes itself (push / full / finish):
 //   - arrival: a present push is inserted by a median-of-three min/max
 //     over all CAP slots (slots past `live` hold +inf);
 //   - the median's two ranks and the MAD's two ranks are read by select
@@ -66,6 +68,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "reg_select.cuh"
 
 namespace abt_drizzle {
 
@@ -157,13 +161,13 @@ __device__ __forceinline__ void finalize_pixel(
 }
 #undef ABT_SV
 
-// Largest per-thread live-value array; past it the global scratch.
-constexpr int kMaxLocalCap = 256;
+// Deepest live-value column in shared memory; past it the global scratch.
+constexpr int kMaxSharedCap = 256;
 
-__host__ __device__ constexpr int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p *= 2;
-  return p;
+// Rows of a 32-wide block of a shared-memory instance at this depth, so
+// that the block's columns (depth x threads floats) stay within 64 KiB.
+__host__ __device__ constexpr int shared_block_rows(int depth) {
+  return depth <= 64 ? 8 : (depth <= 128 ? 4 : 2);
 }
 
 // Bit i set for lo <= i < hi (0 <= lo, hi <= 32): one mask per pass, so
@@ -174,27 +178,7 @@ __device__ __forceinline__ unsigned window_bits(int lo, int hi) {
   return lo < hi ? below_hi & ~below_lo : 0u;
 }
 
-// v[idx] of a register array, 0 <= idx < N, by a tree of selects on
-// the bits of idx (depth log2 N, fewer than N selects). Every loop has
-// constant bounds, so nvcc unrolls it and no subscript is a runtime
-// value (a recursive form was left uninlined, which put the array on
-// the stack).
-template <int N>
-__device__ __forceinline__ float reg_at(const float (&v)[N], int idx) {
-  float w[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) w[i] = v[i];
-  int len = N;  // w[0, len) still holds candidates
-#pragma unroll
-  for (int h = pow2_at_least(N) / 2; h > 0; h /= 2) {
-    const bool bit = (idx & h) != 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      if (i < h && i + h < len) w[i] = bit ? w[i + h] : w[i];
-    len = len < h ? len : h;
-  }
-  return w[0];
-}
+using abt_reg::reg_at;
 
 // finalize_pixel with the live values in registers, depth min(cap, m)
 // <= CAP: the caller calls push() for each present push in order while
@@ -214,17 +198,13 @@ struct RegLive {
 
   __device__ __forceinline__ bool full() const { return live == cap; }
 
-  // insert x: slot i becomes the median of v[i-1], v[i] and x,
-  // max(v[i-1], min(v[i], x)) — two min/max a slot, no compare or
-  // select (the +inf slots past `live` stay +inf but the first). Equal
-  // values are bit-equal except +-0, whose order changes no output: the
-  // sums start at +0, and a zero median gives the same deviations and
-  // bounds.
+  // insert x (abt_reg::sorted_insert: a median-of-three min/max over
+  // all CAP slots; the +inf slots past `live` stay +inf but the first).
+  // +-0 may swap places, which changes no output: the sums start at +0,
+  // and a zero median gives the same deviations and bounds.
   __device__ __forceinline__ void push(float x, float wk) {
     wsum = __fadd_rn(wsum, wk);
-#pragma unroll
-    for (int i = CAP - 1; i > 0; --i) v[i] = fmaxf(v[i - 1], fminf(v[i], x));
-    v[0] = fminf(v[0], x);
+    abt_reg::sorted_insert(v, x);
     ++live;
   }
 
@@ -245,30 +225,14 @@ struct RegLive {
       const float med = __fmul_rn(
           __fadd_rn(reg_at(v, lo + k1), reg_at(v, lo + k2)), 0.5f);
       // deviations, +inf outside the window: they fall, then rise, a
-      // bitonic run; a bitonic merge over P = pow2 >= CAP slots sorts
-      // it, skipping the exchanges with the implicit +inf slots past CAP
-      // (they change nothing). When CAP < P the ranks wanted, k2 <=
-      // CAP / 2 < P / 2, lie in the lower half after the first stage,
-      // so only that half is merged on.
-      constexpr int P = pow2_at_least(CAP);
-      constexpr int KEEP = CAP < P ? P / 2 : P;
+      // bitonic run that one bitonic merge sorts; the ranks wanted, k2 <=
+      // CAP / 2, are among those it serves (abt_reg::bitonic_merge)
       const unsigned win = window_bits(lo, hi);
       float d[CAP];
 #pragma unroll
       for (int i = 0; i < CAP; ++i)
         d[i] = (win >> i) & 1u ? fabsf(__fsub_rn(v[i], med)) : INFINITY;
-#pragma unroll
-      for (int j = P / 2; j > 0; j /= 2) {
-#pragma unroll
-        for (int i = 0; i < CAP; ++i) {
-          if ((i & j) == 0 && i + j < CAP && (j == P / 2 || i + j < KEEP)) {
-            const float a = d[i];
-            const float b = d[i + j];
-            d[i] = fminf(a, b);
-            d[i + j] = fmaxf(a, b);
-          }
-        }
-      }
+      abt_reg::bitonic_merge(d);
       const float mad = __fmul_rn(__fadd_rn(reg_at(d, k1), reg_at(d, k2)),
                                   0.5f);
       const float sigma = fmaxf(__fmul_rn(mad, kMadToSigma), 1e-10f);

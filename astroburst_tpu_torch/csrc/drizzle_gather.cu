@@ -245,10 +245,9 @@ extern "C" int abt_drizzle_gather(const float* stack, const int* sy,
   const int depth = cap < m ? cap : m;
   const int out_h = in_h * s;
   const int out_w = in_w * s;
-  // blocks of 32 x by; the shared instance keeps a block at <= 64 KiB
-  const int by = depth <= 64 ? 8 : (depth <= 128 ? 4 : 2);
-  const dim3 block(32, depth <= 32 || depth > abt_drizzle::kMaxLocalCap
-                           ? 8 : by);
+  // blocks of 32 x 8; the shared instance keeps a block at <= 64 KiB
+  const dim3 block(32, depth <= 32 || depth > abt_drizzle::kMaxSharedCap
+                           ? 8 : abt_drizzle::shared_block_rows(depth));
   const dim3 grid((in_w + block.x - 1) / block.x * s,
                   (out_h + block.y - 1) / block.y);
 #define ABT_GATHER_ARGS                                                     \
@@ -272,7 +271,7 @@ extern "C" int abt_drizzle_gather(const float* stack, const int* sy,
       ABT_REGS(32);
     }
 #undef ABT_REGS
-  } else if (depth <= abt_drizzle::kMaxLocalCap) {
+  } else if (depth <= abt_drizzle::kMaxSharedCap) {
     const size_t smem = (size_t)block.x * block.y * depth * sizeof(float);
     const cudaError_t err = cudaFuncSetAttribute(
         drizzle_gather_shared_kernel,

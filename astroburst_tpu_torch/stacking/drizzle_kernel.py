@@ -13,12 +13,12 @@ The plain versions are stacking/drizzle.py:_finalize_exact, with
 presence = isfinite(v) & (w > 1e-12) for K7 and w > 1e-12 for K8 (K8
 takes the candidates as the JAX ``_frame_candidates`` makes them: a value
 whose weight passes the threshold is finite). The kernel keeps at most
-``min(cap, m)`` live values per pixel in a per-thread array whose
-largest template size is ``MAX_CAP``; above it (more than 128 frames at
-cap = 2n) the wrappers allocate a global scratch [min(cap, m), H, W]
-for the kernel's pixel-minor instance, which is slower and bit-equal
-too. The TPU kernels' block-divisibility constraint does not exist
-here.
+``min(cap, m)`` live values per pixel: in registers up to 32, in a
+column of shared memory up to ``MAX_CAP``; above it (more than 128
+frames at cap = 2n) the wrappers allocate a global scratch
+[min(cap, m), H, W] for the kernel's pixel-minor instance, which is
+slower. Every instance is bit-equal to the plain version. The TPU
+kernels' block-divisibility constraint does not exist here.
 
 ``drizzle_finalize_fused`` and ``drizzle_finalize`` launch the kernel
 for a CUDA tensor and run the plain version for a CPU tensor; they
@@ -32,7 +32,7 @@ import torch
 from astroburst_tpu_torch.runtime import kernels as K
 from astroburst_tpu_torch.stacking.drizzle import _finalize_exact, _outer
 
-MAX_CAP = 256  # largest local live-value array (csrc/drizzle_finalize.cu)
+MAX_CAP = 256  # deepest shared-memory column (csrc/drizzle_finalize.cu)
 
 
 def drizzle_finalize_fused_plain(cand_v_raw, wys_t, wxs, n: int, taps_y: int,

@@ -11,26 +11,28 @@ exits non-zero, and so does a machine without a CUDA device):
 2. build: nvcc builds every kernel of ``astroburst_tpu_torch/csrc`` for
    sm_90a, one process per source, all started together; registers,
    shared memory and spills of each kernel and the build seconds are
-   printed, and a kernel that spills, or a register instance of K9
-   with a stack frame, fails the run;
+   printed, and a kernel that spills, or a register instance of K3, K7/K8
+   or K9 with a stack frame, fails the run;
 3. kernels: each CUDA kernel against its plain torch version on the
    card, at the shapes of the main paths. K1-K3 on the bench workload
    (16 frames of 5655 x 2206 f32), K3 also at zero offsets against
    sigma_clip_core (the clip-only TPU kernel's function), at
-   24 x 2048^2 with offsets up to +-200 and at 1, 48 and 100 frames with
-   NaN/inf pixels (every template instance of the kernel), K1 also on
-   NaN/inf frames. K7 and K8 (the drizzle finalize) on one 1024-row
-   band of the drizzle bench (10 x 4096^2 f32 → 8192^2: 40 candidates x
-   1024 x 8192), and at 10, 30, 60, 128 and 150 frames with NaN/inf
-   pixels (every template instance; past 128 frames the global-scratch
-   one), K7 also on drizzle_stack's own band of 64 rows (40 x 64 x
-   8192), and K9 (the parity drizzle: candidates gathered in the kernel)
-   on the full output of the drizzle bench (10 x 4096^2 → 8192^2, the
-   register instance), in each of its instances (registers at depth 4 to
-   32 in steps of 4, shared memory at 40 and 200, the global scratch at
-   300) on
-   stacks quantised so that ties are many, with +-0.0 and NaN/inf
-   pixels, and at 20 x 1024^2 → 2048^2 (shared memory). K10 (tile sort)
+   24 x 2048^2 with offsets up to +-200, at 1, 48 and 100 frames with
+   NaN/inf pixels, in every instance (``tie_stack`` stacks, quantised so
+   that ties are many, with +-0.0 and NaN/inf pixels, at 1 to 32 frames:
+   the register instances; 48 and 100: shared memory) and past 128
+   frames (150 and 300 frames of 1024^2: the global scratch, over bands
+   of rows), K1 also on NaN/inf frames. K7 and K8 (the drizzle finalize)
+   on one 1024-row band of the drizzle bench (10 x 4096^2 f32 → 8192^2:
+   40 candidates x 1024 x 8192), and at 10, 30, 60, 128 and 150 frames
+   with NaN/inf pixels, and in every instance (FINALIZE_INSTANCES on
+   ``tie_stack`` stacks: registers at depth 4 to 32 in steps of 4,
+   shared memory at 40 and 200, the global scratch at 300), K7 also on
+   drizzle_stack's own band of 64 rows (40 x 64 x 8192), and K9 (the
+   parity drizzle: candidates gathered in the kernel) on the full output
+   of the drizzle bench (10 x 4096^2 → 8192^2, the register instance),
+   in each of the same instances, and at 20 x 1024^2 → 2048^2 (shared
+   memory). K10 (tile sort)
    on tiles the fields do not reach (all equal, all invalid, one valid
    value, +-inf rows, values at exactly 1e-7, ties) at steps 16, 64, 90,
    125, 128, 129, 200 and 256 (every plan of the cluster radix route)
@@ -44,7 +46,9 @@ exits non-zero, and so does a machine without a CUDA device):
 4. main paths, each with every kernel launch counter reset just before
    and read just after: (a) ``align_stack_stretch`` on the bench
    workload and ``stack_images`` on 24 frames of 2048^2 (shifts up to
-   +-200), offsets against the generator's shifts; (b) calibrate →
+   +-200), offsets against the generator's shifts; ``stack_images`` on
+   150 frames of 1024^2 (shifts up to +-100; K3's scratch instance, past
+   128 frames), counted on its own; (b) calibrate →
    drizzle → stretch: masters from 16 bias, 16 dark and 16 flat frames,
    10 calibrated lights of 4096^2 (a star field with sub-pixel dithers
    in +-2 px, rendered analytically), ``drizzle_stack`` with the
@@ -68,7 +72,8 @@ exits non-zero, and so does a machine without a CUDA device):
    against ``_drizzle_kernel_exact`` at one band (no band offset).
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
-   (``drizzle_stack`` as is, band 64, and ``_drizzle_kernel_exact`` at
+   (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
+   and ``_drizzle_kernel_exact`` at
    band 1024, as the JAX package's drizzle bench ran it, and at one
    band; detection, alignment and the masked stretch with their host
    fetches);
@@ -109,7 +114,9 @@ detections differ at f32 rounding; see ``masked_stretch_path``).
 Bounds: the larger of the bytes a kernel must move (each input read
 once, each output written once) over 3.35 TB/s and the f32 operations
 counted for it over 67 TFLOP/s (the published peaks of one H100 SXM
-at 700 W). Library times: one PyTorch call computing
+at 700 W). K7 stops each pixel's walk at its cap-th present push, so
+its bound counts the candidate values and weight products that this
+run's data makes it read (``finalize_work``). Library times: one PyTorch call computing
 the same function where there is one (K1: avg_pool2d for the box
 means; K2: one advanced-index gather; K10 and its chunked route: one
 torch.sort over the masked tiles), timed here and used nowhere in the
@@ -129,6 +136,8 @@ import numpy as np
 
 N_FRAMES, H, W = 16, 5655, 2206          # bench.py:43-44
 BIG_N, BIG_HW, BIG_SHIFT = 24, 2048, 200  # stack_images workload
+MANY_N, MANY_HW, MANY_SHIFT = 150, 1024, 100  # past K3's 128 frames
+SCRATCH_FRAMES, SCRATCH_HW = (150, 300), 1024   # K3's scratch instance
 DRZ_N, DRZ_HW, DRZ_BAND = 10, 4096, 1024  # bench_ops.py:366-397
 DRZ_BAND64 = 64                          # drizzle_stack's own band
 DRZ_SEED = 10
@@ -572,12 +581,15 @@ def parity_args(stack, d_ys, d_xs, pixfrac: float, iterations: int = 5):
         3.0, 3.0, iterations)
 
 
-K9_INSTANCES = tuple((n, f"registers, CAP {2 * n}") for n in range(2, 17, 2)) \
+# (frames, instance) of the finalize kernels K7/K8 and K9 at depth 2n (2 x 2
+# taps, cap 2n): registers at CAP 4 to 32, shared memory, global scratch
+FINALIZE_INSTANCES = tuple((n, f"registers, CAP {2 * n}")
+                           for n in range(2, 17, 2)) \
     + ((20, "shared memory, 32 x 8"), (100, "shared memory, 32 x 2"),
        (150, "global scratch"))
 
 
-def k9_stack(n: int, rng, h: int = 40, w: int = 72) -> np.ndarray:
+def tie_stack(n: int, rng, h: int = 40, w: int = 72) -> np.ndarray:
     """[n, h, w] values quantised to 4 (ties in every window), with
     +-0.0, NaN, +inf in half the frames of one pixel, -inf and a
     5000 outlier."""
@@ -591,11 +603,101 @@ def k9_stack(n: int, rng, h: int = 40, w: int = 72) -> np.ndarray:
     return e
 
 
+def check_shift_clip_instances(rng, dev) -> dict:
+    """K3 in every instance of its plan against its plain version, under
+    ``check_flips``: the register instances on ``tie_stack`` stacks of
+    300 x 400 at 1 to 32 frames (every CAP), with integer, quarter-pixel
+    and zero offsets up to +-30; the scratch instance (past 128 frames,
+    over bands of rows) at 150 and 300 frames of 1024^2 with NaN/inf
+    pixels, timed. Returns the scratch instance's report entries."""
+    import torch
+    from astroburst_tpu_torch.stacking.onepass_kernel import (
+        _clip_plan, shift_clip_onepass, shift_clip_onepass_plain)
+    caps = set()
+    for n in range(1, 33):
+        e = torch.as_tensor(tie_stack(n, rng, 300, 400), device=dev)
+        eo = np.round(rng.uniform(-30, 30, (2, n)) * 4) / 4
+        eo[:, 0] = 0.0
+        eo[:, n // 3] = 0.0
+        eo[:, n // 2] = np.round(eo[:, n // 2])
+        edys, edxs = (torch.as_tensor(o, dtype=torch.float32, device=dev)
+                      for o in eo)
+        got = shift_clip_onepass(e, edys, edxs, 2.5, 3.0, 5)
+        ref = shift_clip_onepass_plain(e, edys, edxs, 2.5, 3.0, 5)
+        torch.cuda.synchronize()
+        plan = _clip_plan(n, 300, 400)
+        caps.add(plan.cap)
+        check_flips(f"[K3] shift_clip {n}x300x400 ties, +-0, NaN/inf, "
+                    f"{plan.instance} CAP {plan.cap}", n, got[0], ref[0],
+                    got[1], ref[1])
+    if sorted(caps) != list(range(4, 33, 4)):
+        raise AssertionError(f"register instances not all reached: {caps}")
+    entry = {}
+    gen = torch.Generator(device=dev).manual_seed(32)
+    hw = SCRATCH_HW
+    for n in SCRATCH_FRAMES:
+        e = torch.randn((n, hw, hw), generator=gen, device=dev) * 5.0 + 100.0
+        e[torch.rand(e.shape, generator=gen, device=dev) < 0.01] = \
+            float("nan")
+        e[: n // 2, 11, 13] = float("inf")
+        e[:, 7, 9] = float("nan")
+        eo = rng.uniform(-30, 30, (2, n)).astype(np.float32)
+        eo[:, 0] = 0.0
+        edys, edxs = (torch.as_tensor(o, device=dev) for o in eo)
+        plan = _clip_plan(n, hw, hw)
+        if plan.instance != "scratch":
+            raise AssertionError(f"{n} frames: {plan}")
+        before = shift_clip_onepass.launches
+        got = shift_clip_onepass(e, edys, edxs, 2.5, 3.0, 5)
+        bands = shift_clip_onepass.launches - before
+        ref = shift_clip_onepass_plain(e, edys, edxs, 2.5, 3.0, 5)
+        torch.cuda.synchronize()
+        err, flips = check_flips(
+            f"[K3] shift_clip {n}x{hw}x{hw} +-30, NaN/inf, scratch "
+            f"instance in {bands} bands of {plan.band_rows} rows", n,
+            got[0], ref[0], got[1], ref[1])
+        del got, ref
+        npx = hw * hw
+        entry.update({
+            f"max_abs_err_{n}_frames": err, f"flips_{n}_frames": flips,
+            f"ms_{n}_frames": cuda_ms(lambda: shift_clip_onepass(
+                e, edys, edxs, 2.5, 3.0, 5), 3),
+            f"plain_ms_{n}_frames": cuda_ms(lambda: shift_clip_onepass_plain(
+                e, edys, edxs, 2.5, 3.0, 5), 1),
+            f"bound_ms_{n}_frames": bound(4 * n * npx + 8 * npx,
+                                          88 * n * npx)[0]})
+        del e
+    return entry
+
+
+def finalize_work(cand, wys, wxs, n: int, taps: int, cap: int):
+    """(bytes, f32 operations) that K7 needs on these candidates: each
+    pixel walks its pushes in order until its cap-th present one (weight
+    > 1e-12 and a finite value), forming w = wy·wx and adding it to the
+    weight map for each push walked, and reading the value of each
+    walked push whose weight passed; plus both weight tables and three
+    output planes."""
+    import torch
+    from astroburst_tpu_torch.stacking.drizzle import _outer
+    m, h, w = cand.shape
+    wt = _outer(wys.reshape(n, taps, h), wxs.reshape(n, taps, w))
+    passed = wt > 1e-12
+    del wt
+    present = (passed & torch.isfinite(cand)).to(torch.int32)
+    before = torch.cumsum(present, 0, dtype=torch.int32) - present
+    walked = before < cap
+    del present, before
+    values = int((walked & passed).sum())
+    pushes = int(walked.sum())
+    return (4 * (values + wys.numel() + wxs.numel()) + 12 * h * w,
+            2 * pushes)
+
+
 def check_drizzle_gather(dstack, dd_ys, dd_xs, rng) -> dict:
     """K9 against its plain version: at the drizzle bench (the full
     output of 10 x 4096^2 → 8192^2, pixfrac 0.7: depth 20, the register
-    instance of CAP 20) and, on ``k9_stack`` stacks of 40 x 72 → 80 x
-    144, in every instance (K9_INSTANCES: depth 2n at 2 x 2 taps, cap
+    instance of CAP 20) and, on ``tie_stack`` stacks of 40 x 72 → 80 x
+    144, in every instance (FINALIZE_INSTANCES: depth 2n at 2 x 2 taps, cap
     2n: registers at CAP 4 to 32, shared memory, the global scratch);
     image and rejected map bit-equal, weights within rtol 1e-6.
     Timed at the bench, at 150 frames (scratch) and at 20 frames of
@@ -622,8 +724,8 @@ def check_drizzle_gather(dstack, dd_ys, dd_xs, rng) -> dict:
     entry.update(zip(("bound_ms", "bound_by"), bound(
         4 * (dstack.numel() + args[3].numel() + args[4].numel()
              + 2 * args[1].numel()) + 12 * out_px, 2 * m * out_px)))
-    for n, inst in K9_INSTANCES:
-        es = torch.as_tensor(k9_stack(n, rng), device=dstack.device)
+    for n, inst in FINALIZE_INSTANCES:
+        es = torch.as_tensor(tie_stack(n, rng), device=dstack.device)
         ed = rng.uniform(-2, 2, (2, n)).astype(np.float32)
         args = parity_args(es, ed[0], ed[1], 1.0)[:-3] + (2.5, 3.0, 5)
         check_finalize(f"[K9] {n}x40x72 -> (80, 144), depth {2 * n}, "
@@ -935,7 +1037,7 @@ def main() -> None:
         drizzle_finalize, drizzle_finalize_fused,
         drizzle_finalize_fused_plain, drizzle_finalize_plain)
     from astroburst_tpu_torch.stacking.onepass_kernel import (
-        shift_clip_onepass, shift_clip_onepass_plain)
+        _clip_plan, shift_clip_onepass, shift_clip_onepass_plain)
     from astroburst_tpu_torch.imaging.star_mask_kernel import paint_mask
     from astroburst_tpu_torch.stacking.drizzle import drizzle_exact_parity
     from astroburst_tpu_torch.stacking.drizzle_gather_kernel import (
@@ -967,7 +1069,9 @@ def main() -> None:
             f"{stack_b} B stack, spills {sst}/{sld} B")
     built = {r[0].split("<")[0] for r in rows}
     want = {"shift_clip_kernel", "coarse_box_kernel", "gather_crops_kernel",
-            "drizzle_finalize_kernel", "tile_sort_kernel",
+            "drizzle_finalize_kernel", "drizzle_finalize_shared_kernel",
+            "drizzle_finalize_scratch_kernel", "shift_clip_shared_kernel",
+            "shift_clip_scratch_kernel", "tile_sort_kernel",
             "tile_sort_chunked_kernel", "window_stats_kernel",
             "triangle_vote_kernel", "drizzle_gather_kernel",
             "drizzle_gather_shared_kernel", "drizzle_gather_scratch_kernel",
@@ -978,9 +1082,11 @@ def main() -> None:
     spills = [r[0] for r in rows if r[4] or r[5]]
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
-    # K9's register instances keep their live values out of local memory
-    framed = [r[0] for r in rows
-              if r[0].startswith("drizzle_gather_kernel<") and r[3]]
+    # the register instances of K3, K7/K8 and K9 keep their values out of
+    # local memory
+    framed = [r[0] for r in rows if r[3] and r[0].startswith((
+        "shift_clip_kernel<", "drizzle_finalize_kernel<",
+        "drizzle_gather_kernel<"))]
     if framed:
         raise AssertionError(f"register instances with a stack frame: "
                              f"{framed}")
@@ -1106,8 +1212,8 @@ def main() -> None:
     del big, got, ref
 
     # edge cases the bench frames do not reach: non-finite pixels, exact
-    # zero offsets, 1 frame, and the MAXN 64/128 instances of K3; K1 on
-    # NaN/inf with remainder rows and columns
+    # zero offsets, 1 frame, the shared-memory instance of K3 (48 and 100
+    # frames); K1 on NaN/inf with remainder rows and columns
     for n in (1, 48, 100):
         e = rng.normal(100, 5, (n, 300, 400)).astype(np.float32)
         e[rng.random(e.shape) < 0.01] = np.nan
@@ -1121,8 +1227,10 @@ def main() -> None:
         got = shift_clip_onepass(es, edys, edxs, 2.5, 3.0, 5)
         ref = shift_clip_onepass_plain(es, edys, edxs, 2.5, 3.0, 5)
         torch.cuda.synchronize()
-        check_flips(f"[K3] shift_clip {n}x300x400 +-30, NaN/inf pixels",
-                    n, got[0], ref[0], got[1], ref[1])
+        check_flips(f"[K3] shift_clip {n}x300x400 +-30, NaN/inf pixels, "
+                    f"{_clip_plan(n, 300, 400).instance} instance", n, got[0],
+                    ref[0], got[1], ref[1])
+    report["shift_clip"].update(check_shift_clip_instances(rng, dev))
     e = rng.normal(100, 10, (3, 1030, 1100)).astype(np.float32)
     e[0, 5, 7] = np.nan
     e[1, 1029, 1099] = -5.0
@@ -1176,12 +1284,10 @@ def main() -> None:
             cand, wys_t, wxs, *fin_args), 2),
         "library_ms": None,
         "shape": list(cand.shape)})
-    # bytes: candidates, both weight tables, three output planes;
-    # operations: w = wy·wx per candidate and the weight sum
+    # bytes and operations of the pushes each pixel walks
     report["drizzle_finalize_fused"].update(zip(("bound_ms", "bound_by"),
-                                                bound(
-        4 * (m * band_px + wys_t.numel() + wxs.numel()) + 12 * band_px,
-        2 * m * band_px)))
+                                                bound(*finalize_work(
+        cand, wys, wxs, DRZ_N, taps, cap))))
     # K7 at drizzle_stack's own band of 64 rows (40 x 64 x 8192)
     cand64, wys64, wxs64, _ = _frame_candidates_raw(
         dstack, dd_ys - r0 / 2.0, dd_xs, 2.0, 0.7, DrizzleKernel.SQUARE,
@@ -1191,13 +1297,13 @@ def main() -> None:
                    drizzle_finalize_fused(cand64, wys64_t, wxs64, *fin_args),
                    drizzle_finalize_fused_plain(cand64, wys64_t, wxs64,
                                                 *fin_args))
-    band64_px = DRZ_BAND64 * out_hw
     report["drizzle_finalize_fused"].update({
         "ms_band64": cuda_ms(lambda: drizzle_finalize_fused(
             cand64, wys64_t, wxs64, *fin_args), 50),
-        "bound_ms_band64": bound(4 * (m * band64_px + wys64_t.numel()
-                                      + wxs64.numel()) + 12 * band64_px,
-                                 2 * m * band64_px)[0]})
+        "plain_ms_band64": cuda_ms(lambda: drizzle_finalize_fused_plain(
+            cand64, wys64_t, wxs64, *fin_args), 3),
+        "bound_ms_band64": bound(*finalize_work(
+            cand64, wys64, wxs64, DRZ_N, taps, cap))[0]})
     del cand64
     cand_v, cand_w = _masked_candidates(cand, _outer(
         wys.reshape(DRZ_N, taps, DRZ_BAND), wxs.reshape(DRZ_N, taps, out_hw)))
@@ -1221,10 +1327,9 @@ def main() -> None:
         8 * m * band_px + 12 * band_px, m * band_px)))
     del cand, cand_v, cand_w, got, ref, k7_ref
 
-    # NaN/inf pixels at every template size of the finalize kernel:
-    # min(cap, m) = 2n at 2 x 2 taps → 20, 60, 120, 256 (CAPMAX 32, 64,
-    # 128, 256) and 300 (past 128 frames: the global scratch); K8 gets
-    # the raw non-finite values at weight 0
+    # NaN/inf pixels: min(cap, m) = 2n at 2 x 2 taps → 20 (registers),
+    # 60, 120, 256 (shared memory) and 300 (past 128 frames: the global
+    # scratch); K8 gets the raw non-finite values at weight 0
     for n in (10, 30, 60, 128, 150):
         e = rng.normal(100, 8, (n, 40, 72)).astype(np.float32)
         e[rng.random(e.shape) < 0.02] = np.nan
@@ -1253,6 +1358,26 @@ def main() -> None:
             cand, wys_t, wxs, *args), 10),
         "plain_ms_150_frames": cuda_ms(lambda: drizzle_finalize_fused_plain(
             cand, wys_t, wxs, *args), 3)})
+    del es, cand, cand_w
+    # every instance on stacks with ties and +-0 (FINALIZE_INSTANCES)
+    for n, inst in FINALIZE_INSTANCES:
+        es = torch.as_tensor(tie_stack(n, rng), device=dev)
+        ed = [torch.as_tensor(rng.uniform(-2, 2, n), dtype=torch.float32,
+                              device=dev) for _ in range(2)]
+        cand, wys, wxs, taps = _frame_candidates_raw(
+            es, ed[0], ed[1], 2.0, 1.0, DrizzleKernel.SQUARE, 80, 144)
+        args = (n, taps, taps, max(2 * n, 4), 2.5, 3.0, 5)
+        wys_t = wys.T.contiguous()
+        check_finalize(f"[K7] {tuple(cand.shape)}, depth {2 * n}, {inst}; "
+                       f"ties, +-0, NaN/inf",
+                       drizzle_finalize_fused(cand, wys_t, wxs, *args),
+                       drizzle_finalize_fused_plain(cand, wys_t, wxs, *args))
+        _, cand_w = _masked_candidates(cand, _outer(
+            wys.reshape(n, taps, 80), wxs.reshape(n, taps, 144)))
+        check_finalize(f"[K8] {tuple(cand.shape)}, depth {2 * n}, {inst}; "
+                       f"ties, +-0, NaN/inf at weight 0",
+                       drizzle_finalize(cand, cand_w, *args[3:]),
+                       drizzle_finalize_plain(cand, cand_w, *args[3:]))
     del es, cand, cand_w
 
     # K9 at the drizzle bench: the full 8192^2 output, no candidates
@@ -1426,6 +1551,49 @@ def main() -> None:
     log(f"[time] {smi}: stack_images {BIG_N}x{BIG_HW}^2 kernels {ms_s:.3f} ms | "
         f"plain {ms_sp:.3f} ms (host offsets fetch included)")
     del stack, big_list, out, res, comb
+
+    # stack_images past 128 frames: K3's scratch instance, counted alone
+    t0 = time.perf_counter()
+    many_frames, many_shifts = wide_shift_frames(MANY_N, MANY_HW, MANY_SHIFT,
+                                                 seed=12)
+    many_list = [torch.as_tensor(f, device=dev) for f in many_frames]
+    del many_frames
+    torch.cuda.synchronize()
+    log(f"[data] {MANY_N} frames of {MANY_HW}^2, shifts up to "
+        f"+-{MANY_SHIFT} (made in {time.perf_counter() - t0:.1f} s)")
+    for fn in counters.values():
+        fn.launches = 0
+    res = stack_images(many_list)
+    torch.cuda.synchronize()
+    launches_many = {name: fn.launches for name, fn in counters.items()}
+    log(f"[path] kernel launches in stack_images {MANY_N}x{MANY_HW}^2 "
+        f"(K3 {_clip_plan(MANY_N, MANY_HW, MANY_HW)}): {launches_many}")
+    for name in ("shift_clip", "coarse_box", "gather_crops"):
+        if launches_many[name] < 1:
+            raise AssertionError(f"{name} never ran: {launches_many}")
+    if [list(o) for o in res.offsets] != many_shifts.tolist():
+        raise AssertionError(f"stack_images {MANY_N} frames: offsets "
+                             f"{res.offsets} != {many_shifts.tolist()}")
+    if res.image.shape != (MANY_HW, MANY_HW) or \
+            not bool(torch.isfinite(res.image).all()):
+        raise AssertionError(f"stack_images {MANY_N} frames: image is not "
+                             f"a finite plane")
+    res_p = stack_images(many_list, plain=True)
+    torch.cuda.synchronize()
+    if res.offsets != res_p.offsets:
+        raise AssertionError("stack_images offsets differ from plain")
+    check_flips(f"[path] stack_images {MANY_N}x{MANY_HW}^2 image", MANY_N,
+                res.image, res_p.image, res.rejected_pixels,
+                res_p.rejected_pixels)
+    log(f"[path] stack_images {MANY_N}x{MANY_HW}^2: offsets match the "
+        f"generator (+-{MANY_SHIFT}); rejected {res.rejected_pixels}")
+    del res, res_p
+    ms_m = cuda_ms(lambda: stack_images(many_list), 2)
+    ms_mp = cuda_ms(lambda: stack_images(many_list, plain=True), 1)
+    log(f"[time] {smi}: stack_images {MANY_N}x{MANY_HW}^2 kernels "
+        f"{ms_m:.3f} ms | plain {ms_mp:.3f} ms (host offsets fetch "
+        f"included)")
+    del many_list
 
     # ---- 4b. main path of this slice: calibrate → drizzle → stretch ----
     t0 = time.perf_counter()
@@ -1740,6 +1908,7 @@ def main() -> None:
             "astroburst_tpu/stacking/drizzle_gather_kernel.py:209"),
     }
     paths = {"align_stack_stretch+stack_images": launches_stack,
+             f"stack_images({MANY_N}x{MANY_HW}^2)": launches_many,
              "calibrate+drizzle_stack": launches_drizzle,
              "detect_stars+align_channel_affine+warp_image"
              "+drizzle_stack(AFFINE)": launches_affine,

@@ -1,0 +1,345 @@
+#!/usr/bin/env python3
+"""K3 (shift + clip) and K7/K8 (drizzle finalize) against an earlier
+version of their CUDA sources, on one CUDA card.
+
+    python3 scripts/compare_old_kernels.py --extract 0cd0335  # git checkout
+    python3 scripts/compare_old_kernels.py [--old build/old_kernels]
+
+``--extract REV`` writes ``csrc/shift_clip.cu``, ``csrc/drizzle_finalize.cu``
+and ``csrc/drizzle_finalize.cuh`` (and ``csrc/reg_select.cuh`` where REV has
+it) of commit REV into the git-ignored ``build/old_kernels/src`` (it needs
+git, so run it where the history is, then carry the directory with the
+checkout). ``--old DIR`` takes the sources from ``DIR/src`` instead, which
+also serves to hold a changed copy of the current sources against them
+(a design to measure; ``DIR/src/REVISION`` names it). Without
+``--extract``, the script builds those sources with nvcc into their own
+library (``DIR/``, printing each kernel's registers, stack and spills),
+builds the current sources through runtime/kernels.py, and runs both on
+the same inputs:
+
+- K3 on the bench workload (16 x 5655 x 2206, offsets +-12 and zero),
+  24 x 2048^2 with offsets +-200, and on quantised edge stacks of
+  300 x 400 (ties, +-0, NaN, +-inf; integer and quarter-pixel offsets
+  up to +-30) at 1..32 frames (every register instance), 48 and 100
+  frames (the shared instance; PR 5's kernel stops at 128 frames) and,
+  where the other sources take any frame count (the current entry
+  point's arguments), 150 frames (the scratch instance);
+- K7 at a 1024-row and a 64-row band of the drizzle bench (10 x 4096^2
+  → 8192^2, 40 candidates), and K7 and K8 on quantised edge stacks of
+  40 x 72 → 80 x 144 at depths 4..32, 40, 200 (every register and
+  shared instance) and 300 (the global scratch).
+
+Each pair must agree bit for bit up to the sign of a zero (every plane:
+image, rejected map, and K7's weight map); the script fails otherwise.
+Then it times the two versions of K3 and K7 at the bench shapes in turns
+(old, new, new, old) with CUDA events and prints the card's name and
+power limit and one JSON line of the results. Imports torch and the
+port only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+SOURCES = ("shift_clip.cu", "drizzle_finalize.cu", "drizzle_finalize.cuh",
+           "reg_select.cuh")
+CSRC = "astroburst_tpu_torch/csrc"
+
+
+def extract(rev: str, old_dir: Path) -> None:
+    src = old_dir / "src"
+    src.mkdir(parents=True, exist_ok=True)
+    for name in SOURCES:
+        got = subprocess.run(["git", "show", f"{rev}:{CSRC}/{name}"],
+                             cwd=ROOT, capture_output=True, text=True)
+        if got.returncode != 0 and name.endswith(".cuh") and \
+                name != "drizzle_finalize.cuh":
+            continue   # a helper header that REV does not have yet
+        got.check_returncode()
+        (src / name).write_text(got.stdout)
+    (src / "REVISION").write_text(rev + "\n")
+    print(f"wrote {', '.join(SOURCES)} of {rev} into {src}")
+
+
+def current_abi(old_dir: Path) -> bool:
+    """Whether the other K3 takes the current entry point's arguments
+    (the instance, the band and the scratch) rather than PR 5's."""
+    return "int cap, int by" in (old_dir / "src" / "shift_clip.cu").read_text()
+
+
+def build_old(old_dir: Path):
+    """nvcc the old sources (one process per .cu, in parallel) into
+    old_dir/libold.so; returns (ctypes library, build log)."""
+    from astroburst_tpu_torch.runtime import kernels as K
+    src = old_dir / "src"
+    cu = [src / n for n in SOURCES if n.endswith(".cu")]
+    objs = [old_dir / f"{p.stem}.o" for p in cu]
+    procs = [subprocess.Popen([K.nvcc(), *K.NVCC_FLAGS, "-c", "-o", str(o),
+                               str(p)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for p, o in zip(cu, objs)]
+    logs = []
+    for p in procs:
+        out, _ = p.communicate()
+        logs.append(out)
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the old sources:\n{out}")
+    lib_path = old_dir / "libold.so"
+    subprocess.run([K.nvcc(), *K.LINK_FLAGS, "-o", str(lib_path),
+                    *map(str, objs)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.abt_shift_clip.argtypes = list(K.SIGNATURES["abt_shift_clip"]) \
+        if current_abi(old_dir) else [P, P, P, I, I, I, F, F, I, P, P, P]
+    lib.abt_drizzle_finalize_fused.argtypes = [P, P, P, I, I, I, I, I, I, F,
+                                               F, I, P, P, P, P, P]
+    lib.abt_drizzle_finalize.argtypes = [P, P, I, I, I, I, F, F, I, P, P, P,
+                                         P, P]
+    return lib, "".join(logs)
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit up to the sign of a zero (NaN equal to NaN)."""
+    import torch
+    if a.is_floating_point():
+        a, b = a + 0.0, b + 0.0   # -0 + 0 = +0
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+def edge_stack(rng, n: int, h: int, w: int) -> np.ndarray:
+    """Values quantised to 4 (ties in every pixel) with +-0.0, NaN, +inf
+    in half the frames of one pixel, -inf, a 5000 outlier, a pixel with
+    no finite value and one with a single finite value."""
+    e = np.round(rng.normal(100, 8, (n, h, w)) / 4.0).astype(np.float32) * 4
+    e[rng.random(e.shape) < 0.03] = 0.0
+    e[rng.random(e.shape) < 0.03] = -0.0
+    e[rng.random(e.shape) < 0.02] = np.nan
+    e[: n // 2, 5, 9] = np.inf
+    e[1 % n, 20, 30] = -np.inf
+    e[2 % n, 10, 10] = 5000.0
+    e[:, 7, 7] = np.nan
+    e[:-1, 8, 8] = np.nan
+    return e
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--old", default=str(ROOT / "build" / "old_kernels"))
+    ap.add_argument("--extract", metavar="REV")
+    args = ap.parse_args()
+    old_dir = Path(args.old)
+    if args.extract:
+        extract(args.extract, old_dir)
+        return
+
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("compare_old_kernels: no CUDA device")
+    from chip_smoke import (DRZ_BAND, DRZ_BAND64, DRZ_HW, DRZ_N, DRZ_SEED,
+                            H, N_FRAMES, W, cuda_ms, make_frames,
+                            nvidia_smi_line, ptxas_summary,
+                            wide_shift_frames)
+    from astroburst_tpu_torch.dtypes import DrizzleKernel
+    from astroburst_tpu_torch.runtime import kernels as K
+    from astroburst_tpu_torch.runtime.device import cuda_device
+    from astroburst_tpu_torch.stacking.drizzle import (
+        _frame_candidates_raw, _masked_candidates, _outer)
+    from astroburst_tpu_torch.stacking.drizzle_kernel import (
+        drizzle_finalize, drizzle_finalize_fused)
+    from astroburst_tpu_torch.stacking.onepass_kernel import (
+        _clip_plan, shift_clip_maps)
+
+    smi = nvidia_smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)}; {smi}", flush=True)
+    dev = cuda_device()
+    rev = (old_dir / "src" / "REVISION").read_text().strip()
+    same_abi = current_abi(old_dir)
+    t0 = time.perf_counter()
+    new_log = K.library().build_log
+    old, old_log = build_old(old_dir)
+    print(f"[build] new and old ({rev}) libraries in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ptxas = {}
+    for tag, log in (("new", new_log), ("old", old_log)):
+        for name, regs, smem, stack_b, sst, sld in ptxas_summary(log):
+            if name.startswith(("shift_clip", "drizzle_finalize")):
+                print(f"[build] {tag} {name}: {regs} registers, {smem} B "
+                      f"smem, {stack_b} B stack, spills {sst}/{sld} B",
+                      flush=True)
+                ptxas[f"{tag} {name}"] = [regs, stack_b, sst, sld]
+
+    def k3_old(stack, dys, dxs, lo=3.0, hi=3.0, iters=5):
+        n, h, w = stack.shape
+        zero = torch.zeros((), device=dev)
+        dy = torch.where(dys.abs() < 1e-12, zero, dys).contiguous()
+        dx = torch.where(dxs.abs() < 1e-12, zero, dxs).contiguous()
+        out = torch.empty((h, w), device=dev)
+        rej = torch.empty((h, w), dtype=torch.int32, device=dev)
+        if not same_abi:
+            st = old.abt_shift_clip(stack.data_ptr(), dy.data_ptr(),
+                                    dx.data_ptr(), n, h, w, lo, hi, iters,
+                                    out.data_ptr(), rej.data_ptr(),
+                                    K.stream_handle(stack))
+            if st != 0:
+                raise RuntimeError(f"old abt_shift_clip: CUDA error {st}")
+            return out, rej
+        plan = _clip_plan(n, h, w)
+        scratch = torch.empty((n, plan.band_rows, w), device=dev) \
+            if plan.instance == "scratch" else None
+        for y0 in range(0, h, plan.band_rows):
+            st = old.abt_shift_clip(
+                stack.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, h, w, lo,
+                hi, iters, plan.cap, plan.block_rows, y0,
+                min(plan.band_rows, h - y0), K.ptr(scratch), out.data_ptr(),
+                rej.data_ptr(), K.stream_handle(stack))
+            if st != 0:
+                raise RuntimeError(f"old abt_shift_clip: CUDA error {st}")
+        return out, rej
+
+    def k7_old(cand, wys_t, wxs, n, ty, tx, cap, lo, hi, iters, cand_w=None):
+        m, h, w = cand.shape
+        depth = min(cap, m)
+        scratch = torch.empty((depth, h, w), device=dev) \
+            if depth > 256 else None
+        img = torch.empty((h, w), device=dev)
+        wgt = torch.empty((h, w), device=dev)
+        rej = torch.empty((h, w), dtype=torch.int32, device=dev)
+        if cand_w is None:
+            st = old.abt_drizzle_finalize_fused(
+                cand.data_ptr(), wys_t.data_ptr(), wxs.data_ptr(), n, ty, tx,
+                h, w, cap, lo, hi, iters, K.ptr(scratch), img.data_ptr(),
+                wgt.data_ptr(), rej.data_ptr(), K.stream_handle(cand))
+        else:
+            st = old.abt_drizzle_finalize(
+                cand.data_ptr(), cand_w.data_ptr(), m, h, w, cap, lo, hi,
+                iters, K.ptr(scratch), img.data_ptr(), wgt.data_ptr(),
+                rej.data_ptr(), K.stream_handle(cand))
+        if st != 0:
+            raise RuntimeError(f"old drizzle finalize: CUDA error {st}")
+        return img, wgt, rej
+
+    failures = []
+
+    def check(what, got, ref):
+        ok = all(same_bits(a, b) for a, b in zip(got, ref))
+        print(f"  {what}: {'same bits' if ok else 'DIFFERENT'}"
+              f" (up to the sign of a zero)", flush=True)
+        if not ok:
+            failures.append(what)
+
+    rng = np.random.default_rng(31)
+    results = {"old_revision": rev, "card": smi, "ptxas": ptxas}
+    # ---- K3 ----
+    stack = torch.as_tensor(make_frames(N_FRAMES, H, W), device=dev)
+    offs = rng.uniform(-12, 12, (2, N_FRAMES)).astype(np.float32)
+    offs[:, 0] = 0.0
+    dys, dxs = (torch.as_tensor(o, device=dev) for o in offs)
+    zeros = torch.zeros(N_FRAMES, device=dev)
+    check(f"K3 {N_FRAMES}x{H}x{W} +-12",
+          shift_clip_maps(stack, dys, dxs)[:2], k3_old(stack, dys, dxs))
+    check(f"K3 {N_FRAMES}x{H}x{W} zero offsets",
+          shift_clip_maps(stack, zeros, zeros)[:2],
+          k3_old(stack, zeros, zeros))
+    times = {}
+    for tag, (a, b) in (("k3_bench", (dys, dxs)),
+                        ("k3_bench_zero", (zeros, zeros))):
+        t = [cuda_ms(lambda: k3_old(stack, a, b), 10),
+             cuda_ms(lambda: shift_clip_maps(stack, a, b), 10),
+             cuda_ms(lambda: shift_clip_maps(stack, a, b), 10),
+             cuda_ms(lambda: k3_old(stack, a, b), 10)]
+        times[tag] = {"old_ms": [t[0], t[3]], "new_ms": [t[1], t[2]]}
+    del stack
+    frames, _ = wide_shift_frames(24, 2048, 200)
+    big = torch.as_tensor(np.stack(frames), device=dev)
+    del frames
+    boffs = rng.uniform(-200, 200, (2, 24)).astype(np.float32)
+    bdys, bdxs = (torch.as_tensor(o, device=dev) for o in boffs)
+    check("K3 24x2048x2048 +-200", shift_clip_maps(big, bdys, bdxs)[:2],
+          k3_old(big, bdys, bdxs))
+    t = [cuda_ms(lambda: k3_old(big, bdys, bdxs), 10),
+         cuda_ms(lambda: shift_clip_maps(big, bdys, bdxs), 10),
+         cuda_ms(lambda: shift_clip_maps(big, bdys, bdxs), 10),
+         cuda_ms(lambda: k3_old(big, bdys, bdxs), 10)]
+    times["k3_24x2048"] = {"old_ms": [t[0], t[3]], "new_ms": [t[1], t[2]]}
+    del big
+    for n in list(range(1, 33)) + [48, 100] + ([150] if same_abi else []):
+        e = torch.as_tensor(edge_stack(rng, n, 300, 400), device=dev)
+        eo = np.round(rng.uniform(-30, 30, (2, n)) * 4) / 4
+        eo[:, 0] = 0.0
+        eo[:, n // 3] = 0.0
+        eo[:, n // 2] = np.round(eo[:, n // 2])
+        edys, edxs = (torch.as_tensor(o, dtype=torch.float32, device=dev)
+                      for o in eo)
+        got = shift_clip_maps(e, edys, edxs, 2.5, 3.0, 5)
+        check(f"K3 {n}x300x400 edge stack, {got[2].instance} instance",
+              got[:2], k3_old(e, edys, edxs, 2.5, 3.0, 5))
+    # ---- K7 / K8 ----
+    gen = torch.Generator(device=dev).manual_seed(DRZ_SEED)
+    drng = np.random.default_rng(DRZ_SEED)
+    dstack = torch.randn((DRZ_N, DRZ_HW, DRZ_HW), generator=gen,
+                         device=dev) * 8.0 + 100.0
+    dd = [torch.as_tensor(drng.uniform(-2, 2, DRZ_N), dtype=torch.float32,
+                          device=dev) for _ in range(2)]
+    r0 = 3 * DRZ_BAND
+    for band in (DRZ_BAND, DRZ_BAND64):
+        cand, wys, wxs, taps = _frame_candidates_raw(
+            dstack, dd[0] - r0 / 2.0, dd[1], 2.0, 0.7, DrizzleKernel.SQUARE,
+            band, 2 * DRZ_HW)
+        wys_t = wys.T.contiguous()
+        fa = (DRZ_N, taps, taps, max(2 * DRZ_N, 4), 3.0, 3.0, 5)
+        check(f"K7 {tuple(cand.shape)}",
+              drizzle_finalize_fused(cand, wys_t, wxs, *fa),
+              k7_old(cand, wys_t, wxs, *fa))
+        reps = 10 if band == DRZ_BAND else 50
+        t = [cuda_ms(lambda: k7_old(cand, wys_t, wxs, *fa), reps),
+             cuda_ms(lambda: drizzle_finalize_fused(cand, wys_t, wxs, *fa),
+                     reps),
+             cuda_ms(lambda: drizzle_finalize_fused(cand, wys_t, wxs, *fa),
+                     reps),
+             cuda_ms(lambda: k7_old(cand, wys_t, wxs, *fa), reps)]
+        times[f"k7_band{band}"] = {"old_ms": [t[0], t[3]],
+                                   "new_ms": [t[1], t[2]]}
+        del cand
+    del dstack
+    for n in (2, 4, 6, 8, 10, 12, 14, 16, 20, 100, 150):
+        e = torch.as_tensor(edge_stack(rng, n, 40, 72), device=dev)
+        ed = [torch.as_tensor(rng.uniform(-2, 2, n), dtype=torch.float32,
+                              device=dev) for _ in range(2)]
+        cand, wys, wxs, taps = _frame_candidates_raw(
+            e, ed[0], ed[1], 2.0, 1.0, DrizzleKernel.SQUARE, 80, 144)
+        wys_t = wys.T.contiguous()
+        fa = (n, taps, taps, max(2 * n, 4), 2.5, 3.0, 5)
+        check(f"K7 {tuple(cand.shape)} edge stack, depth {fa[3]}",
+              drizzle_finalize_fused(cand, wys_t, wxs, *fa),
+              k7_old(cand, wys_t, wxs, *fa))
+        _, cand_w = _masked_candidates(cand, _outer(
+            wys.reshape(n, taps, 80), wxs.reshape(n, taps, 144)))
+        check(f"K8 {tuple(cand.shape)} edge stack, depth {fa[3]}",
+              drizzle_finalize(cand, cand_w, *fa[3:]),
+              k7_old(cand, None, None, *fa, cand_w=cand_w))
+    results["times"] = times
+    results["failures"] = failures
+    for tag, tt in times.items():
+        print(f"[time] {smi}: {tag} old {tt['old_ms']} ms | new "
+              f"{tt['new_ms']} ms", flush=True)
+    print(json.dumps(results), flush=True)
+    if failures:
+        sys.exit(f"compare_old_kernels: {len(failures)} cases differ: "
+                 f"{failures}")
+    print("compare_old_kernels: every case has the same bits", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -146,7 +146,7 @@ def test_finalize_depth_limit_is_named():
     """Past MAX_CAP live values (more than 128 frames) the kernel takes
     its global-scratch instance: only an invalid cap or iteration count
     is refused."""
-    tdk._check_common(256, 5)        # 128 frames: the largest local array
+    tdk._check_common(256, 5)        # 128 frames: the deepest shared column
     tdk._check_common(258, 5)        # 129 frames: the global scratch
     with pytest.raises(ValueError, match="cap"):
         tdk._check_common(0, 5)

@@ -4,12 +4,13 @@ JAX package.
 - ``align_stack_stretch`` against JAX ``align_stack_stretch(
   use_pallas=False)`` (the XLA path: shift_bicubic + sigma_clip_core,
   which is exactly the port's plain path on the CPU);
-- ``stack_images`` against JAX ``stack_images``.
+- ``stack_images`` against JAX ``stack_images``, also past 128 frames.
 
 Tolerances: offsets atol 0.05 px and confidences rtol 1e-3 (as in
 test_torch_phase_correlation.py); combined planes under the flip bound
 of tests/test_onepass_kernel.py (≤ 3 pixels off by more than 5e-3,
-rejected counts within 3); data range exact; STF parameters within
+rejected counts within 3; at 150 frames chip_smoke.py's form of it,
+1e-5 of the pixel-frames); data range exact; STF parameters within
 1e-4 (the JAX median/MAD are compare-count values within range/8**6
 of the exact ones the port takes). Through those parameters the u8
 preview may move by one grey level where a pixel sits near a rounding
@@ -150,3 +151,22 @@ def test_stack_images_without_alignment(frames):
 def test_stack_images_rejects_empty():
     with pytest.raises(InvalidInput):
         stack_images([], device=CPU)
+
+
+def test_stack_images_past_128_frames_matches_jax():
+    """150 frames: past K3's shared-memory instance (its scratch instance
+    on the card; the plain version here). The image, offsets, rejected
+    count and confidences against JAX ``stack_images`` on the CPU."""
+    frames = bench.make_frames(150, 192, 224, seed=13)
+    frames[7, 30:33, 40:42] = np.nan
+    frames[9, 50, 60] = np.inf
+    got = stack_images([torch.from_numpy(f.copy()) for f in frames])
+    want = jax_stack(list(frames))
+    assert got.frame_count == want.frame_count == 150
+    assert got.offsets == want.offsets
+    np.testing.assert_allclose(got.confidences, want.confidences, rtol=1e-3)
+    # the flip bound of chip_smoke.py (1e-5 of the pixel-frames; 3 at the
+    # shapes above): each of a pixel's 150 values can be the borderline
+    # one that the sub-pixel offsets' last ulp moves across a bound
+    _flips(got.image.numpy(), np.asarray(want.image), got.rejected_pixels,
+           want.rejected_pixels, max_flips=int(1e-5 * frames.size))

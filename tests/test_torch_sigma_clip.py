@@ -28,6 +28,7 @@ from astroburst_tpu.stacking.rolling_kernel import (
 from astroburst_tpu.stacking.onepass_kernel import shift_clip_onepass as jk3
 from astroburst_tpu_torch.convert import stack_from_numpy
 from astroburst_tpu_torch.stacking.clip import sigma_clip_core
+from astroburst_tpu_torch.stacking import onepass_kernel as tok
 from astroburst_tpu_torch.stacking.onepass_kernel import (
     shift_clip_onepass, shift_clip_onepass_plain)
 
@@ -163,4 +164,61 @@ def test_k3_at_zero_offsets_matches_clip_kernel(rng, n, lo, hi, iters):
     got, grej = shift_clip_onepass(stack_from_numpy(s, CPU), zeros, zeros,
                                    lo, hi, iters)
     want, wrej = jclip6(jnp.asarray(s), lo, hi, iters, interpret=True)
+    _assert_close(got.numpy(), want, grej, wrej)
+
+
+# every (h, w) that chip_smoke.py gives K3, and the extremes of a plane
+PLAN_PLANES = ((5655, 2206), (2048, 2048), (1024, 1024), (300, 400),
+               (40, 56), (1, 1), (1, 100000), (8192, 8192))
+
+
+@pytest.mark.parametrize("n", range(1, 401))
+def test_k3_plan_holds_every_frame_count(n):
+    """Every n gets an instance that holds it (no refusal): registers up
+    to 32 frames at CAP = n rounded up to a multiple of 4, shared memory
+    for 33..128 frames within a block's 232,448 bytes, past that the
+    global scratch over bands that cover the plane within
+    SCRATCH_MAX_BYTES."""
+    for h, w in PLAN_PLANES:
+        plan = tok._clip_plan(n, h, w)
+        assert plan.block_rows * 32 <= 256
+        assert plan.smem_bytes <= tok.MAX_SHARED_BYTES == 232448
+        if plan.instance == "registers":
+            assert n <= plan.cap <= tok.MAX_REG_FRAMES == 32
+            assert plan.cap % 4 == 0 and plan.cap - n < 4
+            assert (plan.smem_bytes, plan.band_rows) == (0, h)
+        elif plan.instance == "shared":
+            assert 32 < n <= tok.MAX_SHARED_FRAMES
+            assert plan.smem_bytes == 2 * n * 4 * 32 * plan.block_rows
+            assert plan.block_rows == 8 or \
+                2 * n * 4 * 32 * 8 > tok.MAX_SHARED_BYTES
+            assert (plan.cap, plan.band_rows) == (0, h)
+        else:
+            assert plan.instance == "scratch" and n > tok.MAX_SHARED_FRAMES
+            assert 1 <= plan.band_rows <= h and plan.cap == 0
+            assert plan.band_rows == 1 or \
+                n * plan.band_rows * w * 4 <= tok.SCRATCH_MAX_BYTES
+            assert plan.band_rows == h or \
+                n * (plan.band_rows + 1) * w * 4 > tok.SCRATCH_MAX_BYTES
+
+
+@pytest.mark.parametrize("n", [150, 300])
+def test_k3_plain_past_128_frames_matches_jax(rng, n):
+    """Past K3's shared-memory instance (the scratch instance on the
+    card): JAX shift_bicubic + sigma_clip_core, NaN/inf pixels, offsets
+    up to ±30."""
+    s = _stack(rng, n, 36, 44, nan_frac=0.02)
+    s[: n // 2, 5, 9] = np.inf
+    s[1, 20, 30] = -np.inf
+    s[2, 10, 10] = 5000.0
+    dys = rng.uniform(-30, 30, n).astype(np.float32)
+    dxs = rng.uniform(-30, 30, n).astype(np.float32)
+    dys[0] = dxs[0] = 0.0
+    dys[n // 3] = dxs[n // 3] = 0.0
+    got, grej = shift_clip_onepass(stack_from_numpy(s, CPU),
+                                   torch.from_numpy(dys),
+                                   torch.from_numpy(dxs), 2.5, 3.0, 5)
+    shifted = jax.jit(jax.vmap(jshift))(jnp.asarray(s), jnp.asarray(dys),
+                                        jnp.asarray(dxs))
+    want, wrej = jax.jit(lambda x: jclip(x, 2.5, 3.0, 5))(shifted)
     _assert_close(got.numpy(), want, grej, wrej)
