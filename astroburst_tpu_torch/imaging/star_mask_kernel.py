@@ -7,12 +7,13 @@ radius > 0 paints the smoothstep soft disk of star_mask.rs:61-98 inside
 its 96 × 96 window anchored at round(position), clipped to the plane;
 the disks are max-combined.
 
-The star → tile binning is torch, as the JAX wrapper does it in XLA
-(star_mask_kernel.py:99-120): a window meets at most 2 × 2 tiles of
-128², the ≤ 4 (tile, star) entries per star are sorted stably by tile
-(ascending star order within a tile), and ``seg`` holds each tile's
-segment. The tiles cover the unpadded [h, w] plane, which the kernel
-writes directly.
+The kernel takes the records as they are: one block per 128² tile of
+the unpadded [h, w] plane culls all of them itself (radius > 0, and the
+star's window, the disk's conservative support box and the tile meet)
+and paints each survivor's rectangle. The TPU wrapper's star → tile
+binning (astroburst_tpu/imaging/star_mask_kernel.py:99-120, a segment
+table for scalar prefetch) does not exist here: ``paint_mask`` makes one
+launch and allocates its output, nothing else.
 
 The plain version, ``paint_mask_plain``, is the direct per-star window
 form of the sequential oracle (tests/test_imaging.py:271-294): every
@@ -82,34 +83,6 @@ def paint_mask_plain(xs: torch.Tensor, ys: torch.Tensor,
     return plane[:h * w].reshape(h, w)
 
 
-def _bin_stars(y0: torch.Tensor, x0: torch.Tensor, valid: torch.Tensor,
-               h: int, w: int):
-    """(order i32 [entries], seg i32 [tiles + 1], tiles_y, tiles_x): the
-    star ids sorted stably by the 128² tile their window meets."""
-    tiles_y, tiles_x = -(-h // TILE), -(-w // TILE)
-    n_tiles = tiles_y * tiles_x
-    # window rows/columns clipped to the plane (inclusive); ≤ 96 apart
-    ty_lo = torch.clamp(y0 - HALF, min=0) // TILE
-    ty_hi = torch.clamp(y0 + HALF - 1, max=h - 1) // TILE
-    tx_lo = torch.clamp(x0 - HALF, min=0) // TILE
-    tx_hi = torch.clamp(x0 + HALF - 1, max=w - 1) // TILE
-    sentinel = torch.full_like(ty_lo, n_tiles)
-    t00 = ty_lo * tiles_x + tx_lo
-    t01 = torch.where(tx_hi > tx_lo, ty_lo * tiles_x + tx_hi, sentinel)
-    t10 = torch.where(ty_hi > ty_lo, ty_hi * tiles_x + tx_lo, sentinel)
-    t11 = torch.where((tx_hi > tx_lo) & (ty_hi > ty_lo),
-                      ty_hi * tiles_x + tx_hi, sentinel)
-    tids = torch.where(valid[:, None],
-                       torch.stack([t00, t01, t10, t11], dim=1),
-                       n_tiles).reshape(-1)
-    sorted_tids, order4 = torch.sort(tids, stable=True)
-    order = torch.div(order4, 4, rounding_mode="floor").to(torch.int32)
-    seg = torch.searchsorted(
-        sorted_tids, torch.arange(n_tiles + 1, dtype=sorted_tids.dtype,
-                                  device=tids.device)).to(torch.int32)
-    return order.contiguous(), seg.contiguous(), tiles_y, tiles_x
-
-
 def paint_mask(xs: torch.Tensor, ys: torch.Tensor, radii: torch.Tensor,
                softness: float, h: int, w: int) -> torch.Tensor:
     """[h, w] star mask from ≤ K star records (window-clipped soft disks,
@@ -123,12 +96,10 @@ def paint_mask(xs: torch.Tensor, ys: torch.Tensor, radii: torch.Tensor,
                          f"radii {tuple(radii.shape)} must be equal")
     if h <= 0 or w <= 0:
         raise ValueError(f"plane {h}x{w} is empty")
-    y0, x0 = _anchors(xs, ys, h, w)
-    order, seg, _, _ = _bin_stars(y0, x0, radii > 0.0, h, w)
     out = torch.empty((h, w), dtype=torch.float32, device=xs.device)
     K.launch("abt_star_mask", xs.data_ptr(), ys.data_ptr(), radii.data_ptr(),
-             y0.data_ptr(), x0.data_ptr(), order.data_ptr(), seg.data_ptr(),
-             float(softness), h, w, out.data_ptr(), K.stream_handle(xs))
+             xs.shape[0], float(softness), h, w, out.data_ptr(),
+             K.stream_handle(xs))
     paint_mask.launches += 1
     return out
 

@@ -74,8 +74,8 @@ SIGNATURES = {
     # sigma_high, iterations, scratch, img, wgt, rej, stream
     "abt_drizzle_gather": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                            _F, _I, _P, _P, _P, _P, _P),
-    # xs, ys, radii, y0s, x0s, order, seg, softness, h, w, out, stream
-    "abt_star_mask": (_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P),
+    # xs, ys, radii, k, softness, h, w, out, stream
+    "abt_star_mask": (_P, _P, _P, _I, _F, _I, _I, _P, _P),
     # plane, ty, tx, step, csize, threads, out, counts, stream
     "abt_tile_sort": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
     # plane, ty, tx, step, chunk, n_chunks, scratch, out, counts, stream
@@ -83,8 +83,8 @@ SIGNATURES = {
     # image, h, w, pys, pxs, k, n_valid, threshold, bg_med, out, stream
     "abt_window_stats": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P),
     # ref_ratios, ref_verts, t_ref, tgt_ratios, tgt_verts, t_tgt, tol,
-    # split, votes, stream
-    "abt_triangle_vote": (_P, _P, _I, _P, _P, _I, _F, _I, _P, _P),
+    # grid, scratch, votes, stream
+    "abt_triangle_vote": (_P, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P),
 }
 
 

@@ -12,7 +12,7 @@ exits non-zero, and so does a machine without a CUDA device):
    sm_90a, one process per source, all started together; registers,
    shared memory and spills of each kernel and the build seconds are
    printed, and a kernel that spills, or a register instance of K3, K7/K8
-   or K9 with a stack frame, fails the run;
+   or K9, or K12 or K13, with a stack frame, fails the run;
 3. kernels: each CUDA kernel against its plain torch version on the
    card, at the shapes of the main paths. K1-K3 on the bench workload
    (16 frames of 5655 x 2206 f32), K3 also at zero offsets against
@@ -40,9 +40,16 @@ exits non-zero, and so does a machine without a CUDA device):
    256^2), on a 5655 x 2206 field (23 x 9 tiles, NaN padding), both with
    NaN/inf pixels, and at 1000^2 (step 125); K11 (window statistics) on the
    4096^2 field of ~3000 stars with NaN patches at 1024 peaks; K13 (the
-   star mask) on the star records the masked stretch paints on that
-   field (4096 peaks) and on 4096 synthetic slots; K12 (triangle vote)
-   at the full triangle count of 60 stars;
+   star mask, one launch that culls its own stars) on the star records
+   the masked stretch paints on that field (4096 peaks), on 4096
+   synthetic slots and on ``star_mask_cases`` (exact .5 positions, stars
+   up to 200 px off the plane, radius + softness past the half-window,
+   600 stars in one tile, a single slot, a 2093 x 2125 plane); K12
+   (triangle vote over the r0 window) at the full triangle count of 60
+   stars and on ``vote_cases`` (ratios at r -/+ 0.02 and one ulp either
+   side, tied r0, every r0 equal — the all-pairs worst case, timed —
+   +inf padding shuffled in with NaN ratios, vertex ids outside [0, 64),
+   1 and 3 live triangles, a ref list with no live row);
 4. main paths, each with every kernel launch counter reset just before
    and read just after: (a) ``align_stack_stretch`` on the bench
    workload and ``stack_images`` on 24 frames of 2048^2 (shifts up to
@@ -116,7 +123,9 @@ once, each output written once) over 3.35 TB/s and the f32 operations
 counted for it over 67 TFLOP/s (the published peaks of one H100 SXM
 at 700 W). K7 stops each pixel's walk at its cap-th present push, so
 its bound counts the candidate values and weight products that this
-run's data makes it read (``finalize_work``). Library times: one PyTorch call computing
+run's data makes it read (``finalize_work``); K12's counts the pairs
+inside the exact r0 window of this run's lists (``vote_bound``), with
+the all-pairs figure beside it. Library times: one PyTorch call computing
 the same function where there is one (K1: avg_pool2d for the box
 means; K2: one advanced-index gather; K10 and its chunked route: one
 torch.sort over the masked tiles), timed here and used nowhere in the
@@ -500,18 +509,130 @@ def check_finalize(what: str, got, ref) -> dict:
     return {"max_abs_err": d_img, "weights_max_abs_err": d_wgt}
 
 
+def vote_cases(rng, t: int) -> dict:
+    """Adversarial triangle lists of ``t`` rows for K12 against its plain
+    version: name → (ref_ratios [t, 2] f32, ref_verts [t, 3] i32,
+    tgt_ratios, tgt_verts). Live rows come first and +inf padding fills
+    each list to ``t`` rows, unless a case says otherwise."""
+    tol = np.float32(0.02)
+    inf = np.float32(np.inf)
+
+    def ids(n, lo=0, hi=64):
+        return rng.integers(lo, hi, (n, 3)).astype(np.int32)
+
+    def pad(r, v=None):
+        r = np.asarray(r, np.float32).reshape(-1, 2)
+        v = ids(len(r)) if v is None else v
+        return (np.concatenate([r, np.full((t - len(r), 2), inf)]),
+                np.concatenate([v, ids(t - len(r))]))
+
+    def uniform(n, lo=1.0, hi=3.0):
+        return rng.uniform(lo, hi, (n, 2)).astype(np.float32)
+
+    cases = {}
+    # ratios at r -/+ tol and one f32 ulp either side, in both ratios, at
+    # three scales of r (near 0 the difference r - t rounds)
+    n = t // 8
+    r = np.concatenate([uniform(n - 2 * (n // 3)),
+                        uniform(n // 3, -0.05, 0.05),
+                        uniform(n // 3, 1e5, 1e6)])
+    edges = []
+    for s in (np.float32(-1.0), np.float32(1.0)):
+        e = r + s * tol
+        edges += [e, np.nextafter(e, inf), np.nextafter(e, -inf)]
+    tgt = np.concatenate(
+        [np.stack([edges[k][:, 0], edges[(k + 1) % 6][:, 1]], 1)
+         for k in range(6)] + [np.stack([edges[4][:, 0], r[:, 1]], 1)])
+    cases["window_edges"] = (*pad(r), *pad(tgt[rng.permutation(len(tgt))]))
+    # many tied r0 values, 0.02 apart in decimal
+    m = t // 2
+    ties = np.float32([1.25, 1.5, 1.52, 1.54, 2.0])
+
+    def tied(k):
+        return np.stack([rng.choice(ties, k),
+                         rng.uniform(1.5, 2.5, k).astype(np.float32)], 1)
+    cases["tied_r0"] = (*pad(tied(m)), *pad(tied(m)))
+
+    # every r0 equal: the windows are the whole lists (all pairs)
+    def flat(k):
+        return np.stack([np.full(k, 1.7, np.float32),
+                         rng.uniform(1.0, 4.0, k).astype(np.float32)], 1)
+    cases["all_equal_r0"] = (*pad(flat(t)), *pad(flat(t)))
+
+    # the padding shuffled into the middle, NaN in either ratio, -inf
+    def holed():
+        x = np.concatenate([uniform(m), np.full((t - m, 2), inf)])
+        x[rng.random(t) < 0.05, 0] = np.nan
+        x[rng.random(t) < 0.05, 1] = np.nan
+        x[rng.random(t) < 0.02, rng.integers(0, 2)] = -inf
+        return x[rng.permutation(t)], ids(t)
+    cases["inf_nan_shuffled"] = (*holed(), *holed())
+    # vertex ids outside [0, 64)
+    k = t // 3
+    cases["ids_outside"] = (*pad(uniform(k), ids(k, -8, 72)),
+                            *pad(uniform(k), ids(k, -8, 72)))
+    # one and three live triangles, near one another
+    near = np.float32([[1.6, 2.1], [1.61, 2.09], [1.62, 2.2]])
+    cases["one_live"] = (*pad(near[:1]),
+                         *pad(np.concatenate([near, uniform(k)])))
+    cases["three_live"] = (*pad(near), *pad(near[::-1].copy()))
+    # a ref list with no live row (+inf and NaN rows only)
+    dead = np.full((t, 2), inf)
+    dead[::3, 1] = np.nan
+    cases["no_live_ref"] = (dead, ids(t), *pad(uniform(k)))
+    return cases
+
+
+def star_mask_cases(rng, h: int, w: int, k: int) -> dict:
+    """Adversarial star records for K13 against its plain version (softness
+    4): name → (xs, ys, radii [K] f32, h, w); ``k`` slots, 10 % of them
+    with radius 0, unless a case says otherwise."""
+    def rec(xs, ys, radii, hh=h, ww=w):
+        radii = np.asarray(radii, np.float32).copy()
+        radii[rng.random(len(radii)) < 0.1] = 0.0
+        return (np.asarray(xs, np.float32), np.asarray(ys, np.float32),
+                radii, hh, ww)
+
+    cases = {
+        # exact .5 positions: half-to-even anchors
+        "half_positions": rec(rng.integers(-60, w + 60, k) + 0.5,
+                              rng.integers(-60, h + 60, k) + 0.5,
+                              rng.uniform(0.5, 20, k)),
+        # every star up to 200 px off the plane
+        "off_plane_200": rec(
+            np.where(rng.random(k) < 0.5, -rng.uniform(0, 200, k),
+                     w + rng.uniform(0, 200, k)),
+            rng.uniform(-200, h + 200, k), rng.uniform(1, 120, k)),
+        # radius + softness past the 48-pixel half-window
+        "reach_past_window": rec(rng.uniform(-30, w + 30, k),
+                                 rng.uniform(-30, h + 30, k),
+                                 rng.uniform(45, 150, k)),
+        # 600 stars in one 128^2 tile: several chunks of 256 records
+        "dense_cluster": rec(rng.uniform(128, 256, 600),
+                             rng.uniform(0, 128, 600),
+                             rng.uniform(0.5, 6, 600)),
+        "single_slot": rec([w * 0.3], [h * 0.6], [7.5]),
+    }
+    oh, ow = h // 2 + 45, w // 2 + 77   # not multiples of 128
+    cases["odd_plane"] = rec(rng.uniform(-60, ow + 60, k),
+                             rng.uniform(-60, oh + 60, k),
+                             rng.uniform(0, 40, k), oh, ow)
+    cases["single_slot"][2][0] = 7.5    # never drawn as a zero radius
+    return cases
+
+
 def check_star_mask(field, max_peaks: int) -> dict:
     """K13 against its plain version, bit-equal: on the star records the
     masked stretch paints on ``field`` (detection at ``max_peaks``,
-    device dedupe, FWHM filter, radius FWHM·2.5, softness 4) and on 4096
+    device dedupe, FWHM filter, radius FWHM·2.5, softness 4), on 4096
     synthetic slots (up to 200 px off the plane, 10 % zero radii, radii
-    up to 40). Returns the report entry."""
+    up to 40) and on ``star_mask_cases``. Returns the report entry."""
     import torch
     from astroburst_tpu_torch.analysis import star_detection as SD
     from astroburst_tpu_torch.imaging.masked_stretch import (
         MaskedStretchConfig, _mask_config, _paint_records)
     from astroburst_tpu_torch.imaging.star_mask_kernel import (
-        HALF, _anchors, _bin_stars, paint_mask, paint_mask_plain)
+        HALF, paint_mask, paint_mask_plain)
     from astroburst_tpu_torch.runtime import kernels as K
     h, w = field.shape
     dev = field.device
@@ -523,29 +644,31 @@ def check_star_mask(field, max_peaks: int) -> dict:
     syn = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
         srng.uniform(-200, w + 200, k), srng.uniform(-200, h + 200, k),
         np.where(srng.random(k) < 0.1, 0.0, srng.uniform(0, 40, k))))
-    sets = {"detection": (xs, ys, radii), "synthetic": syn}
-    for tag, rec in sets.items():
-        got = paint_mask(*rec, 4.0, h, w)
-        ref = paint_mask_plain(*rec, 4.0, h, w)
+    sets = {"detection": (xs, ys, radii, h, w),
+            "synthetic": (*syn, h, w)}
+    for tag, (cx, cy, cr, ch, cw) in star_mask_cases(srng, h, w, k).items():
+        sets[tag] = (*(torch.as_tensor(a, device=dev) for a in (cx, cy, cr)),
+                     ch, cw)
+    for tag, (*rec, ch, cw) in sets.items():
+        got = paint_mask(*rec, 4.0, ch, cw)
+        ref = paint_mask_plain(*rec, 4.0, ch, cw)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError(f"K13 differs from the plain version on "
                                  f"the {tag} stars")
-        log(f"[K13] paint_mask {h}x{w}, {tag}: {int((rec[2] > 0).sum())} "
+        log(f"[K13] paint_mask {ch}x{cw}, {tag}: {int((rec[2] > 0).sum())} "
             f"painted of {rec[0].numel()} slots, bit-equal, coverage "
             f"{float((got > 0.01).float().mean()):.4f}")
-    # the launch alone, the torch binning of the wrapper made once
-    y0, x0 = _anchors(xs, ys, h, w)
-    order, seg, _, _ = _bin_stars(y0, x0, radii > 0.0, h, w)
+    # the launch alone, without the wrapper's checks and allocation
     plane = torch.empty((h, w), device=dev)
 
     def launch_alone():
         K.launch("abt_star_mask", xs.data_ptr(), ys.data_ptr(),
-                 radii.data_ptr(), y0.data_ptr(), x0.data_ptr(),
-                 order.data_ptr(), seg.data_ptr(), 4.0, h, w,
-                 plane.data_ptr(), K.stream_handle(plane))
+                 radii.data_ptr(), xs.numel(), 4.0, h, w, plane.data_ptr(),
+                 K.stream_handle(plane))
 
     entry = {"max_abs_err": 0.0, "stars": int(n), "slots": xs.numel(),
+             "cases": list(sets),
              "ms": cuda_ms(lambda: paint_mask(xs, ys, radii, 4.0, h, w), 20),
              "ms_launch_alone": cuda_ms(launch_alone, 20),
              "plain_ms": cuda_ms(lambda: paint_mask_plain(xs, ys, radii,
@@ -562,6 +685,100 @@ def check_star_mask(field, max_peaks: int) -> dict:
     cover = float(torch.where(radii > 0, rows * cols, 0.0).sum())
     entry.update(zip(("bound_ms", "bound_by"), bound(
         4 * h * w + 12 * xs.numel(), 14 * cover)))
+    return entry
+
+
+def window_pairs(ref_ratios, tgt_ratios, tol: float = 0.02) -> int:
+    """The pairs of live triangles (both ratios finite) inside the exact
+    r0 window |r0 - t0| <= tol: the work K12 needs for these inputs."""
+    import torch
+    r = ref_ratios[torch.isfinite(ref_ratios).all(dim=1), 0]
+    t = tgt_ratios[torch.isfinite(tgt_ratios).all(dim=1), 0]
+    return sum(int((torch.abs(r[c:c + 2048, None] - t[None, :]) <= tol).sum())
+               for c in range(0, r.numel(), 2048))
+
+
+def vote_bound(vargs) -> tuple:
+    """K12's bound on its inputs: the larger of the input bytes, one read
+    and one write of each list for the sort and the table, over the HBM
+    rate, and 6 operations (two differences, two abs, two compares) per
+    pair inside the exact r0 window over the f32 peak; and the all-pairs
+    figure (6 operations for every pair) beside it."""
+    nbytes = sum(a.numel() * 4 for a in vargs) * 3 + 4 * 64 * 64
+    pairs = window_pairs(vargs[0], vargs[2])
+    return (*bound(nbytes, 6 * pairs), pairs,
+            bound(nbytes, 6 * vargs[0].shape[0] * vargs[2].shape[0])[0])
+
+
+def check_vote(dev) -> dict:
+    """K12 against its plain version, equal: at the full triangle count of
+    60 stars (a rotated, shifted and jittered copy as the target, padded
+    to TRI_CAP) and on ``vote_cases`` at TRI_CAP rows; times the call,
+    its C entry alone (the counting sort and the vote, without the
+    wrapper's checks and allocations) and the all-pairs worst case
+    (every r0 equal). Returns the report entry."""
+    import torch
+    from astroburst_tpu_torch.alignment import affine as AF
+    from astroburst_tpu_torch.alignment import vote_kernel as VK
+    from astroburst_tpu_torch.runtime import kernels as K
+    vrng = np.random.default_rng(23)
+    stars_r = vrng.random((60, 2)) * 4000
+    rot = np.array([[math.cos(0.007), -math.sin(0.007)],
+                    [math.sin(0.007), math.cos(0.007)]])
+    stars_t = stars_r @ rot.T + np.array([3.2, -2.1]) + vrng.normal(
+        0, 0.05, (60, 2))
+    (rv, rr), (tv, tr) = (AF.build_triangles(x) for x in (stars_r, stars_t))
+    sets = {"stars_60": (*AF._pad_tris(rv, rr)[::-1],
+                         *AF._pad_tris(tv, tr)[::-1])}
+    sets.update(vote_cases(vrng, AF.TRI_CAP))
+    sets = {tag: [torch.from_numpy(a).to(dev) for a in arrs]
+            for tag, arrs in sets.items()}
+    for tag, vargs in sets.items():
+        got = VK.vote(*vargs)
+        ref = VK.vote_plain(*vargs)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K12 votes differ from the plain version "
+                                 f"on {tag}")
+        log(f"[K12] vote {tag}, {vargs[0].shape[0]} x {vargs[2].shape[0]} "
+            f"rows: equal, {int(got.sum())} votes, diagonal "
+            f"{int(got.diagonal().sum())}")
+    vargs = sets["stars_60"]
+    t_ref, t_tgt = vargs[0].shape[0], vargs[2].shape[0]
+    votes = torch.empty((64, 64), dtype=torch.int32, device=dev)
+    scratch = torch.empty(4 * (t_ref + t_tgt) + 2 * (VK._BUCKETS + 2),
+                          dtype=torch.int32, device=dev)
+
+    def launch_alone():   # the counting sort and the vote, no allocation
+        K.launch("abt_triangle_vote", vargs[0].data_ptr(),
+                 vargs[1].data_ptr(), t_ref, vargs[2].data_ptr(),
+                 vargs[3].data_ptr(), t_tgt, VK.TRIANGLE_TOLERANCE,
+                 VK._GRID, scratch.data_ptr(), votes.data_ptr(),
+                 K.stream_handle(votes))
+
+    # the pairs the plan's windows hold (its plain form, on the host)
+    rrows, rst = VK._bucket_rows(vargs[0].cpu(), vargs[1].cpu())
+    _, tst = VK._bucket_rows(vargs[2].cpu(), vargs[3].cpu())
+    lo, hi = VK._vote_plan(rrows, rst, tst)
+    refs = torch.clamp(int(rst[VK._BUCKETS]) - torch.arange(lo.shape[0])
+                       * VK._BLOCK, 0, VK._BLOCK)
+    planned = int(((hi - lo).clamp(min=0) * refs).sum())
+    flat = sets["all_equal_r0"]
+    entry = {"max_abs_err": 0.0, "triangles": [len(rr), len(tr)],
+             "cases": list(sets), "planned_pairs": planned,
+             "ms": cuda_ms(lambda: VK.vote(*vargs), 20),
+             "ms_launch_alone": cuda_ms(launch_alone, 20),
+             "plain_ms": cuda_ms(lambda: VK.vote_plain(*vargs), 3),
+             "ms_all_equal_r0": cuda_ms(lambda: VK.vote(*flat), 10),
+             "plain_ms_all_equal_r0": cuda_ms(lambda: VK.vote_plain(*flat),
+                                              3),
+             "library_ms": None}
+    (entry["bound_ms"], entry["bound_by"], entry["window_pairs"],
+     entry["bound_all_pairs_ms"]) = vote_bound(vargs)
+    (entry["bound_ms_all_equal_r0"], _, entry["window_pairs_all_equal_r0"],
+     _) = vote_bound(flat)
+    log(f"[K12] {entry['window_pairs']} pairs in the exact r0 window of "
+        f"{len(rr) * len(tr)}; the plan's windows hold {planned}")
     return entry
 
 
@@ -1011,7 +1228,7 @@ def main() -> None:
     from astroburst_tpu_torch.alignment import affine as AF
     from astroburst_tpu_torch.alignment.coarse_kernel import (
         box_plan, coarse_downsample_stack, coarse_downsample_stack_plain)
-    from astroburst_tpu_torch.alignment.vote_kernel import vote, vote_plain
+    from astroburst_tpu_torch.alignment.vote_kernel import vote
     from astroburst_tpu_torch.analysis import star_detection as SD
     from astroburst_tpu_torch.analysis.tile_sort_kernel import (
         sort_tiles, sort_tiles_chunked)
@@ -1082,11 +1299,12 @@ def main() -> None:
     spills = [r[0] for r in rows if r[4] or r[5]]
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
-    # the register instances of K3, K7/K8 and K9 keep their values out of
-    # local memory
+    # the register instances of K3, K7/K8 and K9, and K12 and K13, keep
+    # their values out of local memory
     framed = [r[0] for r in rows if r[3] and r[0].startswith((
         "shift_clip_kernel<", "drizzle_finalize_kernel<",
-        "drizzle_gather_kernel<"))]
+        "drizzle_gather_kernel<", "triangle_vote_kernel",
+        "star_mask_kernel"))]
     if framed:
         raise AssertionError(f"register instances with a stack frame: "
                              f"{framed}")
@@ -1441,34 +1659,9 @@ def main() -> None:
     ms_field = field / MS_SCALE
     report["paint_mask"] = check_star_mask(ms_field, MS_PEAKS)
 
-    # K12: the vote at the full triangle count of 60 stars
-    vrng = np.random.default_rng(23)
-    stars_r = vrng.random((60, 2)) * 4000
-    rot = np.array([[math.cos(0.007), -math.sin(0.007)],
-                    [math.sin(0.007), math.cos(0.007)]])
-    stars_t = stars_r @ rot.T + np.array([3.2, -2.1]) + vrng.normal(
-        0, 0.05, (60, 2))
-    (rv, rr), (tv, tr) = (AF.build_triangles(x) for x in (stars_r, stars_t))
-    vargs = [torch.from_numpy(a).to(dev) for a in (
-        *AF._pad_tris(rv, rr)[::-1], *AF._pad_tris(tv, tr)[::-1])]
-    got = vote(*vargs)
-    ref = vote_plain(*vargs)
-    torch.cuda.synchronize()
-    if not torch.equal(got, ref):
-        raise AssertionError("K12 votes differ from the plain version")
-    log(f"[K12] vote {len(rr)} x {len(tr)} triangles (padded to "
-        f"{AF.TRI_CAP}): equal, {int(got.sum())} votes, diagonal "
-        f"{int(got.diagonal().sum())}")
-    # operations: two differences, two abs, two compares per pair
-    report["vote"] = {
-        "max_abs_err": 0.0, "triangles": [len(rr), len(tr)],
-        "ms": cuda_ms(lambda: vote(*vargs), 20),
-        "plain_ms": cuda_ms(lambda: vote_plain(*vargs), 3),
-        "library_ms": None}
-    report["vote"].update(zip(("bound_ms", "bound_by"), bound(
-        sum(a.numel() * 4 for a in vargs) + 4 * 64 * 64,
-        6 * len(rr) * len(tr))))
-    del vargs
+    # K12: the vote at the full triangle count of 60 stars, and on
+    # adversarial lists
+    report["vote"] = check_vote(dev)
 
     # ---- 4a. main paths of the earlier slice, through the kernels ------
     counters = {"shift_clip": shift_clip_onepass,

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""K3 (shift + clip) and K7/K8 (drizzle finalize) against an earlier
-version of their CUDA sources, on one CUDA card.
+"""K3 (shift + clip), K7/K8 (drizzle finalize), K12 (triangle vote) and
+K13 (star mask) against an earlier version of their CUDA sources, on one
+CUDA card.
 
-    python3 scripts/compare_old_kernels.py --extract 0cd0335  # git checkout
+    python3 scripts/compare_old_kernels.py --extract 50d146b  # git checkout
     python3 scripts/compare_old_kernels.py [--old build/old_kernels]
+                                           [--kernels k3,k7,k12,k13]
 
-``--extract REV`` writes ``csrc/shift_clip.cu``, ``csrc/drizzle_finalize.cu``
-and ``csrc/drizzle_finalize.cuh`` (and ``csrc/reg_select.cuh`` where REV has
-it) of commit REV into the git-ignored ``build/old_kernels/src`` (it needs
-git, so run it where the history is, then carry the directory with the
-checkout). ``--old DIR`` takes the sources from ``DIR/src`` instead, which
-also serves to hold a changed copy of the current sources against them
-(a design to measure; ``DIR/src/REVISION`` names it). Without
+``--extract REV`` writes ``csrc/shift_clip.cu``, ``csrc/drizzle_finalize.cu``,
+``csrc/drizzle_finalize.cuh``, ``csrc/triangle_vote.cu`` and
+``csrc/star_mask.cu`` (and ``csrc/reg_select.cuh`` where REV has it) of
+commit REV into the git-ignored ``build/old_kernels/src`` (it needs git,
+so run it where the history is, then carry the directory with the
+checkout). ``--old DIR`` takes the sources from ``DIR/src`` instead,
+which also serves to hold a changed copy of the current sources against
+them (a design to measure; ``DIR/src/REVISION`` names it). Without
 ``--extract``, the script builds those sources with nvcc into their own
 library (``DIR/``, printing each kernel's registers, stack and spills),
 builds the current sources through runtime/kernels.py, and runs both on
-the same inputs:
+the same inputs, for the kernels ``--kernels`` names (all by default):
 
 - K3 on the bench workload (16 x 5655 x 2206, offsets +-12 and zero),
   24 x 2048^2 with offsets +-200, and on quantised edge stacks of
@@ -27,14 +30,22 @@ the same inputs:
 - K7 at a 1024-row and a 64-row band of the drizzle bench (10 x 4096^2
   → 8192^2, 40 candidates), and K7 and K8 on quantised edge stacks of
   40 x 72 → 80 x 144 at depths 4..32, 40, 200 (every register and
-  shared instance) and 300 (the global scratch).
+  shared instance) and 300 (the global scratch);
+- K12 on chip_smoke.py's 60-star triangle lists and on every
+  ``vote_cases`` set (34 304 rows); the all-pairs entry of 50d146b is
+  called as its wrapper called it (a zeroed table, the launch);
+- K13 on the masked stretch's records of chip_smoke.py's 4096^2 field,
+  on 4096 synthetic slots and on every ``star_mask_cases`` set; the
+  entry of 50d146b gets its wrapper's torch binning (``old_bins``).
 
 Each pair must agree bit for bit up to the sign of a zero (every plane:
-image, rejected map, and K7's weight map); the script fails otherwise.
-Then it times the two versions of K3 and K7 at the bench shapes in turns
-(old, new, new, old) with CUDA events and prints the card's name and
-power limit and one JSON line of the results. Imports torch and the
-port only.
+image, rejected map, and K7's weight map; K12's votes exactly); the
+script fails otherwise. Then it times the two versions in turns (old,
+new, new, old) with CUDA events — K3 and K7 at the bench shapes, K12 at
+the 60-star lists and where every r0 is equal, K13 on the field's
+records and the synthetic slots, K12 and K13 each with its wrapper's
+work — and prints the card's name and power limit and one JSON line of
+the results. Imports torch and the port only.
 """
 
 from __future__ import annotations
@@ -53,7 +64,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 SOURCES = ("shift_clip.cu", "drizzle_finalize.cu", "drizzle_finalize.cuh",
-           "reg_select.cuh")
+           "reg_select.cuh", "triangle_vote.cu", "star_mask.cu")
+KERNELS = ("k3", "k7", "k12", "k13")
 CSRC = "astroburst_tpu_torch/csrc"
 
 
@@ -78,12 +90,171 @@ def current_abi(old_dir: Path) -> bool:
     return "int cap, int by" in (old_dir / "src" / "shift_clip.cu").read_text()
 
 
+def binned_abi(old_dir: Path, name: str) -> bool:
+    """Whether the other K12 or K13 has the entry of 50d146b: the
+    all-pairs vote (split over blockIdx.y, no scratch) or the raster fed
+    by a torch binning."""
+    text = (old_dir / "src" / name).read_text()
+    return "int split, int* votes" in text or "const int* order" in text
+
+
+def old_vote(old, old_dir, va, dev):
+    """The other K12 on [ref_ratios, ref_verts, tgt_ratios, tgt_verts]:
+    a zeroed table and the launch, as the wrapper of 50d146b made them,
+    or the current entry's scratch and launch."""
+    import torch
+    from astroburst_tpu_torch.alignment import vote_kernel as VK
+    from astroburst_tpu_torch.runtime import kernels as K
+    t_ref, t_tgt = va[0].shape[0], va[2].shape[0]
+    if binned_abi(old_dir, "triangle_vote.cu"):
+        votes = torch.zeros((64, 64), dtype=torch.int32, device=dev)
+        st = old.abt_triangle_vote(
+            va[0].data_ptr(), va[1].data_ptr(), t_ref, va[2].data_ptr(),
+            va[3].data_ptr(), t_tgt, VK.TRIANGLE_TOLERANCE, 4,
+            votes.data_ptr(), K.stream_handle(votes))
+    else:
+        votes = torch.empty((64, 64), dtype=torch.int32, device=dev)
+        scratch = torch.empty(4 * (t_ref + t_tgt) + 2 * (VK._BUCKETS + 2),
+                              dtype=torch.int32, device=dev)
+        st = old.abt_triangle_vote(
+            va[0].data_ptr(), va[1].data_ptr(), t_ref, va[2].data_ptr(),
+            va[3].data_ptr(), t_tgt, VK.TRIANGLE_TOLERANCE, VK._GRID,
+            scratch.data_ptr(), votes.data_ptr(), K.stream_handle(votes))
+    if st != 0:
+        raise RuntimeError(f"old abt_triangle_vote: CUDA error {st}")
+    return votes
+
+
+def old_bins(xs, ys, radii, h: int, w: int):
+    """The wrapper work of K13 at 50d146b (_bin_stars of
+    imaging/star_mask_kernel.py there): window anchors, and the star ids
+    sorted stably by the 128^2 tile their window meets, with each tile's
+    segment."""
+    import torch
+    from astroburst_tpu_torch.imaging.star_mask_kernel import (HALF, TILE,
+                                                               _anchors)
+    y0, x0 = _anchors(xs, ys, h, w)
+    tiles_y, tiles_x = -(-h // TILE), -(-w // TILE)
+    n_tiles = tiles_y * tiles_x
+    ty_lo = torch.clamp(y0 - HALF, min=0) // TILE
+    ty_hi = torch.clamp(y0 + HALF - 1, max=h - 1) // TILE
+    tx_lo = torch.clamp(x0 - HALF, min=0) // TILE
+    tx_hi = torch.clamp(x0 + HALF - 1, max=w - 1) // TILE
+    sentinel = torch.full_like(ty_lo, n_tiles)
+    t00 = ty_lo * tiles_x + tx_lo
+    t01 = torch.where(tx_hi > tx_lo, ty_lo * tiles_x + tx_hi, sentinel)
+    t10 = torch.where(ty_hi > ty_lo, ty_hi * tiles_x + tx_lo, sentinel)
+    t11 = torch.where((tx_hi > tx_lo) & (ty_hi > ty_lo),
+                      ty_hi * tiles_x + tx_hi, sentinel)
+    tids = torch.where((radii > 0.0)[:, None],
+                       torch.stack([t00, t01, t10, t11], dim=1),
+                       n_tiles).reshape(-1)
+    sorted_tids, order4 = torch.sort(tids, stable=True)
+    order = torch.div(order4, 4, rounding_mode="floor").to(torch.int32)
+    seg = torch.searchsorted(
+        sorted_tids, torch.arange(n_tiles + 1, dtype=sorted_tids.dtype,
+                                  device=tids.device)).to(torch.int32)
+    return y0, x0, order.contiguous(), seg.contiguous()
+
+
+def old_mask(old, old_dir, xs, ys, radii, h: int, w: int):
+    """The other K13 with its wrapper's work: the binning and launch of
+    50d146b, or the current entry's single launch."""
+    import torch
+    from astroburst_tpu_torch.runtime import kernels as K
+    out = torch.empty((h, w), dtype=torch.float32, device=xs.device)
+    if binned_abi(old_dir, "star_mask.cu"):
+        y0, x0, order, seg = old_bins(xs, ys, radii, h, w)
+        st = old.abt_star_mask(xs.data_ptr(), ys.data_ptr(), radii.data_ptr(),
+                               y0.data_ptr(), x0.data_ptr(), order.data_ptr(),
+                               seg.data_ptr(), 4.0, h, w, out.data_ptr(),
+                               K.stream_handle(xs))
+    else:
+        st = old.abt_star_mask(xs.data_ptr(), ys.data_ptr(), radii.data_ptr(),
+                               xs.shape[0], 4.0, h, w, out.data_ptr(),
+                               K.stream_handle(xs))
+    if st != 0:
+        raise RuntimeError(f"old abt_star_mask: CUDA error {st}")
+    return out
+
+
+def in_turns(old_fn, new_fn, reps: int) -> dict:
+    """Old, new, new, old, each the mean of ``reps`` calls."""
+    from chip_smoke import cuda_ms
+    t = [cuda_ms(old_fn, reps), cuda_ms(new_fn, reps),
+         cuda_ms(new_fn, reps), cuda_ms(old_fn, reps)]
+    return {"old_ms": [t[0], t[3]], "new_ms": [t[1], t[2]]}
+
+
+def compare_k12(old, old_dir, dev, check, times) -> None:
+    """K12 old against new: equal votes on chip_smoke's 60-star lists and
+    on every ``vote_cases`` set at TRI_CAP rows; the times of the 60-star
+    lists and of the all-pairs worst case, each with its wrapper's work."""
+    import math
+    import torch
+    from chip_smoke import vote_cases
+    from astroburst_tpu_torch.alignment import affine as AF
+    from astroburst_tpu_torch.alignment.vote_kernel import vote
+    vrng = np.random.default_rng(23)   # chip_smoke.check_vote's lists
+    stars_r = vrng.random((60, 2)) * 4000
+    rot = np.array([[math.cos(0.007), -math.sin(0.007)],
+                    [math.sin(0.007), math.cos(0.007)]])
+    stars_t = stars_r @ rot.T + np.array([3.2, -2.1]) + vrng.normal(
+        0, 0.05, (60, 2))
+    (rv, rr), (tv, tr) = (AF.build_triangles(x) for x in (stars_r, stars_t))
+    sets = {"stars_60": (*AF._pad_tris(rv, rr)[::-1],
+                         *AF._pad_tris(tv, tr)[::-1])}
+    sets.update(vote_cases(vrng, AF.TRI_CAP))
+    for tag, arrs in sets.items():
+        va = [torch.from_numpy(a).to(dev) for a in arrs]
+        check(f"K12 {tag}", [vote(*va)], [old_vote(old, old_dir, va, dev)])
+        if tag in ("stars_60", "all_equal_r0"):
+            times[f"k12_{tag}"] = in_turns(
+                lambda: old_vote(old, old_dir, va, dev),
+                lambda: vote(*va), 20)
+
+
+def compare_k13(old, old_dir, dev, check, times) -> None:
+    """K13 old against new: the same bits on the masked stretch's records
+    of chip_smoke's 4096^2 field, on 4096 synthetic slots and on every
+    ``star_mask_cases`` set; the times of the first two, each with its
+    wrapper's work."""
+    import torch
+    from chip_smoke import MS_SCALE, star_mask_cases, star_scene
+    from astroburst_tpu_torch.analysis import star_detection as SD
+    from astroburst_tpu_torch.imaging.masked_stretch import (
+        MaskedStretchConfig, _mask_config, _paint_records)
+    from astroburst_tpu_torch.imaging.star_mask_kernel import paint_mask
+    h = w = 4096
+    field = star_scene(h, w, 3000, 21, dev)[0] / MS_SCALE
+    packed = SD._detect(field, SD._tile_size(h, w), 5.0, 4096)
+    det = _paint_records(packed, _mask_config(MaskedStretchConfig()))[:3]
+    srng = np.random.default_rng(26)
+    k = 4096
+    sets = {"detection": (*det, h, w), "synthetic": (*(
+        torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+            srng.uniform(-200, w + 200, k), srng.uniform(-200, h + 200, k),
+            np.where(srng.random(k) < 0.1, 0.0, srng.uniform(0, 40, k)))),
+        h, w)}
+    for tag, (cx, cy, cr, ch, cw) in star_mask_cases(srng, h, w, k).items():
+        sets[tag] = (*(torch.as_tensor(a, device=dev) for a in (cx, cy, cr)),
+                     ch, cw)
+    for tag, (*rec, ch, cw) in sets.items():
+        check(f"K13 {tag}", [paint_mask(*rec, 4.0, ch, cw)],
+              [old_mask(old, old_dir, *rec, ch, cw)])
+        if tag in ("detection", "synthetic"):
+            times[f"k13_{tag}"] = in_turns(
+                lambda: old_mask(old, old_dir, *rec, ch, cw),
+                lambda: paint_mask(*rec, 4.0, ch, cw), 20)
+
+
 def build_old(old_dir: Path):
     """nvcc the old sources (one process per .cu, in parallel) into
     old_dir/libold.so; returns (ctypes library, build log)."""
     from astroburst_tpu_torch.runtime import kernels as K
     src = old_dir / "src"
-    cu = [src / n for n in SOURCES if n.endswith(".cu")]
+    cu = [src / n for n in SOURCES
+          if n.endswith(".cu") and (src / n).is_file()]
     objs = [old_dir / f"{p.stem}.o" for p in cu]
     procs = [subprocess.Popen([K.nvcc(), *K.NVCC_FLAGS, "-c", "-o", str(o),
                                str(p)], stdout=subprocess.PIPE,
@@ -106,6 +277,14 @@ def build_old(old_dir: Path):
                                                F, I, P, P, P, P, P]
     lib.abt_drizzle_finalize.argtypes = [P, P, I, I, I, I, F, F, I, P, P, P,
                                          P, P]
+    if (src / "triangle_vote.cu").is_file():   # 50d146b's entry or ours
+        lib.abt_triangle_vote.argtypes = [P, P, I, P, P, I, F, I, P, P] \
+            if binned_abi(old_dir, "triangle_vote.cu") \
+            else list(K.SIGNATURES["abt_triangle_vote"])
+    if (src / "star_mask.cu").is_file():
+        lib.abt_star_mask.argtypes = [P, P, P, P, P, P, P, F, I, I, P, P] \
+            if binned_abi(old_dir, "star_mask.cu") \
+            else list(K.SIGNATURES["abt_star_mask"])
     return lib, "".join(logs)
 
 
@@ -138,7 +317,12 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", default=str(ROOT / "build" / "old_kernels"))
     ap.add_argument("--extract", metavar="REV")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="which to compare, of " + ",".join(KERNELS))
     args = ap.parse_args()
+    kernels = set(args.kernels.split(","))
+    if not kernels <= set(KERNELS):
+        ap.error(f"--kernels takes some of {KERNELS}")
     old_dir = Path(args.old)
     if args.extract:
         extract(args.extract, old_dir)
@@ -174,7 +358,8 @@ def main() -> None:
     ptxas = {}
     for tag, log in (("new", new_log), ("old", old_log)):
         for name, regs, smem, stack_b, sst, sld in ptxas_summary(log):
-            if name.startswith(("shift_clip", "drizzle_finalize")):
+            if name.startswith(("shift_clip", "drizzle_finalize",
+                                "triangle_", "star_mask")):
                 print(f"[build] {tag} {name}: {regs} registers, {smem} B "
                       f"smem, {stack_b} B stack, spills {sst}/{sld} B",
                       flush=True)
@@ -231,6 +416,7 @@ def main() -> None:
         return img, wgt, rej
 
     failures = []
+    times = {}
 
     def check(what, got, ref):
         ok = all(same_bits(a, b) for a, b in zip(got, ref))
@@ -242,93 +428,100 @@ def main() -> None:
     rng = np.random.default_rng(31)
     results = {"old_revision": rev, "card": smi, "ptxas": ptxas}
     # ---- K3 ----
-    stack = torch.as_tensor(make_frames(N_FRAMES, H, W), device=dev)
-    offs = rng.uniform(-12, 12, (2, N_FRAMES)).astype(np.float32)
-    offs[:, 0] = 0.0
-    dys, dxs = (torch.as_tensor(o, device=dev) for o in offs)
-    zeros = torch.zeros(N_FRAMES, device=dev)
-    check(f"K3 {N_FRAMES}x{H}x{W} +-12",
-          shift_clip_maps(stack, dys, dxs)[:2], k3_old(stack, dys, dxs))
-    check(f"K3 {N_FRAMES}x{H}x{W} zero offsets",
-          shift_clip_maps(stack, zeros, zeros)[:2],
-          k3_old(stack, zeros, zeros))
-    times = {}
-    for tag, (a, b) in (("k3_bench", (dys, dxs)),
-                        ("k3_bench_zero", (zeros, zeros))):
-        t = [cuda_ms(lambda: k3_old(stack, a, b), 10),
-             cuda_ms(lambda: shift_clip_maps(stack, a, b), 10),
-             cuda_ms(lambda: shift_clip_maps(stack, a, b), 10),
-             cuda_ms(lambda: k3_old(stack, a, b), 10)]
-        times[tag] = {"old_ms": [t[0], t[3]], "new_ms": [t[1], t[2]]}
-    del stack
-    frames, _ = wide_shift_frames(24, 2048, 200)
-    big = torch.as_tensor(np.stack(frames), device=dev)
-    del frames
-    boffs = rng.uniform(-200, 200, (2, 24)).astype(np.float32)
-    bdys, bdxs = (torch.as_tensor(o, device=dev) for o in boffs)
-    check("K3 24x2048x2048 +-200", shift_clip_maps(big, bdys, bdxs)[:2],
-          k3_old(big, bdys, bdxs))
-    t = [cuda_ms(lambda: k3_old(big, bdys, bdxs), 10),
-         cuda_ms(lambda: shift_clip_maps(big, bdys, bdxs), 10),
-         cuda_ms(lambda: shift_clip_maps(big, bdys, bdxs), 10),
-         cuda_ms(lambda: k3_old(big, bdys, bdxs), 10)]
-    times["k3_24x2048"] = {"old_ms": [t[0], t[3]], "new_ms": [t[1], t[2]]}
-    del big
-    for n in list(range(1, 33)) + [48, 100] + ([150] if same_abi else []):
-        e = torch.as_tensor(edge_stack(rng, n, 300, 400), device=dev)
-        eo = np.round(rng.uniform(-30, 30, (2, n)) * 4) / 4
-        eo[:, 0] = 0.0
-        eo[:, n // 3] = 0.0
-        eo[:, n // 2] = np.round(eo[:, n // 2])
-        edys, edxs = (torch.as_tensor(o, dtype=torch.float32, device=dev)
-                      for o in eo)
-        got = shift_clip_maps(e, edys, edxs, 2.5, 3.0, 5)
-        check(f"K3 {n}x300x400 edge stack, {got[2].instance} instance",
-              got[:2], k3_old(e, edys, edxs, 2.5, 3.0, 5))
+    if "k3" in kernels:
+        stack = torch.as_tensor(make_frames(N_FRAMES, H, W), device=dev)
+        offs = rng.uniform(-12, 12, (2, N_FRAMES)).astype(np.float32)
+        offs[:, 0] = 0.0
+        dys, dxs = (torch.as_tensor(o, device=dev) for o in offs)
+        zeros = torch.zeros(N_FRAMES, device=dev)
+        check(f"K3 {N_FRAMES}x{H}x{W} +-12",
+              shift_clip_maps(stack, dys, dxs)[:2], k3_old(stack, dys, dxs))
+        check(f"K3 {N_FRAMES}x{H}x{W} zero offsets",
+              shift_clip_maps(stack, zeros, zeros)[:2],
+              k3_old(stack, zeros, zeros))
+        for tag, (a, b) in (("k3_bench", (dys, dxs)),
+                            ("k3_bench_zero", (zeros, zeros))):
+            t = [cuda_ms(lambda: k3_old(stack, a, b), 10),
+                 cuda_ms(lambda: shift_clip_maps(stack, a, b), 10),
+                 cuda_ms(lambda: shift_clip_maps(stack, a, b), 10),
+                 cuda_ms(lambda: k3_old(stack, a, b), 10)]
+            times[tag] = {"old_ms": [t[0], t[3]], "new_ms": [t[1], t[2]]}
+        del stack
+        frames, _ = wide_shift_frames(24, 2048, 200)
+        big = torch.as_tensor(np.stack(frames), device=dev)
+        del frames
+        boffs = rng.uniform(-200, 200, (2, 24)).astype(np.float32)
+        bdys, bdxs = (torch.as_tensor(o, device=dev) for o in boffs)
+        check("K3 24x2048x2048 +-200", shift_clip_maps(big, bdys, bdxs)[:2],
+              k3_old(big, bdys, bdxs))
+        t = [cuda_ms(lambda: k3_old(big, bdys, bdxs), 10),
+             cuda_ms(lambda: shift_clip_maps(big, bdys, bdxs), 10),
+             cuda_ms(lambda: shift_clip_maps(big, bdys, bdxs), 10),
+             cuda_ms(lambda: k3_old(big, bdys, bdxs), 10)]
+        times["k3_24x2048"] = {"old_ms": [t[0], t[3]], "new_ms": [t[1], t[2]]}
+        del big
+        for n in list(range(1, 33)) + [48, 100] + ([150] if same_abi else []):
+            e = torch.as_tensor(edge_stack(rng, n, 300, 400), device=dev)
+            eo = np.round(rng.uniform(-30, 30, (2, n)) * 4) / 4
+            eo[:, 0] = 0.0
+            eo[:, n // 3] = 0.0
+            eo[:, n // 2] = np.round(eo[:, n // 2])
+            edys, edxs = (torch.as_tensor(o, dtype=torch.float32, device=dev)
+                          for o in eo)
+            got = shift_clip_maps(e, edys, edxs, 2.5, 3.0, 5)
+            check(f"K3 {n}x300x400 edge stack, {got[2].instance} instance",
+                  got[:2], k3_old(e, edys, edxs, 2.5, 3.0, 5))
     # ---- K7 / K8 ----
-    gen = torch.Generator(device=dev).manual_seed(DRZ_SEED)
-    drng = np.random.default_rng(DRZ_SEED)
-    dstack = torch.randn((DRZ_N, DRZ_HW, DRZ_HW), generator=gen,
-                         device=dev) * 8.0 + 100.0
-    dd = [torch.as_tensor(drng.uniform(-2, 2, DRZ_N), dtype=torch.float32,
-                          device=dev) for _ in range(2)]
-    r0 = 3 * DRZ_BAND
-    for band in (DRZ_BAND, DRZ_BAND64):
-        cand, wys, wxs, taps = _frame_candidates_raw(
-            dstack, dd[0] - r0 / 2.0, dd[1], 2.0, 0.7, DrizzleKernel.SQUARE,
-            band, 2 * DRZ_HW)
-        wys_t = wys.T.contiguous()
-        fa = (DRZ_N, taps, taps, max(2 * DRZ_N, 4), 3.0, 3.0, 5)
-        check(f"K7 {tuple(cand.shape)}",
-              drizzle_finalize_fused(cand, wys_t, wxs, *fa),
-              k7_old(cand, wys_t, wxs, *fa))
-        reps = 10 if band == DRZ_BAND else 50
-        t = [cuda_ms(lambda: k7_old(cand, wys_t, wxs, *fa), reps),
-             cuda_ms(lambda: drizzle_finalize_fused(cand, wys_t, wxs, *fa),
-                     reps),
-             cuda_ms(lambda: drizzle_finalize_fused(cand, wys_t, wxs, *fa),
-                     reps),
-             cuda_ms(lambda: k7_old(cand, wys_t, wxs, *fa), reps)]
-        times[f"k7_band{band}"] = {"old_ms": [t[0], t[3]],
-                                   "new_ms": [t[1], t[2]]}
-        del cand
-    del dstack
-    for n in (2, 4, 6, 8, 10, 12, 14, 16, 20, 100, 150):
-        e = torch.as_tensor(edge_stack(rng, n, 40, 72), device=dev)
-        ed = [torch.as_tensor(rng.uniform(-2, 2, n), dtype=torch.float32,
+    if "k7" in kernels:
+        gen = torch.Generator(device=dev).manual_seed(DRZ_SEED)
+        drng = np.random.default_rng(DRZ_SEED)
+        dstack = torch.randn((DRZ_N, DRZ_HW, DRZ_HW), generator=gen,
+                             device=dev) * 8.0 + 100.0
+        dd = [torch.as_tensor(drng.uniform(-2, 2, DRZ_N), dtype=torch.float32,
                               device=dev) for _ in range(2)]
-        cand, wys, wxs, taps = _frame_candidates_raw(
-            e, ed[0], ed[1], 2.0, 1.0, DrizzleKernel.SQUARE, 80, 144)
-        wys_t = wys.T.contiguous()
-        fa = (n, taps, taps, max(2 * n, 4), 2.5, 3.0, 5)
-        check(f"K7 {tuple(cand.shape)} edge stack, depth {fa[3]}",
-              drizzle_finalize_fused(cand, wys_t, wxs, *fa),
-              k7_old(cand, wys_t, wxs, *fa))
-        _, cand_w = _masked_candidates(cand, _outer(
-            wys.reshape(n, taps, 80), wxs.reshape(n, taps, 144)))
-        check(f"K8 {tuple(cand.shape)} edge stack, depth {fa[3]}",
-              drizzle_finalize(cand, cand_w, *fa[3:]),
-              k7_old(cand, None, None, *fa, cand_w=cand_w))
+        r0 = 3 * DRZ_BAND
+        for band in (DRZ_BAND, DRZ_BAND64):
+            cand, wys, wxs, taps = _frame_candidates_raw(
+                dstack, dd[0] - r0 / 2.0, dd[1], 2.0, 0.7,
+                DrizzleKernel.SQUARE, band, 2 * DRZ_HW)
+            wys_t = wys.T.contiguous()
+            fa = (DRZ_N, taps, taps, max(2 * DRZ_N, 4), 3.0, 3.0, 5)
+            check(f"K7 {tuple(cand.shape)}",
+                  drizzle_finalize_fused(cand, wys_t, wxs, *fa),
+                  k7_old(cand, wys_t, wxs, *fa))
+            reps = 10 if band == DRZ_BAND else 50
+            t = [cuda_ms(lambda: k7_old(cand, wys_t, wxs, *fa), reps),
+                 cuda_ms(lambda: drizzle_finalize_fused(cand, wys_t, wxs, *fa),
+                         reps),
+                 cuda_ms(lambda: drizzle_finalize_fused(cand, wys_t, wxs, *fa),
+                         reps),
+                 cuda_ms(lambda: k7_old(cand, wys_t, wxs, *fa), reps)]
+            times[f"k7_band{band}"] = {"old_ms": [t[0], t[3]],
+                                       "new_ms": [t[1], t[2]]}
+            del cand
+        del dstack
+        for n in (2, 4, 6, 8, 10, 12, 14, 16, 20, 100, 150):
+            e = torch.as_tensor(edge_stack(rng, n, 40, 72), device=dev)
+            ed = [torch.as_tensor(rng.uniform(-2, 2, n), dtype=torch.float32,
+                                  device=dev) for _ in range(2)]
+            cand, wys, wxs, taps = _frame_candidates_raw(
+                e, ed[0], ed[1], 2.0, 1.0, DrizzleKernel.SQUARE, 80, 144)
+            wys_t = wys.T.contiguous()
+            fa = (n, taps, taps, max(2 * n, 4), 2.5, 3.0, 5)
+            check(f"K7 {tuple(cand.shape)} edge stack, depth {fa[3]}",
+                  drizzle_finalize_fused(cand, wys_t, wxs, *fa),
+                  k7_old(cand, wys_t, wxs, *fa))
+            _, cand_w = _masked_candidates(cand, _outer(
+                wys.reshape(n, taps, 80), wxs.reshape(n, taps, 144)))
+            check(f"K8 {tuple(cand.shape)} edge stack, depth {fa[3]}",
+                  drizzle_finalize(cand, cand_w, *fa[3:]),
+                  k7_old(cand, None, None, *fa, cand_w=cand_w))
+    # ---- K12 ----
+    if "k12" in kernels:
+        compare_k12(old, old_dir, dev, check, times)
+    # ---- K13 ----
+    if "k13" in kernels:
+        compare_k13(old, old_dir, dev, check, times)
     results["times"] = times
     results["failures"] = failures
     for tag, tt in times.items():

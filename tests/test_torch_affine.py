@@ -21,9 +21,13 @@ mode. Tolerances:
   (``jax_parabola_vertex``, ROADMAP C8).
 
 The CUDA vote kernel runs only on the card: chip_smoke.py holds it to
-``vote_plain`` there.
+``vote_plain`` there. Here the plain forms of its counting sort and its
+plan (``_bucket_rows``, ``_vote_plan``) hold every match, and
+``_windowed_votes`` walks the plan's pieces as the kernel does: its
+votes are equal to ``vote_plain``'s and to JAX's.
 """
 
+import bisect
 import math
 
 import jax.numpy as jnp
@@ -92,6 +96,104 @@ def _tris(rng, n, shift=(7.0, -4.0)):
 # ---- K12: the vote -------------------------------------------------------
 
 
+VOTE_T = 640   # 2.5 blocks of the plan
+VOTE_CASES = ("window_edges", "tied_r0", "all_equal_r0", "inf_nan_shuffled",
+              "ids_outside", "one_live", "three_live", "no_live_ref")
+
+
+@pytest.fixture(scope="module")
+def vote_sets():
+    """chip_smoke.py's adversarial triangle lists at VOTE_T rows."""
+    import chip_smoke
+    sets = chip_smoke.vote_cases(np.random.default_rng(41), VOTE_T)
+    assert tuple(sets) == VOTE_CASES
+    return {k: [torch.from_numpy(a) for a in v] for k, v in sets.items()}
+
+
+def _pairs(rows_r, rows_t):
+    """[refs, targets] bool: vote_plain's exact predicate on packed rows."""
+    r = rows_r[:, :2].contiguous().view(torch.float32)
+    t = rows_t[:, :2].contiguous().view(torch.float32)
+    tol = tvk.TRIANGLE_TOLERANCE
+    return ((torch.abs(r[:, None, 0] - t[None, :, 0]) <= tol)
+            & (torch.abs(r[:, None, 1] - t[None, :, 1]) <= tol))
+
+
+def _windowed_votes(rr, rv, tr, tv):
+    """csrc/triangle_vote.cu in plain torch: the counting sort by r0
+    bucket, the plan, and every piece of each ref block's window through
+    the exact predicate (the kernel shares the pieces out over its grid
+    in runs; each is walked once); a vertex outside [0, 64) casts no
+    vote."""
+    rrows, rst = tvk._bucket_rows(rr, rv)
+    trows, tst = tvk._bucket_rows(tr, tv)
+    lo, hi = (x.tolist() for x in tvk._vote_plan(rrows, rst, tst))
+    votes = torch.zeros(tvk.STAR_CAP ** 2, dtype=torch.int64)
+    for b in range(len(lo)):
+        refs = rrows[b * tvk._BLOCK:(b + 1) * tvk._BLOCK]
+        for j0 in range(lo[b], hi[b], tvk._PIECE):
+            tgts = trows[j0:min(j0 + tvk._PIECE, hi[b])]
+            ii, jj = _pairs(refs, tgts).nonzero(as_tuple=True)
+            for q in range(2, 5):
+                a, c = refs[ii, q].long(), tgts[jj, q].long()
+                ok = ((a >= 0) & (a < tvk.STAR_CAP) & (c >= 0)
+                      & (c < tvk.STAR_CAP))
+                votes.index_add_(
+                    0, (a * tvk.STAR_CAP + c)[ok],
+                    torch.ones(int(ok.sum()), dtype=torch.int64))
+    return votes.view(tvk.STAR_CAP, tvk.STAR_CAP).to(torch.int32)
+
+
+def _buckets(rows):
+    r = rows[:, :2].contiguous().view(torch.float32)
+    k = torch.clamp(torch.floor(r[:, 0] * tvk._SCALE), 0, tvk._BUCKETS - 1)
+    return torch.where(torch.isfinite(r).all(dim=1), k, tvk._BUCKETS)
+
+
+@pytest.mark.parametrize("case", VOTE_CASES)
+def test_vote_plan_windows_hold_every_match(vote_sets, case):
+    """The rows are grouped by r0 bucket with the non-finite ones last;
+    every (ref, target) pair that vote_plain's predicate matches lies in
+    its ref block's planned window, and no window reaches into the
+    non-finite tail of the targets."""
+    rr, rv, tr, tv = vote_sets[case]
+    rrows, rst = tvk._bucket_rows(rr, rv)
+    trows, tst = tvk._bucket_rows(tr, tv)
+    for rows, starts in ((rrows, rst), (trows, tst)):
+        k = _buckets(rows)
+        assert bool((k[1:] >= k[:-1]).all())
+        assert starts.tolist() == [int((k < q).sum())
+                                   for q in range(tvk._BUCKETS + 2)]
+    lo, hi = tvk._vote_plan(rrows, rst, tst)
+    assert lo.shape[0] == -(-VOTE_T // tvk._BLOCK)
+    ii, jj = _pairs(rrows, trows).nonzero(as_tuple=True)
+    # each match lies within the margin of its ref's bucket
+    gap = (_buckets(trows)[jj] - _buckets(rrows)[ii]).abs()
+    assert bool((gap <= tvk._margin()).all())
+    b = ii // tvk._BLOCK
+    assert bool((lo[b] <= jj).all()) and bool((jj < hi[b]).all())
+    n_live = int(tst[tvk._BUCKETS])
+    assert bool((hi <= n_live).all())
+    live_blocks = -(-int(rst[tvk._BUCKETS]) // tvk._BLOCK)
+    width = int((hi - lo).clamp(min=0).sum())
+    if case == "no_live_ref":
+        assert width == 0 and len(ii) == 0
+    elif case == "all_equal_r0":   # every window is the whole list
+        assert width == live_blocks * n_live
+    elif case in ("tied_r0", "one_live"):   # r0 values far apart
+        assert width < live_blocks * n_live
+
+
+@pytest.mark.parametrize("case", VOTE_CASES)
+def test_windowed_vote_equals_plain(vote_sets, case):
+    args = vote_sets[case]
+    want = tvk.vote_plain(*args)
+    assert torch.equal(_windowed_votes(*args), want)
+    assert torch.equal(tvk.vote(*args), want)   # the CPU route
+    if case in ("window_edges", "tied_r0", "three_live", "one_live"):
+        assert int(want.sum()) > 0
+
+
 def test_vote_plain_matches_xla_kernel_at_full_t():
     (vr, rr), (vt, tr) = _tris(np.random.default_rng(0), 40)
     pv_r, pr_r = ja._pad_tris(vr, rr)
@@ -100,11 +202,13 @@ def test_vote_plain_matches_xla_kernel_at_full_t():
     want = np.asarray(ja._vote_kernel(
         jnp.asarray(pr_r), jnp.asarray(pv_r), jnp.asarray(pr_t),
         jnp.asarray(pv_t), ja._STAR_CAP, ja._STAR_CAP))
-    got = tvk.vote(_t(pr_r), torch.from_numpy(pv_r), _t(pr_t),
-                   torch.from_numpy(pv_t))
+    args = (_t(pr_r), torch.from_numpy(pv_r), _t(pr_t),
+            torch.from_numpy(pv_t))
+    got = tvk.vote(*args)
     assert got.dtype == torch.int32 and got.shape == (64, 64)
     np.testing.assert_array_equal(got.numpy(), want)
     assert int(got.sum()) > 0
+    np.testing.assert_array_equal(_windowed_votes(*args).numpy(), want)
 
 
 def test_vote_plain_matches_vote_pallas_interpret():
@@ -127,9 +231,9 @@ def test_vote_plain_matches_vote_pallas_interpret():
     want = np.asarray(vote_pallas(jnp.asarray(rr.T), jnp.asarray(vr.T),
                                   jnp.asarray(tr.T), jnp.asarray(vt.T),
                                   interpret=True))
-    got = tvk.vote(_t(rr), torch.from_numpy(vr), _t(tr),
-                   torch.from_numpy(vt))
-    np.testing.assert_array_equal(got.numpy(), want)
+    args = (_t(rr), torch.from_numpy(vr), _t(tr), torch.from_numpy(vt))
+    np.testing.assert_array_equal(tvk.vote(*args).numpy(), want)
+    np.testing.assert_array_equal(_windowed_votes(*args).numpy(), want)
 
 
 def test_vote_ignores_vertices_outside_the_table():

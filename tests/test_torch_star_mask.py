@@ -1,5 +1,5 @@
-"""PyTorch port: the star-mask raster (K13's plain version and its tile
-binning) and the star mask against the JAX package.
+"""PyTorch port: the star-mask raster (K13's plain version and a mirror
+of its kernel's tile cull) and the star mask against the JAX package.
 
 Inputs are made with numpy from a seed and fed to both packages; the
 JAX raster runs on its XLA route and as the Pallas kernel in interpret
@@ -29,6 +29,7 @@ torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
 WINDOW = tsk.WINDOW
+TILE, HALF = tsk.TILE, tsk.HALF
 
 
 def _t(a):
@@ -120,36 +121,86 @@ def test_mask_kernel_matches_jax(lum, use_pallas):
         paint.numpy(), sequential_paint(h, w, xs, ys, radii, 4.0))
 
 
-def _raster_from_bins(xs, ys, radii, softness, h, w):
-    """What the CUDA kernel does with the wrapper's binning: each 128²
-    tile max-accumulates the disks of its segment's stars only."""
-    y0, x0 = tsk._anchors(xs, ys, h, w)
-    order, seg, tiles_y, tiles_x = tsk._bin_stars(y0, x0, radii > 0, h, w)
-    out = torch.zeros(h, w)
-    for t in range(tiles_y * tiles_x):
-        rs = slice((t // tiles_x) * tsk.TILE, (t // tiles_x + 1) * tsk.TILE)
-        cs = slice((t % tiles_x) * tsk.TILE, (t % tiles_x + 1) * tsk.TILE)
-        ids = order[seg[t]:seg[t + 1]].long()
-        assert torch.equal(ids, torch.sort(ids).values)   # ascending stars
-        if len(ids):
-            one = tsk.paint_mask_plain(xs[ids], ys[ids], radii[ids], softness,
-                                       h, w)
-            out[rs, cs] = one[rs, cs]
-    return out, order, seg
+def _cull(xs, ys, radii, softness, h, w, tile_r, tile_c):
+    """csrc/star_mask.cu's cull of the 128² tile at (tile_r, tile_c), in
+    numpy f32: {star: (first row, last row, first column, last column)}
+    of the survivors' rectangles (the star's window, the disk's support
+    box widened by one pixel, and the tile within the plane)."""
+    f = np.float32
+    tile_r1 = min(tile_r + TILE, h) - 1
+    tile_c1 = min(tile_c + TILE, w) - 1
+    kept = {}
+    for s, (x, y, radius) in enumerate(zip(xs, ys, radii)):
+        if not radius > 0:
+            continue
+        y0 = int(min(max(np.rint(y), f(0)), f(h)))
+        x0 = int(min(max(np.rint(x), f(0)), f(w)))
+        r_lo, r_hi = max(y0 - HALF, tile_r), min(y0 + HALF - 1, tile_r1)
+        c_lo, c_hi = max(x0 - HALF, tile_c), min(x0 + HALF - 1, tile_c1)
+        reach = max(radius, f(radius + f(softness)))
+        if abs(y) + reach < f(2 ** 20):
+            r_lo = max(r_lo, int(np.floor(f(y - reach))) - 1)
+            r_hi = min(r_hi, int(np.ceil(f(y + reach))) + 1)
+        if abs(x) + reach < f(2 ** 20):
+            c_lo = max(c_lo, int(np.floor(f(x - reach))) - 1)
+            c_hi = min(c_hi, int(np.ceil(f(x + reach))) + 1)
+        if r_lo <= r_hi and c_lo <= c_hi:
+            kept[s] = (r_lo, r_hi, c_lo, c_hi)
+    return kept
 
 
-@pytest.mark.parametrize("h,w", [(300, 420), (128, 128), (97, 513)])
-def test_tile_binning_covers_every_window(h, w):
-    """The kernel's inputs: each tile's segment holds exactly the
-    painted stars whose window meets it (≤ 4 entries a star), so the
-    per-tile raster equals the direct paint bit for bit."""
-    rng = np.random.default_rng(h + w)
-    xs, ys, radii = (_t(a) for a in _stars(rng, h, w, 40, margin=70.0,
-                                           zero_frac=0.2))
-    out, order, seg = _raster_from_bins(xs, ys, radii, 4.0, h, w)
-    assert torch.equal(out, tsk.paint_mask_plain(xs, ys, radii, 4.0, h, w))
-    assert int(seg[-1]) <= 4 * int((radii > 0).sum())
-    assert order.dtype == seg.dtype == torch.int32
+def _raster_from_cull(xs, ys, radii, softness, h, w):
+    """What the CUDA kernel does: each tile paints only the stars its cull
+    keeps, each inside its rectangle. Asserts that a star the cull drops
+    from a tile paints nothing there, and that a kept star paints only
+    inside its rectangle."""
+    out = np.zeros((h, w), np.float32)
+    tiles = [(r, c) for r in range(0, h, TILE) for c in range(0, w, TILE)]
+    kept = {t: _cull(xs, ys, radii, softness, h, w, *t) for t in tiles}
+    for s in range(len(xs)):
+        one = tsk.paint_mask_plain(_t(xs[s:s + 1]), _t(ys[s:s + 1]),
+                                   _t(radii[s:s + 1]), softness, h,
+                                   w).numpy()
+        for t in tiles:
+            painted = np.zeros((h, w), bool)
+            painted[t[0]:t[0] + TILE, t[1]:t[1] + TILE] = \
+                one[t[0]:t[0] + TILE, t[1]:t[1] + TILE] > 0
+            if s not in kept[t]:
+                assert not painted.any(), f"star {s} culled from tile {t}"
+                continue
+            r_lo, r_hi, c_lo, c_hi = kept[t][s]
+            rect = (slice(r_lo, r_hi + 1), slice(c_lo, c_hi + 1))
+            painted[rect] = False
+            assert not painted.any(), f"star {s} paints outside its rect"
+            out[rect] = np.maximum(out[rect], one[rect])
+    return out
+
+
+SM_CASES = ("half_positions", "off_plane_200", "reach_past_window",
+            "dense_cluster", "single_slot", "odd_plane")
+
+
+@pytest.mark.parametrize("case", [(128, 160, 7), (300, 200, 60),
+                                  (97, 513, 25)] + list(SM_CASES))
+def test_tile_cull_keeps_every_painting_star(case):
+    """K13's conservative cull, mirrored: on the grid of
+    test_paint_mask_plain_bit_equal_to_sequential_oracle and on
+    chip_smoke.py's adversarial records (at 300 x 420), every star that
+    changes a pixel of a tile survives that tile's cull with all those
+    pixels in its rectangle, and the tiles painted from their survivors
+    are the direct paint bit for bit."""
+    import chip_smoke
+    if isinstance(case, tuple):
+        h, w, k = case
+        xs, ys, radii = _stars(np.random.default_rng(7), h, w, k,
+                               margin=60.0, zero_frac=0.1)
+    else:
+        xs, ys, radii, h, w = chip_smoke.star_mask_cases(
+            np.random.default_rng(29), 300, 420, 120)[case]
+    out = _raster_from_cull(xs, ys, radii, 4.0, h, w)
+    want = tsk.paint_mask_plain(_t(xs), _t(ys), _t(radii), 4.0, h, w)
+    assert float(want.max()) > 0.0
+    np.testing.assert_array_equal(out, want.numpy())
 
 
 def _star_image(shape=(128, 128), bg=0.1, seed=2):
