@@ -30,11 +30,10 @@ WINDOW = 41
 HALF = WINDOW // 2
 
 
-def window_stats_plain(image: torch.Tensor, pys: torch.Tensor,
-                       pxs: torch.Tensor, threshold: torch.Tensor,
-                       bg_med: torch.Tensor,
-                       n_valid: torch.Tensor) -> torch.Tensor:
-    """[K, 9] window statistics in torch (exactly HALF fill rounds)."""
+def window_members_plain(image: torch.Tensor, pys: torch.Tensor,
+                         pxs: torch.Tensor, threshold: torch.Tensor):
+    """The [K, 41, 41] windows (NaN outside the plane) and their member
+    masks after exactly HALF fill rounds."""
     dev = image.device
     padded = torch.nn.functional.pad(image, (HALF, HALF, HALF, HALF),
                                      value=float("nan"))
@@ -55,6 +54,17 @@ def window_stats_plain(image: torch.Tensor, pys: torch.Tensor,
                 if dy != 1 or dx != 1:
                     grown = grown | m[:, dy:dy + WINDOW, dx:dx + WINDOW]
         member = grown & wabove
+    return win, member
+
+
+def window_stats_plain(image: torch.Tensor, pys: torch.Tensor,
+                       pxs: torch.Tensor, threshold: torch.Tensor,
+                       bg_med: torch.Tensor,
+                       n_valid: torch.Tensor) -> torch.Tensor:
+    """[K, 9] window statistics in torch (exactly HALF fill rounds)."""
+    dev = image.device
+    win, member = window_members_plain(image, pys, pxs, threshold)
+    k = win.shape[0]
     v = torch.where(member, torch.clamp(win - bg_med, min=0.0), 0.0)
     npix = member.sum(dim=(1, 2)).to(torch.float32)
     flux = v.sum(dim=(1, 2))
@@ -81,7 +91,9 @@ def window_stats(image: torch.Tensor, pys: torch.Tensor, pxs: torch.Tensor,
                  n_valid: torch.Tensor) -> torch.Tensor:
     """[K, 9] statistics of the windows centred on (pys, pxs) of the
     [H, W] ``image``; ``threshold``, ``bg_med`` (f32) and ``n_valid``
-    (int) are 0-d tensors on the image's device."""
+    (int32 on the card) are one-element tensors on the image's device.
+    On the card the call makes one launch, which reads those three where
+    they lie, and allocates the output, nothing else."""
     if not K.use_kernel(image, "window_stats"):
         return window_stats_plain(image, pys, pxs, threshold, bg_med,
                                   n_valid)
@@ -92,14 +104,17 @@ def window_stats(image: torch.Tensor, pys: torch.Tensor, pxs: torch.Tensor,
     if pxs.shape != (k,):
         raise ValueError("pys and pxs must be 1-D of equal length")
     dev = image.device
-    params = torch.stack([threshold.to(torch.float32).reshape(()),
-                          bg_med.to(torch.float32).reshape(())]).to(dev)
-    nv = n_valid.to(device=dev, dtype=torch.int32).reshape(1)
+    for t, name, dtype in ((threshold, "threshold", torch.float32),
+                           (bg_med, "bg_med", torch.float32),
+                           (n_valid, "n_valid", torch.int32)):
+        if t.device != dev or t.dtype != dtype or t.numel() != 1:
+            raise ValueError(f"{name} must be one {dtype} value on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     out = torch.empty((k, 9), dtype=torch.float32, device=dev)
     h, w = image.shape
     K.launch("abt_window_stats", image.data_ptr(), h, w, pys.data_ptr(),
-             pxs.data_ptr(), k, nv.data_ptr(), params.data_ptr(),
-             params[1:].data_ptr(), out.data_ptr(), K.stream_handle(image))
+             pxs.data_ptr(), k, n_valid.data_ptr(), threshold.data_ptr(),
+             bg_med.data_ptr(), out.data_ptr(), K.stream_handle(image))
     window_stats.launches += 1
     return out
 

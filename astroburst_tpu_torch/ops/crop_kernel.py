@@ -6,7 +6,8 @@ bounds it and how it is laid out). Crop k comes from frame
 ``frame0 + k`` at origin (y0s[k], x0s[k]), clamped into the plane (an
 origin past the plane clamps down as ``jax.lax.dynamic_slice`` clamps
 it; a negative one clamps to 0 — the refine origins are never out of
-range). The origins stay on the device.
+range). The origins stay on the device; on the card they are int64, as
+``_refine_origin`` makes them, and the kernel reads them as they are.
 
 ``gather_crops`` launches the kernel for a CUDA tensor and runs
 ``gather_crops_plain`` for a CPU tensor; it never falls back.
@@ -50,21 +51,25 @@ def gather_crops_plain(stack: torch.Tensor, y0s: torch.Tensor,
 
 def gather_crops(stack: torch.Tensor, y0s: torch.Tensor, x0s: torch.Tensor,
                  size_r: int, size_c: int, frame0: int = 0) -> torch.Tensor:
-    """Crop k = stack[frame0 + k, y0s[k]:+size_r, x0s[k]:+size_c]."""
+    """Crop k = stack[frame0 + k, y0s[k]:+size_r, x0s[k]:+size_c]. On the
+    card the origins are int64 and the call makes one launch and
+    allocates the output, nothing else."""
     if not K.use_kernel(stack, "gather_crops"):
         return gather_crops_plain(stack, y0s, x0s, size_r, size_c, frame0)
     n_out = y0s.shape[0]
     K.require_cuda(stack, "stack", 3)
     _check(stack, n_out, size_r, size_c, frame0)
-    if y0s.shape != (n_out,) or x0s.shape != (n_out,):
-        raise ValueError("y0s and x0s must be 1-D of equal length")
+    K.require_cuda(y0s, "y0s", 1, torch.int64)
+    K.require_cuda(x0s, "x0s", 1, torch.int64)
+    if x0s.shape != (n_out,) or y0s.device != stack.device or \
+            x0s.device != stack.device:
+        raise ValueError("y0s and x0s must be 1-D of equal length on the "
+                         "stack's device")
     _, h, w = stack.shape
-    y0 = y0s.to(device=stack.device, dtype=torch.int32).contiguous()
-    x0 = x0s.to(device=stack.device, dtype=torch.int32).contiguous()
     out = torch.empty((n_out, size_r, size_c), dtype=torch.float32,
                       device=stack.device)
-    K.launch("abt_gather_crops", stack.data_ptr(), y0.data_ptr(),
-             x0.data_ptr(), n_out, h, w, size_r, size_c, frame0,
+    K.launch("abt_gather_crops", stack.data_ptr(), y0s.data_ptr(),
+             x0s.data_ptr(), n_out, h, w, size_r, size_c, frame0,
              out.data_ptr(), K.stream_handle(stack))
     gather_crops.launches += 1
     return out

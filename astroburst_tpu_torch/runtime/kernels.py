@@ -60,7 +60,8 @@ SIGNATURES = {
     # out, part_min, part_max, part_cnt, stream
     "abt_coarse_box": (_P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                        _P, _P, _P, _P, _P),
-    # stack, y0s, x0s, n_out, h, w, size_r, size_c, frame0, out, stream
+    # stack, y0s, x0s (int64), n_out, h, w, size_r, size_c, frame0, out,
+    # stream
     "abt_gather_crops": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     # cand_v, wys_t, wxs, n, taps_y, taps_x, h, w, cap, sigma_low,
     # sigma_high, iterations, scratch, img, wgt, rej, stream
@@ -80,7 +81,8 @@ SIGNATURES = {
     "abt_tile_sort": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
     # plane, ty, tx, step, chunk, n_chunks, scratch, out, counts, stream
     "abt_tile_sort_chunked": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # image, h, w, pys, pxs, k, n_valid, threshold, bg_med, out, stream
+    # image, h, w, pys, pxs, k, n_valid, threshold, bg_med (the 0-d
+    # tensors' own storage), out, stream
     "abt_window_stats": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P),
     # ref_ratios, ref_verts, t_ref, tgt_ratios, tgt_verts, t_tgt, tol,
     # grid, scratch, votes, stream

@@ -12,10 +12,13 @@ exits non-zero, and so does a machine without a CUDA device):
    sm_90a, one process per source, all started together; registers,
    shared memory and spills of each kernel and the build seconds are
    printed, and a kernel that spills, or a register instance of K3, K7/K8
-   or K9, or K12 or K13, with a stack frame, fails the run;
+   or K9, or K2, K11, K12 or K13, with a stack frame, fails the run;
 3. kernels: each CUDA kernel against its plain torch version on the
    card, at the shapes of the main paths. K1-K3 on the bench workload
-   (16 frames of 5655 x 2206 f32), K3 also at zero offsets against
+   (16 frames of 5655 x 2206 f32), K2 also on ``crop_cases`` (widths
+   2206, 2205 and 2048, crop widths 512, 509 and 1, x0 at every residue
+   mod 4, frame0 0 and 1 and the view of frames 1.., origins past every
+   side), K3 also at zero offsets against
    sigma_clip_core (the clip-only TPU kernel's function), at
    24 x 2048^2 with offsets up to +-200, at 1, 48 and 100 frames with
    NaN/inf pixels, in every instance (``tie_stack`` stacks, quantised so
@@ -39,7 +42,12 @@ exits non-zero, and so does a machine without a CUDA device):
    and 363 (the chunked route), on a 4096^2 star field (256 tiles of
    256^2), on a 5655 x 2206 field (23 x 9 tiles, NaN padding), both with
    NaN/inf pixels, and at 1000^2 (step 125); K11 (window statistics) on the
-   4096^2 field of ~3000 stars with NaN patches at 1024 peaks; K13 (the
+   4096^2 field of ~3000 stars with NaN patches at 1024 peaks, on the
+   5655 x 2206 field and on ``window_cases`` (a spiral past 20 rounds,
+   NaN, below-threshold, at-threshold and +-inf centres, a ring exactly
+   at the threshold, an all-above window, corners and edges, a component
+   past the window's border, dead slots); K2 and K11 each also timed as
+   the wrapper, the launch alone and the profiler's device time; K13 (the
    star mask, one launch that culls its own stars) on the star records
    the masked stretch paints on that field (4096 peaks), on 4096
    synthetic slots and on ``star_mask_cases`` (exact .5 positions, stars
@@ -271,6 +279,29 @@ def star_scene(h, w, n_stars, seed, device, amp=(300.0, 3000.0),
     img = 100.0 + noise * torch.randn((h, w), generator=g, device=device)
     return img + render_stars(h, w, ys, xs, amps, 0.0, 0.0, sigma,
                               device), ys, xs, amps
+
+
+def detection_fields(dev):
+    """The two detection fields, each (plane, ys, xs, amps, NaN patches):
+    4096^2 with 3000 stars (BASELINE.md:13), three NaN patches, a +inf
+    run and a -inf pixel; 5655 x 2206 with 200 stars (BASELINE.md:26), a
+    NaN patch and a +inf run."""
+    field, f_ys, f_xs, f_amps = star_scene(DET_HW, DET_HW, DET_STARS, 21,
+                                           dev)
+    dead = [(r, r + 40, c, c + 60) for r, c in (
+        (DET_HW // 7, DET_HW // 5), (DET_HW // 2, 3 * DET_HW // 4),
+        (6 * DET_HW // 7, DET_HW // 20))]     # NaN patches
+    for y0, y1, x0, x1 in dead:
+        field[y0:y1, x0:x1] = float("nan")
+    field[3 * DET_HW // 10, 100:140] = float("inf")
+    field[77, 3 * DET_HW // 4] = float("-inf")
+    field5, g5_ys, g5_xs, g5_amps = star_scene(H, W, 200, 22, dev)
+    dead5 = [(H // 2, H // 2 + 30, W // 2, W // 2 + 40)]
+    for y0, y1, x0, x1 in dead5:
+        field5[y0:y1, x0:x1] = float("nan")
+    field5[10, :50] = float("inf")
+    return (field, f_ys, f_xs, f_amps, dead), (field5, g5_ys, g5_xs,
+                                               g5_amps, dead5)
 
 
 def affine_scene(h, w, n_stars, seed, device):
@@ -685,6 +716,314 @@ def check_star_mask(field, max_peaks: int) -> dict:
     cover = float(torch.where(radii > 0, rows * cols, 0.0).sum())
     entry.update(zip(("bound_ms", "bound_by"), bound(
         4 * h * w + 12 * xs.numel(), 14 * cover)))
+    return entry
+
+
+def device_ms(fn, reps: int, kernel: str, cold: bool = False) -> float:
+    """Mean device time, in ms, of the CUDA kernels whose name holds
+    ``kernel`` (one a call of ``fn``), from torch.profiler over ``reps``
+    calls after one warm-up call. ``cold``: 128 MB are written between
+    calls, so the kernel finds its inputs out of the 50 MB L2, as a
+    caller that has just streamed a larger plane does. The profiler at
+    times drops spans of a window (one of 20, or all); the window is
+    then taken again, up to three times, and the mean is over the spans
+    it kept."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if cold:
+        flush = torch.empty(32 * 2 ** 20, device="cuda")
+        call = fn
+
+        def fn():
+            flush.zero_()
+            call()
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+        if reps // 2 <= len(spans) <= reps:
+            return sum(spans) / len(spans) / 1e3
+    raise AssertionError(f"{kernel}: {len(spans)} device spans in {reps} "
+                         f"calls")
+
+
+def window_cases(rng, h: int = 200, w: int = 260) -> dict:
+    """Adversarial windows for K11 against its plain version: name →
+    (plane [h, w] f32, pys, pxs [K] i32, threshold, bg_med, n_valid).
+    Background 100 with noise 2, threshold 150, bg_med 100."""
+    thr, bg = np.float32(150.0), np.float32(100.0)
+    cy, cx = h // 2, w // 2
+    yy, xx = np.mgrid[0:h, 0:w]
+
+    def plane():
+        return rng.normal(100.0, 2.0, (h, w)).astype(np.float32)
+
+    def star(p, y, x, amp=400.0, sigma=2.0):
+        p += (amp * np.exp(-((yy - y) ** 2 + (xx - x) ** 2)
+                           / (2 * sigma ** 2))).astype(np.float32)
+        return p
+
+    def peaks(*yx):
+        return (np.int32([y for y, _ in yx]), np.int32([x for _, x in yx]))
+
+    cases = {}
+    # a square spiral ridge from the centre, arms 2 px apart: the path to
+    # the window's edge is ~200 steps, so 20 rounds stop inside it
+    p = plane()
+    y, x, step, d = cy, cx, 2, 0
+    p[y, x] = 300.0
+    inside = True
+    while inside:
+        for _ in range(2):
+            dy, dx = ((0, 1), (1, 0), (0, -1), (-1, 0))[d % 4]
+            for _ in range(step):
+                y, x = y + dy, x + dx
+                if abs(y - cy) > 20 or abs(x - cx) > 20:
+                    inside = False
+                    break
+                p[y, x] = 200.0
+            d += 1
+        step += 2
+    cases["spiral"] = (p, *peaks((cy, cx)), thr, bg, 1)
+    # centres that are NaN, below the threshold, exactly at it, +-inf
+    p = plane()
+    for y, x in ((40, 50), (40, 130), (40, 210), (150, 50), (150, 130)):
+        star(p, y, x)
+    p[40, 50] = np.nan
+    p[40, 130] = 120.0                   # below; its neighbours are above
+    p[40, 210] = thr                     # exactly at the threshold
+    p[150, 50] = np.inf
+    p[150, 131] = -np.inf                # inside the blob, next to the peak
+    p[151, 129] = np.inf
+    cases["centre_nan_below_at_inf"] = (
+        p, *peaks((40, 50), (40, 130), (40, 210), (150, 50), (150, 130)),
+        thr, bg, 5)
+    # a ring exactly at the threshold cuts a bright core from an outer ring
+    p = plane()
+    r = np.maximum(np.abs(yy - cy), np.abs(xx - cx))
+    p[r <= 1] = 300.0
+    p[r == 2] = thr
+    p[(r >= 3) & (r <= 5)] = 200.0
+    cases["ring_at_threshold"] = (p, *peaks((cy, cx)), thr, bg, 1)
+    # every pixel above the threshold (1681 members), and a window that
+    # hangs over the plane's corner
+    p = plane() + 100.0
+    cases["all_above"] = (p, *peaks((cy, cx), (5, w - 3)), thr, bg, 2)
+    # peaks at the corners and on each edge
+    edge = ((0, 0), (h - 1, w - 1), (0, w // 2), (h - 1, w // 3),
+            (h // 2, 0), (h // 3, w - 1))
+    p = plane()
+    for y, x in edge:
+        star(p, y, x, sigma=3.0)
+    cases["corners_and_edges"] = (p, *peaks(*edge), thr, bg, len(edge))
+    # a component that reaches past the window's border
+    p = plane()
+    p[(yy - cy) ** 2 + (xx - cx - 12) ** 2 <= 18 ** 2] = 250.0
+    p[(np.abs(yy - cy + 15) <= 1) & (xx < cx)] = 250.0   # a long bar
+    cases["past_the_border"] = (p, *peaks((cy, cx)), thr, bg, 1)
+    # a star field: 16 slots, 11 live (dead rows are zero), and none live
+    p = plane()
+    ys = rng.integers(0, h, 16)
+    xs = rng.integers(0, w, 16)
+    for y, x in zip(ys, xs):
+        star(p, y, x, amp=float(rng.uniform(100, 900)),
+             sigma=float(rng.uniform(1.0, 3.0)))
+    cases["field_dead_tail"] = (p, ys.astype(np.int32), xs.astype(np.int32),
+                                thr, bg, 11)
+    cases["no_live_peak"] = (p, ys.astype(np.int32), xs.astype(np.int32),
+                             thr, bg, 0)
+    return cases
+
+
+def check_window_stats(field, field5) -> dict:
+    """K11 against its plain version on the peaks of the two detection
+    fields (4096^2 with NaN patches, 5655 x 2206), each through
+    ``check_packed`` as well, and on ``window_cases``: npix equal, the
+    rest within rtol 1e-4 / atol 1e-3. Times the wrapper, the launch
+    alone and the kernel's device time on the 4096^2 field. Returns the
+    report entry."""
+    import torch
+    from astroburst_tpu_torch.analysis import star_detection as SD
+    from astroburst_tpu_torch.analysis.window_kernel import (
+        window_stats, window_stats_plain)
+    from astroburst_tpu_torch.runtime import kernels as K
+    dev = field.device
+
+    def held(what, got, ref):
+        torch.cuda.synchronize()
+        if not torch.equal(got[:, 0], ref[:, 0]) or \
+                not torch.allclose(got, ref, rtol=1e-4, atol=1e-3):
+            raise AssertionError(f"K11 differs from the plain version on "
+                                 f"{what}")
+        return float((got - ref).abs().max())
+
+    sets = {}
+    errs, rels = [], []
+    for tag, img in (("field_4096", field), ("field_5655x2206", field5)):
+        h, w = img.shape
+        bg_med, bg_sig = SD._background(img, SD._tile_size(h, w))
+        thr = bg_med + 5.0 * bg_sig
+        pys, pxs, _, n_valid = SD._peaks(img, thr, SD.MAX_PEAKS)
+        sets[tag] = (img, pys, pxs, thr, bg_med, n_valid)
+        got = window_stats(*sets[tag])
+        ref = window_stats_plain(*sets[tag])
+        errs.append(held(tag, got, ref))
+        tile = SD._tile_size(h, w)
+        rels.append(check_packed(
+            f"[K11] window_stats {h}x{w}, {int(n_valid)} live of "
+            f"{SD.MAX_PEAKS} peaks",
+            SD._detect(img, tile, 5.0, SD.MAX_PEAKS),
+            SD._detect(img, tile, 5.0, SD.MAX_PEAKS, plain=True), got, ref))
+    for tag, (p, pys, pxs, thr, bg, nv) in window_cases(
+            np.random.default_rng(27)).items():
+        wargs = (torch.as_tensor(p, device=dev),
+                 *(torch.as_tensor(a, device=dev) for a in (pys, pxs)),
+                 *(torch.tensor(v, dtype=torch.float32, device=dev)
+                   for v in (thr, bg)),
+                 torch.tensor(nv, dtype=torch.int32, device=dev))
+        got = window_stats(*wargs)
+        ref = window_stats_plain(*wargs)
+        errs.append(held(tag, got, ref))
+        log(f"[K11] window_stats {tag}: npix equal "
+            f"{got[:, 0].int().tolist()[:8]}, max|d| {errs[-1]:.3e}")
+    wargs = sets["field_4096"]
+    img, pys, pxs, thr, bg_med, n_valid = wargs
+    h, w = img.shape
+    k = pys.shape[0]
+    out = torch.empty((k, 9), device=dev)
+
+    def launch_alone():   # the C entry on preallocated buffers
+        K.launch("abt_window_stats", img.data_ptr(), h, w, pys.data_ptr(),
+                 pxs.data_ptr(), k, n_valid.data_ptr(), thr.data_ptr(),
+                 bg_med.data_ptr(), out.data_ptr(), K.stream_handle(img))
+
+    nv = int(n_valid)
+    ref = window_stats_plain(*wargs)
+    entry = {"max_abs_err": max(errs), "max_rel_err_packed": max(rels),
+             "live_peaks": nv,
+             "cases": list(sets) + list(window_cases(
+                 np.random.default_rng(27))),
+             "ms": cuda_ms(lambda: window_stats(*wargs), 50),
+             "ms_launch_alone": cuda_ms(launch_alone, 50),
+             "device_ms": device_ms(launch_alone, 20, "window_stats_kernel"),
+             "device_ms_cold": device_ms(launch_alone, 20,
+                                         "window_stats_kernel", cold=True),
+             "plain_ms": cuda_ms(lambda: window_stats_plain(*wargs), 5),
+             "library_ms": None}
+    # bytes: each live window's pixels once, the centres and the [K, 9]
+    # rows; operations: two per window pixel for the threshold mask, the
+    # fill on 64-bit row masks (~17 per row and round, 20 rounds at
+    # most) and ~15 per member pixel for the moments
+    k11_ops = nv * (41 * 41 * 2 + 20 * 41 * 17) + 15 * float(ref[:nv, 0].sum())
+    entry.update(zip(("bound_ms", "bound_by"), bound(
+        4 * nv * 41 * 41 + 4 * (2 + 9) * k, k11_ops)))
+    log(f"[K11] {h}x{w}, {nv} live peaks: wrapper {entry['ms']:.4f} ms, "
+        f"launch alone {entry['ms_launch_alone']:.4f} ms, device "
+        f"{entry['device_ms']:.4f} ms, {entry['device_ms_cold']:.4f} from a "
+        f"cold L2 (bound {entry['bound_ms']:.4f})")
+    return entry
+
+
+def crop_cases(rng, h: int = 560, size_r: int = 512) -> dict:
+    """Crop sets for K2 against its plain version: name → (stack [N, h,
+    w] f32, y0s, x0s [n] i64, size_r, size_c, frame0). Widths 2206,
+    2205 and 2048, crop widths 512, 509 and 1, x0 at every residue mod 4
+    (rounded to 128 as the refine origins are, and off it), frame0 0 and
+    1 (with frame0 1 the frames 1.. of an odd-sized plane start 8 B off
+    a 16-byte boundary); then origins past every side of the plane
+    (clamped)."""
+    cases = {}
+    for w in (2206, 2205, 2048):
+        for size_c in (512, 509, 1):
+            for frame0 in (0, 1):
+                n = 8
+                stack = rng.normal(0, 1, (n + frame0, h, w)).astype(
+                    np.float32)
+                x0s = rng.integers(0, (w - size_c) // 128 + 1, n) * 128 + \
+                    np.arange(n) % 4
+                x0s = np.minimum(x0s, w - size_c)
+                x0s[0] = w - size_c          # against the right edge
+                y0s = rng.integers(0, h - size_r + 1, n)
+                cases[f"w{w}_c{size_c}_f{frame0}"] = (
+                    stack, y0s.astype(np.int64), x0s.astype(np.int64),
+                    size_r, size_c, frame0)
+    stack = rng.normal(0, 1, (6, h, 2206)).astype(np.float32)
+    cases["clamped"] = (stack, np.int64([-7, h + 100, 3, -1, h, 0]),
+                        np.int64([5000, -3, -128, 2206, 1, 1697]),
+                        size_r, 509, 0)
+    return cases
+
+
+def check_crops(stack, y0s, x0s) -> dict:
+    """K2 against its plain version, bit-equal: the bench crops (frames
+    1.. of ``stack`` at the refine origins ``y0s``, ``x0s``, 512^2, as
+    phase_correlate_stack takes them) and ``crop_cases``. Times the
+    wrapper, the launch alone, the kernel's device time, the plain
+    version and one advanced-index gather on the bench crops. Returns
+    the report entry."""
+    import torch
+    from astroburst_tpu_torch.ops.crop_kernel import (gather_crops,
+                                                      gather_crops_plain)
+    from astroburst_tpu_torch.runtime import kernels as K
+    dev = stack.device
+    n, h, w = stack.shape
+    c1 = gather_crops(stack, y0s, x0s, 512, 512, frame0=1)
+    c2 = gather_crops_plain(stack, y0s, x0s, 512, 512, frame0=1)
+    torch.cuda.synchronize()
+    if not torch.equal(c1, c2):
+        raise AssertionError("K2 crops differ from the plain version")
+    log(f"[K2] gather_crops {n - 1} x 512^2 at origins "
+        f"{list(zip(y0s.tolist(), x0s.tolist()))[:3]}...: bit-equal")
+    cases = crop_cases(np.random.default_rng(28))
+    for tag, (s, cy0, cx0, size_r, size_c, frame0) in cases.items():
+        st = torch.as_tensor(s, device=dev)
+        yo, xo = (torch.as_tensor(a, device=dev) for a in (cy0, cx0))
+        for view in ((st, frame0),) + (((st[1:], 0),) if frame0 else ()):
+            got = gather_crops(view[0], yo, xo, size_r, size_c, view[1])
+            ref = gather_crops_plain(view[0], yo, xo, size_r, size_c,
+                                     view[1])
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K2 differs from the plain version "
+                                     f"on {tag}")
+        log(f"[K2] gather_crops {tag}: {len(cy0)} x {size_r}x{size_c}, "
+            f"x0 mod 4 {sorted(set((cx0 % 4).tolist()))}: bit-equal"
+            + (" (also on the view frames 1..)" if frame0 else ""))
+    n_out = n - 1
+    out = torch.empty((n_out, 512, 512), device=dev)
+
+    def launch_alone():   # the C entry on preallocated buffers
+        K.launch("abt_gather_crops", stack.data_ptr(), y0s.data_ptr(),
+                 x0s.data_ptr(), n_out, h, w, 512, 512, 1, out.data_ptr(),
+                 K.stream_handle(stack))
+
+    fr_i = torch.arange(1, n, device=dev)[:, None, None]
+    row_i = (y0s[:, None] + torch.arange(512, device=dev))[:, :, None]
+    col_i = (x0s[:, None] + torch.arange(512, device=dev))[:, None, :]
+    entry = {"max_abs_err": 0.0, "cases": ["bench"] + list(cases),
+             "ms": cuda_ms(lambda: gather_crops(stack, y0s, x0s, 512, 512,
+                                                frame0=1), 50),
+             "ms_launch_alone": cuda_ms(launch_alone, 50),
+             "device_ms": device_ms(launch_alone, 20, "gather_crops_kernel"),
+             "device_ms_cold": device_ms(launch_alone, 20,
+                                         "gather_crops_kernel", cold=True),
+             "plain_ms": cuda_ms(lambda: gather_crops_plain(
+                 stack, y0s, x0s, 512, 512, frame0=1), 20),
+             "library_ms": cuda_ms(lambda: stack[fr_i, row_i, col_i], 50),
+             "library": "one advanced-index gather"}
+    entry.update(zip(("bound_ms", "bound_by"), bound(
+        2 * 4 * n_out * 512 * 512, 0)))
+    log(f"[K2] {n_out} x 512^2: wrapper {entry['ms']:.4f} ms, launch alone "
+        f"{entry['ms_launch_alone']:.4f} ms, device "
+        f"{entry['device_ms']:.4f} ms, {entry['device_ms_cold']:.4f} from "
+        f"a cold L2 (bound {entry['bound_ms']:.4f})")
     return entry
 
 
@@ -1232,15 +1571,13 @@ def main() -> None:
     from astroburst_tpu_torch.analysis import star_detection as SD
     from astroburst_tpu_torch.analysis.tile_sort_kernel import (
         sort_tiles, sort_tiles_chunked)
-    from astroburst_tpu_torch.analysis.window_kernel import (
-        window_stats, window_stats_plain)
+    from astroburst_tpu_torch.analysis.window_kernel import window_stats
     from astroburst_tpu_torch.alignment.phase_correlation import (
         REFINE_CROP_SIZE, _refine_origin)
     from astroburst_tpu_torch.convert import stack_from_numpy
     from astroburst_tpu_torch.dtypes import (AlignmentMethod, DrizzleConfig,
                                              DrizzleKernel)
-    from astroburst_tpu_torch.ops.crop_kernel import (gather_crops,
-                                                      gather_crops_plain)
+    from astroburst_tpu_torch.ops.crop_kernel import gather_crops
     from astroburst_tpu_torch.parallel.pipeline import align_stack_stretch
     from astroburst_tpu_torch.runtime import kernels as K
     from astroburst_tpu_torch.runtime.device import (cuda_device,
@@ -1299,11 +1636,12 @@ def main() -> None:
     spills = [r[0] for r in rows if r[4] or r[5]]
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
-    # the register instances of K3, K7/K8 and K9, and K12 and K13, keep
-    # their values out of local memory
+    # the register instances of K3, K7/K8 and K9, and K2, K11, K12 and
+    # K13, keep their values out of local memory
     framed = [r[0] for r in rows if r[3] and r[0].startswith((
         "shift_clip_kernel<", "drizzle_finalize_kernel<",
-        "drizzle_gather_kernel<", "triangle_vote_kernel",
+        "drizzle_gather_kernel<", "gather_crops_kernel",
+        "window_stats_kernel", "triangle_vote_kernel",
         "star_mask_kernel"))]
     if framed:
         raise AssertionError(f"register instances with a stack frame: "
@@ -1357,24 +1695,7 @@ def main() -> None:
     cy = torch.as_tensor(H // 2 + shifts[1:, 0], device=dev)
     cx = torch.as_tensor(W // 2 + shifts[1:, 1], device=dev)
     y0s, x0s = _refine_origin(cy, cx, H, W, REFINE_CROP_SIZE)
-    c1 = gather_crops(stack, y0s, x0s, 512, 512, frame0=1)
-    c2 = gather_crops_plain(stack, y0s, x0s, 512, 512, frame0=1)
-    torch.cuda.synchronize()
-    if not torch.equal(c1, c2):
-        raise AssertionError("K2 crops differ from the plain version")
-    log(f"[K2] gather_crops {N_FRAMES - 1} x 512^2 at origins "
-        f"{list(zip(y0s.tolist(), x0s.tolist()))[:3]}...: bit-equal")
-    fr_i = torch.arange(1, N_FRAMES, device=dev)[:, None, None]
-    row_i = (y0s[:, None] + torch.arange(512, device=dev))[:, :, None]
-    col_i = (x0s[:, None] + torch.arange(512, device=dev))[:, None, :]
-    report["gather_crops"] = {"max_abs_err": 0.0, "ms": cuda_ms(
-        lambda: gather_crops(stack, y0s, x0s, 512, 512, frame0=1), 50),
-        "plain_ms": cuda_ms(lambda: gather_crops_plain(
-            stack, y0s, x0s, 512, 512, frame0=1), 20),
-        "library_ms": cuda_ms(lambda: stack[fr_i, row_i, col_i], 50),
-        "library": "one advanced-index gather"}
-    report["gather_crops"].update(zip(("bound_ms", "bound_by"), bound(
-        2 * 4 * (N_FRAMES - 1) * 512 * 512, 0)))
+    report["gather_crops"] = check_crops(stack, y0s, x0s)
 
     rng = np.random.default_rng(5)
     offs = rng.uniform(-12, 12, (2, N_FRAMES)).astype(np.float32)
@@ -1604,55 +1925,16 @@ def main() -> None:
 
     # K10: the tile sort, bit-equal, at the detection path's steps
     t0 = time.perf_counter()
-    field, f_ys, f_xs, f_amps = star_scene(DET_HW, DET_HW, DET_STARS, 21,
-                                           dev)
-    dead = [(r, r + 40, c, c + 60) for r, c in (
-        (DET_HW // 7, DET_HW // 5), (DET_HW // 2, 3 * DET_HW // 4),
-        (6 * DET_HW // 7, DET_HW // 20))]     # NaN patches
-    for y0, y1, x0, x1 in dead:
-        field[y0:y1, x0:x1] = float("nan")
-    field[3 * DET_HW // 10, 100:140] = float("inf")
-    field[77, 3 * DET_HW // 4] = float("-inf")
-    field5, g5_ys, g5_xs, g5_amps = star_scene(H, W, 200, 22, dev)
-    dead5 = [(H // 2, H // 2 + 30, W // 2, W // 2 + 40)]
-    for y0, y1, x0, x1 in dead5:
-        field5[y0:y1, x0:x1] = float("nan")
-    field5[10, :50] = float("inf")
+    (field, f_ys, f_xs, f_amps, dead), (field5, g5_ys, g5_xs, g5_amps,
+                                        dead5) = detection_fields(dev)
     log(f"[data] star fields {DET_HW}^2 x {DET_STARS} stars and {H}x{W} x "
         f"200 stars (made in {time.perf_counter() - t0:.1f} s)")
     report["sort_tiles"], report["sort_tiles_chunked"] = check_tile_sort(
         field, field5, rng)
 
-    # K11: window statistics at the peaks of the 4096^2 field
-    bg_med, bg_sig = SD._background(field, SD._tile_size(DET_HW, DET_HW))
-    thr = bg_med + 5.0 * bg_sig
-    pys, pxs, pvals, n_valid = SD._peaks(field, thr, SD.MAX_PEAKS)
-    wargs = (field, pys, pxs, thr, bg_med, n_valid)
-    got = window_stats(*wargs)
-    ref = window_stats_plain(*wargs)
-    torch.cuda.synchronize()
-    nv = int(n_valid)
-    if not torch.equal(got[:, 0], ref[:, 0]) or \
-            not torch.allclose(got, ref, rtol=1e-4, atol=1e-3):
-        raise AssertionError("K11 differs from the plain version")
-    k11_err = check_packed(
-        f"[K11] window_stats {DET_HW}^2, {nv} live of {SD.MAX_PEAKS} peaks",
-        SD._detect(field, SD._tile_size(DET_HW, DET_HW), 5.0, SD.MAX_PEAKS),
-        SD._detect(field, SD._tile_size(DET_HW, DET_HW), 5.0, SD.MAX_PEAKS,
-                   plain=True), got, ref)
-    # bytes: each live window's pixels once, the centres and the [K, 9]
-    # rows; operations: two per window pixel for the threshold mask, the
-    # fill on 64-bit row masks (~17 per row and round, 20 rounds at
-    # most) and ~15 per member pixel for the moments
-    k11_ops = nv * (41 * 41 * 2 + 20 * 41 * 17) + 15 * float(ref[:nv, 0].sum())
-    report["window_stats"] = {
-        "max_abs_err": float((got - ref).abs().max()),
-        "max_rel_err_packed": k11_err, "live_peaks": nv,
-        "ms": cuda_ms(lambda: window_stats(*wargs), 50),
-        "plain_ms": cuda_ms(lambda: window_stats_plain(*wargs), 5),
-        "library_ms": None}
-    report["window_stats"].update(zip(("bound_ms", "bound_by"), bound(
-        4 * nv * 41 * 41 + 4 * (2 + 9) * SD.MAX_PEAKS, k11_ops)))
+    # K11: window statistics at the peaks of both detection fields and
+    # on adversarial windows
+    report["window_stats"] = check_window_stats(field, field5)
 
     # K13: the star mask of the masked stretch's own records, on the
     # field in [0, 1) (see masked_stretch_path)

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""K3 (shift + clip), K7/K8 (drizzle finalize), K12 (triangle vote) and
-K13 (star mask) against an earlier version of their CUDA sources, on one
-CUDA card.
+"""K3 (shift + clip), K7/K8 (drizzle finalize), K12 (triangle vote), K13
+(star mask), K11 (window statistics) and K2 (refine crops) against an
+earlier version of their CUDA sources, on one CUDA card.
 
-    python3 scripts/compare_old_kernels.py --extract 50d146b  # git checkout
+    python3 scripts/compare_old_kernels.py --extract 86459f3  # git checkout
     python3 scripts/compare_old_kernels.py [--old build/old_kernels]
-                                           [--kernels k3,k7,k12,k13]
+                                           [--kernels k3,k7,k12,k13,k11,k2]
 
 ``--extract REV`` writes ``csrc/shift_clip.cu``, ``csrc/drizzle_finalize.cu``,
-``csrc/drizzle_finalize.cuh``, ``csrc/triangle_vote.cu`` and
-``csrc/star_mask.cu`` (and ``csrc/reg_select.cuh`` where REV has it) of
+``csrc/drizzle_finalize.cuh``, ``csrc/triangle_vote.cu``,
+``csrc/star_mask.cu``, ``csrc/window_stats.cu`` and
+``csrc/gather_crops.cu`` (and ``csrc/reg_select.cuh`` where REV has it) of
 commit REV into the git-ignored ``build/old_kernels/src`` (it needs git,
 so run it where the history is, then carry the directory with the
 checkout). ``--old DIR`` takes the sources from ``DIR/src`` instead,
@@ -36,22 +37,32 @@ the same inputs, for the kernels ``--kernels`` names (all by default):
   called as its wrapper called it (a zeroed table, the launch);
 - K13 on the masked stretch's records of chip_smoke.py's 4096^2 field,
   on 4096 synthetic slots and on every ``star_mask_cases`` set; the
-  entry of 50d146b gets its wrapper's torch binning (``old_bins``).
+  entry of 50d146b gets its wrapper's torch binning (``old_bins``);
+- K11 on the peaks of chip_smoke.py's two detection fields (4096^2,
+  5655 x 2206) and on every ``window_cases`` set; the entry of 86459f3
+  gets its wrapper's stack and cast (``old_window_stats``);
+- K2 on the bench crops (15 x 512^2, int64 refine origins) and on every
+  ``crop_cases`` set; the entry of 86459f3 gets its wrapper's int32
+  casts (``old_crops``).
 
 Each pair must agree bit for bit up to the sign of a zero (every plane:
-image, rejected map, and K7's weight map; K12's votes exactly); the
-script fails otherwise. Then it times the two versions in turns (old,
-new, new, old) with CUDA events — K3 and K7 at the bench shapes, K12 at
-the 60-star lists and where every r0 is equal, K13 on the field's
-records and the synthetic slots, K12 and K13 each with its wrapper's
-work — and prints the card's name and power limit and one JSON line of
-the results. Imports torch and the port only.
+image, rejected map, and K7's weight map; K12's votes exactly; K11's
+npix exactly and its moments within rtol 1e-4 / atol 1e-3, as the sums
+run in another order); the script fails otherwise. Then it times the
+two versions in turns (old, new, new, old) with CUDA events — K3 and K7
+at the bench shapes, K12 at the 60-star lists and where every r0 is
+equal, K13 on the field's records and the synthetic slots, K12 and K13
+each with its wrapper's work, K11 on the 4096^2 field and K2 on the
+bench crops each with its wrapper's work, its C entry alone and its
+device time (torch.profiler) — and prints the card's name and power
+limit and one JSON line of the results. Imports torch and the port only.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -64,8 +75,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 SOURCES = ("shift_clip.cu", "drizzle_finalize.cu", "drizzle_finalize.cuh",
-           "reg_select.cuh", "triangle_vote.cu", "star_mask.cu")
-KERNELS = ("k3", "k7", "k12", "k13")
+           "reg_select.cuh", "triangle_vote.cu", "star_mask.cu",
+           "window_stats.cu", "gather_crops.cu")
+KERNELS = ("k3", "k7", "k12", "k13", "k11", "k2")
 CSRC = "astroburst_tpu_torch/csrc"
 
 
@@ -248,6 +260,179 @@ def compare_k13(old, old_dir, dev, check, times) -> None:
                 lambda: paint_mask(*rec, 4.0, ch, cw), 20)
 
 
+@functools.cache
+def crops_abi64(old_dir: Path) -> bool:
+    """Whether the other K2 takes int64 origins (the current entry)
+    rather than int32 (86459f3)."""
+    return "const int* y0s" not in (old_dir / "src" /
+                                    "gather_crops.cu").read_text()
+
+
+def old_window_stats(old, img, pys, pxs, thr, bg_med, n_valid):
+    """The other K11 with the work of 86459f3's wrapper: threshold and
+    bg_med stacked into one tensor, n_valid cast (two torch ops), the
+    output allocated, the launch. Both entries take the same pointers."""
+    import torch
+    from astroburst_tpu_torch.runtime import kernels as K
+    params = torch.stack([thr.to(torch.float32).reshape(()),
+                          bg_med.to(torch.float32).reshape(())])
+    nv = n_valid.to(torch.int32).reshape(1)
+    k = pys.shape[0]
+    out = torch.empty((k, 9), device=img.device)
+    h, w = img.shape
+    st = old.abt_window_stats(img.data_ptr(), h, w, pys.data_ptr(),
+                              pxs.data_ptr(), k, nv.data_ptr(),
+                              params.data_ptr(), params[1:].data_ptr(),
+                              out.data_ptr(), K.stream_handle(img))
+    if st != 0:
+        raise RuntimeError(f"old abt_window_stats: CUDA error {st}")
+    return out
+
+
+def old_crops(old, old_dir, stack, y0s, x0s, size_r, size_c, frame0):
+    """The other K2 with its wrapper's work: 86459f3's casts of both
+    origins to int32 (two launches), the output, the launch; or the
+    current entry's single launch."""
+    import torch
+    from astroburst_tpu_torch.runtime import kernels as K
+    _, h, w = stack.shape
+    n_out = y0s.shape[0]
+    out = torch.empty((n_out, size_r, size_c), device=stack.device)
+    if not crops_abi64(old_dir):
+        y0s, x0s = (a.to(torch.int32).contiguous() for a in (y0s, x0s))
+    st = old.abt_gather_crops(stack.data_ptr(), y0s.data_ptr(),
+                              x0s.data_ptr(), n_out, h, w, size_r, size_c,
+                              frame0, out.data_ptr(), K.stream_handle(stack))
+    if st != 0:
+        raise RuntimeError(f"old abt_gather_crops: CUDA error {st}")
+    return out
+
+
+def device_in_turns(old_fn, new_fn, kernel: str, reps: int,
+                    cold: bool = False) -> dict:
+    """Old, new, new, old device times (torch.profiler) of ``kernel``,
+    with a cold L2 before each call if ``cold``."""
+    from chip_smoke import device_ms
+    t = [device_ms(f, reps, kernel, cold)
+         for f in (old_fn, new_fn, new_fn, old_fn)]
+    return {"old_ms": [t[0], t[3]], "new_ms": [t[1], t[2]]}
+
+
+def compare_k11(old, dev, failures, times) -> None:
+    """K11 old against new on the peaks of chip_smoke's two detection
+    fields and on every ``window_cases`` set: npix equal, the rest
+    within rtol 1e-4 / atol 1e-3 (the moment sums run in another
+    order). Times on the 4096^2 field: each with its wrapper's work,
+    the C entry alone on preallocated buffers, and the kernel's device
+    time."""
+    import torch
+    from chip_smoke import detection_fields, window_cases
+    from astroburst_tpu_torch.analysis import star_detection as SD
+    from astroburst_tpu_torch.analysis.window_kernel import window_stats
+    from astroburst_tpu_torch.runtime import kernels as K
+    sets = {}
+    for tag, (img, *_) in zip(("field_4096", "field_5655x2206"),
+                              detection_fields(dev)):
+        h, w = img.shape
+        bg_med, bg_sig = SD._background(img, SD._tile_size(h, w))
+        thr = bg_med + 5.0 * bg_sig
+        pys, pxs, _, n_valid = SD._peaks(img, thr, SD.MAX_PEAKS)
+        sets[tag] = (img, pys, pxs, thr, bg_med, n_valid)
+    for tag, (p, pys, pxs, thr, bg, nv) in window_cases(
+            np.random.default_rng(27)).items():
+        sets[tag] = (torch.as_tensor(p, device=dev),
+                     *(torch.as_tensor(a, device=dev) for a in (pys, pxs)),
+                     *(torch.tensor(v, dtype=torch.float32, device=dev)
+                       for v in (thr, bg)),
+                     torch.tensor(nv, dtype=torch.int32, device=dev))
+    for tag, a in sets.items():
+        got, ref = window_stats(*a), old_window_stats(old, *a)
+        ok = bool(torch.equal(got[:, 0], ref[:, 0]) and torch.allclose(
+            got, ref, rtol=1e-4, atol=1e-3))
+        verdict = "npix equal, moments within rtol 1e-4" if ok \
+            else "DIFFERENT"
+        print(f"  K11 {tag}: {verdict} (max|d| "
+              f"{float((got - ref).abs().max()):.3e})", flush=True)
+        if not ok:
+            failures.append(f"K11 {tag}")
+    a = sets["field_4096"]
+    img, pys, pxs, thr, bg_med, n_valid = a
+    h, w = img.shape
+    out = torch.empty((pys.shape[0], 9), device=dev)
+
+    def launch(lib):
+        st = lib.abt_window_stats(img.data_ptr(), h, w, pys.data_ptr(),
+                                  pxs.data_ptr(), pys.shape[0],
+                                  n_valid.data_ptr(), thr.data_ptr(),
+                                  bg_med.data_ptr(), out.data_ptr(),
+                                  K.stream_handle(img))
+        if st != 0:
+            raise RuntimeError(f"abt_window_stats: CUDA error {st}")
+
+    new = K.library().lib
+    times["k11_wrapper"] = in_turns(lambda: old_window_stats(old, *a),
+                                    lambda: window_stats(*a), 50)
+    times["k11_launch_alone"] = in_turns(lambda: launch(old),
+                                         lambda: launch(new), 50)
+    for tag, cold in (("k11_device", False), ("k11_device_cold", True)):
+        times[tag] = device_in_turns(lambda: launch(old), lambda: launch(new),
+                                     "window_stats_kernel", 20, cold)
+
+
+def compare_k2(old, old_dir, dev, check, times) -> None:
+    """K2 old against new, bit-equal: the bench crops (15 x 512^2 from
+    frames 1.. of chip_smoke's bench stack at the refine origins, int64
+    as _refine_origin gives them) and every ``crop_cases`` set (with
+    frame0 1 also from the view of frames 1..). Times on the bench
+    crops: each with its wrapper's work, the C entry alone on
+    preallocated buffers, and the kernel's device time."""
+    import torch
+    from chip_smoke import (H, N_FRAMES, W, bench_shifts, crop_cases,
+                            make_frames)
+    from astroburst_tpu_torch.alignment.phase_correlation import (
+        REFINE_CROP_SIZE, _refine_origin)
+    from astroburst_tpu_torch.ops.crop_kernel import gather_crops
+    from astroburst_tpu_torch.runtime import kernels as K
+    stack = torch.as_tensor(make_frames(N_FRAMES, H, W), device=dev)
+    shifts = bench_shifts(N_FRAMES, H, W)
+    cy = torch.as_tensor(H // 2 + shifts[1:, 0], device=dev)
+    cx = torch.as_tensor(W // 2 + shifts[1:, 1], device=dev)
+    y0s, x0s = _refine_origin(cy, cx, H, W, REFINE_CROP_SIZE)
+    bench = (stack, y0s, x0s, 512, 512, 1)
+    check("K2 bench crops 15 x 512^2", [gather_crops(*bench)],
+          [old_crops(old, old_dir, *bench)])
+    for tag, (s, cy0, cx0, size_r, size_c, frame0) in crop_cases(
+            np.random.default_rng(28)).items():
+        st = torch.as_tensor(s, device=dev)
+        yo, xo = (torch.as_tensor(a, device=dev) for a in (cy0, cx0))
+        for src, f0 in ((st, frame0),) + (((st[1:], 0),) if frame0 else ()):
+            args = (src, yo, xo, size_r, size_c, f0)
+            check(f"K2 {tag}{' (view)' if src is not st else ''}",
+                  [gather_crops(*args)], [old_crops(old, old_dir, *args)])
+    n_out = N_FRAMES - 1
+    out = torch.empty((n_out, 512, 512), device=dev)
+    y32, x32 = (a.to(torch.int32) for a in (y0s, x0s))
+    abi64 = crops_abi64(old_dir)
+
+    def launch(lib, cur):
+        ya, xa = (y0s, x0s) if cur else (y32, x32)
+        st = lib.abt_gather_crops(stack.data_ptr(), ya.data_ptr(),
+                                  xa.data_ptr(), n_out, H, W, 512, 512, 1,
+                                  out.data_ptr(), K.stream_handle(stack))
+        if st != 0:
+            raise RuntimeError(f"abt_gather_crops: CUDA error {st}")
+
+    new = K.library().lib
+    times["k2_wrapper"] = in_turns(lambda: old_crops(old, old_dir, *bench),
+                                   lambda: gather_crops(*bench), 50)
+    times["k2_launch_alone"] = in_turns(lambda: launch(old, abi64),
+                                        lambda: launch(new, True), 50)
+    for tag, cold in (("k2_device", False), ("k2_device_cold", True)):
+        times[tag] = device_in_turns(lambda: launch(old, abi64),
+                                     lambda: launch(new, True),
+                                     "gather_crops_kernel", 20, cold)
+
+
 def build_old(old_dir: Path):
     """nvcc the old sources (one process per .cu, in parallel) into
     old_dir/libold.so; returns (ctypes library, build log)."""
@@ -281,6 +466,10 @@ def build_old(old_dir: Path):
         lib.abt_triangle_vote.argtypes = [P, P, I, P, P, I, F, I, P, P] \
             if binned_abi(old_dir, "triangle_vote.cu") \
             else list(K.SIGNATURES["abt_triangle_vote"])
+    if (src / "window_stats.cu").is_file():   # one ABI in both
+        lib.abt_window_stats.argtypes = list(K.SIGNATURES["abt_window_stats"])
+    if (src / "gather_crops.cu").is_file():   # one ABI in both
+        lib.abt_gather_crops.argtypes = list(K.SIGNATURES["abt_gather_crops"])
     if (src / "star_mask.cu").is_file():
         lib.abt_star_mask.argtypes = [P, P, P, P, P, P, P, F, I, I, P, P] \
             if binned_abi(old_dir, "star_mask.cu") \
@@ -359,7 +548,8 @@ def main() -> None:
     for tag, log in (("new", new_log), ("old", old_log)):
         for name, regs, smem, stack_b, sst, sld in ptxas_summary(log):
             if name.startswith(("shift_clip", "drizzle_finalize",
-                                "triangle_", "star_mask")):
+                                "triangle_", "star_mask", "window_stats",
+                                "gather_crops")):
                 print(f"[build] {tag} {name}: {regs} registers, {smem} B "
                       f"smem, {stack_b} B stack, spills {sst}/{sld} B",
                       flush=True)
@@ -522,6 +712,11 @@ def main() -> None:
     # ---- K13 ----
     if "k13" in kernels:
         compare_k13(old, old_dir, dev, check, times)
+    # ---- K11, K2 ----
+    if "k11" in kernels:
+        compare_k11(old, dev, failures, times)
+    if "k2" in kernels:
+        compare_k2(old, old_dir, dev, check, times)
     results["times"] = times
     results["failures"] = failures
     for tag, tt in times.items():

@@ -362,6 +362,114 @@ def test_gather_crops_plain_matches_jax_kernel(rng, frame0):
     assert gather_crops.launches == before   # the CPU path launches nothing
 
 
+@pytest.mark.parametrize("w", [2206, 2205, 2048])
+@pytest.mark.parametrize("frame0", [0, 1])
+def test_gather_crops_plain_matches_jax_kernel_at_bench_widths(rng, w,
+                                                               frame0):
+    """Aligned origins (the JAX kernel's contract) on planes as wide as
+    the bench frames, an odd width and a power of two."""
+    stack = rng.normal(0, 1, (4, 40, w)).astype(np.float32)
+    n = 4 - frame0
+    y0s = np.int32([0, 8, 32, 16][:n])
+    x0s = np.int32([0, 128, (w - 512) // 128 * 128, 1024][:n])
+    want = np.asarray(jgather(jnp.asarray(stack), jnp.asarray(y0s),
+                              jnp.asarray(x0s), 8, 512, interpret=True,
+                              frame0=frame0))
+    got = gather_crops(_t(stack), torch.from_numpy(y0s),
+                       torch.from_numpy(x0s), 8, 512, frame0=frame0)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _k2_split_mirror(mem, base, shape, y0s, x0s, size_r, size_c, frame0,
+                     out_base):
+    """csrc/gather_crops.cu's work split on flat f32 memory: the stack
+    [N, h, w] starts at element ``base`` of ``mem``, the output at
+    element ``out_base`` of its own buffer (element = 4 bytes, so an
+    index mod 4 is the 16-byte alignment). A warp copies one crop row:
+    lanes 0..3 the scalar head before the output's first 16-byte
+    boundary, lanes 4..7 the ragged tail, and piece q of the body (from
+    q0 + 32 u + lane, u < 4, q0 in steps of 128) as the two aligned
+    16-byte source chunks that hold it, realigned by the row's source
+    alignment. Returns the crops and how often each output element was
+    written; checks that every chunk read holds an element of the row."""
+    _, h, w = shape
+    n_out = len(y0s)
+    out = np.full(out_base + n_out * size_r * size_c, np.nan, np.float32)
+    writes = np.zeros(out.shape, np.int32)
+    for k in range(n_out):
+        y0 = min(max(int(y0s[k]), 0), h - size_r)
+        x0 = min(max(int(x0s[k]), 0), w - size_c)
+        for i in range(size_r):
+            src = base + ((frame0 + k) * h + y0 + i) * w + x0
+            dst = out_base + (k * size_r + i) * size_c
+            n = size_c
+            head = min((4 - dst % 4) % 4, n)
+            body = (n - head) // 4
+            tail_at = head + 4 * body
+            tail = n - tail_at
+            for lane in range(8):
+                e = lane if lane < 4 else tail_at + lane - 4
+                if (lane < head) if lane < 4 else (lane < 4 + tail):
+                    out[dst + e] = mem[src + e]
+                    writes[dst + e] += 1
+            s = src + head
+            sh = s % 4
+            a = s - sh
+            q = np.array([q0 + 32 * u + lane
+                          for q0 in range(0, body, 128) for u in range(4)
+                          for lane in range(32) if q0 + 32 * u + lane < body],
+                         dtype=np.int64)
+            if q.size == 0:
+                continue
+            lo = a + 4 * q
+            chunks = [lo] + ([lo + 4] if sh else [])
+            for c in chunks:   # each aligned chunk meets the row
+                assert ((c + 3 >= src) & (c <= src + n - 1)).all()
+            pair = mem[(lo[:, None] + np.arange(8))]   # lo chunk, next
+            vals = pair[:, sh:sh + 4]
+            idx = dst + head + 4 * q[:, None] + np.arange(4)
+            out[idx] = vals
+            np.add.at(writes, idx, 1)
+    return (out[out_base:].reshape(n_out, size_r, size_c),
+            writes[out_base:])
+
+
+@pytest.mark.parametrize("w", [2206, 2205, 2048])
+@pytest.mark.parametrize("size_c", [512, 509, 1])
+@pytest.mark.parametrize("frame0", [0, 1])
+def test_k2_split_mirror_writes_every_element_once(w, size_c, frame0):
+    """The kernel's split over rows, 16-byte pieces, head and tail writes
+    each output element once, with the right source value, at every
+    x0 mod 4, with the stack starting at each alignment (frames 1.. of
+    an odd-sized plane start 8 B off a 16-byte boundary) and the output
+    at each; and the plain version equals the numpy slice there."""
+    rng = np.random.default_rng(w + size_c + frame0)
+    n_out, h, size_r = 8, 9, 5
+    stack = rng.normal(0, 1, (n_out + frame0, h, w)).astype(np.float32)
+    x0s = rng.integers(0, (w - size_c) // 128 + 1, n_out) * 128 + \
+        np.arange(n_out) % 4
+    x0s = np.minimum(x0s, w - size_c)
+    x0s[-1] = 5 * w                       # clamped down to w - size_c
+    y0s = rng.integers(-2, h - size_r + 3, n_out)   # some clamped
+    want = np.stack([stack[frame0 + k,
+                           min(max(y, 0), h - size_r):][:size_r,
+                           min(max(x, 0), w - size_c):][:, :size_c]
+                     for k, (y, x) in enumerate(zip(y0s, x0s))])
+    plain = gather_crops_plain(_t(stack), torch.from_numpy(y0s),
+                               torch.from_numpy(x0s), size_r, size_c,
+                               frame0).numpy()
+    np.testing.assert_array_equal(plain, want)
+    for base in range(4):
+        mem = np.concatenate([np.full(base, np.nan, np.float32),
+                              stack.reshape(-1),
+                              np.full(8, np.nan, np.float32)])
+        for out_base in (0, 1, 3):
+            got, writes = _k2_split_mirror(mem, base, stack.shape, y0s, x0s,
+                                           size_r, size_c, frame0, out_base)
+            assert (writes == 1).all()
+            np.testing.assert_array_equal(got, want)
+
+
 def test_gather_crops_plain_clamps_origins(rng):
     """Origins past the plane clamp down as jax.lax.dynamic_slice clamps
     them; negative origins clamp to 0 (the refine origins never are)."""

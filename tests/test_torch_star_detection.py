@@ -345,6 +345,108 @@ def test_window_stats_rejects_other_devices():
         twk.window_stats(meta, idx, idx, meta[0, 0], meta[0, 0], idx[0])
 
 
+# ---- K11's fill in registers, mirrored; adversarial windows ------------------
+
+WINDOW_CASES = ("spiral", "centre_nan_below_at_inf", "ring_at_threshold",
+                "all_above", "corners_and_edges", "past_the_border",
+                "field_dead_tail", "no_live_peak")
+
+
+@pytest.fixture(scope="module")
+def window_sets():
+    """chip_smoke.py's adversarial windows (200 x 260 planes)."""
+    import chip_smoke
+    sets = chip_smoke.window_cases(np.random.default_rng(43))
+    assert tuple(sets) == WINDOW_CASES
+    return sets
+
+
+def _k11_fill_mirror(above):
+    """csrc/window_stats.cu's fill on one [41, 41] above-threshold mask.
+    Lane l of the warp holds the 64-bit masks of rows l and l + 32 (a
+    and b; b is empty past row 40). A round shuffles a and b from lanes
+    l - 1 and l + 1 (lane 0's row 31 is lane 31's a, lane 31's row 32 is
+    lane 0's b), dilates by shifts and ORs, ANDs with the row's above
+    mask, and the warp leaves when no lane changed, or after HALF
+    rounds. Returns the [41, 41] members and the rounds run."""
+    w, half = twk.WINDOW, twk.HALF
+    one, zero = np.uint64(1), np.uint64(0)
+    rows = (above.astype(np.uint64) << np.arange(w, dtype=np.uint64)).sum(
+        axis=1, dtype=np.uint64)
+    above_a = rows[:32].copy()
+    above_b = np.zeros(32, np.uint64)
+    above_b[:w - 32] = rows[32:]
+    mem_a = np.zeros(32, np.uint64)
+    mem_b = np.zeros(32, np.uint64)
+    mem_a[half] = one << np.uint64(half)
+    lane = np.arange(32)
+    up, dn = (lane + 31) % 32, (lane + 1) % 32
+
+    def spread(x):
+        return x | (x << one) | (x >> one)
+
+    rounds = 0
+    while rounds < half:
+        ua, ub, da, db = mem_a[up], mem_b[up], mem_a[dn], mem_b[dn]
+        na = spread(np.where(lane > 0, ua, zero) | mem_a
+                    | np.where(lane < 31, da, db)) & above_a
+        nb = spread(np.where(lane > 0, ub, ua) | mem_b
+                    | np.where(lane < 31, db, zero)) & above_b
+        changed = bool(((na != mem_a) | (nb != mem_b)).any())
+        mem_a, mem_b = na, nb
+        rounds += 1
+        if not changed:
+            break
+    masks = np.concatenate([mem_a, mem_b[:w - 32]])
+    member = ((masks[:, None] >> np.arange(w, dtype=np.uint64)) & one) == one
+    return member, rounds
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_k11_fill_mirror_matches_plain_membership(window_sets, case):
+    """The kernel's fill (row masks across lanes, shuffles, the exit at
+    the fixed point) gives exactly the members of window_stats_plain's
+    HALF rounds, and its popcounts the plain npix."""
+    img, pys, pxs, thr, bg, nv = window_sets[case]
+    win, member = twk.window_members_plain(
+        _t(img), torch.from_numpy(pys), torch.from_numpy(pxs),
+        torch.tensor(thr))
+    stats = twk.window_stats_plain(
+        _t(img), torch.from_numpy(pys), torch.from_numpy(pxs),
+        torch.tensor(thr), torch.tensor(bg), torch.tensor(len(pys))).numpy()
+    above = (torch.isfinite(win) & (win > float(thr))).numpy()
+    rounds = []
+    for i in range(len(pys)):
+        got, r = _k11_fill_mirror(above[i])
+        np.testing.assert_array_equal(got, member[i].numpy())
+        assert stats[i, 0] == got.sum()
+        rounds.append(r)
+    assert max(rounds) <= twk.HALF
+    if case == "spiral":     # the ridge winds on past 20 steps
+        assert rounds == [twk.HALF]
+    if case == "ring_at_threshold":   # 3 x 3 core: fixed point at round 2
+        assert rounds == [2] and stats[0, 0] == 9
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_window_stats_matches_pallas_on_adversarial_windows(window_sets,
+                                                            case):
+    img, pys, pxs, thr, bg, nv = window_sets[case]
+    wpad, top, left = pad_for_windows(jnp.asarray(img), 41)
+    want = np.asarray(window_stats_pallas(
+        wpad, jnp.asarray(pys + top), jnp.asarray(pxs + left), thr, bg, 41,
+        interpret=True, n_valid=jnp.int32(nv)))
+    before = twk.window_stats.launches
+    got = twk.window_stats(_t(img), torch.from_numpy(pys),
+                           torch.from_numpy(pxs), torch.tensor(thr),
+                           torch.tensor(bg),
+                           torch.tensor(nv, dtype=torch.int32)).numpy()
+    assert twk.window_stats.launches == before   # the CPU path: no launch
+    np.testing.assert_array_equal(got[nv:], 0.0)
+    np.testing.assert_array_equal(got[:, 0], want[:, 0])       # npix
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+
+
 # ---- peaks and the packed detection -----------------------------------------
 
 
