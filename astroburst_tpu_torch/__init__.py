@@ -16,12 +16,16 @@ detection → affine alignment → warp (``analysis.detect_stars``,
 ``alignment.pair.align_pair``), star mask → masked stretch
 (``imaging.masked_stretch``, ``imaging.star_mask``) and the parity
 drizzle (``stacking.drizzle.drizzle_exact_parity``). Every Pallas
-kernel of the JAX package has its CUDA counterpart.
+kernel of the JAX package has its CUDA counterpart. Of the command API,
+``api.stack`` is ported: FITS in (``io``), the frames in the port's own
+image cache (``runtime.cache``), ``stacked.fits`` and its STF preview
+PNG out.
 
 The package imports neither ``jax`` nor anything of ``astroburst_tpu``:
-the constants, records and errors it needs are its own copies
-(``constants``, ``dtypes``, ``errors``, ``ops.window``), held equal to
-the JAX package's by tests/test_torch_ops.py.
+the constants, records, errors and io it needs are its own copies
+(``constants``, ``dtypes``, ``errors``, ``ops.window``, ``io``), held
+equal to the JAX package's by tests/test_torch_ops.py and
+tests/test_torch_io.py.
 """
 
 __version__ = "0.1.0"

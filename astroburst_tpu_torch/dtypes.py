@@ -1,6 +1,7 @@
-"""Configuration records the port uses (its own copy of the types in
-astroburst_tpu/dtypes.py, reference: src-tauri/src/types/stacking.rs;
-tests/test_torch_ops.py holds them equal).
+"""Records the port uses (its own copy of the types in
+astroburst_tpu/dtypes.py, reference: src-tauri/src/types/{image,
+stacking}.rs; tests/test_torch_ops.py holds them equal). Scalar fields
+are host floats; pixel data never lives in these records.
 """
 
 from __future__ import annotations
@@ -10,6 +11,54 @@ from dataclasses import dataclass
 from typing import Optional
 
 from astroburst_tpu_torch import constants as C
+
+
+# --- image statistics (types/image.rs:1-24) -------------------------------
+
+
+@dataclass(frozen=True)
+class ImageStats:
+    min: float = 0.0
+    max: float = 0.0
+    median: float = 0.0
+    mad: float = 0.0
+    sigma: float = 0.0
+    mean: float = 0.0
+    valid_count: int = 0
+
+    def to_dict(self) -> dict:
+        return {
+            C.RES_MIN: self.min,
+            C.RES_MAX: self.max,
+            C.RES_MEDIAN: self.median,
+            C.RES_MAD: self.mad,
+            C.RES_SIGMA: self.sigma,
+            C.RES_MEAN: self.mean,
+            "valid_count": self.valid_count,
+        }
+
+
+# --- STF (types/image.rs:34-64) --------------------------------------------
+
+
+@dataclass(frozen=True)
+class StfParams:
+    shadow: float = 0.0
+    midtone: float = 0.5
+    highlight: float = 1.0
+
+    def to_dict(self) -> dict:
+        return {
+            C.RES_SHADOW: self.shadow,
+            C.RES_MIDTONE: self.midtone,
+            C.RES_HIGHLIGHT: self.highlight,
+        }
+
+
+@dataclass(frozen=True)
+class AutoStfConfig:
+    target_bg: float = 0.25
+    shadow_k: float = -2.8
 
 
 class AlignMethod(str, enum.Enum):

@@ -12,15 +12,20 @@ astroburst_tpu/ops/quantile.py:125-154:
 The JAX package's compare-count refinement (ops/quantile.py) and sort
 networks (ops/sort_network.py) exist only for the TPU and are not
 ported; the JAX value lies within range/8**6 (~4e-6 relative) of the
-exact one. The ranks are read with device-side indexing, so nothing
-here waits on the host.
+exact one. The ranks are read with device-side indexing, so
+``stats_core`` never waits on the host; ``compute_image_stats`` fetches
+its six results in one transfer.
 """
 
 from __future__ import annotations
 
 import torch
 
+from astroburst_tpu_torch.constants import MAD_TO_SIGMA
+from astroburst_tpu_torch.dtypes import ImageStats
 from astroburst_tpu_torch.ops.masking import validity_mask
+
+EXACT_PATH_MAX_PIXELS = 4_000_000  # stats.rs:18
 
 
 def _rank_median(sorted_vals: torch.Tensor, count: torch.Tensor,
@@ -54,3 +59,26 @@ def stats_core(x: torch.Tensor, exact_pair: bool):
     dev = torch.where(mask, torch.abs(flat - med), inf)
     mad = _rank_median(torch.sort(dev).values, count, exact_pair)
     return mn, mx, total, count, med, mad
+
+
+def compute_image_stats(x: torch.Tensor) -> ImageStats:
+    """NaN-safe robust stats of a tensor (any shape): the exact
+    even-averaging median up to 4 M pixels, the single-rank one above,
+    as the reference switches (stats.rs:18). The six values reach the
+    host in one transfer (as f64: exact for the f32 values and the
+    count)."""
+    exact_pair = x.numel() <= EXACT_PATH_MAX_PIXELS
+    mn, mx, total, count, med, mad = torch.stack(
+        [v.to(torch.float64) for v in stats_core(x, exact_pair)]).tolist()
+    n = int(count)
+    if n == 0:
+        return ImageStats()
+    return ImageStats(
+        min=mn,
+        max=mx,
+        mean=total / n,
+        median=med,
+        mad=mad,
+        sigma=max(mad * MAD_TO_SIGMA, 1e-30),
+        valid_count=n,
+    )

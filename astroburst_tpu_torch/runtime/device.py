@@ -30,6 +30,11 @@ def cuda_device() -> torch.device:
     return torch.device("cuda")
 
 
+def device_or_cuda(device=None) -> torch.device:
+    """``device`` as a torch.device, or ``cuda_device()`` when None."""
+    return torch.device(device) if device is not None else cuda_device()
+
+
 def tf32_disabled() -> bool:
     """True when neither matmul nor cuDNN may use TF32."""
     return (not torch.backends.cuda.matmul.allow_tf32

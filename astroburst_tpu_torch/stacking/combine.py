@@ -41,7 +41,7 @@ def stack_images(images: Sequence, config: StackConfig = StackConfig(),
     ``images`` are [H, W] arrays or tensors; they go to ``device``
     (default: the first tensor's device, else ``cuda_device()``).
     ``progress`` is any object with ``tick_with_stage`` and
-    ``check_cancelled`` (e.g. astroburst_tpu's ProgressHandle); it is
+    ``check_cancelled`` (e.g. runtime/progress.ProgressHandle); it is
     called only when given. ``plain`` runs the plain torch versions of
     the kernels (to hold the kernels to them on the card).
     """
@@ -70,10 +70,10 @@ def stack_images(images: Sequence, config: StackConfig = StackConfig(),
         if progress is not None:
             progress.tick_with_stage("align", n - 1)
             progress.check_cancelled()
+        host = torch.stack([dys1, dxs1, confs]).cpu().numpy()  # one fetch
         offsets += [(int(round(float(dy))), int(round(float(dx))))
-                    for dy, dx in zip(dys1.cpu().numpy(),
-                                      dxs1.cpu().numpy())]
-        confidences += [float(c) for c in confs.cpu().numpy()]
+                    for dy, dx in zip(host[0], host[1])]
+        confidences += [float(c) for c in host[2]]
     else:
         dys = dxs = zeros
         offsets += [(0, 0)] * (n - 1)

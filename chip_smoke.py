@@ -85,6 +85,21 @@ exits non-zero, and so does a machine without a CUDA device):
    (e) ``drizzle_exact_parity`` on the calibrated lights of (b) with
    the offsets ``drizzle_stack`` found, and on the drizzle bench stack,
    against ``_drizzle_kernel_exact`` at one band (no band offset).
+   (f) the ``stack`` command (``astroburst_tpu_torch.api.stack``): the
+   bench frames written as 16 FITS files (BITPIX -32, the port's
+   writer) and the 150 frames of 1024^2 as 150 more; the command cold
+   (empty image cache), warm (every frame cached), on the directory
+   path, and on the 150 files (past 128 frames and the cache's 32
+   entries): RES_* keys, offsets equal to the generator's shifts,
+   ``stacked.fits`` read back bit-equal to ``stack_images`` on the
+   in-memory frames on the card, the rejected count equal, and
+   ``stacked.png`` (4096 x 1598 at the bench size, decoded with zlib)
+   equal to ``apply_stf_u8(nearest_downsample(image, 4096))`` with the
+   command's stats; then the stages timed: the decode of one frame
+   (and into pinned memory with the copy to the card),
+   ``load_cached_many`` over the 16 files, ``stack_images``,
+   ``compute_image_stats``, the image fetch, ``write_fits_mono``, the
+   preview PNG, and the command cold and warm, with Mpx/s from warm.
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
@@ -1533,6 +1548,228 @@ def check_parity_drizzle(what, got, want) -> dict:
             "bit_equal": bit}
 
 
+STACK_CMD_KEYS = {"fits_path", "png_path", "dimensions", "frame_count",
+                  "rejected_pixels", "offsets", "stats", "elapsed_ms"}
+
+
+def decode_gray_png(path) -> np.ndarray:
+    """The u8 pixels of a gray PNG whose scanlines all use filter 0 (the
+    port's writer), decoded with zlib alone."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        blob = f.read()
+    if blob[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(blob):
+        n, = struct.unpack(">I", blob[pos:pos + 4])
+        tag = blob[pos + 4:pos + 8]
+        chunks[tag] = chunks.get(tag, b"") + blob[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, colour = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if (depth, colour) != (8, 0):
+        raise AssertionError(f"{path}: bit depth {depth}, colour {colour}")
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]),
+                         np.uint8).reshape(h, w + 1)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a scanline filter other than 0")
+    return rows[:, 1:]
+
+
+def write_fits_frames(directory, frames) -> list:
+    """Each [H, W] tensor of ``frames`` as frame_###.fits (BITPIX -32,
+    through the port's writer); the paths as resolve_inputs lists them."""
+    import os
+    from astroburst_tpu_torch.io import write_fits_mono
+    from astroburst_tpu_torch.io.header import HduHeader
+    os.makedirs(directory)
+    paths = []
+    for k, f in enumerate(frames):
+        paths.append(os.path.join(directory, f"frame_{k:03d}.fits"))
+        write_fits_mono(paths[-1], f.cpu().numpy(), HduHeader(
+            [("OBJECT", "'chip_smoke'"), ("FRAME", str(k))]))
+    return paths
+
+
+def check_stack_command(what, res, want_shape, want_offsets, ref, dev):
+    """One response of ``api.stack`` against the generator's shifts and
+    ``stack_images`` on the in-memory frames (``ref``): RES_* keys,
+    offsets equal, ``stacked.fits`` read back bit-equal, the rejected
+    count equal, the PNG equal to the STF'd downsample with the
+    command's own stats (from the cache entry it left). Returns the
+    image on the card."""
+    import torch
+    from astroburst_tpu_torch.imaging.stf import apply_stf_u8, auto_stf
+    from astroburst_tpu_torch.io import extract_image
+    from astroburst_tpu_torch.ops.ipc import nearest_downsample
+    from astroburst_tpu_torch.runtime.cache import GLOBAL_IMAGE_CACHE
+    if set(res) != STACK_CMD_KEYS:
+        raise AssertionError(f"{what}: keys {sorted(res)}")
+    h, w = want_shape
+    if res["dimensions"] != [w, h] or res["frame_count"] != len(
+            want_offsets):
+        raise AssertionError(f"{what}: dimensions {res['dimensions']}, "
+                             f"{res['frame_count']} frames")
+    if res["offsets"] != [list(map(int, o)) for o in want_offsets]:
+        raise AssertionError(f"{what}: offsets {res['offsets']} != "
+                             f"{want_offsets.tolist()}")
+    img = extract_image(res["fits_path"]).image
+    if not np.array_equal(img, ref.image.cpu().numpy(), equal_nan=True):
+        raise AssertionError(f"{what}: stacked.fits differs from "
+                             f"stack_images on the in-memory frames")
+    if res["rejected_pixels"] != ref.rejected_pixels:
+        raise AssertionError(f"{what}: rejected {res['rejected_pixels']} "
+                             f"!= {ref.rejected_pixels}")
+    entry = GLOBAL_IMAGE_CACHE.get(res["fits_path"], dev)
+    if entry is None or entry.stats is None:
+        raise AssertionError(f"{what}: the result is not cached")
+    stats = entry.stats
+    if any(res["stats"][k] != getattr(stats, k) for k in res["stats"]):
+        raise AssertionError(f"{what}: RES_STATS {res['stats']} != {stats}")
+    img_dev = torch.from_numpy(img).to(dev)
+    want_png = apply_stf_u8(nearest_downsample(img_dev, 4096),
+                            auto_stf(stats), stats).cpu().numpy()
+    png = decode_gray_png(res["png_path"])
+    if png.shape != want_png.shape or not np.array_equal(png, want_png):
+        raise AssertionError(f"{what}: stacked.png {png.shape} differs "
+                             f"from the STF'd downsample {want_png.shape}")
+    log(f"[path] {what}: {res['frame_count']} frames, offsets equal the "
+        f"generator's, stacked.fits bit-equal to stack_images, rejected "
+        f"{res['rejected_pixels']}, stacked.png {png.shape[0]}x"
+        f"{png.shape[1]} equal to the STF'd downsample; "
+        f"{res['elapsed_ms']} ms")
+    return img_dev
+
+
+def stack_command_path(stack, shifts, many_list, many_shifts, counters,
+                       smi):
+    """Phase 4f: the ``stack`` command end to end. The bench frames and
+    the 150 frames of 1024^2 go to FITS files (port's writer, BITPIX
+    -32) under build/; ``api.stack`` runs cold (empty image cache),
+    warm (every frame cached), on the directory path, and on the 150
+    files (past 128 frames and the cache's 32 entries), each checked by
+    ``check_stack_command``. The kernel counters are reset just before
+    the first call and read just after the last; the references and
+    the stage times come after. Returns (launches, stage times in ms)."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from astroburst_tpu_torch import api
+    from astroburst_tpu_torch.api.common import load_cached_many
+    from astroburst_tpu_torch.api.stacking import _save_preview
+    from astroburst_tpu_torch.io import extract_image, write_fits_mono
+    from astroburst_tpu_torch.io.prefetch import DeviceLoader
+    from astroburst_tpu_torch.ops.stats import compute_image_stats
+    from astroburst_tpu_torch.runtime.cache import GLOBAL_IMAGE_CACHE
+    from astroburst_tpu_torch.stacking.combine import stack_images
+    dev = stack.device
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="stack_command_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        bench_dir = os.path.join(root, "bench")
+        bench_paths = write_fits_frames(bench_dir, stack)
+        many_paths = write_fits_frames(os.path.join(root, "many"),
+                                       many_list)
+        nbytes = sum(os.path.getsize(p) for p in bench_paths + many_paths)
+        log(f"[data] {len(bench_paths)} + {len(many_paths)} FITS files, "
+            f"{nbytes / 1e6:.1f} MB (written in "
+            f"{time.perf_counter() - t0:.1f} s)")
+        ref = stack_images(list(stack))
+        ref_many = stack_images(many_list)
+
+        GLOBAL_IMAGE_CACHE.clear()
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        cold = api.stack(bench_paths, os.path.join(root, "out_cold"))
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        nb = len(bench_paths)
+        check_stack_command(f"stack({nb} files) cold", cold, stack.shape[1:],
+                            shifts, ref, dev)
+        t0 = time.perf_counter()
+        warm = api.stack(bench_paths, os.path.join(root, "out_warm"))
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        img = check_stack_command(f"stack({nb} files) warm", warm,
+                                  stack.shape[1:], shifts, ref, dev)
+        by_dir = api.stack([bench_dir], os.path.join(root, "out_dir"))
+        check_stack_command("stack(directory)", by_dir, stack.shape[1:],
+                            shifts, ref, dev)
+        many = api.stack(many_paths, os.path.join(root, "out_many"))
+        check_stack_command(f"stack({len(many_paths)} files)", many,
+                            many_list[0].shape, many_shifts, ref_many, dev)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        log(f"[path] kernel launches in the stack command (cold, warm, "
+            f"directory, {len(many_paths)} files): {launches}")
+        for name in ("shift_clip", "coarse_box", "gather_crops"):
+            if launches[name] < 1:
+                raise AssertionError(f"{name} never ran: {launches}")
+        if len(GLOBAL_IMAGE_CACHE.keys()) != 32:
+            raise AssertionError("the image cache does not hold 32 entries")
+
+        # stage times (host clocks around work that ends in a
+        # synchronize; device stages also with CUDA events)
+        times = {"command_cold_ms": cold_ms, "command_warm_ms": warm_ms}
+        t0 = time.perf_counter()
+        extract_image(bench_paths[0])
+        times["decode_one_frame_ms"] = (time.perf_counter() - t0) * 1e3
+        load = DeviceLoader(dev)
+        load(bench_paths[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load(bench_paths[0])
+        torch.cuda.synchronize()
+        times["decode_pinned_h2d_one_frame_ms"] = \
+            (time.perf_counter() - t0) * 1e3
+        loads = []
+        for _ in range(2):
+            GLOBAL_IMAGE_CACHE.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            entries = load_cached_many(bench_paths, device=dev)
+            torch.cuda.synchronize()
+            loads.append((time.perf_counter() - t0) * 1e3)
+        times[f"load_cached_many_{nb}_ms"] = loads
+        frames = [e.image for e in entries]
+        times["stack_images_ms"] = cuda_ms(lambda: stack_images(frames), 3)
+        times["compute_image_stats_ms"] = cuda_ms(
+            lambda: compute_image_stats(img), 5)
+        stats = compute_image_stats(img)
+        out = os.path.join(root, "stage.fits")
+        t0 = time.perf_counter()
+        host = img.cpu().numpy()
+        times["fetch_image_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        write_fits_mono(out, host, entries[0].header)
+        times["write_fits_mono_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        _save_preview(img, os.path.join(root, "stage.png"), stats)
+        times["preview_png_ms"] = (time.perf_counter() - t0) * 1e3
+        warm_more = []
+        for k in range(2):
+            t0 = time.perf_counter()
+            api.stack(bench_paths, os.path.join(root, f"out_w{k}"))
+            warm_more.append((time.perf_counter() - t0) * 1e3)
+        times["command_warm_again_ms"] = warm_more
+        mpx = stack.numel() / 1e6
+        times["command_warm_mpx_per_s"] = mpx / warm_ms * 1e3
+        log(f"[time] {smi}: stack command {tuple(stack.shape)} from FITS: "
+            f"cold {cold_ms:.3f} ms, warm {warm_ms:.3f} ms "
+            f"({mpx / warm_ms * 1e3:.1f} Mpx/s), warm again "
+            f"{', '.join(f'{t:.3f}' for t in warm_more)} ms")
+        log(f"[time] {smi}: stack command stages: " + json.dumps(times))
+        GLOBAL_IMAGE_CACHE.clear()
+        return launches, times
+    finally:
+        shutil.rmtree(root)
+
+
 def stf_preview(img):
     """stats_core → auto-STF → u8 stretch of one plane: (stf [2], u8)."""
     import torch
@@ -2025,7 +2262,7 @@ def main() -> None:
         f"({mpx / ms_p * 1e3:.1f} Mpx/s, peak {peak_p / 2**30:.2f} GiB)")
     log(f"[time] {smi}: stack_images {BIG_N}x{BIG_HW}^2 kernels {ms_s:.3f} ms | "
         f"plain {ms_sp:.3f} ms (host offsets fetch included)")
-    del stack, big_list, out, res, comb
+    del big_list, out, res, comb
 
     # stack_images past 128 frames: K3's scratch instance, counted alone
     t0 = time.perf_counter()
@@ -2068,7 +2305,11 @@ def main() -> None:
     log(f"[time] {smi}: stack_images {MANY_N}x{MANY_HW}^2 kernels "
         f"{ms_m:.3f} ms | plain {ms_mp:.3f} ms (host offsets fetch "
         f"included)")
-    del many_list
+
+    # ---- 4f. the stack command: FITS in, stacked FITS + preview out ----
+    launches_cmd, _ = stack_command_path(stack, shifts, many_list,
+                                         many_shifts, counters, smi)
+    del stack, many_list
 
     # ---- 4b. main path of this slice: calibrate → drizzle → stretch ----
     t0 = time.perf_counter()
@@ -2389,7 +2630,8 @@ def main() -> None:
              "+drizzle_stack(AFFINE)": launches_affine,
              "masked_stretch(x10,converged)+masked_stretch_rgb_shared":
                  launches_mask,
-             "drizzle_exact_parity(calibrated,bench)": launches_parity}
+             "drizzle_exact_parity(calibrated,bench)": launches_parity,
+             "stack(command)": launches_cmd}
     kernels = []
     for name, (source, replaces) in meta.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

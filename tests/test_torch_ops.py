@@ -92,7 +92,8 @@ def _imported_modules(path: Path):
 
 def test_port_and_chip_smoke_import_nothing_of_jax_or_the_jax_package():
     """No module of the port and no line of chip_smoke.py imports
-    ``astroburst_tpu``, ``jax`` or ``bench`` (AST scan, any depth)."""
+    ``astroburst_tpu``, ``jax``, ``bench``, ``PIL`` or ``yaml`` (AST
+    scan, any depth)."""
     files = sorted((REPO / "astroburst_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
@@ -101,13 +102,20 @@ def test_port_and_chip_smoke_import_nothing_of_jax_or_the_jax_package():
                 "alignment/pair.py", "alignment/vote_kernel.py",
                 "imaging/star_mask.py", "imaging/star_mask_kernel.py",
                 "imaging/masked_stretch.py",
-                "stacking/drizzle_gather_kernel.py"):
+                "stacking/drizzle_gather_kernel.py", "api/__init__.py",
+                "api/common.py", "api/helpers.py", "api/stacking.py",
+                "io/__init__.py", "io/dispatcher.py", "io/fits_reader.py",
+                "io/fits_writer.py", "io/header.py", "io/png.py",
+                "io/prefetch.py", "ops/ipc.py", "runtime/cache.py",
+                "runtime/output.py", "runtime/progress.py"):
         assert REPO / "astroburst_tpu_torch" / new in files, new
     bad = []
     for f in files:
         for line, mod in _imported_modules(f):
             root = mod.split(".")[0]
-            if root in ("astroburst_tpu", "jax", "jaxlib", "bench"):
+            # the card's machine has neither Pillow nor PyYAML
+            if root in ("astroburst_tpu", "jax", "jaxlib", "bench", "PIL",
+                        "yaml"):
                 bad.append(f"{f.relative_to(REPO)}:{line} imports {mod}")
     assert not bad, bad
 
@@ -120,8 +128,10 @@ def test_port_constants_dtypes_errors_match_jax_package():
     from astroburst_tpu_torch import dtypes as td
     from astroburst_tpu_torch import errors as te
     names = [n for n in vars(tc) if n.isupper()]
-    assert {"MAD_TO_SIGMA", "PADDING_THRESHOLD",
-            "DEFAULT_DRIZZLE_SCALE"} <= set(names)
+    assert {"MAD_TO_SIGMA", "PADDING_THRESHOLD", "DEFAULT_DRIZZLE_SCALE",
+            "BLOCK_SIZE", "CARD_SIZE", "EVENT_STACK_PROGRESS",
+            "DEFAULT_OUTPUT_MAX_BYTES", "RES_OFFSETS",
+            "RES_REJECTED_PIXELS", "STAR_MASK_KEY"} <= set(names)
     for n in names:
         assert getattr(tc, n) == getattr(jc, n), n
     for name in ("AlignMethod", "AlignmentMethod", "DrizzleKernel"):
@@ -132,13 +142,24 @@ def test_port_constants_dtypes_errors_match_jax_package():
                   "lanczos", "lanczos3", "square", "phase"):
             assert te_.parse(s).value == je_.parse(s).value, (name, s)
     import dataclasses
-    for name in ("StackConfig", "DrizzleConfig"):
+    for name in ("StackConfig", "DrizzleConfig", "ImageStats", "StfParams",
+                 "AutoStfConfig"):
         got = dataclasses.asdict(getattr(td, name)())
         want = dataclasses.asdict(getattr(jd, name)())
         assert {k: getattr(v, "value", v) for k, v in got.items()} == \
             {k: getattr(v, "value", v) for k, v in want.items()}, name
-    assert issubclass(te.InvalidInput, Exception)
-    assert te.InvalidInput.__name__ == je.InvalidInput.__name__
+    stats = dict(min=1.5, max=9.0, median=4.0, mad=0.5, sigma=0.7413,
+                 mean=4.2, valid_count=17)
+    assert td.ImageStats(**stats).to_dict() == jd.ImageStats(**stats).to_dict()
+    assert td.StfParams(0.1, 0.3, 0.9).to_dict() == \
+        jd.StfParams(0.1, 0.3, 0.9).to_dict()
+    for name in ("AstroError", "FitsError", "InvalidInput", "Cancelled",
+                 "CacheMiss"):
+        t_err, j_err = getattr(te, name), getattr(je, name)
+        assert issubclass(t_err, Exception)
+        assert t_err.__name__ == j_err.__name__
+        assert [b.__name__ for b in t_err.__mro__] == \
+            [b.__name__ for b in j_err.__mro__], name
     from astroburst_tpu.ops.window import hann_periodic as jh
     from astroburst_tpu_torch.ops.window import hann_periodic as th
     for n in (0, 1, 2, 7, 512):
