@@ -17,9 +17,11 @@ detection → affine alignment → warp (``analysis.detect_stars``,
 (``imaging.masked_stretch``, ``imaging.star_mask``) and the parity
 drizzle (``stacking.drizzle.drizzle_exact_parity``). Every Pallas
 kernel of the JAX package has its CUDA counterpart. Of the command API,
-``api.stack`` is ported: FITS in (``io``), the frames in the port's own
-image cache (``runtime.cache``), ``stacked.fits`` and its STF preview
-PNG out.
+13 commands are ported (``api``): ``stack`` and the open-and-inspect
+commands (``process_fits``, its histogram and header, the raw preview,
+``apply_stf_render``, the header and output-dir commands), FITS, RGB
+FITS and ASDF in (``io``), the images in the port's own image cache
+(``runtime.cache``).
 
 The package imports neither ``jax`` nor anything of ``astroburst_tpu``:
 the constants, records, errors and io it needs are its own copies

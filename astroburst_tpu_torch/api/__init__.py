@@ -1,9 +1,34 @@
 """The command API of the port (counterpart of astroburst_tpu.api, the
 reference's Tauri commands): the same names, arguments, defaults and
 response keys, plus a keyword-only ``device`` (default
-``cuda_device()``). Ported so far: ``stack``.
+``cuda_device()``, which raises where there is no card). Ported so
+far, 13 of the 60 commands: ``stack`` and the open-and-inspect
+commands (``process_fits``, ``process_fits_full``,
+``get_raw_pixels_preview``, ``apply_stf_render``,
+``compute_histogram_cmd`` and its alias ``compute_histogram``, the
+header commands and the output-dir commands).
 """
 
+from astroburst_tpu_torch.api.analysis import compute_histogram_cmd
+from astroburst_tpu_torch.api.io import (get_raw_pixels_preview,
+                                         process_fits, process_fits_full)
+from astroburst_tpu_torch.api.metadata import (detect_narrowband_filters,
+                                               get_fits_extensions,
+                                               get_full_header, get_header,
+                                               get_header_by_hdu)
+from astroburst_tpu_torch.api.output import (cleanup_output_cmd,
+                                             get_output_dir_info)
 from astroburst_tpu_torch.api.stacking import stack
+from astroburst_tpu_torch.api.visualization import apply_stf_render
 
-__all__ = ["stack"]
+# alias matching the reference's registered name
+compute_histogram = compute_histogram_cmd
+
+__all__ = [
+    "process_fits", "process_fits_full", "get_raw_pixels_preview",
+    "get_header", "get_full_header", "get_fits_extensions",
+    "get_header_by_hdu", "detect_narrowband_filters",
+    "compute_histogram", "compute_histogram_cmd",
+    "apply_stf_render", "stack",
+    "get_output_dir_info", "cleanup_output_cmd",
+]

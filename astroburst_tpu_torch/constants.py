@@ -8,6 +8,7 @@ CARD_SIZE = 80
 
 PADDING_THRESHOLD = 1e-7   # pixels <= this (or non-finite) are invalid
 MAD_TO_SIGMA = 1.4826      # robust sigma = MAD * 1.4826
+HISTOGRAM_BINS_DISPLAY = 512
 
 # --- progress event names -------------------------------------------------
 EVENT_STACK_PROGRESS = "stack-progress"
@@ -17,19 +18,44 @@ RES_ELAPSED_MS = "elapsed_ms"
 RES_DIMENSIONS = "dimensions"
 RES_PNG_PATH = "png_path"
 RES_FITS_PATH = "fits_path"
+RES_FILE_PATH = "file_path"
+RES_FILE_NAME = "file_name"
 RES_MIN = "min"
 RES_MAX = "max"
+RES_DATA_MIN = "data_min"
+RES_DATA_MAX = "data_max"
 RES_MEDIAN = "median"
 RES_MEAN = "mean"
 RES_SIGMA = "sigma"
 RES_MAD = "mad"
+RES_TOTAL_PIXELS = "total_pixels"
 RES_STATS = "stats"
+RES_AUTO_STF = "auto_stf"
+RES_STF = "stf"
 RES_SHADOW = "shadow"
 RES_MIDTONE = "midtone"
 RES_HIGHLIGHT = "highlight"
+RES_HISTOGRAM = "histogram"
+RES_BINS = "bins"
+RES_BIN_COUNT = "bin_count"
+RES_BIN_EDGES = "bin_edges"
 RES_FRAME_COUNT = "frame_count"
 RES_REJECTED_PIXELS = "rejected_pixels"
 RES_OFFSETS = "offsets"
+
+RES_HEADER = "header"
+RES_CARDS = "cards"
+RES_TOTAL_CARDS = "total_cards"
+RES_CATEGORIES = "categories"
+RES_KEY = "key"
+RES_VALUE = "value"
+RES_EXTENSIONS = "extensions"
+RES_INDEX = "index"
+RES_FILTER_DETECTION = "filter_detection"
+RES_FILTERS = "filters"
+RES_FILENAME_HINT = "filename_hint"
+RES_PALETTE = "palette"
+DEFAULT_ASTROMETRY_API_URL = "https://nova.astrometry.net"
 
 # drizzle defaults (drizzle.rs)
 DEFAULT_DRIZZLE_SCALE = 2.0
@@ -43,5 +69,17 @@ KERNEL_LANCZOS = "lanczos"
 DEFAULT_OUTPUT_MAX_BYTES = 2 * 1024 * 1024 * 1024
 
 # --- pinned cache keys (never evicted) ------------------------------------
+COMPOSITE_KEY_R = "__composite_r"
+COMPOSITE_KEY_G = "__composite_g"
+COMPOSITE_KEY_B = "__composite_b"
+
+COMPOSITE_ORIG_R = "__composite_orig_r"
+COMPOSITE_ORIG_G = "__composite_orig_g"
+COMPOSITE_ORIG_B = "__composite_orig_b"
+
+STF_R = "stf_r"
+STF_G = "stf_g"
+STF_B = "stf_b"
+
 WIZARD_CACHE_PREFIX = "__wizard_ch_"
 STAR_MASK_KEY = "__star_mask"

@@ -6,9 +6,10 @@ are host floats; pixel data never lives in these records.
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 from astroburst_tpu_torch import constants as C
 
@@ -35,6 +36,24 @@ class ImageStats:
             C.RES_SIGMA: self.sigma,
             C.RES_MEAN: self.mean,
             "valid_count": self.valid_count,
+        }
+
+
+@dataclass(frozen=True)
+class Histogram:
+    """Value histogram (types/image.rs:26-32). bins are counts."""
+
+    bins: List[int]
+    bin_edges: List[float]
+    min: float
+    max: float
+
+    def to_dict(self) -> dict:
+        return {
+            C.RES_BINS: list(self.bins),
+            C.RES_BIN_EDGES: list(self.bin_edges),
+            C.RES_MIN: self.min,
+            C.RES_MAX: self.max,
         }
 
 
@@ -128,3 +147,30 @@ class DrizzleConfig:
     sigma_iterations: int = C.DEFAULT_DRIZZLE_SIGMA_ITERS
     align: bool = True
     alignment_method: AlignmentMethod = AlignmentMethod.PHASE_CORRELATION
+
+
+# --- app config (types/config.rs) ------------------------------------------
+
+
+@dataclass
+class AppConfig:
+    astrometry_api_key: str = ""
+    astrometry_api_url: str = C.DEFAULT_ASTROMETRY_API_URL
+    output_dir: str = ""
+    plate_solve_timeout_secs: int = 120
+    plate_solve_max_stars: int = 200
+    auto_stretch_target_bg: float = 0.25
+    auto_stretch_shadow_k: float = -2.8
+    output_max_bytes: int = C.DEFAULT_OUTPUT_MAX_BYTES
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "AppConfig":
+        cfg = AppConfig()
+        for f in dataclasses.fields(AppConfig):
+            if f.name in d and d[f.name] is not None:
+                setattr(cfg, f.name, f.type(d[f.name]) if not isinstance(
+                    d[f.name], (int, float, str)) else d[f.name])
+        return cfg

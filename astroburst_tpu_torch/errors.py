@@ -10,6 +10,10 @@ class FitsError(AstroError):
     """Malformed or unsupported FITS data."""
 
 
+class AsdfError(AstroError):
+    """Malformed or unsupported ASDF data."""
+
+
 class InvalidInput(AstroError):
     """Bad arguments to a command."""
 

@@ -4,10 +4,6 @@
 Reference: src-tauri/src/infra/fits/dispatcher.rs:28-60 (ZIP
 transparency: a .zip input is extracted to a temp dir and its first
 image used; a directory yields its sorted FITS/ASDF members).
-
-ASDF input is not ported yet: a directory or ZIP lists its ASDF members
-as the JAX package does, but resolving an ASDF path to the image to
-read raises InvalidInput.
 """
 
 from __future__ import annotations
@@ -44,12 +40,6 @@ def is_asdf_path(path: str) -> bool:
     return path.lower().endswith(_ASDF_EXTS)
 
 
-def _refuse_asdf(path: str) -> None:
-    if is_asdf_path(path):
-        raise InvalidInput(f"ASDF input is not yet ported to "
-                           f"astroburst_tpu_torch: {path}")
-
-
 def _extract_zip(path: str) -> str:
     tmp = tempfile.mkdtemp(prefix="astroburst_zip_")
     _TEMPDIRS.append(tmp)
@@ -79,8 +69,7 @@ def _sorted_images_in_dir(directory: str) -> List[str]:
 
 
 def resolve_inputs(path: str) -> List[str]:
-    """Resolve a path to a sorted list of image files; an ASDF path
-    raises InvalidInput (not yet ported)."""
+    """Resolve a path to a sorted list of image files."""
     if os.path.isdir(path):
         files = _sorted_images_in_dir(path)
         if not files:
@@ -92,15 +81,11 @@ def resolve_inputs(path: str) -> List[str]:
         if not files:
             raise InvalidInput(f"No FITS/ASDF files found in ZIP {path}")
         return files
-    _refuse_asdf(path)
     if not os.path.exists(path):
         raise InvalidInput(f"Input path does not exist: {path}")
     return [path]
 
 
 def resolve_single_image(path: str) -> str:
-    """Resolve to exactly one image file (dispatcher.rs:50); an ASDF
-    image raises InvalidInput (not yet ported)."""
-    first = resolve_inputs(path)[0]
-    _refuse_asdf(first)
-    return first
+    """Resolve to exactly one image file (dispatcher.rs:50)."""
+    return resolve_inputs(path)[0]

@@ -1,10 +1,12 @@
-"""Memory-mapped FITS reader (its own copy of the 2-D image path of
-astroburst_tpu/io/fits_reader.py; reference:
+"""Memory-mapped FITS reader (its own copy of the 2-D image and RGB-FITS
+paths of astroburst_tpu/io/fits_reader.py; reference:
 src-tauri/src/infra/fits/reader.rs).
 
 Header parse in 2880-byte blocks, multi-HDU scan, SCI-extension
-auto-select, primary ⊕ extension header merge, and the BITPIX
-{8, 16, 32, -32, -64} big-endian decode with BSCALE/BZERO. The decode
+auto-select, primary ⊕ extension header merge, the BITPIX
+{8, 16, 32, -32, -64} big-endian decode with BSCALE/BZERO, and the
+NAXIS3 ∈ [3, 4] RGB-FITS planes. 3-D cubes (``extract_cube``) wait for
+the cube commands. The decode
 is numpy over a memory map, with no native library: BITPIX -32 with
 the identity scaling is one byte-swapping copy; any other case runs
 the per-pixel f64 math of the reference, then rounds to f32.
@@ -181,7 +183,7 @@ def build_merged_header(hdus: List[ScannedHdu], selected_idx: int) -> HduHeader:
     return hdus[0].header.merge_with(hdus[selected_idx].header)
 
 
-def _extract_plane(buf, hdu: ScannedHdu,
+def _extract_plane(buf, hdu: ScannedHdu, plane: int = 0,
                    alloc: Optional[Alloc] = None) -> np.ndarray:
     h = hdu.header
     naxis1 = h.get_i64("NAXIS1") or 0
@@ -191,7 +193,7 @@ def _extract_plane(buf, hdu: ScannedHdu,
         raise FitsError("Missing BITPIX")
     bpp = abs(bitpix) // 8
     plane_bytes = naxis1 * naxis2 * bpp
-    start = hdu.info.data_start
+    start = hdu.info.data_start + plane * plane_bytes
     end = start + plane_bytes
     if end > len(buf):
         raise FitsError("Image data exceeds file size")
@@ -207,6 +209,18 @@ def _extract_plane(buf, hdu: ScannedHdu,
 class FitsImage:
     header: HduHeader
     image: np.ndarray  # float32 [H, W]
+    is_mef: bool
+    selected_extension: Optional[str]
+    extension_count: int
+    extensions: List[HduInfo] = field(default_factory=list)
+
+
+@dataclass
+class FitsRgb:
+    header: HduHeader
+    r: np.ndarray
+    g: np.ndarray
+    b: np.ndarray
     is_mef: bool
     selected_extension: Optional[str]
     extension_count: int
@@ -255,7 +269,7 @@ def extract_image(path: str, alloc: Optional[Alloc] = None) -> FitsImage:
         sel = select_best_image_hdu(hdus)
         if sel is None:
             raise FitsError("No 2D image block found in any HDU")
-        image = _extract_plane(buf, hdus[sel], alloc)
+        image = _extract_plane(buf, hdus[sel], alloc=alloc)
         return FitsImage(
             header=build_merged_header(hdus, sel),
             image=image,
@@ -265,3 +279,53 @@ def extract_image(path: str, alloc: Optional[Alloc] = None) -> FitsImage:
             extensions=[h.info for h in hdus],
         )
 
+
+
+def extract_image_by_index(path: str, hdu_index: int) -> FitsImage:
+    with _Mapped(path) as buf:
+        hdus = scan_all_hdus(buf)
+        if hdu_index >= len(hdus):
+            raise FitsError(
+                f"HDU index {hdu_index} out of range (file has {len(hdus)} HDUs)")
+        if not hdus[hdu_index].info.has_data:
+            raise FitsError(f"HDU {hdu_index} has no image data")
+        image = _extract_plane(buf, hdus[hdu_index])
+        return FitsImage(
+            header=build_merged_header(hdus, hdu_index),
+            image=image,
+            is_mef=len(hdus) > 1,
+            selected_extension=_selected_name(hdus, hdu_index),
+            extension_count=len(hdus),
+            extensions=[h.info for h in hdus],
+        )
+
+
+def try_extract_rgb(path: str) -> Optional[FitsRgb]:
+    """If the selected HDU is NAXIS=3 with 3-4 planes, decode RGB planes
+    (reader.rs:435-505); else None."""
+    with _Mapped(path) as buf:
+        hdus = scan_all_hdus(buf)
+        if not hdus:
+            raise FitsError("No HDUs found in FITS file")
+        sel = select_best_image_hdu(hdus)
+        if sel is None:
+            return None
+        h = hdus[sel].header
+        naxis = h.get_i64("NAXIS") or 0
+        naxis3 = h.get_i64("NAXIS3") or 0
+        if naxis != 3 or naxis3 < 3 or naxis3 > 4:
+            return None
+        planes = [_extract_plane(buf, hdus[sel], p) for p in range(3)]
+        return FitsRgb(
+            header=build_merged_header(hdus, sel),
+            r=planes[0], g=planes[1], b=planes[2],
+            is_mef=len(hdus) > 1,
+            selected_extension=_selected_name(hdus, sel),
+            extension_count=len(hdus),
+            extensions=[h2.info for h2 in hdus],
+        )
+
+
+def list_extensions(path: str) -> List[HduInfo]:
+    with _Mapped(path) as buf:
+        return [h.info for h in scan_all_hdus(buf)]

@@ -15,14 +15,25 @@ ported; the JAX value lies within range/8**6 (~4e-6 relative) of the
 exact one. The ranks are read with device-side indexing, so
 ``stats_core`` never waits on the host; ``compute_image_stats`` fetches
 its six results in one transfer.
+
+Histograms (stats.rs:355-444) are the direct form: each valid pixel's
+bin is found by ``torch.searchsorted`` over the f32 interior edges and
+counted by ``torch.bincount`` in int64, as the reference counts in
+usize. The JAX package counts below each edge in f32 (its compare-count
+form for the TPU), so its counts stop being exact past 2**24 valid
+pixels; the port's stay exact (ROADMAP C15).
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
-from astroburst_tpu_torch.constants import MAD_TO_SIGMA
-from astroburst_tpu_torch.dtypes import ImageStats
+from astroburst_tpu_torch.constants import (HISTOGRAM_BINS_DISPLAY,
+                                            MAD_TO_SIGMA)
+from astroburst_tpu_torch.dtypes import Histogram, ImageStats
 from astroburst_tpu_torch.ops.masking import validity_mask
 
 EXACT_PATH_MAX_PIXELS = 4_000_000  # stats.rs:18
@@ -82,3 +93,74 @@ def compute_image_stats(x: torch.Tensor) -> ImageStats:
         sigma=max(mad * MAD_TO_SIGMA, 1e-30),
         valid_count=n,
     )
+
+
+def _stats_minmax(x: torch.Tensor):
+    """(min, max) of the valid pixels as 0-d tensors (+inf, -inf when
+    there are none)."""
+    flat = x.reshape(-1)
+    mask = validity_mask(flat)
+    inf = torch.full_like(flat, float("inf"))
+    return torch.where(mask, flat, inf).min(), \
+        torch.where(mask, flat, -inf).max()
+
+
+def histogram_counts(x: torch.Tensor, dmin: float, dmax: float,
+                     bins: int) -> torch.Tensor:
+    """int64 [bins] counts of the valid pixels of x. Bin j counts
+    e_j <= v < e_{j+1} over the f32 interior edges e_j = dmin + step·j
+    (j = 1 .. bins-1, step = (dmax - dmin) / bins, each operation
+    rounded to f32, as astroburst_tpu/ops/stats.py:88-101 forms them):
+    values below dmin go to bin 0, values at or above the last interior
+    edge (v == dmax included) to the last bin (the reference's
+    truncating index, stats.rs:393-403)."""
+    flat = x.reshape(-1)
+    lo = torch.tensor(dmin, dtype=torch.float32, device=x.device)
+    step = (torch.tensor(dmax, dtype=torch.float32, device=x.device)
+            - lo) / bins
+    edges = lo + step * torch.arange(1, bins, dtype=torch.float32,
+                                     device=x.device)
+    idx = torch.searchsorted(edges, flat, right=True, out_int32=True)
+    # invalid pixels go to an extra bin past the last, dropped below
+    idx = torch.where(validity_mask(flat), idx, bins)
+    return torch.bincount(idx, minlength=bins + 1)[:bins]
+
+
+def compute_histogram(x: torch.Tensor, bins: int,
+                      dmin: Optional[float] = None,
+                      dmax: Optional[float] = None) -> Histogram:
+    """Histogram over the valid range (stats.rs:355-421). The returned
+    ``bin_edges`` are the JAX package's host list in f64 (dmin + i ·
+    step), not the f32 edges the counts were taken at."""
+    if dmin is None or dmax is None:
+        mn, mx = torch.stack(_stats_minmax(x)).tolist()
+        dmin = mn if dmin is None else dmin
+        dmax = mx if dmax is None else dmax
+    if not math.isfinite(dmin) or not math.isfinite(dmax) \
+            or (dmax - dmin) < 1e-10:
+        return Histogram(bins=[0] * bins, bin_edges=[dmin] * (bins + 1),
+                         min=dmin, max=dmax)
+    counts = histogram_counts(x, dmin, dmax, bins).tolist()
+    step = (dmax - dmin) / bins
+    edges = [dmin + i * step for i in range(bins + 1)]
+    return Histogram(bins=counts, bin_edges=edges, min=dmin, max=dmax)
+
+
+def compute_histogram_with_stats(x: torch.Tensor, stats: ImageStats,
+                                 bins: int = HISTOGRAM_BINS_DISPLAY
+                                 ) -> Histogram:
+    return compute_histogram(x, bins, dmin=stats.min, dmax=stats.max)
+
+
+def downsample_histogram(hist: Histogram, target_bins: int) -> list:
+    """Sum-pool bins down to target_bins (stats.rs:423-444)."""
+    src = hist.bins
+    if target_bins >= len(src):
+        return list(src)
+    ratio = len(src) / target_bins
+    out = []
+    for i in range(target_bins):
+        start = int(i * ratio)
+        end = min(int((i + 1) * ratio), len(src))
+        out.append(int(sum(src[start:end])))
+    return out

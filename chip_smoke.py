@@ -100,6 +100,25 @@ exits non-zero, and so does a machine without a CUDA device):
    ``load_cached_many`` over the 16 files, ``stack_images``,
    ``compute_image_stats``, the image fetch, ``write_fits_mono``, the
    preview PNG, and the command cold and warm, with Mpx/s from warm.
+   (g) open and inspect (``open_inspect_path``): the 4096^2 detection
+   field, one bench frame, an RGB FITS of 3 x 4096^2, a BITPIX 16 file
+   with BSCALE/BZERO, a two-HDU MEF with a SCI extension and an ASDF
+   file, written under build/; ``process_fits``, ``process_fits_full``,
+   ``get_raw_pixels_preview``, ``apply_stf_render`` and
+   ``compute_histogram`` cold and warm, then the header, extension,
+   filter and output-dir commands: RES_* keys, stats equal to
+   ``compute_image_stats`` on the in-memory tensor, every PNG (decoded
+   with zlib) equal to ``apply_stf_u8(nearest_downsample(...))`` on the
+   card, histogram counts equal to an int64 numpy count over the same
+   f32 edges, summing to the valid count, the raw preview equal to the
+   scrubbed 2048 downsample, the six composite keys (ORIG and KEY one
+   tensor), the cards written; the ASDF file read where PyYAML is
+   installed, else the ModuleNotFoundError naming it; this slice
+   launches no kernel (every count 0). Timed: the decode, stats,
+   histogram, STF u8, fetch and PNG stages (and the RGB file's decode,
+   u8 planes with their fetch, and RGB PNG), each command cold and warm,
+   and the STF slider path (2048^2 downsample + u8 STF of a 4096^2
+   plane, p50 over 60 calls), each beside the reference's own figure.
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
@@ -1552,9 +1571,10 @@ STACK_CMD_KEYS = {"fits_path", "png_path", "dimensions", "frame_count",
                   "rejected_pixels", "offsets", "stats", "elapsed_ms"}
 
 
-def decode_gray_png(path) -> np.ndarray:
-    """The u8 pixels of a gray PNG whose scanlines all use filter 0 (the
-    port's writer), decoded with zlib alone."""
+def decode_png(path) -> np.ndarray:
+    """The u8 pixels ([H, W] gray or [H, W, 3] RGB) of an 8-bit PNG whose
+    scanlines all use filter 0 (the port's writer), decoded with zlib
+    alone."""
     import struct
     import zlib
     with open(path, "rb") as f:
@@ -1568,13 +1588,14 @@ def decode_gray_png(path) -> np.ndarray:
         chunks[tag] = chunks.get(tag, b"") + blob[pos + 8:pos + 8 + n]
         pos += 12 + n
     w, h, depth, colour = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
-    if (depth, colour) != (8, 0):
+    if depth != 8 or colour not in (0, 2):
         raise AssertionError(f"{path}: bit depth {depth}, colour {colour}")
+    chans = 3 if colour == 2 else 1
     rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]),
-                         np.uint8).reshape(h, w + 1)
+                         np.uint8).reshape(h, w * chans + 1)
     if rows[:, 0].any():
         raise AssertionError(f"{path}: a scanline filter other than 0")
-    return rows[:, 1:]
+    return rows[:, 1:].reshape((h, w) if chans == 1 else (h, w, 3))
 
 
 def write_fits_frames(directory, frames) -> list:
@@ -1630,7 +1651,7 @@ def check_stack_command(what, res, want_shape, want_offsets, ref, dev):
     img_dev = torch.from_numpy(img).to(dev)
     want_png = apply_stf_u8(nearest_downsample(img_dev, 4096),
                             auto_stf(stats), stats).cpu().numpy()
-    png = decode_gray_png(res["png_path"])
+    png = decode_png(res["png_path"])
     if png.shape != want_png.shape or not np.array_equal(png, want_png):
         raise AssertionError(f"{what}: stacked.png {png.shape} differs "
                              f"from the STF'd downsample {want_png.shape}")
@@ -1764,6 +1785,465 @@ def stack_command_path(stack, shifts, many_list, many_shifts, counters,
             f"({mpx / warm_ms * 1e3:.1f} Mpx/s), warm again "
             f"{', '.join(f'{t:.3f}' for t in warm_more)} ms")
         log(f"[time] {smi}: stack command stages: " + json.dumps(times))
+        GLOBAL_IMAGE_CACHE.clear()
+        return launches, times
+    finally:
+        shutil.rmtree(root)
+
+
+# --- phase 4g: open and inspect -------------------------------------------
+
+# the reference's own figures on its own hardware (BASELINE.md)
+REF_PROCESS_FITS_MS = 120.0   # single FITS processing 4096^2, Ryzen 9 7950X
+REF_HIST_STF_MS = 35.0        # histogram + auto-STF 4096^2, Ryzen 9 7950X
+REF_STF_RENDER_MS = 8.0       # WebGPU STF render 4096^2, a consumer GPU
+STF_SLIDER_CALLS = 60
+
+
+def fits_hdu(plane, cards=(), primary=True, bitpix=-32, bscale=1.0,
+             bzero=0.0) -> bytes:
+    """One HDU's bytes, written here and not by the port's writer: a
+    primary (SIMPLE) or IMAGE-extension header with ``cards``, then
+    ``plane`` as big-endian f32, or (BITPIX 16) as the i16 values it
+    holds under BSCALE/BZERO; ``plane`` None writes NAXIS 0."""
+    def card(key, value):
+        return f"{key:<8}= {value:>20}".ljust(80).encode()
+    head = [card("SIMPLE", "T") if primary else card("XTENSION",
+                                                     "'IMAGE   '"),
+            card("BITPIX", str(bitpix))]
+    if plane is None:
+        head.append(card("NAXIS", "0"))
+    else:
+        h, w = plane.shape
+        head += [card("NAXIS", "2"), card("NAXIS1", str(w)),
+                 card("NAXIS2", str(h))]
+        if bitpix == 16:
+            head += [card("BSCALE", repr(bscale)), card("BZERO", repr(bzero))]
+    head += [card(k, v) for k, v in cards]
+    blob = b"".join(head) + b"END".ljust(80)
+    blob += b" " * (-len(blob) % 2880)
+    if plane is None:
+        return blob
+    payload = np.ascontiguousarray(
+        plane, ">i2" if bitpix == 16 else ">f4").tobytes()
+    return blob + payload + b"\0" * (-len(payload) % 2880)
+
+
+def asdf_bytes(plane) -> bytes:
+    """An ASDF file of one big-endian f32 plane in one uncompressed block
+    (the layout astroburst_tpu_torch/io/asdf.py reads)."""
+    import struct
+    h, w = plane.shape
+    data = np.ascontiguousarray(plane, ">f4").tobytes()
+    tree = ("#ASDF 1.0.0\n#ASDF_STANDARD 1.5.0\n%YAML 1.1\n"
+            "--- !core/asdf-1.1.0\n"
+            "data: !core/ndarray-1.0.0\n  source: 0\n  datatype: float32\n"
+            f"  byteorder: big\n  shape: [{h}, {w}]\n"
+            "meta:\n  instrument: {name: NIRCAM}\n...\n").encode()
+    header = (struct.pack(">I", 0) + b"\0" * 4 + struct.pack(">Q", len(data))
+              + struct.pack(">Q", len(data)) + struct.pack(">Q", len(data))
+              + b"\0" * 16)
+    return tree + b"\xd3BLK" + struct.pack(">H", len(header)) + header + data
+
+
+def histogram_oracle(sorted_valid: np.ndarray, dmin: float, dmax: float,
+                     bins: int) -> np.ndarray:
+    """int64 counts of e_j <= v < e_{j+1} over the f32 edges dmin +
+    step·j, each operation rounded (astroburst_tpu/ops/stats.py:88-101),
+    from the count below each edge of the sorted valid values."""
+    lo = np.float32(dmin)
+    step = (np.float32(dmax) - lo) / np.float32(bins)
+    edges = lo + step * np.arange(1, bins, dtype=np.float32)
+    below = np.searchsorted(sorted_valid, edges, side="left")
+    return np.diff(np.concatenate([[0], below, [sorted_valid.size]]))
+
+
+def host_ms(fn):
+    """(result, ms) of one call on the host clock, ending in a
+    synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def stf_slider_ms(plane, stats, n: int) -> list:
+    """The STF slider path (bench.py:15-20, :311-332): a 2048^2 nearest
+    downsample of the 4096^2 f32 plane, then the u8 STF with tensor
+    parameters, a new shadow each call; each of ``n`` calls timed by
+    its own pair of CUDA events, after 5 warm-up calls."""
+    import torch
+    from astroburst_tpu_torch.imaging.stf import apply_stf_traced
+    from astroburst_tpu_torch.ops.ipc import nearest_downsample
+    dev = plane.device
+    dmin, dmax = torch.tensor([stats.min, stats.max], dtype=torch.float32,
+                              device=dev).unbind()
+    params = torch.stack([torch.linspace(0.0, 0.02, n + 5, device=dev),
+                          torch.full((n + 5,), 0.3, device=dev)], 1)
+
+    def render(i):
+        small = nearest_downsample(plane, 2048)
+        return apply_stf_traced(small, dmin, dmax, params[i, 0],
+                                params[i, 1], as_u8=True)
+
+    for i in range(5):
+        render(i)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda.synchronize()
+    for i, (e0, e1) in enumerate(events):
+        e0.record()
+        out = render(5 + i)
+        e1.record()
+    torch.cuda.synchronize()
+    if out.shape != nearest_downsample(plane, 2048).shape or \
+            out.dtype != torch.uint8:
+        raise AssertionError(f"STF slider output {tuple(out.shape)} "
+                             f"{out.dtype}")
+    return sorted(e0.elapsed_time(e1) for e0, e1 in events)
+
+
+def open_inspect_path(field, bench_frame, counters, smi):
+    """Phase 4g: the open-and-inspect commands on files written under
+    build/: the 4096^2 detection field (~3000 stars, NaN patches, +-inf),
+    one bench frame (5655 x 2206), an RGB FITS of 3 x 4096^2, a BITPIX 16
+    file with BSCALE/BZERO, a two-HDU MEF whose SCI extension holds the
+    image, and an ASDF file. Each command runs cold (empty image cache)
+    and warm and is checked against what the card computes from the
+    in-memory tensors; the kernel counters are reset just before the
+    commands and read just after (this slice reaches no kernel: every
+    count must stay 0). Then the stages, the commands cold and warm and
+    the STF slider path are timed. Returns (launches, times in ms)."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from astroburst_tpu_torch import api
+    from astroburst_tpu_torch.imaging.stf import apply_stf_u8, auto_stf
+    from astroburst_tpu_torch.io import (extract_image, save_gray_png,
+                                         save_rgb_png, try_extract_rgb,
+                                         write_fits_mono, write_fits_rgb)
+    from astroburst_tpu_torch.io.header import HduHeader
+    from astroburst_tpu_torch.io.prefetch import DeviceLoader
+    from astroburst_tpu_torch.dtypes import StfParams
+    from astroburst_tpu_torch.ops.ipc import (decode_binary_pixels,
+                                              nearest_downsample)
+    from astroburst_tpu_torch.ops.stats import (compute_histogram_with_stats,
+                                                compute_image_stats)
+    from astroburst_tpu_torch.runtime.cache import GLOBAL_IMAGE_CACHE
+    dev = field.device
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="open_inspect_", dir=build)
+    out = os.path.join(root, "out")
+    try:
+        t0 = time.perf_counter()
+        cards = [("OBJECT", "'M 16'"), ("FILTER", "'Ha 656nm'"),
+                 ("EXPTIME", "300.0"), ("TELESCOP", "'chip_smoke'")]
+        p_field = os.path.join(root, "field_Ha.fits")
+        write_fits_mono(p_field, field.cpu().numpy(), HduHeader(cards))
+        p_bench = os.path.join(root, "bench.fits")
+        write_fits_mono(p_bench, bench_frame.cpu().numpy(),
+                        HduHeader([("OBJECT", "'bench'")]))
+        rgb = [field, field * 0.5 + 10.0, field * 0.25 + 30.0]
+        p_rgb = os.path.join(root, "rgb.fits")
+        write_fits_rgb(p_rgb, *(c.cpu().numpy() for c in rgb),
+                       HduHeader([("OBJECT", "'rgb'")]))
+        hw = field.shape[0]
+        raw16 = np.clip(np.nan_to_num(field.cpu().numpy(), nan=0.0,
+                                      posinf=0.0, neginf=0.0) * 8.0 - 4000.0,
+                        -32768, 32767).astype(np.int16)
+        p_b16 = os.path.join(root, "field_OIII_b16.fits")
+        with open(p_b16, "wb") as f:
+            f.write(fits_hdu(raw16, [("FILTER", "'OIII'")], bitpix=16,
+                             bscale=0.125, bzero=500.0))
+        b16 = torch.from_numpy(
+            (raw16.astype(np.float64) * 0.125 + 500.0).astype(np.float32)
+        ).to(dev)
+        sci = field[: hw // 4, : hw // 4].contiguous()
+        p_mef = os.path.join(root, "mef_SII.fits")
+        with open(p_mef, "wb") as f:
+            f.write(fits_hdu(None, [("TELESCOP", "'JWST'"),
+                                    ("FILTER", "'SII'")])
+                    + fits_hdu(sci.cpu().numpy(), [("EXTNAME", "'SCI'"),
+                                                   ("EXPTIME", "99.0")],
+                               primary=False))
+        p_asdf = os.path.join(root, "field.asdf")
+        with open(p_asdf, "wb") as f:
+            f.write(asdf_bytes(sci.cpu().numpy()))
+        nbytes = sum(os.path.getsize(p) for p in (p_field, p_bench, p_rgb,
+                                                  p_b16, p_mef, p_asdf))
+        log(f"[data] open and inspect: 6 files, {nbytes / 1e6:.1f} MB "
+            f"(written in {time.perf_counter() - t0:.1f} s)")
+
+        def check_png(what, path, planes, stats, params):
+            want = [apply_stf_u8(nearest_downsample(p, 4096), prm, st)
+                    for p, st, prm in zip(planes, stats, params)]
+            want = torch.stack(want, -1) if len(want) == 3 else want[0]
+            png = decode_png(path)
+            if not np.array_equal(png, want.cpu().numpy()):
+                raise AssertionError(f"{what}: {os.path.basename(path)} "
+                                     f"differs from the STF'd downsample")
+
+        def check_stats(what, res_stats, st):
+            for k, v in res_stats.items():
+                if v != getattr(st, k):
+                    raise AssertionError(f"{what}: stats[{k}] {v} != "
+                                         f"{getattr(st, k)}")
+
+        keys = {"process_fits": {"png_path", "dimensions", "elapsed_ms",
+                                 "stats", "stf"}}
+        keys["process_fits_full"] = keys["process_fits"] | {"header",
+                                                            "histogram"}
+        rgb_keys = keys["process_fits"] | {"is_rgb", "stf_r", "stf_g",
+                                           "stf_b"}
+        st_field = compute_image_stats(field)
+        host_field = field.cpu().numpy()
+        valid = host_field[np.isfinite(host_field) & (host_field > 1e-7)]
+        sorted_valid = np.sort(valid)
+
+        GLOBAL_IMAGE_CACHE.clear()
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        cmd_ms = {}
+        for temp in ("cold", "warm"):
+            def run(name, fn):
+                """fn() timed on the host clock; cold: the image cache
+                emptied first. Warm calls find what the cold pass left."""
+                if temp == "cold":
+                    GLOBAL_IMAGE_CACHE.clear()
+                res, ms = host_ms(fn)
+                cmd_ms[f"{name}_{temp}"] = ms
+                return res
+
+            # the 4096^2 field: process_fits(_full), the raw preview,
+            # apply_stf_render, the histogram
+            for cmd in ("process_fits", "process_fits_full"):
+                res = run(cmd, lambda: getattr(api, cmd)(p_field, out))
+                what = f"{cmd}(4096^2) {temp}"
+                if set(res) != keys[cmd]:
+                    raise AssertionError(f"{what}: keys {sorted(res)}")
+                check_stats(what, res["stats"], st_field)
+                if res["stf"] != auto_stf(st_field).to_dict():
+                    raise AssertionError(f"{what}: stf {res['stf']}")
+                check_png(what, res["png_path"], [field], [st_field],
+                          [auto_stf(st_field)])
+                if cmd == "process_fits_full":
+                    hist = res["histogram"]
+                    want = histogram_oracle(sorted_valid, st_field.min,
+                                            st_field.max, 512)
+                    if hist["bins"] != want.tolist() or \
+                            sum(hist["bins"]) != st_field.valid_count or \
+                            hist["total_pixels"] != st_field.valid_count:
+                        raise AssertionError(f"{what}: histogram counts")
+                    if any(res["header"].get(k) != v.strip("'").strip()
+                           for k, v in cards):
+                        raise AssertionError(f"{what}: header "
+                                             f"{res['header']}")
+            raw = run("get_raw_pixels_preview",
+                      lambda: api.get_raw_pixels_preview(p_field))
+            arr, mn, mx = decode_binary_pixels(raw)
+            small = nearest_downsample(field, 2048)
+            fin = torch.isfinite(small)
+            want = torch.where(fin, small, torch.zeros_like(small))
+            if not np.array_equal(arr, want.cpu().numpy()) or \
+                    (mn, mx) != (small[fin].min().item(),
+                                 small[fin].max().item()):
+                raise AssertionError(f"raw preview {temp}: pixels or "
+                                     f"min/max ({mn}, {mx})")
+            prm = StfParams(shadow=0.02, midtone=0.3, highlight=1.0)
+            res = run("apply_stf_render", lambda: api.apply_stf_render(
+                p_field, out, prm.shadow, prm.midtone, prm.highlight))
+            check_png(f"apply_stf_render {temp}", res["png_path"], [field],
+                      [st_field], [prm])
+            for bins in (None, 100):
+                res = run(f"compute_histogram_{bins or 512}",
+                          lambda: api.compute_histogram(p_field, bins))
+                want = histogram_oracle(sorted_valid, res["data_min"],
+                                        res["data_max"], bins or 512)
+                if res["bins"] != want.tolist() or \
+                        sum(res["bins"]) != st_field.valid_count or \
+                        (res["data_min"], res["data_max"]) != \
+                        (st_field.min, st_field.max):
+                    raise AssertionError(f"compute_histogram({bins}) "
+                                         f"{temp}: counts or range")
+
+            # the bench frame: a 4096 x 1598 preview
+            res = run("process_fits_bench",
+                      lambda: api.process_fits(p_bench, out))
+            st = compute_image_stats(bench_frame)
+            check_stats(f"process_fits(bench) {temp}", res["stats"], st)
+            check_png(f"process_fits(bench) {temp}", res["png_path"],
+                      [bench_frame], [st], [auto_stf(st)])
+
+            # RGB: three planes decoded on every call, six composite keys
+            sts = [compute_image_stats(c) for c in rgb]
+            for cmd in ("process_fits", "process_fits_full"):
+                res = run(f"{cmd}_rgb", lambda: getattr(api, cmd)(p_rgb,
+                                                                  out))
+                want_keys = rgb_keys | ({"header", "histogram"}
+                                        if cmd == "process_fits_full"
+                                        else set())
+                if set(res) != want_keys or res["is_rgb"] is not True:
+                    raise AssertionError(f"{cmd}(rgb): keys {sorted(res)}")
+                check_stats(f"{cmd}(rgb)", res["stats"], sts[0])
+                check_png(f"{cmd}(rgb)", res["png_path"], rgb, sts,
+                          [auto_stf(s) for s in sts])
+                for (o, k), plane in zip((("__composite_orig_r",
+                                           "__composite_r"),
+                                          ("__composite_orig_g",
+                                           "__composite_g"),
+                                          ("__composite_orig_b",
+                                           "__composite_b")), rgb):
+                    eo = GLOBAL_IMAGE_CACHE.get(o, dev)
+                    ek = GLOBAL_IMAGE_CACHE.get(k, dev)
+                    if eo is None or ek is None or eo.image is not ek.image \
+                            or not torch.equal(eo.image.nan_to_num(),
+                                               plane.nan_to_num()):
+                        raise AssertionError(f"{cmd}(rgb): {o} / {k}")
+
+            # BITPIX 16 with BSCALE/BZERO, and the MEF's SCI extension
+            res = run("process_fits_full_b16",
+                      lambda: api.process_fits_full(p_b16, out))
+            st = compute_image_stats(b16)
+            check_stats(f"process_fits_full(BITPIX 16) {temp}",
+                        res["stats"], st)
+            check_png(f"process_fits_full(BITPIX 16) {temp}",
+                      res["png_path"], [b16], [st], [auto_stf(st)])
+            res = run("process_fits_full_mef",
+                      lambda: api.process_fits_full(p_mef, out))
+            st = compute_image_stats(sci)
+            check_stats(f"process_fits_full(MEF) {temp}", res["stats"], st)
+            check_png(f"process_fits_full(MEF) {temp}", res["png_path"],
+                      [sci], [st], [auto_stf(st)])
+            if (res["header"].get("EXTNAME"), res["header"].get("TELESCOP"),
+                    res["header"].get("EXPTIME")) != ("SCI", "JWST", "99.0"):
+                raise AssertionError(f"MEF header {res['header']}")
+
+        # header, extension, filter and output-dir commands
+        hdr = api.get_header(p_field)
+        if [(c["key"], c["value"]) for c in hdr["cards"]
+                if c["key"] in dict(cards)] != \
+                [(k, v.strip("'").strip()) for k, v in cards]:
+            raise AssertionError(f"get_header cards {hdr['cards']}")
+        full = api.get_full_header(p_field)
+        det = full["filter_detection"]
+        if det is None or det["filter"] != "Hα (656nm)" or \
+                full["categories"]["observation"].get("OBJECT") != "M 16":
+            raise AssertionError(f"get_full_header {det}")
+        ext = api.get_fits_extensions(p_mef)
+        if ext["extension_count"] != 2 or \
+                ext["extensions"][1]["extname"] != "SCI":
+            raise AssertionError(f"get_fits_extensions {ext}")
+        by_hdu = api.get_header_by_hdu(p_mef, 1)
+        if ("EXTNAME", "SCI") not in [(c["key"], c["value"])
+                                      for c in by_hdu["cards"]]:
+            raise AssertionError(f"get_header_by_hdu {by_hdu}")
+        nb = api.detect_narrowband_filters([p_field, p_b16, p_mef])
+        if not nb["palette"]["is_complete"] or [
+                f["filter_detection"]["filter"] for f in nb["filters"]] != \
+                ["Hα (656nm)", "[OIII] (502nm)", "[SII] (673nm)"]:
+            raise AssertionError(f"detect_narrowband_filters {nb}")
+        info = api.get_output_dir_info(out)
+        n_png = len([n for n in os.listdir(out) if n.endswith(".png")])
+        if info["file_count"] != n_png or n_png < 6:
+            raise AssertionError(f"get_output_dir_info {info}")
+        cleaned = api.cleanup_output_cmd(out)
+        if cleaned["cleaned_files"] != n_png or os.listdir(out):
+            raise AssertionError(f"cleanup_output_cmd {cleaned}")
+
+        # ASDF: PyYAML parses the tree; the card's machine may not have it
+        if importlib.util.find_spec("yaml") is None:
+            try:
+                api.process_fits(p_asdf, out)
+            except ModuleNotFoundError as e:
+                if e.name != "yaml" or "PyYAML" not in str(e):
+                    raise
+                log(f"[path] ASDF read not run on the card: PyYAML is not "
+                    f"installed on this machine, and process_fits on an "
+                    f"ASDF file raised, as it must: {e}")
+            else:
+                raise AssertionError("an ASDF read without PyYAML did not "
+                                     "raise")
+        else:
+            res = api.process_fits_full(p_asdf, out)
+            check_stats("process_fits_full(ASDF)", res["stats"],
+                        compute_image_stats(sci))
+            log("[path] ASDF read on the card: the image equals the plane "
+                "written")
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        if any(launches.values()):
+            raise AssertionError(f"open and inspect launched a kernel: "
+                                 f"{launches}")
+        log(f"[path] open and inspect: process_fits(_full) on the 4096^2 "
+            f"field, the bench frame, RGB, BITPIX 16 and MEF files cold and "
+            f"warm; every PNG equal to the STF'd downsample on the card, "
+            f"stats equal to compute_image_stats, histograms equal to the "
+            f"int64 numpy count, the raw preview equal to the scrubbed "
+            f"downsample, six composite keys, header/extension/filter/"
+            f"output-dir commands; kernel launches {launches}")
+
+        # stage times: device stages by CUDA events, host stages by the
+        # host clock ending in a synchronize
+        times = {"commands_ms": cmd_ms}
+        _, times["decode_field_ms"] = host_ms(lambda: extract_image(p_field))
+        load = DeviceLoader(dev)
+        load(p_bench)
+        _, times["decode_pinned_h2d_field_ms"] = host_ms(
+            lambda: load(p_field))
+        times["stats_ms"] = cuda_ms(lambda: compute_image_stats(field), 5)
+        times["histogram_512_ms"] = cuda_ms(
+            lambda: compute_histogram_with_stats(field, st_field), 5)
+
+        def histogram_auto_stf():
+            st = compute_image_stats(field)
+            auto_stf(st)
+            return compute_histogram_with_stats(field, st)
+
+        times["histogram_auto_stf_ms"] = cuda_ms(histogram_auto_stf, 5)
+        stf = auto_stf(st_field)
+        times["stf_u8_ms"] = cuda_ms(
+            lambda: apply_stf_u8(nearest_downsample(field, 4096), stf,
+                                 st_field), 10)
+        u8 = apply_stf_u8(field, stf, st_field)
+        host_u8, times["fetch_u8_ms"] = host_ms(lambda: u8.cpu().numpy())
+        _, times["png_ms"] = host_ms(lambda: save_gray_png(
+            host_u8, os.path.join(root, "stage.png")))
+        rgb_host, times["rgb_decode_ms"] = host_ms(
+            lambda: try_extract_rgb(p_rgb))
+        sts = [compute_image_stats(c) for c in rgb]
+        u8s, times["rgb_u8_fetch_ms"] = host_ms(lambda: torch.stack(
+            [apply_stf_u8(c, auto_stf(st), st) for c, st in zip(rgb, sts)]
+        ).cpu().numpy())
+        _, times["rgb_png_ms"] = host_ms(lambda: save_rgb_png(
+            *u8s, os.path.join(root, "stage_rgb.png")))
+        del rgb_host, u8s
+        slider = stf_slider_ms(field, st_field, STF_SLIDER_CALLS)
+        times["stf_slider_ms"] = {"p50": slider[len(slider) // 2],
+                                  "min": slider[0], "max": slider[-1],
+                                  "calls": len(slider)}
+        ref = "(reference: BASELINE.md, its own hardware)"
+        log(f"[time] {smi}: process_fits 4096^2 cold "
+            f"{cmd_ms['process_fits_cold']:.3f} ms, warm "
+            f"{cmd_ms['process_fits_warm']:.3f} ms; beside 120 ms on a "
+            f"Ryzen 9 7950X {ref}")
+        log(f"[time] {smi}: histogram (512 bins) + auto-STF 4096^2 "
+            f"{times['histogram_auto_stf_ms']:.3f} ms (stats "
+            f"{times['stats_ms']:.3f}, histogram "
+            f"{times['histogram_512_ms']:.3f}); beside 35 ms on a Ryzen 9 "
+            f"7950X {ref}")
+        log(f"[time] {smi}: STF slider (2048^2 downsample + u8 STF of a "
+            f"4096^2 plane) p50 {times['stf_slider_ms']['p50']:.4f} ms over "
+            f"{len(slider)} calls (min {slider[0]:.4f}, max "
+            f"{slider[-1]:.4f}); beside 8 ms for the WebGPU STF render on "
+            f"a consumer GPU {ref}")
+        log(f"[time] {smi}: open and inspect stages: " + json.dumps(times))
         GLOBAL_IMAGE_CACHE.clear()
         return launches, times
     finally:
@@ -2309,6 +2789,7 @@ def main() -> None:
     # ---- 4f. the stack command: FITS in, stacked FITS + preview out ----
     launches_cmd, _ = stack_command_path(stack, shifts, many_list,
                                          many_shifts, counters, smi)
+    bench_frame = stack[0].clone()      # for phase 4g
     del stack, many_list
 
     # ---- 4b. main path of this slice: calibrate → drizzle → stretch ----
@@ -2591,6 +3072,10 @@ def main() -> None:
     for name, (k, p) in times_mask.items():
         log(f"[time] {smi}: {name} {DET_HW}^2 kernels {k:.3f} ms | plain "
             f"{p:.3f} ms (host fetches included)")
+
+    # ---- 4g. open and inspect: FITS, RGB, MEF, ASDF in; previews out --
+    launches_open, _ = open_inspect_path(field, bench_frame, counters, smi)
+    del bench_frame
     if "jax" in sys.modules or "astroburst_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
 
@@ -2631,7 +3116,8 @@ def main() -> None:
              "masked_stretch(x10,converged)+masked_stretch_rgb_shared":
                  launches_mask,
              "drizzle_exact_parity(calibrated,bench)": launches_parity,
-             "stack(command)": launches_cmd}
+             "stack(command)": launches_cmd,
+             "open_and_inspect(commands)": launches_open}
     kernels = []
     for name, (source, replaces) in meta.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

@@ -6,7 +6,8 @@ against the JAX package, on files the tests write from seeded numpy data.
   is not the first), and byte-equal files from both writers;
 - PNG: the port's file (no Pillow) decodes, with zlib here, to the
   pixels of the JAX package's Pillow file;
-- dispatcher, cache, progress: the same lists, keys and events;
+- dispatcher, cache, progress: the same lists, keys and events (ASDF
+  paths resolved as the JAX dispatcher resolves them);
 - ``nearest_downsample``: the same index maps, including the one row
   of 5655 → 4096 that an f64 map would move;
 - ``compute_image_stats``: within C5's range/8**6 of JAX's on both
@@ -292,18 +293,31 @@ def test_resolve_inputs_matches_jax_on_a_directory_and_a_zip(tmp_path, rng):
 
 
 def test_asdf_input_raises_invalid_input(tmp_path, rng):
+    """ASDF paths resolve as in the JAX dispatcher; a missing one, and a
+    JWST calibration-reference name (common.rs:30-56), raise
+    InvalidInput in both packages."""
+    from astroburst_tpu.api import common as jcommon
+    from astroburst_tpu_torch.api import common as tcommon
     p = tmp_path / "frame.asdf"
     p.write_bytes(b"#ASDF 1.0.0\n")
-    for fn in (tdisp.resolve_inputs, tdisp.resolve_single_image):
-        with pytest.raises(te.InvalidInput, match="ASDF input is not yet "
-                                                  "ported"):
-            fn(str(p))
+    for t_fn, j_fn in ((tdisp.resolve_inputs, jdisp.resolve_inputs),
+                       (tdisp.resolve_single_image,
+                        jdisp.resolve_single_image)):
+        assert t_fn(str(p)) == j_fn(str(p))
     d = tmp_path / "only_asdf"
     d.mkdir()
     (d / "x.asdf").write_bytes(b"#ASDF 1.0.0\n")
     assert tdisp.resolve_inputs(str(d)) == [str(d / "x.asdf")]
-    with pytest.raises(te.InvalidInput, match="not yet ported"):
-        tdisp.resolve_single_image(str(d))
+    assert tdisp.resolve_single_image(str(d)) == \
+        jdisp.resolve_single_image(str(d)) == str(d / "x.asdf")
+    with pytest.raises(te.InvalidInput):
+        tdisp.resolve_single_image(str(tmp_path / "missing.asdf"))
+    ref = tmp_path / "jwst_nircam_photom_0042.asdf"
+    ref.write_bytes(b"#ASDF 1.0.0\n")
+    with pytest.raises(te.InvalidInput, match="photom"):
+        tcommon.extract_image_resolved(str(ref))
+    with pytest.raises(je.InvalidInput, match="photom"):
+        jcommon.extract_image_resolved(str(ref))
 
 
 def _cache_trace(mod, make):
@@ -498,7 +512,8 @@ def test_prefetch_yields_frames_in_order_on_the_cpu(tmp_path, rng):
 
 
 def test_errors_keep_the_jax_hierarchy():
-    for name in ("FitsError", "InvalidInput", "Cancelled", "CacheMiss"):
+    for name in ("FitsError", "AsdfError", "InvalidInput", "Cancelled",
+                 "CacheMiss"):
         assert issubclass(getattr(te, name), te.AstroError)
         assert issubclass(getattr(je, name), je.AstroError)
     assert str(te.Cancelled()) == str(je.Cancelled())
