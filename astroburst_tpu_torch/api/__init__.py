@@ -2,14 +2,22 @@
 reference's Tauri commands): the same names, arguments, defaults and
 response keys, plus a keyword-only ``device`` (default
 ``cuda_device()``, which raises where there is no card). Ported so
-far, 13 of the 60 commands: ``stack`` and the open-and-inspect
+far, 20 of the 60 registered commands: the stacking commands
+(``stack``, ``calibrate``, ``run_pipeline_cmd``), the export commands
+(``export_fits``, ``export_fits_rgb``, ``export_png``,
+``export_rgb_png``, ``resample_fits_cmd``) and the open-and-inspect
 commands (``process_fits``, ``process_fits_full``,
 ``get_raw_pixels_preview``, ``apply_stf_render``,
 ``compute_histogram_cmd`` and its alias ``compute_histogram``, the
-header commands and the output-dir commands).
+header commands and the output-dir commands); and two that the
+reference does not register, ``drizzle_stack_cmd`` and
+``export_zip_bundle``.
 """
 
 from astroburst_tpu_torch.api.analysis import compute_histogram_cmd
+from astroburst_tpu_torch.api.export import (export_fits, export_fits_rgb,
+                                             export_png, export_rgb_png,
+                                             export_zip_bundle)
 from astroburst_tpu_torch.api.io import (get_raw_pixels_preview,
                                          process_fits, process_fits_full)
 from astroburst_tpu_torch.api.metadata import (detect_narrowband_filters,
@@ -18,7 +26,9 @@ from astroburst_tpu_torch.api.metadata import (detect_narrowband_filters,
                                                get_header_by_hdu)
 from astroburst_tpu_torch.api.output import (cleanup_output_cmd,
                                              get_output_dir_info)
-from astroburst_tpu_torch.api.stacking import stack
+from astroburst_tpu_torch.api.processing import resample_fits_cmd
+from astroburst_tpu_torch.api.stacking import (calibrate, drizzle_stack_cmd,
+                                               run_pipeline_cmd, stack)
 from astroburst_tpu_torch.api.visualization import apply_stf_render
 
 # alias matching the reference's registered name
@@ -29,6 +39,8 @@ __all__ = [
     "get_header", "get_full_header", "get_fits_extensions",
     "get_header_by_hdu", "detect_narrowband_filters",
     "compute_histogram", "compute_histogram_cmd",
-    "apply_stf_render", "stack",
+    "apply_stf_render", "stack", "calibrate", "run_pipeline_cmd",
+    "drizzle_stack_cmd", "export_fits", "export_fits_rgb", "export_png",
+    "export_rgb_png", "resample_fits_cmd", "export_zip_bundle",
     "get_output_dir_info", "cleanup_output_cmd",
 ]

@@ -159,17 +159,19 @@ def composite_png_path(output_dir: str) -> str:
     return os.path.join(output_dir, f"rgb_composite_{int(time.time()*1000)}.png")
 
 
-def _require(key: str):
-    entry = GLOBAL_IMAGE_CACHE.get(key)
+def _require(key: str, device=None):
+    entry = GLOBAL_IMAGE_CACHE.get(key, device)
     if entry is None or entry.stats is None:
         raise CacheMiss(f"cache key not found: {key}")
     return entry
 
 
-def load_composite_rgb():
-    """KEY working planes (helpers.rs load_composite_rgb)."""
-    return (_require(C.COMPOSITE_KEY_R), _require(C.COMPOSITE_KEY_G),
-            _require(C.COMPOSITE_KEY_B))
+def load_composite_rgb(device=None):
+    """KEY working planes (helpers.rs load_composite_rgb); with
+    ``device`` given, planes on another device count as missing."""
+    return (_require(C.COMPOSITE_KEY_R, device),
+            _require(C.COMPOSITE_KEY_G, device),
+            _require(C.COMPOSITE_KEY_B, device))
 
 
 def load_composite_orig_rgb():

@@ -12,12 +12,19 @@ HISTOGRAM_BINS_DISPLAY = 512
 
 # --- progress event names -------------------------------------------------
 EVENT_STACK_PROGRESS = "stack-progress"
+EVENT_DRIZZLE_RGB_PROGRESS = "drizzle-rgb-progress"
 
 # --- response keys of the ported commands (the public API contract) -------
 RES_ELAPSED_MS = "elapsed_ms"
 RES_DIMENSIONS = "dimensions"
+RES_OUTPUT_DIMS = "output_dims"
+RES_INPUT_DIMS = "input_dims"
+RES_ORIGINAL_DIMENSIONS = "original_dimensions"
 RES_PNG_PATH = "png_path"
 RES_FITS_PATH = "fits_path"
+RES_OUTPUT_PATH = "output_path"
+RES_PATH = "path"
+RES_WCS_UPDATES = "wcs_updates"
 RES_FILE_PATH = "file_path"
 RES_FILE_NAME = "file_name"
 RES_MIN = "min"
@@ -42,6 +49,19 @@ RES_BIN_EDGES = "bin_edges"
 RES_FRAME_COUNT = "frame_count"
 RES_REJECTED_PIXELS = "rejected_pixels"
 RES_OFFSETS = "offsets"
+RES_SCALE = "scale"
+RES_HAS_BIAS = "has_bias"
+RES_HAS_DARK = "has_dark"
+RES_HAS_FLAT = "has_flat"
+RES_BITPIX = "bitpix"
+RESAMPLED = "resampled"
+CHANNELS = "channels"
+COPY_WCS = "copy_wcs"
+RES_FILE_SIZE_BYTES = "file_size_bytes"
+RES_APPLY_STF = "apply_stf"
+RES_COPY_METADATA = "copy_metadata"
+RES_BIT_DEPTH = "bit_depth"
+RES_LABEL = "label"
 
 RES_HEADER = "header"
 RES_CARDS = "cards"

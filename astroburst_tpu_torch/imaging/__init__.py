@@ -1,5 +1,7 @@
 """Stretching: the screen transfer function (STF), the star mask (kernel
-K13) and the masked stretch."""
+K13) and the masked stretch. The batch calibration pipeline, the asinh
+preview and the bicubic resize are the modules
+``calibration_pipeline``, ``normalize`` and ``resample``."""
 
 from astroburst_tpu_torch.imaging.masked_stretch import (
     MaskedStretchConfig, MaskedStretchResult, masked_stretch,

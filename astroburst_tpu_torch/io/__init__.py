@@ -17,11 +17,13 @@ from astroburst_tpu_torch.io.fits_reader import (FitsImage, FitsRgb,
 from astroburst_tpu_torch.io.fits_writer import (write_fits_mono,
                                                  write_fits_rgb)
 from astroburst_tpu_torch.io.header import HduHeader, HduInfo
-from astroburst_tpu_torch.io.png import save_gray_png, save_rgb_png
+from astroburst_tpu_torch.io.png import (encode_gray_png, save_gray_png,
+                                         save_rgb_png)
 
 __all__ = [
     "HduHeader", "HduInfo", "FitsImage", "FitsRgb", "extract_image",
     "extract_image_by_index", "try_extract_rgb", "list_extensions",
-    "write_fits_mono", "write_fits_rgb", "save_gray_png", "save_rgb_png",
+    "write_fits_mono", "write_fits_rgb", "encode_gray_png", "save_gray_png",
+    "save_rgb_png",
     "resolve_single_image", "resolve_inputs",
 ]

@@ -18,6 +18,38 @@ from astroburst_tpu_torch.constants import BLOCK_SIZE
 from astroburst_tpu_torch.errors import FitsError
 from astroburst_tpu_torch.io.header import HduHeader
 
+# WCS keyword whitelist (writer.rs:10-19)
+WCS_PREFIXES = (
+    "CRPIX", "CRVAL", "CDELT", "CTYPE", "CUNIT", "CROTA",
+    "CD1_1", "CD1_2", "CD2_1", "CD2_2",
+    "PC1_1", "PC1_2", "PC2_1", "PC2_2",
+    "LONPOLE", "LATPOLE", "RADESYS", "EQUINOX", "EPOCH",
+    "A_ORDER", "B_ORDER", "AP_ORDER", "BP_ORDER",
+    "A_", "B_", "AP_", "BP_",
+    "PV1_", "PV2_",
+    "WCSAXES", "WCSNAME",
+)
+
+
+def is_wcs_card(key: str) -> bool:
+    return any(key.startswith(p) for p in WCS_PREFIXES)
+
+
+def filter_header(header: Optional[HduHeader], copy_wcs: bool,
+                  copy_metadata: bool) -> Optional[HduHeader]:
+    """Keep WCS cards, metadata cards, both, or none (writer.rs:25-52)."""
+    if header is None or (not copy_wcs and not copy_metadata):
+        return None
+    if copy_wcs and copy_metadata:
+        return header.copy()
+    if copy_wcs:
+        cards = [c for c in header.cards if is_wcs_card(c[0].strip())]
+    else:
+        cards = [c for c in header.cards if not is_wcs_card(c[0].strip())]
+    if not cards:
+        return None
+    return HduHeader(cards)
+
 
 def _card(key: str, value: str, comment: str = "") -> bytes:
     s = f"{key:<8}= {value:>20}"

@@ -26,32 +26,36 @@ def _png_chunk(tag: bytes, payload: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
 
 
-def _write_png(path: str, samples: np.ndarray, bit_depth: int,
-               colour: int) -> None:
-    """Write [H, W] (gray) or [H, W, 3] (RGB) samples at ``bit_depth``
-    8 (u8) or 16 (big-endian u16)."""
+def _png_bytes(samples: np.ndarray, bit_depth: int, colour: int) -> bytes:
+    """The PNG file of [H, W] (gray) or [H, W, 3] (RGB) samples cast to
+    u8 at ``bit_depth`` 8 or to big-endian u16 at 16."""
     dtype = ">u2" if bit_depth == 16 else np.uint8
     arr = np.ascontiguousarray(samples, dtype=dtype)
     h, w = arr.shape[:2]
     raw = arr.view(np.uint8).reshape(h, -1)
     scanlines = np.concatenate([np.zeros((h, 1), np.uint8), raw], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, bit_depth, colour, 0, 0, 0)
+    return b"".join((_SIGNATURE, _png_chunk(b"IHDR", ihdr),
+                     _png_chunk(b"IDAT", zlib.compress(scanlines, 6)),
+                     _png_chunk(b"IEND", b"")))
+
+
+def encode_gray_png(pixels: np.ndarray, bit_depth: int = 8) -> bytes:
+    """A mono u8 (or u16 at bit_depth 16) plane as PNG bytes in memory."""
+    arr = np.asarray(pixels)
+    if arr.ndim != 2:
+        raise InvalidInput(f"expected 2D grayscale, got {arr.shape}")
+    return _png_bytes(arr, 16 if bit_depth == 16 else 8, _GRAY)
+
+
+def _save(path: str, data: bytes) -> None:
     with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(_png_chunk(b"IHDR", ihdr))
-        f.write(_png_chunk(b"IDAT", zlib.compress(scanlines, 6)))
-        f.write(_png_chunk(b"IEND", b""))
+        f.write(data)
 
 
 def save_gray_png(pixels: np.ndarray, path: str, bit_depth: int = 8) -> None:
     """Save a mono u8 (or u16 at bit_depth 16) plane as PNG."""
-    arr = np.asarray(pixels)
-    if arr.ndim != 2:
-        raise InvalidInput(f"expected 2D grayscale, got {arr.shape}")
-    if bit_depth == 16:
-        _write_png(path, arr.astype(np.uint16), 16, _GRAY)
-    else:
-        _write_png(path, arr.astype(np.uint8), 8, _GRAY)
+    _save(path, encode_gray_png(pixels, bit_depth))
 
 
 def save_rgb_png(r: np.ndarray, g: np.ndarray, b: np.ndarray, path: str,
@@ -59,7 +63,4 @@ def save_rgb_png(r: np.ndarray, g: np.ndarray, b: np.ndarray, path: str,
     """Save three planes as an RGB PNG (u8, or true u16 at bit_depth 16,
     the reference's Rgb16 export, rgb.rs:49-95)."""
     rgb = np.stack([np.asarray(r), np.asarray(g), np.asarray(b)], axis=-1)
-    if bit_depth == 16:
-        _write_png(path, rgb.astype(np.uint16), 16, _RGB)
-    else:
-        _write_png(path, rgb.astype(np.uint8), 8, _RGB)
+    _save(path, _png_bytes(rgb, 16 if bit_depth == 16 else 8, _RGB))

@@ -7,19 +7,26 @@ flat is bias/dark-subtracted then mean-normalized), then
 ``(raw − bias − r·dark) / flat`` with |flat| ≤ 1e-4 guarded and the
 result clamped ≥ 0.
 
-Array level only: the JAX ``create_master_*`` functions load FITS
-paths and then apply exactly these functions (``median_combine`` of
-the stack, after subtracting the masters given, and
-``_mean_normalize`` for the flat). Plain elementwise torch and
+``create_master_bias``/``_dark``/``_flat`` take FITS paths, as the
+JAX functions do: the frames are decoded through
+``io/prefetch.DeviceLoader`` (into pinned memory on a CUDA device)
+straight into one [N, H, W] stack on the device, bypassing the image
+cache, then ``median_combine``d after subtracting the masters given
+(and ``_mean_normalize``d for the flat). Plain elementwise torch and
 ``torch.sort``: the JAX package runs none of this in a Pallas kernel.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+
+from astroburst_tpu_torch.errors import InvalidInput
+from astroburst_tpu_torch.io.fits_reader import extract_image
+from astroburst_tpu_torch.io.prefetch import prefetch_images
+from astroburst_tpu_torch.runtime.device import device_or_cuda
 
 
 @dataclass
@@ -81,3 +88,60 @@ def _mean_normalize(flat: torch.Tensor) -> torch.Tensor:
                            torch.ones_like(mean))
     normalized = torch.where(ok, flat * inv_mean, 1.0)
     return torch.where(cnt > 0, normalized, flat)
+
+
+def _load_stack(paths: Sequence[str],
+                device: Optional[torch.device] = None) -> torch.Tensor:
+    """[N, H, W] f32 on ``device`` (default ``cuda_device()``) from FITS
+    files, read as the JAX ``load_fits_image`` reads them (no ZIP or
+    directory resolution, no image cache); each frame must have the
+    first one's dims."""
+    device = device_or_cuda(device)
+    stack = None
+    for i, img in enumerate(prefetch_images(paths, loader=extract_image,
+                                            device=device)):
+        frame = img.image
+        if stack is None:
+            stack = torch.empty((len(paths),) + tuple(frame.shape),
+                                dtype=torch.float32, device=device)
+        elif tuple(frame.shape) != tuple(stack.shape[1:]):
+            raise InvalidInput(
+                f"Dimension mismatch: expected {tuple(stack.shape[1:])}, "
+                f"got {tuple(frame.shape)} ({paths[i]})")
+        stack[i] = frame
+    return stack
+
+
+def create_master_bias(bias_paths: Sequence[str], *,
+                       device: Optional[torch.device] = None
+                       ) -> torch.Tensor:
+    if not bias_paths:
+        raise InvalidInput("No bias frames provided")
+    return median_combine(_load_stack(bias_paths, device))
+
+
+def create_master_dark(dark_paths: Sequence[str],
+                       master_bias: Optional[torch.Tensor] = None, *,
+                       device: Optional[torch.device] = None
+                       ) -> torch.Tensor:
+    if not dark_paths:
+        raise InvalidInput("No dark frames provided")
+    stack = _load_stack(dark_paths, device)
+    if master_bias is not None:
+        stack -= master_bias[None]
+    return median_combine(stack)
+
+
+def create_master_flat(flat_paths: Sequence[str],
+                       master_bias: Optional[torch.Tensor] = None,
+                       master_dark: Optional[torch.Tensor] = None, *,
+                       device: Optional[torch.device] = None
+                       ) -> torch.Tensor:
+    if not flat_paths:
+        raise InvalidInput("No flat frames provided")
+    stack = _load_stack(flat_paths, device)
+    if master_bias is not None:
+        stack -= master_bias[None]
+    if master_dark is not None:
+        stack -= master_dark[None]
+    return _mean_normalize(median_combine(stack))

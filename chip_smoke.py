@@ -119,6 +119,30 @@ exits non-zero, and so does a machine without a CUDA device):
    u8 planes with their fetch, and RGB PNG), each command cold and warm,
    and the STF slider path (2048^2 downsample + u8 STF of a 4096^2
    plane, p50 over 60 calls), each beside the reference's own figure.
+   (h) calibrate → pipeline / drizzle → export
+   (``calibrate_export_path``): 4b's raw frames (16 bias, 16 dark, 16
+   flat, 10 lights of 4096^2) and its 10 calibrated lights written as
+   FITS under build/, with a 4096^2 plane carrying CD WCS cards and the
+   bench frame carrying CDELT ones; each command cold (empty image
+   cache) and warm: ``calibrate`` on light 0 (``_calibrated.fits``
+   bit-equal to 4b's ``calibrate``, its PNG equal to the card's STF
+   u8), ``run_pipeline_cmd`` on three channels of the 10 lights
+   (``master_*.fits`` and ``pipeline_rgb.fits`` bit-equal to
+   ``run_batch_pipeline`` on the card, each ``preview_b64`` equal to
+   the 1024 downsample of the u8 STF; no kernel), ``drizzle_stack_cmd``
+   on the 10 calibrated files (``drizzled.fits`` bit-equal to 4b's
+   ``drizzle_stack``; K1, K2 and K7 launched), ``resample_fits_cmd``
+   4096^2 → 2048^2 and 5655 x 2206 → 8192 x 3196 (within 1e-5 of the
+   plane's largest magnitude of a numpy tap oracle, ``wcs_updates``
+   exact), ``export_fits`` of ``drizzled.fits`` at BITPIX -32 (bit-equal)
+   and 16 (half a quantum + 2 ulp) with the STF on and off,
+   ``export_png`` mono at 8 and 16 bits (equal to the linear map) and
+   RGB on ``pipeline_rgb.fits`` (equal to the linked STF on the card),
+   ``export_fits_rgb`` from 4096^2 + 4096^2 + 2048^2 files (the resample
+   route) and from the composite cache, ``export_rgb_png`` (16 bits,
+   ``RGB_PNG_HW``^2 planes) and ``export_zip_bundle`` of the exports;
+   the counters are read after calibrate + pipeline (all 0), after the
+   drizzle command and after the exports (all 0).
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
@@ -1571,16 +1595,18 @@ STACK_CMD_KEYS = {"fits_path", "png_path", "dimensions", "frame_count",
                   "rejected_pixels", "offsets", "stats", "elapsed_ms"}
 
 
-def decode_png(path) -> np.ndarray:
-    """The u8 pixels ([H, W] gray or [H, W, 3] RGB) of an 8-bit PNG whose
-    scanlines all use filter 0 (the port's writer), decoded with zlib
-    alone."""
+def decode_png(path_or_bytes) -> np.ndarray:
+    """The pixels ([H, W] gray or [H, W, 3] RGB; u8, or u16 at bit depth
+    16) of a PNG file or of its bytes, whose scanlines all use filter 0
+    (the port's writer), decoded with zlib alone."""
     import struct
     import zlib
-    with open(path, "rb") as f:
-        blob = f.read()
+    blob = path_or_bytes
+    if not isinstance(blob, bytes):
+        with open(path_or_bytes, "rb") as f:
+            blob = f.read()
     if blob[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError(f"{path} is not a PNG")
+        raise AssertionError("not a PNG")
     pos, chunks = 8, {}
     while pos < len(blob):
         n, = struct.unpack(">I", blob[pos:pos + 4])
@@ -1588,14 +1614,15 @@ def decode_png(path) -> np.ndarray:
         chunks[tag] = chunks.get(tag, b"") + blob[pos + 8:pos + 8 + n]
         pos += 12 + n
     w, h, depth, colour = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
-    if depth != 8 or colour not in (0, 2):
-        raise AssertionError(f"{path}: bit depth {depth}, colour {colour}")
+    if depth not in (8, 16) or colour not in (0, 2):
+        raise AssertionError(f"PNG bit depth {depth}, colour {colour}")
     chans = 3 if colour == 2 else 1
     rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]),
-                         np.uint8).reshape(h, w * chans + 1)
+                         np.uint8).reshape(h, w * chans * depth // 8 + 1)
     if rows[:, 0].any():
-        raise AssertionError(f"{path}: a scanline filter other than 0")
-    return rows[:, 1:].reshape((h, w) if chans == 1 else (h, w, 3))
+        raise AssertionError("a PNG scanline filter other than 0")
+    px = rows[:, 1:].copy().view(">u2" if depth == 16 else np.uint8)
+    return px.reshape((h, w) if chans == 1 else (h, w, 3))
 
 
 def write_fits_frames(directory, frames) -> list:
@@ -2250,6 +2277,401 @@ def open_inspect_path(field, bench_frame, counters, smi):
         shutil.rmtree(root)
 
 
+# --- phase 4h: calibrate → pipeline / drizzle → export, from files -------
+
+REF_DRIZZLE_MS = 4200.0   # drizzle 10 x 4096^2 → 8192^2, BASELINE.md
+RGB_PNG_HW = 4096         # side of the planes of the RGB PNG exports
+BENCH_RESAMPLE_WH = (3196, 8192)   # the bench frame resampled: 5655 x 2206
+WCS_CARDS = [("OBJECT", "TEST"), ("FILTER", "Ha"),       # tests/
+             ("CRPIX1", "48"), ("CRPIX2", "48"),         # test_api_surface
+             ("CRVAL1", "150.0"), ("CRVAL2", "30.0"),    # .py:55-59
+             ("CD1_1", "-0.0002"), ("CD1_2", "0"), ("CD2_1", "0"),
+             ("CD2_2", "0.0002"), ("CTYPE1", "'RA---TAN'")]
+CDELT_CARDS = [("OBJECT", "'bench'"), ("CRPIX1", "1103.0"),
+               ("CRPIX2", "2827.5"), ("CDELT1", "-1.1E-5"),
+               ("CDELT2", "1.1E-5")]
+
+
+def catmull_rom_oracle(img: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """The Catmull-Rom resize (resample.rs:25-61) in numpy f32: per axis
+    the source coordinate s = t·scale + (scale − 1)/2, taps floor(s) − 1
+    .. + 2 clamped to the plane, weights in f64 rounded to f32, every
+    product and sum rounded, rows first, then columns."""
+    def axis(x, n_tgt, ax):
+        n_src = x.shape[ax]
+        scale = n_src / n_tgt
+        s = np.arange(n_tgt) * scale + (scale - 1.0) * 0.5
+        i0 = np.floor(s).astype(np.int64)
+        out = None
+        for j in range(4):
+            a = np.abs(s - i0 - (j - 1))
+            w = np.where(a <= 1.0, a * a * (1.5 * a - 2.5) + 1.0,
+                         np.where(a <= 2.0,
+                                  a * (a * (2.5 - 0.5 * a) - 4.0) + 2.0,
+                                  0.0)).astype(np.float32)
+            w = w[:, None] if ax == 0 else w[None, :]
+            term = w * np.take(x, np.clip(i0 + j - 1, 0, n_src - 1), axis=ax)
+            out = term if out is None else out + term
+        return out
+    return axis(axis(img, rows, 0), cols, 1)
+
+
+def wcs_oracle(cards, orig, tgt) -> dict:
+    """CRPIX/CD (or CDELT) rescaled to the target dims, host f64
+    (resample.rs:63-109), plus NAXIS1/2."""
+    v = {k: float(x) for k, x in cards if k.startswith(("CRPIX", "CD"))}
+    sx, sy = orig[1] / tgt[1], orig[0] / tgt[0]
+    out = {}
+    for k, sc in (("CRPIX1", sx), ("CRPIX2", sy)):
+        if k in v:
+            out[k] = (v[k] - 0.5) / sc + 0.5
+    pairs = ((("CD1_1", sx), ("CD1_2", sy), ("CD2_1", sx), ("CD2_2", sy))
+             if "CD1_1" in v else (("CDELT1", sx), ("CDELT2", sy)))
+    for k, sc in pairs:
+        if k in v:
+            out[k] = v[k] * sc
+    out["NAXIS1"], out["NAXIS2"] = float(tgt[1]), float(tgt[0])
+    return out
+
+
+def calibrate_export_path(bias, darks, flats, lights, calibrated, dres,
+                          bench_frame, counters, smi):
+    """Phase 4h: the calibrate, pipeline, drizzle, resample and export
+    commands on files written under build/ from phase 4b's scene (16
+    bias, 16 dark, 16 flat and 10 raw lights of 4096^2, and the 10 lights
+    4b calibrated) and a bench frame. Each command runs cold (empty image
+    cache) and warm, timed on the host clock ending in a synchronize, and
+    is checked against what the card computes from the in-memory tensors
+    (``calibrated`` and ``dres`` are 4b's ``calibrate`` and
+    ``drizzle_stack``). The kernel counters are reset before and read
+    after each of three runs: calibrate + pipeline (no kernel: every
+    count 0), the drizzle command (K1, K2 and K7 launched), and the
+    resample + export commands (no kernel); the composite exports run
+    "cold" with the composite alone in the cache. Returns (launches
+    summed over the three runs, times in ms)."""
+    import base64
+    import os
+    import shutil
+    import tempfile
+    import zipfile
+    import torch
+    from astroburst_tpu_torch import api
+    from astroburst_tpu_torch.api import helpers
+    from astroburst_tpu_torch.dtypes import StfParams
+    from astroburst_tpu_torch.imaging.calibration_pipeline import (
+        ChannelInput, run_batch_pipeline)
+    from astroburst_tpu_torch.imaging.resample import resample_image
+    from astroburst_tpu_torch.imaging.stf import (apply_stf_f32,
+                                                  apply_stf_u8, auto_stf)
+    from astroburst_tpu_torch.io import (extract_image, try_extract_rgb,
+                                         write_fits_mono, write_fits_rgb)
+    from astroburst_tpu_torch.io.header import HduHeader
+    from astroburst_tpu_torch.ops.ipc import nearest_downsample
+    from astroburst_tpu_torch.ops.stats import compute_image_stats
+    from astroburst_tpu_torch.runtime.cache import GLOBAL_IMAGE_CACHE
+    dev = lights.device
+    hw = lights.shape[-1]
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="calibrate_export_", dir=build)
+    out = os.path.join(root, "out")
+    cmd_ms = {}
+    t_phase = time.perf_counter()
+
+    def run(name, fn):
+        """(cold result, warm result): fn() with the image cache emptied
+        first, then again; both timed on the host clock."""
+        res = []
+        for temp in ("cold", "warm"):
+            if temp == "cold":
+                GLOBAL_IMAGE_CACHE.clear()
+            r, cmd_ms[f"{name}_{temp}"] = host_ms(fn)
+            res.append(r)
+        return res
+
+    def expect(what, cond, detail=""):
+        if not cond:
+            raise AssertionError(f"{what} {detail}")
+
+    def fits(path):
+        return torch.from_numpy(extract_image(path).image).to(dev)
+
+    def reset():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in counters.items()}
+
+    try:
+        t0 = time.perf_counter()
+        paths = {name: write_fits_frames(os.path.join(root, name), stack)
+                 for name, stack in (("bias", bias), ("dark", darks),
+                                     ("flat", flats), ("light", lights),
+                                     ("calibrated", calibrated))}
+        p_wcs = os.path.join(root, "wcs_4096.fits")
+        write_fits_mono(p_wcs, calibrated[0].cpu().numpy(),
+                        HduHeader(WCS_CARDS))
+        p_bench = os.path.join(root, "bench.fits")
+        write_fits_mono(p_bench, bench_frame.cpu().numpy(),
+                        HduHeader(CDELT_CARDS))
+        nbytes = sum(os.path.getsize(p) for ps in paths.values() for p in ps)
+        log(f"[data] calibrate/export: {sum(map(len, paths.values()))} "
+            f"FITS files of {hw}^2, {nbytes / 1e9:.2f} GB, and two to "
+            f"resample (written in {time.perf_counter() - t0:.1f} s)")
+        cal = {"bias_paths": paths["bias"], "dark_paths": paths["dark"],
+               "flat_paths": paths["flat"]}
+
+        # -- calibrate and run_pipeline_cmd: no kernel -------------------
+        reset()
+        for res in run("calibrate", lambda: api.calibrate(
+                paths["light"][0], out, **cal)):
+            img = fits(res["fits_path"])
+            expect("calibrate: _calibrated.fits", torch.equal(
+                img, calibrated[0]), "differs from phase 4b's calibrate()")
+            st = compute_image_stats(calibrated[0])
+            expect("calibrate: stats", all(
+                v == getattr(st, k) for k, v in res["stats"].items()))
+            expect("calibrate: flags", (res["has_bias"], res["has_dark"],
+                                        res["has_flat"]) == (True,) * 3)
+            expect("calibrate: PNG", np.array_equal(
+                decode_png(res["png_path"]),
+                apply_stf_u8(calibrated[0], auto_stf(st), st).cpu().numpy()))
+        channels = [{"label": c, "lights": paths["light"]} for c in "RGB"]
+        ref = run_batch_pipeline([ChannelInput(c, list(lights))
+                                  for c in "RGB"],
+                                 array_masters(bias, darks, flats))
+        for res in run("run_pipeline_cmd", lambda: api.run_pipeline_cmd(
+                channels, out, **cal)):
+            expect("run_pipeline_cmd: stats", res["stats"] == ref.stats,
+                   f"{res['stats']} != {ref.stats}")
+            for ch, (label, master) in zip(res["channels"],
+                                           ref.master_channels):
+                expect(f"master_{label}.fits", ch["label"] == label and
+                       torch.equal(fits(ch["fits_path"]), master),
+                       "differs from run_batch_pipeline on the card")
+                st = compute_image_stats(master)
+                want = nearest_downsample(apply_stf_u8(
+                    master, auto_stf(st), st), 1024).cpu().numpy()
+                expect(f"preview_b64 of {label}", np.array_equal(
+                    decode_png(base64.b64decode(ch["preview_b64"])), want))
+            rgb = try_extract_rgb(res["rgb_fits_path"])
+            expect("pipeline_rgb.fits", all(np.array_equal(
+                p, m.cpu().numpy()) for p, (_, m) in zip(
+                    (rgb.r, rgb.g, rgb.b), ref.master_channels)))
+        launches_cal = read()
+        expect("calibrate + run_pipeline_cmd launched a kernel:",
+               not any(launches_cal.values()), launches_cal)
+        p_rgb = res["rgb_fits_path"]
+        log(f"[path] calibrate: _calibrated.fits bit-equal to phase 4b's "
+            f"calibrate(), PNG equal to the card's STF u8; run_pipeline_cmd "
+            f"(3 x {len(paths['light'])} lights, masters from "
+            f"{sum(len(cal[k]) for k in cal)} files): "
+            f"masters and pipeline_rgb.fits bit-equal to run_batch_pipeline "
+            f"on the card, previews equal; rejected per frame "
+            f"{ref.stats['channels'][0]['lights_after_rejection']}; kernel "
+            f"launches {launches_cal}")
+        del ref
+        for name in ("bias", "dark", "flat", "light"):
+            shutil.rmtree(os.path.join(root, name))
+
+        # -- drizzle_stack_cmd: K1, K2, K7 -------------------------------
+        reset()
+        drz = run("drizzle_stack_cmd", lambda: api.drizzle_stack_cmd(
+            paths["calibrated"], out))
+        launches_drz = read()
+        for res in drz:
+            expect("drizzled.fits", torch.equal(fits(res["fits_path"]),
+                                                dres.image),
+                   "differs from drizzle_stack(calibrated) of phase 4b")
+            expect("drizzle_stack_cmd: response",
+                   res["offsets"] == [[dx, dy] for dx, dy in dres.offsets]
+                   and res["rejected_pixels"] == dres.rejected_pixels
+                   and res["output_dims"] == list(dres.output_dims[::-1])
+                   and res["input_dims"] == [hw, hw] and res["scale"] == 2.0
+                   and res["frame_count"] == len(paths["calibrated"]),
+                   {k: v for k, v in res.items() if k != "stats"})
+        for name in ("coarse_box", "gather_crops", "drizzle_finalize_fused"):
+            expect(f"{name} never ran in drizzle_stack_cmd:",
+                   launches_drz[name] > 0, launches_drz)
+        log(f"[path] drizzle_stack_cmd ({len(paths['calibrated'])} "
+            f"calibrated FITS files, scale 2 → {dres.image.shape[0]}^2): "
+            f"drizzled.fits bit-equal to phase 4b's drizzle_stack, offsets "
+            f"and rejected count equal; kernel launches (cold + warm) "
+            f"{launches_drz}")
+        p_drz = drz[1]["fits_path"]
+        drz_img = dres.image
+
+        # -- resample and export: no kernel ------------------------------
+        reset()
+        resampled = {}
+        for what, path, cards, (tw, th) in (
+                ("resample_4096_to_2048", p_wcs, WCS_CARDS, (hw // 2,) * 2),
+                ("resample_bench", p_bench, CDELT_CARDS,
+                 BENCH_RESAMPLE_WH)):
+            src = extract_image(path).image
+            want = catmull_rom_oracle(src, th, tw)
+            want_wcs = wcs_oracle(cards, src.shape, (th, tw))
+            for res in run(what, lambda: api.resample_fits_cmd(
+                    path, out, tw, th)):
+                got = extract_image(res["fits_path"]).image
+                d = float(np.abs(got - want).max())
+                expect(what, got.shape == (th, tw) and
+                       d <= 1e-5 * float(np.abs(want).max()),
+                       f"{got.shape}, max|d| {d} against the tap oracle")
+                expect(f"{what}: wcs_updates", res["wcs_updates"] ==
+                       want_wcs, f"{res['wcs_updates']} != {want_wcs}")
+            resampled[what] = (res["fits_path"], d)
+        log(f"[path] resample_fits_cmd: {hw}^2 → {hw // 2}^2 and "
+            f"{tuple(bench_frame.shape)} → {BENCH_RESAMPLE_WH[::-1]}, max|d| "
+            f"against the numpy tap oracle "
+            f"{[d for _, d in resampled.values()]}, wcs_updates exact")
+
+        exports = []
+        st_drz = compute_image_stats(drz_img)
+        user = StfParams(shadow=0.01, midtone=0.3, highlight=1.0)
+        for bitpix in (-32, 16):
+            for stf in (False, True):
+                o = os.path.join(root, f"drizzled_{bitpix}_{int(stf)}.fits")
+                kw = dict(apply_stf_stretch=stf, shadow=user.shadow,
+                          midtone=user.midtone, bitpix=bitpix)
+                run(f"export_fits_{bitpix}_stf{int(stf)}",
+                    lambda: api.export_fits(p_drz, o, **kw))
+                exports.append(o)
+                want = apply_stf_f32(drz_img, user, st_drz) if stf else \
+                    drz_img
+                got = fits(o)
+                if bitpix == -32:
+                    expect(f"export_fits -32 stf={stf}",
+                           torch.equal(got, want))
+                else:
+                    hdr = extract_image(o).header
+                    mx = float(want[torch.isfinite(want)].abs().max())
+                    tol = 0.5 * hdr.get_f64("BSCALE") + 2 * float(
+                        np.spacing(np.float32(mx)))
+                    d = float((got - want).abs().max())
+                    expect(f"export_fits 16 stf={stf}", d <= tol,
+                           f"max|d| {d} > {tol}")
+
+        light0 = calibrated[0]
+        host0 = light0.cpu().numpy()
+        finite = host0[np.isfinite(host0)]
+        mn, mx = float(finite.min()), float(finite.max())
+        lin = np.where(np.isfinite(host0),
+                       np.clip((host0 - mn) / max(mx - mn, 1e-30), 0, 1), 0.0)
+        for depth in (8, 16):
+            o = os.path.join(root, f"light0_{depth}.png")
+            run(f"export_png_mono_{depth}", lambda: api.export_png(
+                paths["calibrated"][0], o, depth))
+            exports.append(o)
+            top = 65535.0 if depth == 16 else 255.0
+            want = (np.clip(lin, 0.0, 1.0) * top).astype(
+                np.uint16 if depth == 16 else np.uint8)
+            expect(f"export_png mono {depth}",
+                   np.array_equal(decode_png(o), want))
+
+        def u16(planes):
+            return np.stack([(np.clip(p.cpu().numpy(), 0.0, 1.0) * 65535.0
+                              ).astype(np.uint16) for p in planes], -1)
+
+        side = min(RGB_PNG_HW, hw)
+        masters = [fits(os.path.join(out, f"master_{c}.fits"))[
+            :side, :side].contiguous() for c in "RGB"]
+        if side != hw:
+            p_rgb = os.path.join(root, f"pipeline_rgb_{side}.fits")
+            write_fits_rgb(p_rgb, *(m.cpu().numpy() for m in masters))
+        o = os.path.join(root, "pipeline_rgb.png")
+        run("export_png_rgb_16", lambda: api.export_png(p_rgb, o))
+        exports.append(o)
+        sts = [compute_image_stats(m) for m in masters]
+        linked = helpers.compute_linked_stf(*sts)
+        expect("export_png rgb", np.array_equal(decode_png(o), u16(
+            [apply_stf_f32(m, linked, st) for m, st in zip(masters, sts)])))
+
+        # export_fits_rgb from three files (4096^2, 4096^2, 2048^2: the
+        # resample route), then from the composite cache
+        p_half = resampled["resample_4096_to_2048"][0]
+        o = os.path.join(root, "rgb_files.fits")
+        run("export_fits_rgb_files", lambda: api.export_fits_rgb(
+            o, paths["calibrated"][0], paths["calibrated"][1], p_half))
+        exports.append(o)
+        want = [calibrated[0], calibrated[1],
+                resample_image(fits(p_half), hw, hw)]
+        got = try_extract_rgb(o)
+        expect("export_fits_rgb (files)", all(np.array_equal(
+            g, w.cpu().numpy()) for g, w in zip((got.r, got.g, got.b),
+                                                want)))
+        # the composite cache: three calibrated lights (cold: the cache
+        # holds the composite alone)
+        comp = [c[:side, :side].contiguous() for c in calibrated[:3]]
+        sts = [compute_image_stats(c) for c in comp]
+        GLOBAL_IMAGE_CACHE.clear()
+        helpers.insert_composite_rgb(*comp, *sts)
+        o = os.path.join(root, "rgb_composite.fits")
+        for temp in ("cold", "warm"):
+            _, cmd_ms[f"export_fits_rgb_composite_{temp}"] = host_ms(
+                lambda: api.export_fits_rgb(o, paths["calibrated"][0]))
+        got = try_extract_rgb(o)
+        expect("export_fits_rgb (composite)", all(np.array_equal(
+            g, c.cpu().numpy()) for g, c in zip((got.r, got.g, got.b),
+                                                comp)))
+        exports.append(o)
+        o = os.path.join(root, "rgb_composite.png")
+        prm = [StfParams(0.01, 0.3, 1.0), StfParams(0.02, 0.35, 1.0),
+               StfParams(0.0, 0.25, 0.95)]
+        kw = dict(shadow_r=0.01, midtone_r=0.3, shadow_g=0.02,
+                  midtone_g=0.35, shadow_b=0.0, midtone_b=0.25,
+                  highlight_b=0.95)
+        for temp in ("cold", "warm"):
+            _, cmd_ms[f"export_rgb_png_16_{temp}"] = host_ms(
+                lambda: api.export_rgb_png(o, **kw))
+        exports.append(o)
+        expect("export_rgb_png", np.array_equal(decode_png(o), u16(
+            [apply_stf_f32(c, p, st) for c, p, st in zip(comp, prm, sts)])))
+        GLOBAL_IMAGE_CACHE.remove_prefix("__composite")
+
+        zpath = os.path.join(root, "bundle.zip")
+        res = run("export_zip_bundle", lambda: api.export_zip_bundle(
+            exports, zpath))[1]
+        with zipfile.ZipFile(zpath) as zf:
+            names = zf.namelist()
+        expect("export_zip_bundle", res["skipped"] == [] and
+               len(names) == len(exports) == len(res["files"]), names)
+        launches_exp = read()
+        expect("resample + export launched a kernel:",
+               not any(launches_exp.values()), launches_exp)
+        log(f"[path] export: export_fits of drizzled.fits at BITPIX -32 "
+            f"(bit-equal) and 16 (half a quantum), STF on and off; "
+            f"export_png mono 8/16 bits equal to the linear map, RGB "
+            f"({side}^2, 16 bits) equal to the linked STF on the card; "
+            f"export_fits_rgb from {hw}^2 + {hw}^2 + {hw // 2}^2 files "
+            f"(resample route) and from the composite cache; export_rgb_png ({side}^2, "
+            f"16 bits); export_zip_bundle of {len(names)} files; kernel "
+            f"launches {launches_exp}")
+
+        launches = {k: launches_cal[k] + launches_drz[k] + launches_exp[k]
+                    for k in launches_drz}
+        times = {"commands_ms": cmd_ms,
+                 "phase_s": time.perf_counter() - t_phase}
+        ref_note = "(reference: BASELINE.md, a Ryzen 9 7950X)"
+        log(f"[time] {smi}: drizzle_stack_cmd {len(paths['calibrated'])} x "
+            f"{hw}^2 → {drz_img.shape[0]}^2 from FITS: cold "
+            f"{cmd_ms['drizzle_stack_cmd_cold']:.3f} ms, warm "
+            f"{cmd_ms['drizzle_stack_cmd_warm']:.3f} ms; beside "
+            f"{REF_DRIZZLE_MS:.0f} ms for the reference's drizzle "
+            f"{ref_note}, as context, not a claim")
+        log(f"[time] {smi}: calibrate/pipeline/drizzle/export commands "
+            f"(phase 4h {times['phase_s']:.1f} s with its files and "
+            f"checks): " + json.dumps(times))
+        GLOBAL_IMAGE_CACHE.clear()
+        return launches, times
+    finally:
+        shutil.rmtree(root)
+
+
 def stf_preview(img):
     """stats_core → auto-STF → u8 stretch of one plane: (stf [2], u8)."""
     import torch
@@ -2263,15 +2685,21 @@ def stf_preview(img):
             apply_stf_traced(img, mn, mx, shadow, midtone, as_u8=True))
 
 
-def calibrate(bias, darks, flats, lights):
-    """Masters from the raw stacks (the array forms of create_master_*),
-    then every light calibrated."""
+def array_masters(bias, darks, flats):
+    """The masters from the raw stacks (the array forms of
+    create_master_*), as a CalibrationConfig."""
     from astroburst_tpu_torch.stacking import calibration as CAL
     mb = CAL.median_combine(bias)
     md = CAL.median_combine(darks - mb[None])
     mf = CAL._mean_normalize(CAL.median_combine(flats - mb[None] - md[None]))
-    cfg = CAL.CalibrationConfig(master_bias=mb, master_dark=md,
-                                master_flat=mf)
+    return CAL.CalibrationConfig(master_bias=mb, master_dark=md,
+                                 master_flat=mf)
+
+
+def calibrate(bias, darks, flats, lights):
+    """Masters from the raw stacks, then every light calibrated."""
+    from astroburst_tpu_torch.stacking import calibration as CAL
+    cfg = array_masters(bias, darks, flats)
     return [CAL.calibrate_image(f, cfg) for f in lights]
 
 
@@ -2882,6 +3310,11 @@ def main() -> None:
         f"{ms_bp:.3f} ms (peak {peak_bp / 2**30:.2f} GiB)")
     log(f"[time] {smi}: calibrate (16+16+16 masters, {DRZ_N} lights) → "
         f"drizzle_stack → stats/STF/u8: {ms_full:.3f} ms")
+
+    # ---- 4h. calibrate → pipeline / drizzle → export, from files -------
+    launches_export, _ = calibrate_export_path(
+        bias, darks, flats, lights, calibrated, dres, bench_frame, counters,
+        smi)
     del bias, darks, flats, lights, calibrated, dres
 
     # ---- 4e. the parity drizzle (K9): calibrated lights, drizzle bench ---
@@ -3117,7 +3550,8 @@ def main() -> None:
                  launches_mask,
              "drizzle_exact_parity(calibrated,bench)": launches_parity,
              "stack(command)": launches_cmd,
-             "open_and_inspect(commands)": launches_open}
+             "open_and_inspect(commands)": launches_open,
+             "calibrate+pipeline+drizzle+export(commands)": launches_export}
     kernels = []
     for name, (source, replaces) in meta.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

@@ -502,7 +502,11 @@ def test_commands_have_the_jax_signature_plus_device():
                      "compute_histogram", "compute_histogram_cmd",
                      "get_header", "get_full_header", "get_fits_extensions",
                      "get_header_by_hdu", "detect_narrowband_filters",
-                     "get_output_dir_info", "cleanup_output_cmd", "stack"}
+                     "get_output_dir_info", "cleanup_output_cmd", "stack",
+                     "calibrate", "run_pipeline_cmd", "drizzle_stack_cmd",
+                     "export_fits", "export_fits_rgb", "export_png",
+                     "export_rgb_png", "resample_fits_cmd",
+                     "export_zip_bundle"}
     assert tapi.compute_histogram is tapi.compute_histogram_cmd
     for name in names:
         got = inspect.signature(getattr(tapi, name)).parameters
@@ -529,7 +533,16 @@ def test_commands_without_a_device_raise_where_there_is_no_card(tmp_path,
              ("get_header_by_hdu", (path, 0)),
              ("detect_narrowband_filters", ([path],)),
              ("get_output_dir_info", (out,)), ("cleanup_output_cmd", (out,)),
-             ("stack", ([path], out))]
+             ("stack", ([path], out)),
+             ("calibrate", (path, out, [path])),
+             ("run_pipeline_cmd", ([{"lights": [path]}], out)),
+             ("drizzle_stack_cmd", ([path, path], out)),
+             ("export_fits", (path, out + ".fits")),
+             ("export_fits_rgb", (out + ".fits", path, path, path)),
+             ("export_png", (path, out + ".png")),
+             ("export_rgb_png", (out + ".png",)),
+             ("resample_fits_cmd", (path, out, 8, 8)),
+             ("export_zip_bundle", ([path], out + ".zip"))]
     assert {n for n, _ in calls} | {"compute_histogram_cmd"} == \
         set(tapi.__all__)
     for name, args in calls:

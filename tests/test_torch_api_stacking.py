@@ -192,3 +192,226 @@ def test_stack_past_128_frames_and_the_cache_matches_jax(tmp_path):
     want = japi.stack(paths, str(tmp_path / "j"))
     _compare(got, want, 130)
     assert len(JCACHE.keys()) == len(GLOBAL_IMAGE_CACHE.keys()) == 32
+
+
+# ---- calibrate, run_pipeline_cmd, drizzle_stack_cmd ----------------------
+#
+# Tolerances: the RES_* keys and the flags equal; images as the array
+# functions' tests hold them (tests/test_torch_calibration.py: bit-equal
+# without a flat, rtol 1e-6 with one, whose mean is a sum in another
+# order; tests/test_torch_calibration_pipeline.py for the pipeline;
+# tests/test_torch_drizzle.py for the drizzle: offsets 1e-3 px, image
+# atol 2e-4 / rtol 1e-6, rejected count equal); FITS header bytes equal;
+# stats within C5 of JAX's stats of the same image (as ``_compare``);
+# PNG previews within one grey level of JAX's (auto-STF from each
+# package's stats) and equal to the port's own STF of the written image.
+
+import base64
+import io as _io
+
+from astroburst_tpu.stacking import calibration as jcal
+from astroburst_tpu_torch.imaging.stf import apply_stf_u8
+from astroburst_tpu_torch.io.png import encode_gray_png
+from astroburst_tpu_torch.ops.ipc import nearest_downsample
+from astroburst_tpu_torch.ops.stats import compute_image_stats
+from tests.test_torch_calibration_pipeline import (_cal_files, _lights,
+                                                   flip_bound)
+from tests.test_torch_drizzle import _star_frames
+
+
+def _stats_close(got_stats, img):
+    ref = jstats(np.asarray(img))
+    assert set(got_stats) == {"min", "max", "mean", "sigma", "median",
+                              "mad"}
+    assert (got_stats["min"], got_stats["max"]) == (ref.min, ref.max)
+    assert got_stats["mean"] == pytest.approx(ref.mean, rel=1e-6)
+    tol = 2 * (ref.max - ref.min) * C5
+    for k in ("median", "mad"):
+        assert abs(got_stats[k] - getattr(ref, k)) <= tol, k
+
+
+def _preview_close(got_png, want_png, img):
+    """Within one level of JAX's preview, equal to the port's STF'd
+    downsample of ``img`` with the port's stats."""
+    png = _decode_png(got_png)[0]
+    j_png = np.asarray(Image.open(want_png))
+    assert png.shape == j_png.shape
+    assert int(np.abs(png.astype(int) - j_png).max()) <= 1
+    t = torch.from_numpy(img)
+    st = compute_image_stats(t)
+    again = os.path.join(os.path.dirname(got_png), "again.png")
+    save_stf_preview_png(t, auto_stf(st), st, again)
+    np.testing.assert_array_equal(_decode_png(again)[0], png)
+
+
+CAL_KEYS = {JC.RES_FITS_PATH, JC.RES_PNG_PATH, JC.RES_DIMENSIONS,
+            JC.RES_HAS_BIAS, JC.RES_HAS_DARK, JC.RES_HAS_FLAT,
+            JC.RES_STATS, JC.RES_ELAPSED_MS}
+
+
+@pytest.mark.parametrize("which", ["all", "bias_dark", "none"])
+def test_calibrate_command_matches_jax(tmp_path, rng, which):
+    paths, (bias, dark, flat) = _cal_files(str(tmp_path / "cal"), rng)
+    light = _lights(rng, n=2, masters=(bias, dark, flat))[1]   # a NaN
+    lp = str(tmp_path / "light_M42.fits")
+    write_fits_mono(lp, light, HduHeader([("OBJECT", "'M 42'"),
+                                          ("EXPTIME", "60.0")]))
+    kw = {"all": dict(bias_paths=paths["bias"], dark_paths=paths["dark"],
+                      flat_paths=paths["flat"], dark_exposure_ratio=0.5),
+          "bias_dark": dict(bias_paths=paths["bias"],
+                            dark_paths=paths["dark"]),
+          "none": {}}[which]
+    got = tapi.calibrate(lp, str(tmp_path / "t"), **kw, device=CPU)
+    want = japi.calibrate(lp, str(tmp_path / "j"), **kw)
+    assert set(got) == set(want) == CAL_KEYS
+    for k in (C.RES_DIMENSIONS, C.RES_HAS_BIAS, C.RES_HAS_DARK,
+              C.RES_HAS_FLAT):
+        assert got[k] == want[k], k
+    assert got[C.RES_HAS_FLAT] == (which == "all")
+    assert got[C.RES_DIMENSIONS] == [72, 56]
+    assert os.path.basename(got[C.RES_FITS_PATH]) == \
+        "light_M42_calibrated.fits"
+    assert os.path.basename(got[C.RES_PNG_PATH]) == \
+        "light_M42_calibrated.png"
+    img = extract_image(got[C.RES_FITS_PATH]).image
+    j_img = jextract(want[C.RES_FITS_PATH]).image
+    if which == "all":
+        np.testing.assert_allclose(img, j_img, rtol=1e-6, atol=0)
+    else:
+        np.testing.assert_array_equal(img, j_img)
+    assert _header_bytes(got[C.RES_FITS_PATH]) == \
+        _header_bytes(want[C.RES_FITS_PATH])
+    _stats_close(got[C.RES_STATS], img)
+    _preview_close(got[C.RES_PNG_PATH], want[C.RES_PNG_PATH], img)
+    # the same masters as the array functions on the same frames
+    mb = jcal.create_master_bias(paths["bias"])
+    if which == "none":
+        np.testing.assert_array_equal(img, np.maximum(light, 0))
+    elif which == "bias_dark":
+        md = jcal.create_master_dark(paths["dark"], mb)
+        np.testing.assert_array_equal(
+            img, np.maximum(light - np.asarray(mb) - np.asarray(md), 0))
+
+
+PIPE_KEYS = {JC.CHANNELS, "stats", JC.RES_HAS_BIAS, JC.RES_HAS_DARK,
+             JC.RES_HAS_FLAT, JC.RES_ELAPSED_MS}
+
+
+def _b64_pixels(b64):
+    return np.asarray(Image.open(_io.BytesIO(base64.b64decode(b64))))
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_run_pipeline_cmd_matches_jax(tmp_path, rng, normalize):
+    paths, masters = _cal_files(str(tmp_path / "cal"), rng)
+    chans = []
+    for lbl in ("R", "G", "B"):
+        lp = []
+        for k, f in enumerate(_lights(rng, masters=masters)):
+            lp.append(str(tmp_path / f"{lbl}_{k}.fits"))
+            write_fits_mono(lp[-1], f)
+        chans.append({"label": lbl, "lights": lp})
+    kw = dict(bias_paths=paths["bias"], dark_paths=paths["dark"],
+              flat_paths=paths["flat"], sigma_low=2.0,
+              normalize_before_stack=normalize)
+    got = tapi.run_pipeline_cmd(chans, str(tmp_path / "t"), **kw,
+                                device=CPU)
+    want = japi.run_pipeline_cmd(chans, str(tmp_path / "j"), **kw)
+    assert set(got) == set(want) == PIPE_KEYS | {"rgb_fits_path"}
+    for k in (C.RES_HAS_BIAS, C.RES_HAS_DARK, C.RES_HAS_FLAT):
+        assert got[k] is want[k] is True
+    assert set(got["stats"]) == set(want["stats"])
+    bound = flip_bound(5, 56 * 72)
+    masters_t = []
+    for g, w, gs, ws in zip(got[C.CHANNELS], want[C.CHANNELS],
+                            got["stats"]["channels"],
+                            want["stats"]["channels"]):
+        assert set(g) == set(w) == {"label", "fits_path", "preview_b64"}
+        assert g["label"] == w["label"]
+        assert os.path.basename(g["fits_path"]) == \
+            f"master_{g['label']}.fits"
+        m = extract_image(g["fits_path"]).image
+        jm = jextract(w["fits_path"]).image
+        masters_t.append(m)
+        assert _header_bytes(g["fits_path"]) == _header_bytes(w["fits_path"])
+        if normalize:
+            # the flat's mean and each frame's mean are sums in another
+            # order: the masters within 1e-5 except flips
+            assert int((np.abs(m - jm) > 1e-5).sum()) <= bound
+            for k in ("mean", "stddev"):
+                assert gs[k] == pytest.approx(ws[k], rel=1e-5)
+        else:
+            np.testing.assert_allclose(m, jm, rtol=0, atol=2e-6)
+            assert gs["lights_after_rejection"] == \
+                ws["lights_after_rejection"]
+        # the previews: STF'd to u8 first, then the 1024 downsample
+        px = _b64_pixels(g["preview_b64"])
+        assert int(np.abs(px.astype(int) - _b64_pixels(
+            w["preview_b64"])).max()) <= 1
+        t = torch.from_numpy(m)
+        st = compute_image_stats(t)
+        u8 = nearest_downsample(apply_stf_u8(t, auto_stf(st), st), 1024)
+        assert base64.b64decode(g["preview_b64"]) == \
+            encode_gray_png(u8.numpy())
+    rgb = extract_image(got["rgb_fits_path"])
+    from astroburst_tpu_torch.io import try_extract_rgb
+    planes = try_extract_rgb(got["rgb_fits_path"])
+    for p, m in zip((planes.r, planes.g, planes.b), masters_t):
+        np.testing.assert_array_equal(p, m)
+    assert rgb.image.shape == (56, 72)
+
+
+def test_run_pipeline_cmd_one_channel_no_masters_matches_jax(tmp_path, rng):
+    lp = []
+    for k, f in enumerate(_lights(rng, n=4)):
+        lp.append(str(tmp_path / f"L_{k}.fits"))
+        write_fits_mono(lp[-1], f)
+    chans = [{"lights": lp}]
+    got = tapi.run_pipeline_cmd(chans, str(tmp_path / "t"),
+                                normalize_before_stack=False, device=CPU)
+    want = japi.run_pipeline_cmd(chans, str(tmp_path / "j"),
+                                 normalize_before_stack=False)
+    assert set(got) == set(want) == PIPE_KEYS
+    assert got["stats"] == want["stats"]
+    assert got[C.CHANNELS][0]["label"] == "L"
+    np.testing.assert_array_equal(
+        extract_image(got[C.CHANNELS][0]["fits_path"]).image,
+        jextract(want[C.CHANNELS][0]["fits_path"]).image)
+
+
+DRZ_KEYS = {JC.RES_FITS_PATH, JC.RES_PNG_PATH, JC.RES_INPUT_DIMS,
+            JC.RES_OUTPUT_DIMS, JC.RES_SCALE, JC.RES_FRAME_COUNT,
+            JC.RES_REJECTED_PIXELS, JC.RES_OFFSETS, JC.RES_STATS,
+            JC.RES_ELAPSED_MS}
+
+
+@pytest.mark.parametrize("args", [{}, {"scale": 1.5, "pixfrac": 0.5,
+                                       "sigma": 2.5, "sigma_iterations": 3}],
+                         ids=["defaults", "scale_1_5"])
+def test_drizzle_stack_cmd_matches_jax(tmp_path, rng, args):
+    frames, dith = _star_frames(rng, n=5, h=64, w=80)
+    frames[2][10:12, 30] = np.nan
+    paths = _write_frames(str(tmp_path / "in"), frames)
+    got = tapi.drizzle_stack_cmd(paths, str(tmp_path / "t"), **args,
+                                 device=CPU)
+    want = japi.drizzle_stack_cmd(paths, str(tmp_path / "j"), **args)
+    assert set(got) == set(want) == DRZ_KEYS
+    for k in (C.RES_INPUT_DIMS, C.RES_OUTPUT_DIMS, C.RES_SCALE,
+              C.RES_FRAME_COUNT, C.RES_REJECTED_PIXELS):
+        assert got[k] == want[k], k
+    scale = args.get("scale", 2.0)
+    assert got[C.RES_INPUT_DIMS] == [80, 64]
+    assert got[C.RES_OUTPUT_DIMS] == [int(np.ceil(80 * scale)),
+                                      int(np.ceil(64 * scale))]
+    np.testing.assert_allclose(np.asarray(got[C.RES_OFFSETS]),
+                               np.asarray(want[C.RES_OFFSETS]), atol=1e-3)
+    # [dx, dy]: each frame's dither (dy, dx) reversed
+    np.testing.assert_allclose(np.asarray(got[C.RES_OFFSETS]),
+                               dith[:, ::-1], atol=0.15)
+    img = extract_image(got[C.RES_FITS_PATH]).image
+    j_img = jextract(want[C.RES_FITS_PATH]).image
+    np.testing.assert_allclose(img, j_img, atol=2e-4, rtol=1e-6)
+    assert _header_bytes(got[C.RES_FITS_PATH]) == \
+        _header_bytes(want[C.RES_FITS_PATH])
+    _stats_close(got[C.RES_STATS], img)
+    _preview_close(got[C.RES_PNG_PATH], want[C.RES_PNG_PATH], img)

@@ -123,7 +123,10 @@ def test_port_and_chip_smoke_import_nothing_of_jax_or_the_jax_package():
                 "io/png.py", "io/prefetch.py", "metadata/__init__.py",
                 "metadata/header_discovery.py", "ops/ipc.py",
                 "runtime/cache.py", "runtime/config.py",
-                "runtime/output.py", "runtime/progress.py"):
+                "runtime/output.py", "runtime/progress.py",
+                "api/export.py", "api/processing.py",
+                "imaging/calibration_pipeline.py", "imaging/normalize.py",
+                "imaging/resample.py", "stacking/calibration.py"):
         assert REPO / "astroburst_tpu_torch" / new in files, new
     asdf = REPO / "astroburst_tpu_torch" / "io" / "asdf.py"
     bad = []
