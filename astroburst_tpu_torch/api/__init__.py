@@ -2,19 +2,28 @@
 reference's Tauri commands): the same names, arguments, defaults and
 response keys, plus a keyword-only ``device`` (default
 ``cuda_device()``, which raises where there is no card). Ported so
-far, 20 of the 60 registered commands: the stacking commands
+far, 31 of the 60 registered commands: the stacking commands
 (``stack``, ``calibrate``, ``run_pipeline_cmd``), the export commands
 (``export_fits``, ``export_fits_rgb``, ``export_png``,
-``export_rgb_png``, ``resample_fits_cmd``) and the open-and-inspect
+``export_rgb_png``, ``resample_fits_cmd``), the open-and-inspect
 commands (``process_fits``, ``process_fits_full``,
 ``get_raw_pixels_preview``, ``apply_stf_render``,
 ``compute_histogram_cmd`` and its alias ``compute_histogram``, the
-header commands and the output-dir commands); and two that the
+header commands and the output-dir commands), the stretch, tone and
+denoise commands (``apply_arcsinh_stretch_cmd``, ``masked_stretch_cmd``,
+``arcsinh_stretch_composite_cmd``, ``masked_stretch_composite_cmd``,
+``apply_tone_composite_cmd``, ``wavelet_denoise_cmd``,
+``extract_background_cmd``) and the detection and analysis commands
+(``detect_stars``, ``detect_stars_composite``,
+``analyze_subframes_cmd``, ``estimate_psf_cmd``); and two that the
 reference does not register, ``drizzle_stack_cmd`` and
 ``export_zip_bundle``.
 """
 
-from astroburst_tpu_torch.api.analysis import compute_histogram_cmd
+from astroburst_tpu_torch.api.analysis import (analyze_subframes_cmd,
+                                               compute_histogram_cmd,
+                                               detect_stars,
+                                               detect_stars_composite)
 from astroburst_tpu_torch.api.export import (export_fits, export_fits_rgb,
                                              export_png, export_rgb_png,
                                              export_zip_bundle)
@@ -26,7 +35,12 @@ from astroburst_tpu_torch.api.metadata import (detect_narrowband_filters,
                                                get_header_by_hdu)
 from astroburst_tpu_torch.api.output import (cleanup_output_cmd,
                                              get_output_dir_info)
-from astroburst_tpu_torch.api.processing import resample_fits_cmd
+from astroburst_tpu_torch.api.processing import (
+    apply_arcsinh_stretch_cmd, apply_tone_composite_cmd,
+    arcsinh_stretch_composite_cmd, extract_background_cmd,
+    masked_stretch_cmd, masked_stretch_composite_cmd, resample_fits_cmd,
+    wavelet_denoise_cmd)
+from astroburst_tpu_torch.api.psf import estimate_psf_cmd
 from astroburst_tpu_torch.api.stacking import (calibrate, drizzle_stack_cmd,
                                                run_pipeline_cmd, stack)
 from astroburst_tpu_torch.api.visualization import apply_stf_render
@@ -43,4 +57,9 @@ __all__ = [
     "drizzle_stack_cmd", "export_fits", "export_fits_rgb", "export_png",
     "export_rgb_png", "resample_fits_cmd", "export_zip_bundle",
     "get_output_dir_info", "cleanup_output_cmd",
+    "wavelet_denoise_cmd", "apply_arcsinh_stretch_cmd",
+    "masked_stretch_cmd", "arcsinh_stretch_composite_cmd",
+    "masked_stretch_composite_cmd", "apply_tone_composite_cmd",
+    "extract_background_cmd", "detect_stars", "detect_stars_composite",
+    "analyze_subframes_cmd", "estimate_psf_cmd",
 ]

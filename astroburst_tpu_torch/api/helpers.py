@@ -1,8 +1,8 @@
 """Composite cache helpers, linked STF, stats payloads and preview
 rendering (counterpart of astroburst_tpu/api/helpers.py; reference:
-src-tauri/src/cmd/helpers.rs). The compose parsers (``parse_wb``,
-``parse_scnr_config``, ``parse_align_method``) come with the compose
-commands.
+src-tauri/src/cmd/helpers.rs), and the SCNR parser of the tone
+command. The two compose parsers, ``parse_wb`` and
+``parse_align_method``, wait for the compose commands (queue item A12).
 
 Previews are downsampled in f32 on the plane's device, STF-mapped to
 u8 there, and fetched once (all three planes of an RGB preview in one
@@ -14,12 +14,13 @@ from __future__ import annotations
 import math
 import os
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from astroburst_tpu_torch import constants as C
-from astroburst_tpu_torch.dtypes import AutoStfConfig, ImageStats, StfParams
+from astroburst_tpu_torch.dtypes import (AutoStfConfig, ImageStats,
+                                         ScnrConfig, ScnrMethod, StfParams)
 from astroburst_tpu_torch.errors import CacheMiss
 from astroburst_tpu_torch.imaging.stf import apply_stf_u8, auto_stf
 from astroburst_tpu_torch.io.png import save_gray_png, save_rgb_png
@@ -192,3 +193,17 @@ def insert_composite_rgb(r, g, b, stats_r, stats_g, stats_b) -> None:
     GLOBAL_IMAGE_CACHE.insert(C.COMPOSITE_KEY_R, r, stats=stats_r)
     GLOBAL_IMAGE_CACHE.insert(C.COMPOSITE_KEY_G, g, stats=stats_g)
     GLOBAL_IMAGE_CACHE.insert(C.COMPOSITE_KEY_B, b, stats=stats_b)
+
+
+def parse_scnr_config(enabled: Optional[bool], method: Optional[str],
+                      amount: Optional[float],
+                      preserve_luminance: Optional[bool]
+                      ) -> Optional[ScnrConfig]:
+    """The SCNR request of a command, None when it is off
+    (helpers.rs parse_scnr_config)."""
+    if not enabled:
+        return None
+    return ScnrConfig(
+        method=ScnrMethod.parse(method),
+        amount=float(amount if amount is not None else C.DEFAULT_SCNR_AMOUNT),
+        preserve_luminance=bool(preserve_luminance or False))

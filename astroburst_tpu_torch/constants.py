@@ -10,9 +10,14 @@ PADDING_THRESHOLD = 1e-7   # pixels <= this (or non-finite) are invalid
 MAD_TO_SIGMA = 1.4826      # robust sigma = MAD * 1.4826
 HISTOGRAM_BINS_DISPLAY = 512
 
+DEFAULT_STEM = "bg"
+
 # --- progress event names -------------------------------------------------
+PROGRESS_EVENT = "background-progress"
 EVENT_STACK_PROGRESS = "stack-progress"
 EVENT_DRIZZLE_RGB_PROGRESS = "drizzle-rgb-progress"
+EVENT_WAVELET_PROGRESS = "wavelet-progress"
+PROGRESS_STEPS = 4
 
 # --- response keys of the ported commands (the public API contract) -------
 RES_ELAPSED_MS = "elapsed_ms"
@@ -23,6 +28,9 @@ RES_ORIGINAL_DIMENSIONS = "original_dimensions"
 RES_PNG_PATH = "png_path"
 RES_FITS_PATH = "fits_path"
 RES_OUTPUT_PATH = "output_path"
+RES_CORRECTED_PNG = "corrected_png"
+RES_MODEL_PNG = "model_png"
+RES_CORRECTED_FITS = "corrected_fits"
 RES_PATH = "path"
 RES_WCS_UPDATES = "wcs_updates"
 RES_FILE_PATH = "file_path"
@@ -46,6 +54,14 @@ RES_HISTOGRAM = "histogram"
 RES_BINS = "bins"
 RES_BIN_COUNT = "bin_count"
 RES_BIN_EDGES = "bin_edges"
+RES_SAMPLE_COUNT = "sample_count"
+RES_RMS_RESIDUAL = "rms_residual"
+RES_ITERATIONS_RUN = "iterations_run"
+RES_STRETCH_FACTOR = "stretch_factor"
+RES_SCALES_PROCESSED = "scales_processed"
+RES_NOISE_ESTIMATE = "noise_estimate"
+RES_SCNR_APPLIED = "scnr_applied"
+RES_FRAMES = "frames"
 RES_FRAME_COUNT = "frame_count"
 RES_REJECTED_PIXELS = "rejected_pixels"
 RES_OFFSETS = "offsets"
@@ -62,6 +78,24 @@ RES_APPLY_STF = "apply_stf"
 RES_COPY_METADATA = "copy_metadata"
 RES_BIT_DEPTH = "bit_depth"
 RES_LABEL = "label"
+RES_WIDTH = "width"
+RES_HEIGHT = "height"
+RES_KERNEL_SIZE = "kernel_size"
+RES_AVERAGE_FWHM = "average_fwhm"
+RES_AVERAGE_ELLIPTICITY = "average_ellipticity"
+RES_SPREAD_PIXELS = "spread_pixels"
+RES_STARS_USED = "stars_used"
+RES_STARS_REJECTED = "stars_rejected"
+RES_KERNEL = "kernel"
+RES_STARS_MASKED = "stars_masked"
+RES_MASK_COVERAGE = "mask_coverage"
+RES_FINAL_BACKGROUND = "final_background"
+RES_CONVERGED = "converged"
+SUFFIX_MASKED_STRETCH = "masked_stretch"
+RES_COMPOSITE_DIMS = "composite_dims"
+RES_CURVES_APPLIED = "curves_applied"
+RES_LEVELS_APPLIED = "levels_applied"
+RES_STF_APPLIED = "stf_applied"
 
 RES_HEADER = "header"
 RES_CARDS = "cards"
@@ -76,6 +110,7 @@ RES_FILTERS = "filters"
 RES_FILENAME_HINT = "filename_hint"
 RES_PALETTE = "palette"
 DEFAULT_ASTROMETRY_API_URL = "https://nova.astrometry.net"
+DEFAULT_SCNR_AMOUNT = 1.0
 
 # drizzle defaults (drizzle.rs)
 DEFAULT_DRIZZLE_SCALE = 2.0

@@ -80,6 +80,27 @@ class AutoStfConfig:
     shadow_k: float = -2.8
 
 
+# --- SCNR (types/image.rs:66-96) -------------------------------------------
+
+
+class ScnrMethod(str, enum.Enum):
+    AVERAGE_NEUTRAL = "average"
+    MAXIMUM_NEUTRAL = "maximum"
+
+    @staticmethod
+    def parse(s: Optional[str]) -> "ScnrMethod":
+        if s and s.lower().startswith("max"):
+            return ScnrMethod.MAXIMUM_NEUTRAL
+        return ScnrMethod.AVERAGE_NEUTRAL
+
+
+@dataclass(frozen=True)
+class ScnrConfig:
+    method: ScnrMethod = ScnrMethod.AVERAGE_NEUTRAL
+    amount: float = 1.0
+    preserve_luminance: bool = False
+
+
 class AlignMethod(str, enum.Enum):
     PHASE_CORRELATION = "phase_correlation"
     AFFINE = "affine"

@@ -40,6 +40,7 @@ from astroburst_tpu_torch.imaging.star_mask import (StarMaskConfig,
                                                     _mask_kernel,
                                                     generate_star_mask)
 from astroburst_tpu_torch.ops.masking import validity_mask
+from astroburst_tpu_torch.ops.stats import select_half
 from astroburst_tpu_torch.runtime.device import as_f32
 
 
@@ -69,12 +70,8 @@ def _masked_median(working: torch.Tensor,
                    bg_mask: torch.Tensor) -> torch.Tensor:
     """select_nth(len/2) of the pixels where ``bg_mask`` holds
     (masked_stretch.rs:211-228): sorted index cnt // 2; 0 when none."""
-    flat = torch.where(bg_mask, working, float("inf")).reshape(-1)
-    cnt = bg_mask.sum()
-    idx = torch.clamp(torch.div(cnt, 2, rounding_mode="floor"),
-                      max=flat.numel() - 1)
-    val = torch.sort(flat).values[idx]
-    return torch.where(cnt > 0, val, 0.0)
+    return select_half(torch.where(bg_mask, working, float("inf"))
+                       .reshape(-1), bg_mask.sum())
 
 
 def _mtf_guarded(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:

@@ -105,6 +105,25 @@ def _stats_minmax(x: torch.Tensor):
         torch.where(mask, flat, -inf).max()
 
 
+def valid_range(x: torch.Tensor):
+    """(min, max) of the valid pixels as host floats, (0, 0) where none
+    is valid: ``compute_image_stats``'s min and max, one fetch, no
+    sort."""
+    mn, mx = torch.stack(_stats_minmax(x)).tolist()
+    return (mn, mx) if mn <= mx else (0.0, 0.0)
+
+
+def select_half(values: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """The reference's select_nth(len/2): the element at sorted index
+    count // 2 of a 1-D tensor whose ``count`` valid entries are finite
+    and whose others are +inf, exactly, as a 0-d tensor on its device (0
+    when count is 0). The index is read on the device: no host wait."""
+    idx = torch.clamp(torch.div(count, 2, rounding_mode="floor"),
+                      max=values.numel() - 1)
+    val = torch.sort(values).values[idx]
+    return torch.where(count > 0, val, 0.0)
+
+
 def histogram_counts(x: torch.Tensor, dmin: float, dmax: float,
                      bins: int) -> torch.Tensor:
     """int64 [bins] counts of the valid pixels of x. Bin j counts

@@ -47,3 +47,12 @@ def as_f32(x, device: Optional[torch.device] = None) -> torch.Tensor:
     if device is None:
         device = x.device if isinstance(x, torch.Tensor) else cuda_device()
     return torch.as_tensor(x).to(device=device, dtype=torch.float32)
+
+
+def as_f32_all(*xs, device: Optional[torch.device] = None):
+    """Each of ``xs`` through ``as_f32`` onto one device: ``device``,
+    else the first tensor's, else ``cuda_device()``."""
+    if device is None:
+        device = next((x.device for x in xs if isinstance(x, torch.Tensor)),
+                      None)
+    return [as_f32(x, device) for x in xs]

@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (astroburst_tpu_torch) once on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase-4i [SIDE ...]   # phase 4i alone, once
+                                                  # per composite side
 
 Phases, each of which fails loudly (nothing is caught; any failure
 exits non-zero, and so does a machine without a CUDA device):
@@ -143,6 +145,27 @@ exits non-zero, and so does a machine without a CUDA device):
    ``RGB_PNG_HW``^2 planes) and ``export_zip_bundle`` of the exports;
    the counters are read after calibrate + pipeline (all 0), after the
    drizzle command and after the exports (all 0).
+   (i) stretch, tone, denoise and detection (``tone_detect_path``):
+   the 4096^2 field in [0, 1) of (d) as a FITS file, 10 star fields of
+   4096^2 (the scene of (c) at seeds 0-9) as FITS files and a 3 x
+   ``COMP_HW``^2 composite made from the field's corner as (d) makes its
+   channels, in the image cache (a 3 x 4096^2 one from the whole field
+   for ``detect_stars_composite``); ``masked_stretch_cmd`` (FITS bit-equal
+   to ``masked_stretch`` on the card; K10, K11, K13),
+   ``masked_stretch_composite_cmd`` per channel and shared (equal to
+   the module calls; K13), ``detect_stars``, ``detect_stars_composite``,
+   ``estimate_psf_cmd`` and ``analyze_subframes_cmd`` (star lists equal
+   to ``detect_stars`` on the same plane, ``detect_stars`` within 1e-3 px
+   of its plain version and 0.3 px of the generator; K10, K11),
+   ``wavelet_denoise_cmd`` and ``extract_background_cmd`` (subtract,
+   divide) against the same functions on the CPU (noise estimate and
+   medians bit-equal, images within 1e-5 of the plane's largest
+   magnitude; no kernel), ``apply_arcsinh_stretch_cmd`` (gamma 1, 2.2),
+   ``arcsinh_stretch_composite_cmd`` and ``apply_tone_composite_cmd``
+   (defaults; linked STF, levels, a curve and SCNR) against the CPU
+   (PNGs decoded, within one level; no kernel); the file commands cold
+   and warm, the composite ones after a warm-up call, counters reset
+   and read around each command, and each module call timed alone.
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
@@ -2672,6 +2695,482 @@ def calibrate_export_path(bias, darks, flats, lights, calibrated, dres,
         shutil.rmtree(root)
 
 
+# --- phase 4i: stretch, tone, denoise and detection, from files and the
+# composite cache -------------------------------------------------------
+
+COMP_HW = 2048   # phase 4i's composite side (cut from 4096: PERF.md §4)
+SUB_N = 10           # the subframe command's files (seeds 0..9)
+
+
+def same_stars(what, got, want):
+    """A command's star list equals the module's DetectionResult."""
+    if got != [s.to_dict() for s in want.stars]:
+        raise AssertionError(f"{what}: the star list differs from "
+                             f"detect_stars on the same plane")
+
+
+def near_plain(what, got, plain):
+    """A payload's stars against ``detect_stars(..., plain=True)``: the
+    same count, each matched to its nearest within 1e-3 px and flux
+    within 1e-4 relative (the 4c bounds: K11 sums in another order)."""
+    a = np.array([(s["y"], s["x"], s["flux"]) for s in got])
+    b = np.array([(s.y, s.x, s.flux) for s in plain.stars])
+    if len(a) != len(b) or len(a) == 0:
+        raise AssertionError(f"{what}: {len(a)} stars, {len(b)} plain")
+    d2 = ((a[:, None, :2] - b[None, :, :2]) ** 2).sum(axis=2)
+    near = d2.argmin(axis=1)
+    d_pos = float(np.sqrt(d2.min(axis=1)).max())
+    d_flux = float((np.abs(a[:, 2] - b[near, 2]) / b[near, 2]).max())
+    if len(set(near.tolist())) != len(a) or d_pos > 1e-3 or d_flux > 1e-4:
+        raise AssertionError(f"{what}: kernel and plain detections differ "
+                             f"({d_pos} px, flux {d_flux})")
+    return d_pos, d_flux
+
+
+def tone_detect_path(field, truth, counters, smi, comp_hw=COMP_HW):
+    """Phase 4i: the stretch, tone, denoise and detection commands. In:
+    ``field`` (4d's 4096^2 star field in [0, 1), NaN patches and +-inf)
+    as a BITPIX -32 FITS file, a 3 x comp_hw^2 composite made from its
+    corner as ``masked_stretch_path`` makes its channels and a 3 x
+    4096^2 one made so from the whole field (each in the cache through
+    ``insert_composite_and_orig``), and SUB_N star fields of 4096^2
+    (4d's scene at seeds 0..SUB_N-1) as FITS files, all under build/ and
+    removed after. The file commands run cold (empty image cache) and
+    warm, the composite commands once after a warm-up call, timed on the
+    host clock ending in a synchronize; the kernel counters are reset
+    just before each command's calls and read just after. Checks:
+
+    - ``masked_stretch_cmd`` (defaults): its FITS bit-equal to
+      ``masked_stretch`` on the card with the command's configuration;
+      K10, K11 and K13 launched; ``masked_stretch_composite_cmd`` with
+      ``shared_mask`` off and on: the per-channel responses and the
+      preview equal to ``masked_stretch`` on each plane, or to
+      ``masked_stretch_rgb_shared``; K13 launched in both modes;
+    - ``detect_stars`` (sigma 5), ``detect_stars_composite`` (on the
+      4096^2 composite), ``estimate_psf_cmd`` and ``analyze_subframes_cmd``: every star
+      list equal to ``detect_stars`` on the same plane, ``detect_stars``
+      near its plain version (``near_plain``) and within 0.3 px of the
+      generator's isolated bright stars (``check_positions``), the PSF
+      kernel equal to ``estimate_psf`` on the card; K10 and K11
+      launched;
+    - ``wavelet_denoise_cmd`` and ``extract_background_cmd`` (subtract
+      and divide) against the same functions on the CPU on the fetched
+      plane: the noise estimate, the cell medians, the global median
+      and MAD and the model median bit-equal, the sample count and the
+      RMS equal, the images within 1e-5 of the plane's largest
+      magnitude; no kernel launched;
+    - ``apply_arcsinh_stretch_cmd`` (factor 50, gamma 1 and 2.2),
+      ``arcsinh_stretch_composite_cmd`` (factor 30) and
+      ``apply_tone_composite_cmd`` (the defaults; then linked STF,
+      levels on R, a three-point curve on G and SCNR maximum 0.8 with
+      luminance) against their functions on the CPU: images within 1e-5,
+      PNGs as decoded pixels within one level; no kernel launched.
+
+    Returns (launches summed over the commands, times in ms)."""
+    import os
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+    import torch
+    from astroburst_tpu_torch import api
+    from astroburst_tpu_torch.analysis import star_detection as SD
+    from astroburst_tpu_torch.api import helpers
+    from astroburst_tpu_torch.api.processing import (_levels_of,
+                                                     _masked_stretch_config,
+                                                     _points_of)
+    from astroburst_tpu_torch.dtypes import ScnrConfig, ScnrMethod
+    from astroburst_tpu_torch.imaging import background as BG
+    from astroburst_tpu_torch.imaging import curves as CU
+    from astroburst_tpu_torch.imaging import scnr as SC
+    from astroburst_tpu_torch.imaging import stretch as ST
+    from astroburst_tpu_torch.imaging import wavelet as WV
+    from astroburst_tpu_torch.imaging.masked_stretch import (
+        masked_stretch, masked_stretch_rgb_shared)
+    from astroburst_tpu_torch.imaging.psf_estimation import (
+        PsfEstimationConfig, estimate_psf)
+    from astroburst_tpu_torch.imaging.stf import (apply_stf_f32,
+                                                  apply_stf_u8, auto_stf)
+    from astroburst_tpu_torch.io import extract_image, write_fits_mono
+    from astroburst_tpu_torch.io.header import HduHeader
+    from astroburst_tpu_torch.ops.ipc import nearest_downsample
+    from astroburst_tpu_torch.ops.stats import (compute_image_stats,
+                                                select_half)
+    from astroburst_tpu_torch.runtime.cache import GLOBAL_IMAGE_CACHE
+    f_ys, f_xs, f_amps, dead = truth
+    dev = field.device
+    cpu = torch.device("cpu")
+    hw = field.shape[0]
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="tone_detect_", dir=build)
+    out = os.path.join(root, "out")
+    cmd_ms, launches, total = {}, {}, {k: 0 for k in counters}
+    t_phase = time.perf_counter()
+
+    def expect(what, cond, detail=""):
+        if not cond:
+            raise AssertionError(f"{what} {detail}")
+
+    def counted(name, fn, cold=True):
+        """fn() cold and warm (or warm-up + timed when not ``cold``),
+        with the counters reset just before and read just after; returns
+        the last result."""
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        if cold:
+            GLOBAL_IMAGE_CACHE.clear()
+            _, cmd_ms[f"{name}_cold"] = host_ms(fn)
+        else:
+            fn()
+        r, cmd_ms[f"{name}_warm" if cold else name] = host_ms(fn)
+        torch.cuda.synchronize()
+        launches[name] = {k: f.launches for k, f in counters.items()}
+        for k, v in launches[name].items():
+            total[k] += v
+        return r
+
+    def launched(name, kernels):
+        got = launches[name]
+        if kernels:
+            expect(f"{name}: a kernel never ran:",
+                   all(got[k] > 0 for k in kernels), got)
+        else:
+            expect(f"{name} launched a kernel:", not any(got.values()), got)
+
+    def fits(path):
+        return torch.from_numpy(extract_image(path).image)
+
+    def same_bits(a, b):
+        """Bit-equal f32 planes (NaN payloads included)."""
+        a, b = a.cpu().contiguous(), b.cpu().contiguous()
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+
+    def close(what, got, want, tol=1e-5):
+        """Within tol of the planes' largest finite magnitude; returns
+        the measured maximum."""
+        g, w = got.cpu(), want.cpu()
+        fin = torch.isfinite(w)
+        expect(what, torch.equal(fin, torch.isfinite(g)), "(finite sets)")
+        top = max(float(w[fin].abs().max()), 1e-30)
+        d = float((g[fin] - w[fin]).abs().max())
+        expect(what, d <= tol * top, f"max|d| {d} > {tol} x {top}")
+        return d / top
+
+    def png_close(what, path, want_u8):
+        """Decoded PNG pixels within one level of ``want_u8``; returns
+        the share of pixels that differ."""
+        px = decode_png(path).astype(np.int64)
+        want = want_u8.astype(np.int64)
+        expect(what, px.shape == want.shape, f"{px.shape} {want.shape}")
+        d = np.abs(px - want)
+        expect(what, int(d.max()) <= 1, f"PNG off by {int(d.max())} levels")
+        return float((d > 0).mean())
+
+    def mono_u8(plane):
+        st = compute_image_stats(plane)
+        return apply_stf_u8(nearest_downsample(plane, 4096), auto_stf(st),
+                            st).cpu().numpy()
+
+    def rgb_u8(planes):
+        return np.stack([helpers._to_u8(nearest_downsample(p, 4096)).cpu()
+                         .numpy() for p in planes], -1)
+
+    try:
+        t0 = time.perf_counter()
+        p_field = os.path.join(root, "field.fits")
+        write_fits_mono(p_field, field.cpu().numpy(),
+                        HduHeader([("OBJECT", "'chip_smoke 4i'")]))
+        sub_paths = []
+        for seed in range(SUB_N):
+            sub, *_ = star_scene(DET_HW, DET_HW, DET_STARS, seed, dev)
+            sub_paths.append(os.path.join(root, f"sub_{seed:02d}.fits"))
+            write_fits_mono(sub_paths[-1], sub.cpu().numpy(),
+                            HduHeader([("OBJECT", f"'sub {seed}'")]))
+            del sub
+        t_files = time.perf_counter() - t0
+        host = field.cpu()
+        err = {}
+
+        # -- masked stretch: K10, K11, K13 -------------------------------
+        cfg = _masked_stretch_config(None, None, None, None, None, None)
+        res = counted("masked_stretch_cmd",
+                      lambda: api.masked_stretch_cmd(p_field, out))
+        launched("masked_stretch_cmd",
+                 ("sort_tiles", "window_stats", "paint_mask"))
+        mod = masked_stretch(field, cfg)
+        expect("masked_stretch_cmd: FITS", same_bits(
+            fits(res["fits_path"]), mod.image), "differs from "
+            "masked_stretch on the card")
+        expect("masked_stretch_cmd: response", (
+            res["iterations_run"], res["stars_masked"],
+            res["mask_coverage"], res["final_background"],
+            res["converged"]) == (mod.iterations_run, mod.stars_masked,
+                                  mod.mask_coverage, mod.final_background,
+                                  mod.converged), res)
+        expect("masked_stretch_cmd: PNG", np.array_equal(
+            decode_png(res["png_path"]), mono_u8(mod.image)))
+        log(f"[path] masked_stretch_cmd {hw}^2: {res['stars_masked']} stars "
+            f"masked, coverage {res['mask_coverage']:.4f}, "
+            f"{res['iterations_run']} iterations, converged "
+            f"{res['converged']}; FITS bit-equal to masked_stretch; "
+            f"launches {launches['masked_stretch_cmd']}")
+
+        # -- detection: K10, K11 -----------------------------------------
+        res = counted("detect_stars", lambda: api.detect_stars(p_field, 5.0))
+        launched("detect_stars", ("sort_tiles", "window_stats"))
+        same_stars("detect_stars", res["stars"], SD.detect_stars(field, 5.0))
+        d_pos, d_flux = near_plain("detect_stars", res["stars"],
+                                   SD.detect_stars(field, 5.0, plain=True))
+        err["detect_stars_4k_px"] = check_positions(
+            "[path] detect_stars (command)", SimpleNamespace(stars=[
+                SimpleNamespace(**s) for s in res["stars"]]), f_ys, f_xs,
+            isolated_bright(f_ys, f_xs, f_amps, hw, hw, 2700.0, dead=dead))
+        log(f"[path] detect_stars {hw}^2: {res['star_count']} stars, "
+            f"background {res['background_median']:.6g} +- "
+            f"{res['background_sigma']:.3g}; equal to detect_stars, vs "
+            f"plain {d_pos:.2e} px / flux {d_flux:.2e}; launches "
+            f"{launches['detect_stars']}")
+
+        res = counted("estimate_psf_cmd",
+                      lambda: api.estimate_psf_cmd(p_field))
+        launched("estimate_psf_cmd", ("sort_tiles", "window_stats"))
+        psf = estimate_psf(field, PsfEstimationConfig())
+        expect("estimate_psf_cmd", res["kernel"] == psf.kernel.tolist() and
+               res["stars_used"] == [s.to_dict() for s in psf.stars_used]
+               and res["spread_pixels"] == psf.spread_pixels)
+        expect("estimate_psf_cmd: kernel sum", abs(float(
+            psf.kernel.sum()) - 1.0) < 1e-4 and len(psf.stars_used) >= 10)
+        log(f"[path] estimate_psf_cmd {hw}^2: {len(res['stars_used'])} stars "
+            f"used, {res['stars_rejected']} rejected, FWHM "
+            f"{res['average_fwhm']:.4f} px, spread "
+            f"{res['spread_pixels']:.4f} px; equal to estimate_psf; "
+            f"launches {launches['estimate_psf_cmd']}")
+
+        res = counted("analyze_subframes_cmd",
+                      lambda: api.analyze_subframes_cmd(sub_paths))
+        launched("analyze_subframes_cmd", ("sort_tiles", "window_stats"))
+        expect("analyze_subframes_cmd", res["frame_count"] == SUB_N)
+        for p, m in zip(sub_paths, res["frames"]):
+            sub = fits(p).to(dev)
+            det = SD.detect_stars(sub, 4.0)
+            expect(f"analyze_subframes_cmd {os.path.basename(p)}",
+                   m["star_count"] == len(det.stars) and
+                   m["background_median"] == det.background_median, m)
+        expect("analyze_subframes_cmd: all accepted",
+               res["accepted_count"] == SUB_N, res["accepted_count"])
+        log(f"[path] analyze_subframes_cmd {SUB_N} x {hw}^2: accepted_count "
+            f"{res['accepted_count']}, stars "
+            f"{[m['star_count'] for m in res['frames']]}, weights "
+            f"{[round(m['weight'], 4) for m in res['frames']]}; launches "
+            f"{launches['analyze_subframes_cmd']}")
+
+        # -- wavelet and background against the CPU ----------------------
+        res = counted("wavelet_denoise_cmd",
+                      lambda: api.wavelet_denoise_cmd(p_field, out))
+        launched("wavelet_denoise_cmd", ())
+        ref = WV.wavelet_denoise(host, WV.WaveletConfig())
+        expect("wavelet_denoise_cmd: noise estimate",
+               res["noise_estimate"] == ref.noise_estimate,
+               f"{res['noise_estimate']} vs CPU {ref.noise_estimate}")
+        err["wavelet_denoise"] = close("wavelet_denoise_cmd",
+                                       fits(res["fits_path"]), ref.denoised)
+        err["wavelet_png_share"] = png_close(
+            "wavelet_denoise_cmd: PNG", res["png_path"],
+            mono_u8(ref.denoised))
+        log(f"[path] wavelet_denoise_cmd {hw}^2 (5 scales): noise "
+            f"{res['noise_estimate']:.6g} bit-equal to the CPU's, image "
+            f"max|d|/max {err['wavelet_denoise']:.3e}; launches "
+            f"{launches['wavelet_denoise_cmd']}")
+        gh = hw // 8
+        packed = [BG._cell_medians(p, 8, gh, gh).cpu() for p in (field,
+                                                                   host)]
+        expect("background: cell medians, median and MAD",
+               torch.equal(packed[0], packed[1]), "differ from the CPU's")
+        for mode in ("subtract", "divide"):
+            name = f"extract_background_cmd_{mode}"
+            res = counted(name, lambda: api.extract_background_cmd(
+                p_field, out, mode=mode))
+            launched(name, ())
+            ref = BG.extract_background(host, BG.BackgroundConfig(mode=mode))
+            mod = BG.extract_background(field, BG.BackgroundConfig(mode=mode))
+            expect(f"{name}: samples", (res["sample_count"],
+                                        res["rms_residual"]) == (
+                ref.sample_count, ref.rms_residual), res)
+            mm = [select_half(torch.where(
+                torch.isfinite(m) & (m > 0), m, float("inf")).reshape(-1),
+                (torch.isfinite(m) & (m > 0)).sum()).cpu()
+                for m in (mod.model, ref.model)]
+            expect(f"{name}: model median", torch.equal(mm[0], mm[1]),
+                   f"{mm}")
+            expect(f"{name}: FITS", same_bits(fits(
+                res["corrected_fits"]), mod.corrected))
+            err[name] = close(name, mod.corrected, ref.corrected)
+            err[f"{name}_model"] = close(name, mod.model, ref.model)
+            png_close(f"{name}: PNG", res["corrected_png"],
+                      mono_u8(ref.corrected))
+            log(f"[path] {name} {hw}^2: {res['sample_count']} samples, RMS "
+                f"{res['rms_residual']:.6g} (equal to the CPU's), corrected "
+                f"max|d|/max {err[name]:.3e}, model "
+                f"{err[f'{name}_model']:.3e}; launches {launches[name]}")
+
+        # -- arcsinh on the file -----------------------------------------
+        st = compute_image_stats(host)
+        for gamma in (1.0, 2.2):
+            name = f"apply_arcsinh_stretch_cmd_g{gamma}"
+            res = counted(name, lambda: api.apply_arcsinh_stretch_cmd(
+                p_field, out, 50.0, gamma))
+            launched(name, ())
+            ref = ST.arcsinh_stretch_with_stats(host, st.min, st.max, 50.0,
+                                                gamma)
+            err[name] = close(name, fits(res["fits_path"]), ref)
+            err[f"{name}_png_share"] = png_close(f"{name}: PNG",
+                                                 res["png_path"],
+                                                 mono_u8(ref))
+            log(f"[path] {name} {hw}^2: image max|d| {err[name]:.3e} of the "
+                f"CPU's, PNG pixels differing "
+                f"{err[f'{name}_png_share']:.2e}; launches {launches[name]}")
+
+        # -- the composite -----------------------------------------------
+        def composite(base):
+            """Three channels made from ``base`` as masked_stretch_path
+            makes them, in the cache; returns them and their stats."""
+            GLOBAL_IMAGE_CACHE.clear()
+            g = torch.Generator(device=dev).manual_seed(27)
+            rgb = [base, 0.8 * base + 5e-4 * torch.randn(
+                base.shape, generator=g, device=dev), 1.2 * base - 4e-3]
+            sts = [compute_image_stats(c) for c in rgb]
+            helpers.insert_composite_and_orig(*rgb, *sts)
+            return rgb, sts
+
+        rgb, sts = composite(field[:comp_hw, :comp_hw].contiguous())
+        rgb_host = [c.cpu() for c in rgb]
+
+        for shared in (False, True):
+            mode = "shared" if shared else "per_channel"
+            name = f"masked_stretch_composite_cmd_{mode}"
+            res = counted(name, lambda: api.masked_stretch_composite_cmd(
+                out, shared_mask=shared), cold=False)
+            launched(name, ("paint_mask",))
+            if shared:
+                mod = masked_stretch_rgb_shared(*rgb, cfg)
+                chans = [mod[c] for c in "rgb"]
+                want = (mod["shared_stars_masked"],
+                        mod["shared_mask_coverage"])
+            else:
+                chans = [masked_stretch(c, cfg) for c in rgb]
+                want = (sum(r.stars_masked for r in chans),
+                        sum(r.mask_coverage for r in chans) / 3.0)
+            expect(name, (res["stars_masked"], res["mask_coverage"]) == want
+                   and all(res["channels"][c] == {
+                       "iterations_run": r.iterations_run,
+                       "final_background": r.final_background,
+                       "converged": r.converged}
+                       for c, r in zip("rgb", chans)), res)
+            expect(f"{name}: PNG", np.array_equal(decode_png(
+                res["png_path"]), rgb_u8([r.image for r in chans])))
+            log(f"[path] {name} 3 x {comp_hw}^2: {res['stars_masked']} stars, "
+                f"coverage {res['mask_coverage']:.4f}, iterations "
+                f"{[res['channels'][c]['iterations_run'] for c in 'rgb']}; "
+                f"equal to the module calls; launches {launches[name]}")
+
+        res = counted("arcsinh_stretch_composite_cmd",
+                      lambda: api.arcsinh_stretch_composite_cmd(out, 30.0),
+                      cold=False)
+        launched("arcsinh_stretch_composite_cmd", ())
+        ref = ST.arcsinh_stretch_rgb(*rgb_host, 30.0)
+        err["arcsinh_composite_png_share"] = png_close(
+            "arcsinh_stretch_composite_cmd: PNG", res["png_path"],
+            rgb_u8(ref))
+        dev_planes = ST.arcsinh_stretch_rgb(*rgb, 30.0)
+        err["arcsinh_composite"] = max(close("arcsinh composite", a, b)
+                                       for a, b in zip(dev_planes, ref))
+
+        tone_cases = {
+            "defaults": {},
+            "linked_levels_curve_scnr": dict(
+                linked_stf=True, levels_r={"black": 0.02, "gamma": 1.3,
+                                           "white": 0.95},
+                curves_g={"points": [[0.0, 0.0], [0.35, 0.5], [1.0, 1.0]]},
+                scnr={"method": "maximum", "amount": 0.8,
+                      "preserveLuminance": True})}
+        for case, kw in tone_cases.items():
+            name = f"apply_tone_composite_cmd_{case}"
+            res = counted(name, lambda: api.apply_tone_composite_cmd(
+                out, **kw), cold=False)
+            launched(name, ())
+            if kw.get("linked_stf"):
+                p, comb = helpers.compute_linked_stf_with_stats(*sts)
+                prms, norms = [p] * 3, [comb] * 3
+            else:
+                prms, norms = [auto_stf(s) for s in sts], sts
+            planes = [apply_stf_f32(c, q, n) for c, q, n in
+                      zip(rgb_host, prms, norms)]
+            flags = (False, False, False)
+            if kw:
+                planes = list(CU.apply_levels_rgb(*planes, *(
+                    _levels_of(kw.get(k)) for k in ("levels_r", "levels_g",
+                                                    "levels_b"))))
+                planes = list(CU.apply_curve_rgb(*planes, *(
+                    CU.SplineCurve(_points_of(kw.get(k)) or
+                                   [(0.0, 0.0), (1.0, 1.0)])
+                    for k in ("curves_r", "curves_g", "curves_b"))))
+                planes = list(SC.apply_scnr(*planes, ScnrConfig(
+                    ScnrMethod.MAXIMUM_NEUTRAL, 0.8, True)))
+                flags = (True, True, True)
+            expect(name, (res["levels_applied"], res["curves_applied"],
+                          res["scnr_applied"]) == flags and
+                   res["stf"] == prms[0].to_dict(), res)
+            err[f"{name}_png_share"] = png_close(f"{name}: PNG",
+                                                 res["png_path"],
+                                                 rgb_u8(planes))
+            log(f"[path] {name} 3 x {comp_hw}^2: flags {flags}, PNG pixels "
+                f"differing from the CPU's {err[f'{name}_png_share']:.2e}; "
+                f"launches {launches[name]}")
+
+        # composite detection writes no PNG: at full width
+        del rgb, rgb_host
+        rgb, _ = composite(field)
+        res = counted("detect_stars_composite",
+                      lambda: api.detect_stars_composite(), cold=False)
+        launched("detect_stars_composite", ("sort_tiles", "window_stats"))
+        lum = 0.2126 * rgb[0] + 0.7152 * rgb[1] + 0.0722 * rgb[2]
+        same_stars("detect_stars_composite", res["stars"],
+                   SD.detect_stars(lum, 5.0))
+        log(f"[path] detect_stars_composite 3 x {hw}^2: "
+            f"{res['star_count']} stars, equal to detect_stars on the "
+            f"luminance; launches {launches['detect_stars_composite']}")
+        del rgb, lum
+        GLOBAL_IMAGE_CACHE.clear()
+
+        # the device stages alone: each command's module call on the card
+        stage_ms = {name: cuda_ms(fn, 3) for name, fn in (
+            ("masked_stretch", lambda: masked_stretch(field, cfg)),
+            ("detect_stars", lambda: SD.detect_stars(field, 5.0)),
+            ("estimate_psf", lambda: estimate_psf(field,
+                                                  PsfEstimationConfig())),
+            ("wavelet_denoise", lambda: WV.wavelet_denoise(
+                field, WV.WaveletConfig())),
+            ("extract_background", lambda: BG.extract_background(
+                field, BG.BackgroundConfig())),
+            ("arcsinh_stretch", lambda: ST.arcsinh_stretch_with_stats(
+                field, st.min, st.max, 50.0, 2.2)),
+            ("stats_auto_stf", lambda: auto_stf(compute_image_stats(field))))}
+        times = {"commands_ms": cmd_ms, "device_stages_ms": stage_ms,
+                 "files_s": t_files,
+                 "phase_s": time.perf_counter() - t_phase}
+        log(f"[path] phase 4i errors: {json.dumps(err)}")
+        log(f"[time] {smi}: stretch/tone/denoise/detection commands (phase "
+            f"4i {times['phase_s']:.1f} s with its files and checks; "
+            f"composite commands 3 x {comp_hw}^2, composite detection "
+            f"3 x {hw}^2): " + json.dumps(times))
+        return total, times
+    finally:
+        shutil.rmtree(root)
+
+
 def stf_preview(img):
     """stats_core → auto-STF → u8 stretch of one plane: (stf [2], u8)."""
     import torch
@@ -3509,6 +4008,10 @@ def main() -> None:
     # ---- 4g. open and inspect: FITS, RGB, MEF, ASDF in; previews out --
     launches_open, _ = open_inspect_path(field, bench_frame, counters, smi)
     del bench_frame
+
+    # ---- 4i. stretch, tone, denoise, detection: files and the composite --
+    launches_tone, _ = tone_detect_path(ms_field, (f_ys, f_xs, f_amps, dead),
+                                        counters, smi)
     if "jax" in sys.modules or "astroburst_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
 
@@ -3551,7 +4054,8 @@ def main() -> None:
              "drizzle_exact_parity(calibrated,bench)": launches_parity,
              "stack(command)": launches_cmd,
              "open_and_inspect(commands)": launches_open,
-             "calibrate+pipeline+drizzle+export(commands)": launches_export}
+             "calibrate+pipeline+drizzle+export(commands)": launches_export,
+             "stretch+tone+denoise+detection(commands)": launches_tone}
     kernels = []
     for name, (source, replaces) in meta.items():
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -3587,5 +4091,41 @@ def main() -> None:
                                              "count": count}}), flush=True)
 
 
+def phase_4i_alone(sides) -> None:
+    """Phase 4i alone, once per composite side in ``sides``: the build,
+    4c's detection field scaled into [0, 1) as in 4d, then
+    ``tone_detect_path`` with its checks and K10/K11/K13 counters;
+    prints the card's name and power limit and each run's seconds."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                 "is false); this script runs only on the card")
+    from astroburst_tpu_torch.analysis.tile_sort_kernel import (
+        sort_tiles, sort_tiles_chunked)
+    from astroburst_tpu_torch.analysis.window_kernel import window_stats
+    from astroburst_tpu_torch.imaging.star_mask_kernel import paint_mask
+    from astroburst_tpu_torch.runtime import kernels as K
+    from astroburst_tpu_torch.runtime.device import cuda_device
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    lib = K.library()
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvcc {lib.build_seconds:.1f} s")
+    (field, ys, xs, amps, dead), _ = detection_fields(cuda_device())
+    counters = {"sort_tiles": sort_tiles,
+                "sort_tiles_chunked": sort_tiles_chunked,
+                "window_stats": window_stats, "paint_mask": paint_mask}
+    for side in sides:
+        t0 = time.perf_counter()
+        total, _ = tone_detect_path(field / MS_SCALE, (ys, xs, amps, dead),
+                                    counters, smi, comp_hw=side)
+        log(f"[4i] composite commands 3 x {side}^2: phase "
+            f"{time.perf_counter() - t0:.1f} s, launches {total}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--phase-4i"]:
+        phase_4i_alone([int(a) for a in sys.argv[2:]] or [COMP_HW])
+    else:
+        main()

@@ -506,7 +506,13 @@ def test_commands_have_the_jax_signature_plus_device():
                      "calibrate", "run_pipeline_cmd", "drizzle_stack_cmd",
                      "export_fits", "export_fits_rgb", "export_png",
                      "export_rgb_png", "resample_fits_cmd",
-                     "export_zip_bundle"}
+                     "export_zip_bundle", "wavelet_denoise_cmd",
+                     "apply_arcsinh_stretch_cmd", "masked_stretch_cmd",
+                     "arcsinh_stretch_composite_cmd",
+                     "masked_stretch_composite_cmd",
+                     "apply_tone_composite_cmd", "extract_background_cmd",
+                     "detect_stars", "detect_stars_composite",
+                     "analyze_subframes_cmd", "estimate_psf_cmd"}
     assert tapi.compute_histogram is tapi.compute_histogram_cmd
     for name in names:
         got = inspect.signature(getattr(tapi, name)).parameters
@@ -542,7 +548,17 @@ def test_commands_without_a_device_raise_where_there_is_no_card(tmp_path,
              ("export_png", (path, out + ".png")),
              ("export_rgb_png", (out + ".png",)),
              ("resample_fits_cmd", (path, out, 8, 8)),
-             ("export_zip_bundle", ([path], out + ".zip"))]
+             ("export_zip_bundle", ([path], out + ".zip")),
+             ("wavelet_denoise_cmd", (path, out)),
+             ("apply_arcsinh_stretch_cmd", (path, out, 50.0)),
+             ("masked_stretch_cmd", (path, out)),
+             ("arcsinh_stretch_composite_cmd", (out, 30.0)),
+             ("masked_stretch_composite_cmd", (out,)),
+             ("apply_tone_composite_cmd", (out,)),
+             ("extract_background_cmd", (path, out)),
+             ("detect_stars", (path,)), ("detect_stars_composite", ()),
+             ("analyze_subframes_cmd", ([path],)),
+             ("estimate_psf_cmd", (path,))]
     assert {n for n, _ in calls} | {"compute_histogram_cmd"} == \
         set(tapi.__all__)
     for name, args in calls:

@@ -126,7 +126,12 @@ def test_port_and_chip_smoke_import_nothing_of_jax_or_the_jax_package():
                 "runtime/output.py", "runtime/progress.py",
                 "api/export.py", "api/processing.py",
                 "imaging/calibration_pipeline.py", "imaging/normalize.py",
-                "imaging/resample.py", "stacking/calibration.py"):
+                "imaging/resample.py", "stacking/calibration.py",
+                "ops/normalization.py", "ops/boundary.py",
+                "imaging/stretch.py", "imaging/scnr.py", "imaging/curves.py",
+                "imaging/wavelet.py", "imaging/background.py",
+                "imaging/psf_estimation.py", "analysis/confidence.py",
+                "analysis/subframe.py", "api/psf.py"):
         assert REPO / "astroburst_tpu_torch" / new in files, new
     asdf = REPO / "astroburst_tpu_torch" / "io" / "asdf.py"
     bad = []
@@ -160,19 +165,33 @@ def test_port_constants_dtypes_errors_match_jax_package():
             "DEFAULT_OUTPUT_MAX_BYTES", "RES_OFFSETS",
             "RES_REJECTED_PIXELS", "STAR_MASK_KEY", "HISTOGRAM_BINS_DISPLAY",
             "COMPOSITE_ORIG_R", "COMPOSITE_KEY_B", "STF_G", "RES_BIN_EDGES",
-            "RES_TOTAL_PIXELS", "RES_FILTER_DETECTION"} <= set(names)
+            "RES_TOTAL_PIXELS", "RES_FILTER_DETECTION", "DEFAULT_STEM",
+            "PROGRESS_EVENT", "EVENT_WAVELET_PROGRESS", "PROGRESS_STEPS",
+            "RES_CORRECTED_PNG", "RES_MODEL_PNG", "RES_CORRECTED_FITS",
+            "RES_SAMPLE_COUNT", "RES_RMS_RESIDUAL", "RES_ITERATIONS_RUN",
+            "RES_STRETCH_FACTOR", "RES_SCALES_PROCESSED",
+            "RES_NOISE_ESTIMATE", "RES_SCNR_APPLIED", "RES_FRAMES",
+            "DEFAULT_SCNR_AMOUNT", "RES_KERNEL_SIZE", "RES_AVERAGE_FWHM",
+            "RES_AVERAGE_ELLIPTICITY", "RES_SPREAD_PIXELS", "RES_STARS_USED",
+            "RES_STARS_REJECTED", "RES_KERNEL", "RES_STARS_MASKED",
+            "RES_MASK_COVERAGE", "RES_FINAL_BACKGROUND", "RES_CONVERGED",
+            "SUFFIX_MASKED_STRETCH", "RES_COMPOSITE_DIMS",
+            "RES_CURVES_APPLIED", "RES_LEVELS_APPLIED", "RES_STF_APPLIED",
+            "RES_WIDTH", "RES_HEIGHT"} <= set(names)
     for n in names:
         assert getattr(tc, n) == getattr(jc, n), n
-    for name in ("AlignMethod", "AlignmentMethod", "DrizzleKernel"):
+    for name in ("AlignMethod", "AlignmentMethod", "DrizzleKernel",
+                 "ScnrMethod"):
         te_, je_ = getattr(td, name), getattr(jd, name)
         assert [(m.name, m.value) for m in te_] == \
             [(m.name, m.value) for m in je_], name
         for s in (None, "", "aff", "Affine", "zncc", "none", "gaussian",
-                  "lanczos", "lanczos3", "square", "phase"):
+                  "lanczos", "lanczos3", "square", "phase", "max",
+                  "Maximum", "average"):
             assert te_.parse(s).value == je_.parse(s).value, (name, s)
     import dataclasses
     for name in ("StackConfig", "DrizzleConfig", "ImageStats", "StfParams",
-                 "AutoStfConfig", "AppConfig"):
+                 "AutoStfConfig", "AppConfig", "ScnrConfig"):
         got = dataclasses.asdict(getattr(td, name)())
         want = dataclasses.asdict(getattr(jd, name)())
         assert {k: getattr(v, "value", v) for k, v in got.items()} == \
