@@ -349,9 +349,9 @@ def check_transform_sanity(result: AffineAlignResult, rows: int,
     return None
 
 
-def _fallback_phase_correlation(reference, target, rows, cols
-                                ) -> AffineAlignResult:
-    pc = phase_correlate(reference, target)
+def _fallback_phase_correlation(reference, target, rows, cols, *,
+                                plain: bool = False) -> AffineAlignResult:
+    pc = phase_correlate(reference, target, plain=plain)
     if (abs(pc.dx) > cols * MAX_OFFSET_FRACTION or
             abs(pc.dy) > rows * MAX_OFFSET_FRACTION or pc.confidence < 1.5):
         return AffineAlignResult(AffineTransform.identity(), 0, 0, 0.0,
@@ -382,21 +382,21 @@ def align_channel_affine(reference, target,
             len(tgt_stars) < MIN_MATCHES_RIGID:
         _LOG.warning("affine: too few stars (ref=%d tgt=%d), falling back "
                      "to phase correlation", len(ref_stars), len(tgt_stars))
-        return _fallback_phase_correlation(ref, tgt, rows, cols)
+        return _fallback_phase_correlation(ref, tgt, rows, cols, plain=plain)
 
     ref_tris = build_triangles(ref_stars)
     tgt_tris = build_triangles(tgt_stars)
     if len(ref_tris[0]) == 0 or len(tgt_tris[0]) == 0:
         _LOG.warning("affine: no usable triangles, falling back to phase "
                      "correlation")
-        return _fallback_phase_correlation(ref, tgt, rows, cols)
+        return _fallback_phase_correlation(ref, tgt, rows, cols, plain=plain)
 
     matches = match_triangles(ref_stars, tgt_stars, ref_tris, tgt_tris,
                               ref.device, plain=plain)
     if len(matches) < MIN_MATCHES_RIGID:
         _LOG.warning("affine: %d star matches (< %d), falling back to "
                      "phase correlation", len(matches), MIN_MATCHES_RIGID)
-        return _fallback_phase_correlation(ref, tgt, rows, cols)
+        return _fallback_phase_correlation(ref, tgt, rows, cols, plain=plain)
 
     if len(matches) >= MIN_MATCHES_AFFINE:
         result = ransac_affine(matches, "affine")
@@ -416,7 +416,7 @@ def align_channel_affine(reference, target,
 
     _LOG.warning("affine: star-based alignment failed, falling back to "
                  "phase correlation")
-    return _fallback_phase_correlation(ref, tgt, rows, cols)
+    return _fallback_phase_correlation(ref, tgt, rows, cols, plain=plain)
 
 
 # --- warp (affine.rs:663-690) ------------------------------------------------

@@ -5,9 +5,9 @@ src-tauri/src/core/stacking/align.rs:84-170).
 ``align_pair(AFFINE)`` always runs the host chain of alignment/affine
 (detect, vote and warp on the device, triangles, matching and RANSAC on
 the host) and warps with ``warp_image``; the JAX package's fused device
-chain, its TPU path, is not ported (ROADMAP A10). ``estimate_offset``'s
-``plain`` runs the kernels' plain torch versions instead (drizzle's
-affine route holds the kernels to them on the card).
+chain, its TPU path, is not ported (ROADMAP A10). ``plain`` runs the
+kernels' plain torch versions instead (drizzle's affine route and the
+compose pipeline hold the kernels to them on the card).
 """
 
 from __future__ import annotations
@@ -56,16 +56,16 @@ def estimate_offset(reference, target, method: AlignMethod, *,
         return (r.transform.ty, r.transform.tx,
                 1.0 if r.inliers > 0 else 0.0)
     ref = as_f32(reference)
-    pc = phase_correlate(ref, as_f32(target, ref.device))
+    pc = phase_correlate(ref, as_f32(target, ref.device), plain=plain)
     return pc.dy, pc.dx, pc.confidence
 
 
 def align_pair(reference, target, method: AlignMethod, rows: int,
-               cols: int) -> AlignPairResult:
+               cols: int, *, plain: bool = False) -> AlignPairResult:
     """Align ``target`` onto ``reference`` and resample it onto a
     rows × cols canvas (affine) or shift it (phase correlation)."""
     if method == AlignMethod.AFFINE:
-        result = align_channel_affine(reference, target)
+        result = align_channel_affine(reference, target, plain=plain)
         warped = warp_image(as_f32(target), result.transform,
                             rows, cols)
         return AlignPairResult(
@@ -79,7 +79,7 @@ def align_pair(reference, target, method: AlignMethod, rows: int,
         )
     ref = as_f32(reference)
     tgt = as_f32(target, ref.device)
-    pc = phase_correlate(ref, tgt)
+    pc = phase_correlate(ref, tgt, plain=plain)
     shifted = shift_image_subpixel(tgt, pc.dy, pc.dx)
     return AlignPairResult(
         aligned=shifted, offset=(pc.dy, pc.dx), confidence=pc.confidence,
@@ -87,8 +87,9 @@ def align_pair(reference, target, method: AlignMethod, rows: int,
 
 
 def align_pair_with_label(reference, target, method: AlignMethod, rows: int,
-                          cols: int, label: str) -> AlignPairResult:
-    result = align_pair(reference, target, method, rows, cols)
+                          cols: int, label: str, *,
+                          plain: bool = False) -> AlignPairResult:
+    result = align_pair(reference, target, method, rows, cols, plain=plain)
     log.info("%s alignment: %s, offset=(%.2f, %.2f), confidence=%.4f, "
              "inliers=%d", label, result.method_used, result.offset[0],
              result.offset[1], result.confidence, result.inliers)

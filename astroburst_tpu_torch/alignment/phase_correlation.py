@@ -228,12 +228,14 @@ def phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor, *,
             torch.where(bad, zero, rconf))
 
 
-def phase_correlate(reference, target) -> PhaseCorrelationResult:
+def phase_correlate(reference, target, *,
+                    plain: bool = False) -> PhaseCorrelationResult:
     """Host-level API: crop both [H, W] tensors to their common dims,
-    correlate on their device, fetch (dy, dx, confidence)."""
+    correlate on their device, fetch (dy, dx, confidence). ``plain`` as
+    in ``phase_correlate_stack``."""
     rows = min(reference.shape[0], target.shape[0])
     cols = min(reference.shape[1], target.shape[1])
     ref = reference[:rows, :cols].float().contiguous()
     tgt = target[:rows, :cols].float().contiguous()
-    dy, dx, conf = phase_correlate_stack(ref, tgt[None])
+    dy, dx, conf = phase_correlate_stack(ref, tgt[None], plain=plain)
     return PhaseCorrelationResult(float(dy[0]), float(dx[0]), float(conf[0]))

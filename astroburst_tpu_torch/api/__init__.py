@@ -2,7 +2,7 @@
 reference's Tauri commands): the same names, arguments, defaults and
 response keys, plus a keyword-only ``device`` (default
 ``cuda_device()``, which raises where there is no card). Ported so
-far, 31 of the 60 registered commands: the stacking commands
+far, 42 of the 60 registered commands: the stacking commands
 (``stack``, ``calibrate``, ``run_pipeline_cmd``), the export commands
 (``export_fits``, ``export_fits_rgb``, ``export_png``,
 ``export_rgb_png``, ``resample_fits_cmd``), the open-and-inspect
@@ -15,15 +15,24 @@ denoise commands (``apply_arcsinh_stretch_cmd``, ``masked_stretch_cmd``,
 ``apply_tone_composite_cmd``, ``wavelet_denoise_cmd``,
 ``extract_background_cmd``) and the detection and analysis commands
 (``detect_stars``, ``detect_stars_composite``,
-``analyze_subframes_cmd``, ``estimate_psf_cmd``); and two that the
-reference does not register, ``drizzle_stack_cmd`` and
-``export_zip_bundle``.
+``analyze_subframes_cmd``, ``estimate_psf_cmd``), the compose commands
+(``compose_rgb_cmd``, ``restretch_composite_cmd``,
+``clear_composite_cache_cmd``, ``update_composite_channel_cmd``,
+``blend_channels_cmd``, ``align_channels_cmd``, ``crop_channels_cmd``,
+``export_aligned_channels_cmd``, ``calibrate_and_scnr_cmd``,
+``compute_auto_wb_cmd``, ``reset_wb_cmd``); and two that the reference
+does not register, ``drizzle_stack_cmd`` and ``export_zip_bundle``.
 """
 
 from astroburst_tpu_torch.api.analysis import (analyze_subframes_cmd,
                                                compute_histogram_cmd,
                                                detect_stars,
                                                detect_stars_composite)
+from astroburst_tpu_torch.api.compose import (
+    align_channels_cmd, blend_channels_cmd, calibrate_and_scnr_cmd,
+    clear_composite_cache_cmd, compose_rgb_cmd, compute_auto_wb_cmd,
+    crop_channels_cmd, export_aligned_channels_cmd, reset_wb_cmd,
+    restretch_composite_cmd, update_composite_channel_cmd)
 from astroburst_tpu_torch.api.export import (export_fits, export_fits_rgb,
                                              export_png, export_rgb_png,
                                              export_zip_bundle)
@@ -62,4 +71,9 @@ __all__ = [
     "masked_stretch_composite_cmd", "apply_tone_composite_cmd",
     "extract_background_cmd", "detect_stars", "detect_stars_composite",
     "analyze_subframes_cmd", "estimate_psf_cmd",
+    "compose_rgb_cmd", "restretch_composite_cmd",
+    "clear_composite_cache_cmd", "update_composite_channel_cmd",
+    "blend_channels_cmd", "align_channels_cmd", "crop_channels_cmd",
+    "export_aligned_channels_cmd", "calibrate_and_scnr_cmd",
+    "compute_auto_wb_cmd", "reset_wb_cmd",
 ]

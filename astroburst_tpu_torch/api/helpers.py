@@ -1,8 +1,8 @@
 """Composite cache helpers, linked STF, stats payloads and preview
 rendering (counterpart of astroburst_tpu/api/helpers.py; reference:
 src-tauri/src/cmd/helpers.rs), and the SCNR parser of the tone
-command. The two compose parsers, ``parse_wb`` and
-``parse_align_method``, wait for the compose commands (queue item A12).
+command and the compose parsers ``parse_wb`` and
+``parse_align_method``.
 
 Previews are downsampled in f32 on the plane's device, STF-mapped to
 u8 there, and fetched once (all three planes of an RGB preview in one
@@ -19,8 +19,10 @@ from typing import Optional, Tuple
 import torch
 
 from astroburst_tpu_torch import constants as C
-from astroburst_tpu_torch.dtypes import (AutoStfConfig, ImageStats,
-                                         ScnrConfig, ScnrMethod, StfParams)
+from astroburst_tpu_torch.dtypes import (AlignMethod, AutoStfConfig,
+                                         ImageStats, ScnrConfig, ScnrMethod,
+                                         StfParams, WhiteBalance,
+                                         WhiteBalanceMode)
 from astroburst_tpu_torch.errors import CacheMiss
 from astroburst_tpu_torch.imaging.stf import apply_stf_u8, auto_stf
 from astroburst_tpu_torch.io.png import save_gray_png, save_rgb_png
@@ -175,17 +177,18 @@ def load_composite_rgb(device=None):
             _require(C.COMPOSITE_KEY_B, device))
 
 
-def load_composite_orig_rgb():
-    """ORIG immutable planes."""
-    return (_require(C.COMPOSITE_ORIG_R), _require(C.COMPOSITE_ORIG_G),
-            _require(C.COMPOSITE_ORIG_B))
+def load_composite_orig_rgb(device=None):
+    """ORIG immutable planes (``device`` as in load_composite_rgb)."""
+    return (_require(C.COMPOSITE_ORIG_R, device),
+            _require(C.COMPOSITE_ORIG_G, device),
+            _require(C.COMPOSITE_ORIG_B, device))
 
 
-def load_orig_or_composite():
+def load_orig_or_composite(device=None):
     try:
-        return load_composite_orig_rgb()
+        return load_composite_orig_rgb(device)
     except CacheMiss:
-        return load_composite_rgb()
+        return load_composite_rgb(device)
 
 
 def insert_composite_rgb(r, g, b, stats_r, stats_g, stats_b) -> None:
@@ -207,3 +210,20 @@ def parse_scnr_config(enabled: Optional[bool], method: Optional[str],
         method=ScnrMethod.parse(method),
         amount=float(amount if amount is not None else C.DEFAULT_SCNR_AMOUNT),
         preserve_luminance=bool(preserve_luminance or False))
+
+
+def parse_wb(mode: Optional[str], r: Optional[float], g: Optional[float],
+             b: Optional[float]) -> WhiteBalance:
+    """The white-balance request of a command: auto unless ``mode`` is
+    manual (missing or zero factors read as 1) or none."""
+    m = (mode or "auto").lower()
+    if m == C.WB_MODE_MANUAL:
+        return WhiteBalance(mode=WhiteBalanceMode.MANUAL, r=r or 1.0,
+                            g=g or 1.0, b=b or 1.0)
+    if m == C.WB_MODE_NONE:
+        return WhiteBalance(mode=WhiteBalanceMode.NONE)
+    return WhiteBalance(mode=WhiteBalanceMode.AUTO)
+
+
+def parse_align_method(s: Optional[str]) -> AlignMethod:
+    return AlignMethod.parse(s)

@@ -97,6 +97,31 @@ RES_CURVES_APPLIED = "curves_applied"
 RES_LEVELS_APPLIED = "levels_applied"
 RES_STF_APPLIED = "stf_applied"
 
+# --- compose (api/compose.py) ---------------------------------------------
+MAX_DIMENSION_RATIO = 8.0
+WB_MODE_MANUAL = "manual"
+WB_MODE_NONE = "none"
+LRGB_APPLIED = "lrgb_applied"
+DIMENSIONS = "dimensions"
+ALIGN_METHOD = "align_method"
+RES_STATS_R = "stats_r"
+RES_STATS_G = "stats_g"
+RES_STATS_B = "stats_b"
+RES_OFFSET_G = "offset_g"
+RES_OFFSET_B = "offset_b"
+RES_DIMENSION_INFO = "dimension_info"
+RES_CHANNEL_COUNT = "channel_count"
+RES_CONFIDENCE = "confidence"
+RES_CHANNEL = "channel"
+RES_OFFSET = "offset"
+RES_R_FACTOR = "r_factor"
+RES_G_FACTOR = "g_factor"
+RES_B_FACTOR = "b_factor"
+RES_BLEND_PRESET = "blend_preset"
+RES_WB_APPLIED = "wb_applied"
+RES_CACHE_KEYS = "cache_keys"
+RES_PERSIST_TO_DISK = "persist_to_disk"
+
 RES_HEADER = "header"
 RES_CARDS = "cards"
 RES_TOTAL_CARDS = "total_cards"
@@ -138,3 +163,15 @@ STF_B = "stf_b"
 
 WIZARD_CACHE_PREFIX = "__wizard_ch_"
 STAR_MASK_KEY = "__star_mask"
+
+
+def wizard_cache_key(bin_id: str, stage: str) -> str:
+    return f"{WIZARD_CACHE_PREFIX}{bin_id}{stage}"
+
+
+def wizard_aligned_key(bin_id: str) -> str:
+    return wizard_cache_key(bin_id, "_aligned")
+
+
+def wizard_cropped_key(bin_id: str) -> str:
+    return wizard_cache_key(bin_id, "_cropped")

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 from astroburst_tpu_torch import constants as C
@@ -110,6 +110,39 @@ class AlignMethod(str, enum.Enum):
         if s and s.lower().startswith("aff"):
             return AlignMethod.AFFINE
         return AlignMethod.PHASE_CORRELATION
+
+
+# --- compose (types/compose.rs) --------------------------------------------
+
+
+class WhiteBalanceMode(str, enum.Enum):
+    AUTO = "auto"
+    MANUAL = "manual"
+    NONE = "none"
+
+
+@dataclass(frozen=True)
+class WhiteBalance:
+    mode: WhiteBalanceMode = WhiteBalanceMode.AUTO
+    r: float = 1.0
+    g: float = 1.0
+    b: float = 1.0
+
+
+@dataclass(frozen=True)
+class RgbComposeConfig:
+    """``linked_stf`` defaults to True here, as in the JAX package;
+    ``compose_rgb_cmd`` passes False when the caller gives None."""
+    white_balance: WhiteBalance = field(default_factory=WhiteBalance)
+    align: bool = True
+    align_method: AlignMethod = AlignMethod.PHASE_CORRELATION
+    auto_stretch: bool = True
+    linked_stf: bool = True
+    stf_r: Optional[StfParams] = None
+    stf_g: Optional[StfParams] = None
+    stf_b: Optional[StfParams] = None
+    scnr: Optional[ScnrConfig] = None
+    auto_stf: AutoStfConfig = field(default_factory=AutoStfConfig)
 
 
 class AlignmentMethod(str, enum.Enum):

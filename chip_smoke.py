@@ -4,6 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase-4i [SIDE ...]   # phase 4i alone, once
                                                   # per composite side
+    python3 chip_smoke.py --phase-4j [SIDE ...]   # phase 4j alone, once
+                                                  # per side of the
+                                                  # wizard's colour commands
 
 Phases, each of which fails loudly (nothing is caught; any failure
 exits non-zero, and so does a machine without a CUDA device):
@@ -166,6 +169,22 @@ exits non-zero, and so does a machine without a CUDA device):
    (PNGs decoded, within one level; no kernel); the file commands cold
    and warm, the composite ones after a warm-up call, counters reset
    and read around each command, and each module call timed alone.
+   (j) compose (``compose_path``): the 4096^2 field of (c) as R, with G
+   and B rendered from its star list moved by sub-pixel shifts (and G
+   rotated by 0.4 deg for the affine method), an L plane and four
+   narrowband planes, written as FITS under build/; ``compose_rgb_cmd``
+   at 3 x 4096^2 by phase correlation (K1, K2), by the affine method
+   (K10, K11, K12) and with L; ``align_channels_cmd``,
+   ``crop_channels_cmd`` and ``export_aligned_channels_cmd`` at 3 x
+   4096^2; the wizard's colour commands (blend, auto WB, WB + SCNR,
+   reset, restretch, update, clear) at 3 x ``COMP_HW``^2;
+   ``process_drizzle_rgb`` and ``drizzle_rgb`` (3 x 4 frames of 1024^2
+   → 2048^2: K1, K2, K7): offsets within 0.1 px of the generator's, the
+   rotation within 0.1 deg, cache planes and FITS bit-equal to the
+   module calls on the card, every PNG equal to the u8 of the card's
+   planes, the modules against their plain path; each command cold and
+   warm, counters reset and read around each, the alignment module
+   calls timed alone.
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
@@ -3171,6 +3190,547 @@ def tone_detect_path(field, truth, counters, smi, comp_hw=COMP_HW):
         shutil.rmtree(root)
 
 
+PC_SHIFTS = ((2.3, -1.7), (-3.6, 4.2))   # G and B against R, (dy, dx)
+AFF_DEG = 0.4                            # G rotated about the centre ...
+AFF_SHIFT_G, AFF_SHIFT_B = (1.5, -2.5), (-2.2, 3.1)   # ... and shifted
+DRZ_RGB_N, DRZ_RGB_HW = 4, 1024          # drizzle_rgb: 3 x 4 frames
+NB_BINS = ("sii", "ha", "oiii", "nii")   # the blend's narrowband planes
+
+
+def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
+    """Phase 4j: the compose commands. In, written as FITS under build/
+    (removed after): R, the 4096^2 field of 4c (its NaN patches and
+    +-inf included; left 4 columns zero), and from the same star list,
+    rendered analytically with their own noise: G and B moved by
+    PC_SHIFTS (x0.8 and x1.2; top 6 rows and right 9 columns zero), G
+    rotated by AFF_DEG about the centre and moved by AFF_SHIFT_G, B moved
+    by AFF_SHIFT_B, an L plane, and four narrowband planes (NB_BINS) of
+    wiz_hw^2. The compose and alignment commands run at the field's
+    side: ``compose_rgb_cmd`` by phase correlation (K1, K2), by the
+    affine method (K10, K11, K12) and with L, ``align_channels_cmd``
+    (persisted to disk), ``crop_channels_cmd`` and
+    ``export_aligned_channels_cmd``; the wizard's other PNG-writing
+    commands at wiz_hw (``blend_channels_cmd`` → ``compute_auto_wb_cmd``
+    → ``calibrate_and_scnr_cmd`` → ``reset_wb_cmd`` →
+    ``restretch_composite_cmd`` → ``update_composite_channel_cmd`` →
+    ``clear_composite_cache_cmd``); then ``process_drizzle_rgb`` on the
+    three phase-correlation planes and ``drizzle_rgb`` on three channels
+    of DRZ_RGB_N dithered DRZ_RGB_HW^2 frames (K1, K2, K7). Each command
+    cold (empty image cache) and warm, or twice where it reads no file,
+    timed on the host clock ending in a synchronize; the kernel counters
+    are reset just before each command and read just after. Checks:
+
+    - offsets within 0.1 px of the generator's (phase correlation: the
+      shifts; affine: the translation of the forward transform), the
+      rotation within 0.1 deg;
+    - the cache planes (ORIG, KEY, the wizard's aligned and cropped
+      keys) and the written FITS bit-equal to the module calls on the
+      card (``process_rgb``, ``blend_channels``, ``align_pair``, the
+      factors × ORIG → ``apply_scnr``), ORIG never changed through KEY;
+    - every PNG, decoded, equal to the u8 of the card's planes;
+    - the modules on the card against their plain path (kernels off):
+      ``process_rgb`` offsets within 0.05 px and planes within the
+      offsets' difference times their gradient, the affine transform
+      within 1e-3 with the same method and inliers, ``drizzle_rgb`` the
+      same; ``process_drizzle_rgb`` within 1e-6 of the CPU's.
+
+    Returns (launches summed over the commands, times in ms)."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from astroburst_tpu_torch import api
+    from astroburst_tpu_torch import constants as C
+    from astroburst_tpu_torch.alignment.affine import (align_channel_affine,
+                                                       warp_image)
+    from astroburst_tpu_torch.alignment.pair import align_pair
+    from astroburst_tpu_torch.alignment.phase_correlation import \
+        phase_correlate
+    from astroburst_tpu_torch.api import helpers
+    from astroburst_tpu_torch.api.compose import detect_valid_region
+    from astroburst_tpu_torch.compose.channel_blend import blend_channels
+    from astroburst_tpu_torch.compose.drizzle_rgb import (
+        drizzle_rgb, process_drizzle_rgb)
+    from astroburst_tpu_torch.compose.lrgb import apply_lrgb
+    from astroburst_tpu_torch.compose.rgb import process_rgb
+    from astroburst_tpu_torch.compose.white_balance import \
+        select_wb_reference
+    from astroburst_tpu_torch.dtypes import (AlignMethod, RgbComposeConfig,
+                                             StfParams)
+    from astroburst_tpu_torch.imaging.scnr import apply_scnr
+    from astroburst_tpu_torch.imaging.stf import (apply_stf_f32,
+                                                  apply_stf_u8, auto_stf)
+    from astroburst_tpu_torch.io import extract_image, write_fits_mono
+    from astroburst_tpu_torch.io.header import HduHeader
+    from astroburst_tpu_torch.metadata.presets import resolve_preset_weights
+    from astroburst_tpu_torch.ops.ipc import nearest_downsample
+    from astroburst_tpu_torch.ops.stats import compute_image_stats
+    from astroburst_tpu_torch.runtime.cache import GLOBAL_IMAGE_CACHE
+    f_ys, f_xs, f_amps, _dead = truth
+    dev = field.device
+    hw = field.shape[0]
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="compose_", dir=build)
+    out = os.path.join(root, "out")
+    cmd_ms, launches, total = {}, {}, {k: 0 for k in counters}
+    t_phase = time.perf_counter()
+
+    def expect(what, cond, detail=""):
+        if not cond:
+            raise AssertionError(f"{what} {detail}")
+
+    def counted(name, fn, cold=True):
+        """fn() cold and warm (or twice, when not ``cold``: first and
+        second), the counters reset just before and read just after;
+        returns the last result."""
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        if cold:
+            GLOBAL_IMAGE_CACHE.clear()
+        _, cmd_ms[f"{name}_{'cold' if cold else 'first'}"] = host_ms(fn)
+        r, cmd_ms[f"{name}_{'warm' if cold else 'second'}"] = host_ms(fn)
+        torch.cuda.synchronize()
+        launches[name] = {k: f.launches for k, f in counters.items()}
+        for k, v in launches[name].items():
+            total[k] += v
+        return r
+
+    def launched(name, kernels):
+        got = launches[name]
+        if kernels:
+            expect(f"{name}: a kernel never ran:",
+                   all(got[k] > 0 for k in kernels), got)
+        else:
+            expect(f"{name} launched a kernel:", not any(got.values()), got)
+
+    def fits(path):
+        return torch.from_numpy(extract_image(path).image).to(dev)
+
+    def same_bits(a, b):
+        a, b = a.contiguous(), b.contiguous()
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+
+    def near(what, got, want, tol):
+        d = float(np.abs(np.subtract(got, want)).max())
+        expect(what, d <= tol, f"{got} vs {want}: {d} > {tol}")
+        return d
+
+    def grad_max(p):
+        d = [torch.abs(torch.diff(p, dim=k)) for k in (0, 1)]
+        return max(float(x[torch.isfinite(x)].max()) for x in d)
+
+    def close_moved(what, got, want, d_off, rel=1e-5):
+        """Planes within rel of their largest magnitude plus the offsets'
+        difference times their largest one-pixel change."""
+        fin = torch.isfinite(want)
+        expect(what, torch.equal(fin, torch.isfinite(got)), "finite sets")
+        top = float(want[fin].abs().max())
+        d = float((got[fin] - want[fin]).abs().max())
+        tol = rel * top + d_off * grad_max(want)
+        expect(what, d <= tol, f"max|d| {d} > {tol}")
+        return d
+
+    def rgb_u8(planes):
+        return np.stack([helpers._to_u8(nearest_downsample(p, 4096)).cpu()
+                         .numpy() for p in planes], -1)
+
+    def stf_rgb_u8(planes, prms, sts):
+        return np.stack([apply_stf_u8(nearest_downsample(p, 4096), q, s)
+                         .cpu().numpy() for p, q, s in zip(planes, prms,
+                                                           sts)], -1)
+
+    def png_is(what, path, want):
+        expect(f"{what}: PNG", np.array_equal(decode_png(path), want),
+               "differs from the u8 of the card's planes")
+
+    def render(ys, xs, scale, seed, side=hw):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        img = 100.0 + 5.0 * torch.randn((side, side), generator=g,
+                                        device=dev)
+        return scale * (img + render_stars(side, side, ys, xs, f_amps, 0.0,
+                                           0.0, 1.5, dev))
+
+    def write(name, plane, k=0):
+        p = os.path.join(root, f"{name}.fits")
+        write_fits_mono(p, plane.cpu().numpy(), HduHeader([
+            ("OBJECT", f"'chip_smoke 4j {name}'"),
+            ("CRPIX1", f"{hw / 2 + 0.5 + k}"), ("CRPIX2", f"{hw / 2 - k}")]))
+        return p
+
+    try:
+        # -- the scene --------------------------------------------------
+        t0 = time.perf_counter()
+        c = hw / 2.0
+        th = math.radians(AFF_DEG)
+        co, si = math.cos(th), math.sin(th)
+        aff_g = (c - si * c - co * c + AFF_SHIFT_G[0],
+                 c - co * c + si * c + AFF_SHIFT_G[1])   # (ty, tx) forward
+        r_plane = field.clone()
+        r_plane[:, :4] = 0.0
+        g_pc = render(f_ys + PC_SHIFTS[0][0], f_xs + PC_SHIFTS[0][1], 0.8, 41)
+        g_pc[:6] = 0.0
+        b_pc = render(f_ys + PC_SHIFTS[1][0], f_xs + PC_SHIFTS[1][1], 1.2, 42)
+        b_pc[:, -9:] = 0.0
+        g_aff = render(si * (f_xs - c) + co * (f_ys - c) + c + AFF_SHIFT_G[0],
+                       co * (f_xs - c) - si * (f_ys - c) + c + AFF_SHIFT_G[1],
+                       0.9, 43)
+        b_aff = render(f_ys + AFF_SHIFT_B[0], f_xs + AFF_SHIFT_B[1], 1.1, 44)
+        l_plane = render(f_ys, f_xs, 1.0, 45)
+        p = {"r": write("r", r_plane), "g": write("g", g_pc, 1),
+             "b": write("b", b_pc, 2), "g_aff": write("g_aff", g_aff),
+             "b_aff": write("b_aff", b_aff), "l": write("l", l_plane)}
+        del g_aff, b_aff, l_plane
+        nb = {}
+        for k, (name, s) in enumerate(zip(NB_BINS, (0.3, 1.0, 0.5, 0.2))):
+            nb[name] = write(f"nb_{name}", render(f_ys, f_xs, s, 50 + k,
+                                                  wiz_hw))
+        t_files = time.perf_counter() - t0
+        err = {}
+
+        # -- compose_rgb_cmd by phase correlation: K1, K2 ----------------
+        res = counted("compose_rgb_cmd", lambda: api.compose_rgb_cmd(
+            out, r_path=p["r"], g_path=p["g"], b_path=p["b"]))
+        launched("compose_rgb_cmd", ("coarse_box", "gather_crops"))
+        err["pc_offset_g"] = near("compose_rgb_cmd offset_g",
+                                  res["offset_g"], PC_SHIFTS[0], 0.1)
+        err["pc_offset_b"] = near("compose_rgb_cmd offset_b",
+                                  res["offset_b"], PC_SHIFTS[1], 0.1)
+        rgb_in = [fits(p[k]) for k in "rgb"]
+        cfg = RgbComposeConfig(linked_stf=False)
+        mod = process_rgb(*rgb_in, cfg)
+        expect("compose_rgb_cmd: offsets", res["offset_g"] == list(
+            mod.offset_g) and res["offset_b"] == list(mod.offset_b))
+        keys = (C.COMPOSITE_ORIG_R, C.COMPOSITE_ORIG_G, C.COMPOSITE_ORIG_B,
+                C.COMPOSITE_KEY_R, C.COMPOSITE_KEY_G, C.COMPOSITE_KEY_B)
+        ent = [GLOBAL_IMAGE_CACHE.get(k, dev) for k in keys]
+        for k, n in enumerate("rgb"):
+            expect(f"compose_rgb_cmd: ORIG/KEY {n}",
+                   ent[k].image is ent[k + 3].image and same_bits(
+                       ent[k].image, getattr(mod, f"pre_stretch_{n}")))
+        png_is("compose_rgb_cmd", res["png_path"],
+               rgb_u8([mod.r, mod.g, mod.b]))
+        plain = process_rgb(*rgb_in, cfg, plain=True)
+        d_off = max(near("process_rgb kernel vs plain", mod.offset_g,
+                         plain.offset_g, 0.05),
+                    near("process_rgb kernel vs plain", mod.offset_b,
+                         plain.offset_b, 0.05))
+        err["process_rgb_plain_offsets"] = d_off
+        err["process_rgb_plain_planes"] = max(
+            close_moved(f"process_rgb kernel vs plain {n}",
+                        getattr(mod, f"pre_stretch_{n}"),
+                        getattr(plain, f"pre_stretch_{n}"), 2 * d_off)
+            for n in "rgb")
+        tmp_png = os.path.join(root, "png_alone.png")
+        _, png_ms = host_ms(lambda: helpers.render_rgb_preview(
+            mod.r, mod.g, mod.b, tmp_png, 4096))
+        cmd_ms["rgb_png_alone"] = png_ms
+        del plain
+        log(f"[path] compose_rgb_cmd (phase correlation) 3 x {hw}^2: "
+            f"offsets G {res['offset_g']} B {res['offset_b']} (generator "
+            f"{PC_SHIFTS}); ORIG/KEY and PNG equal to process_rgb on the "
+            f"card; kernel vs plain offsets {d_off:.2e} px; launches "
+            f"{launches['compose_rgb_cmd']}")
+
+        # -- compose_rgb_cmd by the affine chain: K10, K11, K12 -----------
+        res = counted("compose_rgb_cmd_affine", lambda: api.compose_rgb_cmd(
+            out, r_path=p["r"], g_path=p["g_aff"], b_path=p["b_aff"],
+            align_method="affine"))
+        launched("compose_rgb_cmd_affine",
+                 ("sort_tiles", "window_stats", "vote"))
+        err["aff_offset_g"] = near("compose_rgb_cmd affine offset_g",
+                                   res["offset_g"], aff_g, 0.1)
+        err["aff_offset_b"] = near("compose_rgb_cmd affine offset_b",
+                                   res["offset_b"], AFF_SHIFT_B, 0.1)
+        aff_in = [rgb_in[0], fits(p["g_aff"]), fits(p["b_aff"])]
+        acfg = RgbComposeConfig(linked_stf=False,
+                                align_method=AlignMethod.AFFINE)
+        amod = process_rgb(*aff_in, acfg)
+        for k, n in enumerate("rgb"):
+            expect(f"compose_rgb_cmd affine: ORIG {n}", same_bits(
+                GLOBAL_IMAGE_CACHE.get(keys[k], dev).image,
+                getattr(amod, f"pre_stretch_{n}")))
+        png_is("compose_rgb_cmd affine", res["png_path"],
+               rgb_u8([amod.r, amod.g, amod.b]))
+        rot = {}
+        for n, tgt in (("g", aff_in[1]), ("b", aff_in[2])):
+            kr = align_channel_affine(aff_in[0], tgt)
+            pr = align_channel_affine(aff_in[0], tgt, plain=True)
+            rot[n] = kr.transform.rotation_deg()
+            d_t = float(np.abs(np.subtract(kr.transform.as_tuple(),
+                                           pr.transform.as_tuple())).max())
+            expect(f"affine {n} kernel vs plain", (kr.method, kr.inliers) ==
+                   (pr.method, pr.inliers) and d_t <= 1e-3,
+                   f"{kr} vs {pr}")
+            expect(f"affine {n}: offset", (kr.transform.ty, kr.transform.tx)
+                   == tuple(res[f"offset_{n}"]), res[f"offset_{n}"])
+            err[f"aff_{n}_plain_transform"] = d_t
+        err["aff_rotation_g"] = near("compose_rgb_cmd affine rotation",
+                                     rot["g"], AFF_DEG, 0.1)
+        near("compose_rgb_cmd affine rotation of B", rot["b"], 0.0, 0.1)
+        del amod
+        log(f"[path] compose_rgb_cmd (affine) 3 x {hw}^2: offsets G "
+            f"{res['offset_g']} (generator {aff_g}), B {res['offset_b']} "
+            f"(generator {AFF_SHIFT_B}), rotation {rot['g']:.4f} deg; "
+            f"ORIG and PNG equal to process_rgb; launches "
+            f"{launches['compose_rgb_cmd_affine']}")
+
+        # -- compose_rgb_cmd with L (LRGB) --------------------------------
+        res = counted("compose_rgb_cmd_lrgb", lambda: api.compose_rgb_cmd(
+            out, l_path=p["l"], r_path=p["r"], g_path=p["g"],
+            b_path=p["b"], lrgb_lightness=0.8, lrgb_chrominance=0.9))
+        launched("compose_rgb_cmd_lrgb", ("coarse_box", "gather_crops"))
+        expect("compose_rgb_cmd lrgb", res["lrgb_applied"], res)
+        l_in = fits(p["l"])
+        l_st = compute_image_stats(l_in)
+        lrgb = apply_lrgb(apply_stf_f32(l_in, auto_stf(l_st), l_st), mod.r,
+                          mod.g, mod.b, 0.8, 0.9)
+        png_is("compose_rgb_cmd lrgb", res["png_path"], rgb_u8(lrgb))
+        del lrgb, l_in
+        log(f"[path] compose_rgb_cmd (LRGB) 3 x {hw}^2: PNG equal to the "
+            f"module's LRGB; launches {launches['compose_rgb_cmd_lrgb']}")
+
+        # -- the wizard: align → crop → export at full width ---------------
+        res = counted("align_channels_cmd", lambda: api.align_channels_cmd(
+            [p["r"], p["g"], p["b"]], out, None, ["r", "g", "b"], True))
+        launched("align_channels_cmd", ("coarse_box", "gather_crops"))
+        for ch, truth_off in zip(res["channels"][1:], PC_SHIFTS):
+            err[f"align_{ch['channel']}"] = near(
+                f"align_channels_cmd {ch['channel']}", ch["offset"],
+                truth_off, 0.1)
+        aligned = [rgb_in[0]] + [align_pair(rgb_in[0], t,
+                                            AlignMethod.PHASE_CORRELATION,
+                                            hw, hw).aligned
+                                 for t in rgb_in[1:]]
+        for k, (key, a) in enumerate(zip(res["cache_keys"], aligned)):
+            expect(f"align_channels_cmd {key}", same_bits(
+                GLOBAL_IMAGE_CACHE.get(key, dev).image, a))
+            if k:
+                expect(f"align_channels_cmd {key}: FITS", same_bits(
+                    fits(os.path.join(out, f"aligned_{'rgb'[k]}.fits")), a))
+        keys_al = res["cache_keys"]
+        res = counted("crop_channels_cmd", lambda: api.crop_channels_cmd(
+            keys_al, out, ["r", "g", "b"]), cold=False)
+        launched("crop_channels_cmd", ())
+        reg = [detect_valid_region(a, 1e-6) for a in aligned]
+        box = (max(r_[0] for r_ in reg), min(r_[1] for r_ in reg),
+               max(r_[2] for r_ in reg), min(r_[3] for r_ in reg))
+        cr = res["crop_region"]
+        expect("crop_channels_cmd: region", (cr["top"], cr["bottom"],
+                                             cr["left"], cr["right"]) == box
+               and box != (0, hw, 0, hw), cr)
+        for key, a in zip(res["cache_keys"], aligned):
+            e = GLOBAL_IMAGE_CACHE.get(key, dev).image
+            expect(f"crop_channels_cmd {key}", e.is_contiguous() and
+                   same_bits(e, a[box[0]:box[1], box[2]:box[3]]))
+        res = counted("export_aligned_channels_cmd",
+                      lambda: api.export_aligned_channels_cmd(
+                          [p["r"], p["g"], p["b"]], out))
+        launched("export_aligned_channels_cmd", ("coarse_box",
+                                                 "gather_crops"))
+        for k, (ch, a) in enumerate(zip(res["channels"], aligned)):
+            fi = extract_image(ch["path"])
+            expect(f"export_aligned_channels_cmd {k}", same_bits(
+                torch.from_numpy(fi.image).to(dev), a))
+            dy, dx = ch["offset"]
+            expect(f"export_aligned_channels_cmd {k}: CRPIX", abs(
+                fi.header.get_f64("CRPIX1") - (hw / 2 + 0.5 + k - dx))
+                < 1e-9 and abs(fi.header.get_f64("CRPIX2") -
+                               (hw / 2 - k - dy)) < 1e-9)
+        del aligned
+        log(f"[path] align_channels_cmd / crop_channels_cmd / "
+            f"export_aligned_channels_cmd 3 x {hw}^2: offsets "
+            f"{[ch['offset'] for ch in res['channels']]}, crop {box}; cache "
+            f"planes and FITS equal to align_pair on the card; launches "
+            f"{launches['align_channels_cmd']}, "
+            f"{launches['export_aligned_channels_cmd']}")
+
+        # -- the wizard's colour flow at wiz_hw ----------------------------
+        nb_paths = [nb[b] for b in NB_BINS]
+        weights = [{"channelIdx": w["channel_idx"], "r": w["r_weight"],
+                    "g": w["g_weight"], "b": w["b_weight"]}
+                   for w in resolve_preset_weights("hubble_legacy",
+                                                   list(NB_BINS))]
+        weights.append({"channel_idx": 3, "r_weight": 0.2, "g_weight": 0.0,
+                        "b_weight": 0.05})
+        res = counted("blend_channels_cmd", lambda: api.blend_channels_cmd(
+            nb_paths, weights, out, "hubble_legacy"))
+        launched("blend_channels_cmd", ())
+        nb_in = [fits(q) for q in nb_paths]
+        blended = blend_channels(nb_in, [
+            {"channel_idx": w.get("channelIdx", w.get("channel_idx")),
+             "r_weight": w.get("r", w.get("r_weight")),
+             "g_weight": w.get("g", w.get("g_weight")),
+             "b_weight": w.get("b", w.get("b_weight"))} for w in weights])
+        orig = helpers.load_composite_orig_rgb(dev)
+        for o, b_ in zip(orig, blended):
+            expect("blend_channels_cmd: ORIG", same_bits(o.image, b_))
+        sts = [o.stats for o in orig]
+        linked = helpers.compute_linked_stf(*sts)
+        png_is("blend_channels_cmd", res["png_path"],
+               stf_rgb_u8(blended, [linked] * 3, sts))
+        snap = [o.image.clone() for o in orig]
+        wb = counted("compute_auto_wb_cmd", api.compute_auto_wb_cmd,
+                     cold=False)
+        launched("compute_auto_wb_cmd", ())
+        factors = (wb["r_factor"], wb["g_factor"], wb["b_factor"])
+        expect("compute_auto_wb_cmd", factors == select_wb_reference(*sts))
+        res = counted("calibrate_and_scnr_cmd",
+                      lambda: api.calibrate_and_scnr_cmd(
+                          out, *factors, True, "maximum", 0.8, True),
+                      cold=False)
+        launched("calibrate_and_scnr_cmd", ())
+        want = apply_scnr(*(o.image * f for o, f in zip(orig, factors)),
+                          helpers.parse_scnr_config(True, "maximum", 0.8,
+                                                    True))
+        key = helpers.load_composite_rgb(dev)
+        for k_, w_ in zip(key, want):
+            expect("calibrate_and_scnr_cmd: KEY", same_bits(k_.image, w_))
+        lk = helpers.compute_linked_stf(*(k_.stats for k_ in key))
+        png_is("calibrate_and_scnr_cmd", res["png_path"], stf_rgb_u8(
+            want, [lk] * 3, [k_.stats for k_ in key]))
+        res = counted("reset_wb_cmd", lambda: api.reset_wb_cmd(out),
+                      cold=False)
+        launched("reset_wb_cmd", ())
+        key = helpers.load_composite_rgb(dev)
+        expect("reset_wb_cmd: KEY is ORIG", all(
+            k_.image is o.image for k_, o in zip(key, orig)))
+        png_is("reset_wb_cmd", res["png_path"],
+               stf_rgb_u8(blended, [linked] * 3, sts))
+        args = (0.02, 0.2, 1.0, 0.03, 0.25, 0.98, 0.01, 0.3, 1.0)
+        res = counted("restretch_composite_cmd",
+                      lambda: api.restretch_composite_cmd(out, *args, True,
+                                                          "average", 0.5),
+                      cold=False)
+        launched("restretch_composite_cmd", ())
+        planes = apply_scnr(*(apply_stf_f32(
+            o.image, StfParams(*args[3 * i:3 * i + 3]), o.stats)
+            for i, o in enumerate(orig)), helpers.parse_scnr_config(
+                True, "average", 0.5, None))
+        png_is("restretch_composite_cmd", res["png_path"], rgb_u8(planes))
+        expect("ORIG never written through KEY", all(
+            same_bits(o.image, s) for o, s in zip(
+                helpers.load_composite_orig_rgb(dev), snap)))
+        res = counted("update_composite_channel_cmd",
+                      lambda: api.update_composite_channel_cmd(
+                          "g", nb["oiii"]), cold=False)
+        launched("update_composite_channel_cmd", ())
+        og = GLOBAL_IMAGE_CACHE.get(C.COMPOSITE_ORIG_G, dev)
+        expect("update_composite_channel_cmd", og.image is GLOBAL_IMAGE_CACHE
+               .get(C.COMPOSITE_KEY_G, dev).image and same_bits(
+                   og.image, fits(nb["oiii"])))
+        counted("clear_composite_cache_cmd", api.clear_composite_cache_cmd,
+                cold=False)
+        launched("clear_composite_cache_cmd", ())
+        expect("clear_composite_cache_cmd", all(
+            GLOBAL_IMAGE_CACHE.get(k) is None for k in keys))
+        del blended, orig, key, snap, want, planes, nb_in
+        log(f"[path] blend → auto WB → WB + SCNR → reset → restretch → "
+            f"update → clear, 3 x {wiz_hw}^2: ORIG equal to blend_channels, "
+            f"KEY to ORIG x {tuple(round(f, 6) for f in factors)} → "
+            f"apply_scnr, every PNG equal to the card's u8; no kernel")
+
+        # -- drizzle_rgb: K1, K2, K7 ---------------------------------------
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        pd, t_pd = host_ms(lambda: process_drizzle_rgb(*rgb_in))
+        cmd_ms["process_drizzle_rgb"] = t_pd
+        expect("process_drizzle_rgb: finite", all(bool(torch.isfinite(
+            getattr(pd, f"{n}_stretched")).all()) for n in "rgb"))
+        # against the CPU on the wiz_hw^2 corner (the CPU's sorts of
+        # 4096^2 planes would take the phase's budget)
+        corner = [x[:wiz_hw, :wiz_hw] for x in rgb_in]
+        pd = process_drizzle_rgb(*corner)
+        pd_cpu = process_drizzle_rgb(*(x.cpu() for x in corner))
+        err["process_drizzle_rgb_vs_cpu"] = max(
+            float((getattr(pd, f"{n}_stretched").cpu()
+                   - getattr(pd_cpu, f"{n}_stretched")).abs().max())
+            for n in "rgb")
+        expect("process_drizzle_rgb vs the CPU",
+               err["process_drizzle_rgb_vs_cpu"] <= 1e-6 and pd.wb ==
+               pd_cpu.wb, err["process_drizzle_rgb_vs_cpu"])
+        del pd, pd_cpu, corner
+        drng = np.random.default_rng(61)
+        dith = drng.uniform(-2.0, 2.0, (DRZ_RGB_N, 2))
+        dith[0] = 0.0
+        d_ys = drng.uniform(10, DRZ_RGB_HW - 10, 400)
+        d_xs = drng.uniform(10, DRZ_RGB_HW - 10, 400)
+        d_amps = drng.uniform(300.0, 3000.0, 400)
+        gen = torch.Generator(device=dev).manual_seed(62)
+        chans = [[s * (100.0 + render_stars(
+            DRZ_RGB_HW, DRZ_RGB_HW, d_ys, d_xs, d_amps, dy, dx, 1.5, dev)
+            + 3.0 * torch.randn((DRZ_RGB_HW, DRZ_RGB_HW), generator=gen,
+                                device=dev)) for dy, dx in dith]
+            for s in (1.0, 0.8, 1.2)]
+        for f in counters.values():
+            f.launches = 0
+        (drz, dres), t_d = host_ms(lambda: drizzle_rgb(*chans))
+        torch.cuda.synchronize()
+        launches["drizzle_rgb"] = {k: f.launches for k, f in
+                                   counters.items()}
+        for k, v in launches["drizzle_rgb"].items():
+            total[k] += v
+        launched("drizzle_rgb", ("coarse_box", "gather_crops",
+                                 "drizzle_finalize_fused"))
+        cmd_ms["drizzle_rgb"] = t_d
+        expect("drizzle_rgb: dims", drz.out_dims == (2 * DRZ_RGB_HW,) * 2 and
+               drz.frame_counts == {"r": DRZ_RGB_N, "g": DRZ_RGB_N,
+                                    "b": DRZ_RGB_N}, drz.out_dims)
+        drz_p, dres_p = drizzle_rgb(*chans, plain=True)
+        for n in "rgb":
+            off = np.asarray(dres[n].offsets)[:, ::-1]
+            err[f"drizzle_rgb_{n}_offsets"] = near(
+                f"drizzle_rgb {n} offsets", off, dith, 0.15)
+            d_off = near(f"drizzle_rgb {n} kernel vs plain offsets",
+                         dres[n].offsets, dres_p[n].offsets, 0.05)
+            err[f"drizzle_rgb_{n}_plain"] = close_moved(
+                f"drizzle_rgb {n} kernel vs plain",
+                getattr(drz, f"{n}_linear"), getattr(drz_p, f"{n}_linear"),
+                2 * d_off)
+        del drz, drz_p, dres, dres_p, chans
+        log(f"[path] process_drizzle_rgb 3 x {hw}^2 {t_pd:.1f} ms; at "
+            f"{wiz_hw}^2 within {err['process_drizzle_rgb_vs_cpu']:.2e} of "
+            f"the CPU's; "
+            f"drizzle_rgb 3 x {DRZ_RGB_N} x {DRZ_RGB_HW}^2 → "
+            f"{2 * DRZ_RGB_HW}^2: offsets within 0.15 px of the dithers, "
+            f"kernel vs plain {[err[f'drizzle_rgb_{n}_plain'] for n in 'rgb']}"
+            f"; launches {launches['drizzle_rgb']}")
+        GLOBAL_IMAGE_CACHE.clear()
+
+        # the device stages alone, by CUDA events
+        stage_ms = {name: cuda_ms(fn, 3) for name, fn in (
+            ("phase_correlate", lambda: phase_correlate(rgb_in[0],
+                                                        rgb_in[1])),
+            ("align_pair_phase_correlation", lambda: align_pair(
+                rgb_in[0], rgb_in[1], AlignMethod.PHASE_CORRELATION, hw,
+                hw)),
+            ("align_channel_affine+warp_image", lambda: warp_image(
+                aff_in[1], align_channel_affine(aff_in[0], aff_in[1])
+                .transform, hw, hw)),
+            ("process_rgb_phase_correlation", lambda: process_rgb(
+                *rgb_in, cfg)),
+            ("process_rgb_affine", lambda: process_rgb(*aff_in, acfg)),
+            ("compute_image_stats", lambda: compute_image_stats(
+                rgb_in[0])))}
+        times = {"commands_ms": cmd_ms, "device_stages_ms": stage_ms,
+                 "rgb_png_share_of_warm_compose": png_ms / cmd_ms[
+                     "compose_rgb_cmd_warm"],
+                 "files_s": t_files,
+                 "phase_s": time.perf_counter() - t_phase}
+        log(f"[path] phase 4j errors: {json.dumps(err)}")
+        log(f"[time] {smi}: compose commands (phase 4j "
+            f"{times['phase_s']:.1f} s with its files and checks; compose "
+            f"and alignment 3 x {hw}^2, the wizard's colour commands 3 x "
+            f"{wiz_hw}^2): " + json.dumps(times))
+        return total, times
+    finally:
+        shutil.rmtree(root)
+
+
 def stf_preview(img):
     """stats_core → auto-STF → u8 stretch of one plane: (stf [2], u8)."""
     import torch
@@ -4012,6 +4572,15 @@ def main() -> None:
     # ---- 4i. stretch, tone, denoise, detection: files and the composite --
     launches_tone, _ = tone_detect_path(ms_field, (f_ys, f_xs, f_amps, dead),
                                         counters, smi)
+
+    # ---- 4j. compose: RGB, LRGB, the wizard's blend/colour/align/crop ----
+    launches_compose, _ = compose_path(field, (f_ys, f_xs, f_amps, dead),
+                                       counters, smi)
+    for name in ("coarse_box", "gather_crops", "sort_tiles", "window_stats",
+                 "vote", "drizzle_finalize_fused"):
+        if launches_compose[name] < 1:
+            raise AssertionError(f"{name} never ran on the compose path: "
+                                 f"{launches_compose}")
     if "jax" in sys.modules or "astroburst_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
 
@@ -4055,7 +4624,8 @@ def main() -> None:
              "stack(command)": launches_cmd,
              "open_and_inspect(commands)": launches_open,
              "calibrate+pipeline+drizzle+export(commands)": launches_export,
-             "stretch+tone+denoise+detection(commands)": launches_tone}
+             "stretch+tone+denoise+detection(commands)": launches_tone,
+             "compose(commands)+drizzle_rgb": launches_compose}
     kernels = []
     for name, (source, replaces) in meta.items():
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -4124,8 +4694,50 @@ def phase_4i_alone(sides) -> None:
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
 
 
+def phase_4j_alone(sides) -> None:
+    """Phase 4j alone, once per side of the wizard's colour commands in
+    ``sides``: the build, 4c's detection field, then ``compose_path``
+    with its checks and every kernel's counter; prints the card's name
+    and power limit and each run's seconds."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                 "is false); this script runs only on the card")
+    from astroburst_tpu_torch.alignment.coarse_kernel import \
+        coarse_downsample_stack
+    from astroburst_tpu_torch.alignment.vote_kernel import vote
+    from astroburst_tpu_torch.analysis.tile_sort_kernel import (
+        sort_tiles, sort_tiles_chunked)
+    from astroburst_tpu_torch.analysis.window_kernel import window_stats
+    from astroburst_tpu_torch.ops.crop_kernel import gather_crops
+    from astroburst_tpu_torch.runtime import kernels as K
+    from astroburst_tpu_torch.runtime.device import cuda_device
+    from astroburst_tpu_torch.stacking.drizzle_kernel import \
+        drizzle_finalize_fused
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    lib = K.library()
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvcc {lib.build_seconds:.1f} s")
+    (field, ys, xs, amps, dead), _ = detection_fields(cuda_device())
+    counters = {"coarse_box": coarse_downsample_stack,
+                "gather_crops": gather_crops, "sort_tiles": sort_tiles,
+                "sort_tiles_chunked": sort_tiles_chunked,
+                "window_stats": window_stats, "vote": vote,
+                "drizzle_finalize_fused": drizzle_finalize_fused}
+    for side in sides:
+        t0 = time.perf_counter()
+        total, _ = compose_path(field, (ys, xs, amps, dead), counters, smi,
+                                wiz_hw=side)
+        log(f"[4j] the wizard's colour commands 3 x {side}^2: phase "
+            f"{time.perf_counter() - t0:.1f} s, launches {total}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase-4i"]:
         phase_4i_alone([int(a) for a in sys.argv[2:]] or [COMP_HW])
+    elif sys.argv[1:2] == ["--phase-4j"]:
+        phase_4j_alone([int(a) for a in sys.argv[2:]] or [COMP_HW])
     else:
         main()

@@ -512,7 +512,13 @@ def test_commands_have_the_jax_signature_plus_device():
                      "masked_stretch_composite_cmd",
                      "apply_tone_composite_cmd", "extract_background_cmd",
                      "detect_stars", "detect_stars_composite",
-                     "analyze_subframes_cmd", "estimate_psf_cmd"}
+                     "analyze_subframes_cmd", "estimate_psf_cmd",
+                     "compose_rgb_cmd", "restretch_composite_cmd",
+                     "clear_composite_cache_cmd",
+                     "update_composite_channel_cmd", "blend_channels_cmd",
+                     "align_channels_cmd", "crop_channels_cmd",
+                     "export_aligned_channels_cmd", "calibrate_and_scnr_cmd",
+                     "compute_auto_wb_cmd", "reset_wb_cmd"}
     assert tapi.compute_histogram is tapi.compute_histogram_cmd
     for name in names:
         got = inspect.signature(getattr(tapi, name)).parameters
@@ -558,7 +564,18 @@ def test_commands_without_a_device_raise_where_there_is_no_card(tmp_path,
              ("extract_background_cmd", (path, out)),
              ("detect_stars", (path,)), ("detect_stars_composite", ()),
              ("analyze_subframes_cmd", ([path],)),
-             ("estimate_psf_cmd", (path,))]
+             ("estimate_psf_cmd", (path,)),
+             ("compose_rgb_cmd", (out, None, path, path)),
+             ("restretch_composite_cmd", (out, 0, .5, 1, 0, .5, 1, 0, .5,
+                                          1)),
+             ("clear_composite_cache_cmd", ()),
+             ("update_composite_channel_cmd", ("r", path)),
+             ("blend_channels_cmd", ([path], [], out)),
+             ("align_channels_cmd", ([path, path], out)),
+             ("crop_channels_cmd", ([path], out)),
+             ("export_aligned_channels_cmd", ([path, path], out)),
+             ("calibrate_and_scnr_cmd", (out, 1.0, 1.0, 1.0)),
+             ("compute_auto_wb_cmd", ()), ("reset_wb_cmd", (out,))]
     assert {n for n, _ in calls} | {"compute_histogram_cmd"} == \
         set(tapi.__all__)
     for name, args in calls:

@@ -131,7 +131,12 @@ def test_port_and_chip_smoke_import_nothing_of_jax_or_the_jax_package():
                 "imaging/stretch.py", "imaging/scnr.py", "imaging/curves.py",
                 "imaging/wavelet.py", "imaging/background.py",
                 "imaging/psf_estimation.py", "analysis/confidence.py",
-                "analysis/subframe.py", "api/psf.py"):
+                "analysis/subframe.py", "api/psf.py", "api/compose.py",
+                "compose/__init__.py", "compose/white_balance.py",
+                "compose/channel_blend.py", "compose/lrgb.py",
+                "compose/rgb.py", "compose/drizzle_rgb.py",
+                "metadata/presets.py", "metadata/wizard.py",
+                "metadata/channel_mapper.py"):
         assert REPO / "astroburst_tpu_torch" / new in files, new
     asdf = REPO / "astroburst_tpu_torch" / "io" / "asdf.py"
     bad = []
@@ -177,7 +182,15 @@ def test_port_constants_dtypes_errors_match_jax_package():
             "RES_MASK_COVERAGE", "RES_FINAL_BACKGROUND", "RES_CONVERGED",
             "SUFFIX_MASKED_STRETCH", "RES_COMPOSITE_DIMS",
             "RES_CURVES_APPLIED", "RES_LEVELS_APPLIED", "RES_STF_APPLIED",
-            "RES_WIDTH", "RES_HEIGHT"} <= set(names)
+            "RES_WIDTH", "RES_HEIGHT", "MAX_DIMENSION_RATIO",
+            "WB_MODE_MANUAL", "WB_MODE_NONE", "LRGB_APPLIED", "DIMENSIONS",
+            "ALIGN_METHOD", "RES_STATS_R", "RES_OFFSET_G",
+            "RES_DIMENSION_INFO", "RES_CHANNEL_COUNT", "RES_CONFIDENCE",
+            "RES_CHANNEL", "RES_OFFSET", "RES_R_FACTOR", "RES_B_FACTOR",
+            "RES_BLEND_PRESET", "RES_WB_APPLIED", "RES_CACHE_KEYS",
+            "RES_PERSIST_TO_DISK"} <= set(names)
+    for fn in ("wizard_aligned_key", "wizard_cropped_key"):
+        assert getattr(tc, fn)("ha") == getattr(jc, fn)("ha"), fn
     for n in names:
         assert getattr(tc, n) == getattr(jc, n), n
     for name in ("AlignMethod", "AlignmentMethod", "DrizzleKernel",
@@ -191,7 +204,8 @@ def test_port_constants_dtypes_errors_match_jax_package():
             assert te_.parse(s).value == je_.parse(s).value, (name, s)
     import dataclasses
     for name in ("StackConfig", "DrizzleConfig", "ImageStats", "StfParams",
-                 "AutoStfConfig", "AppConfig", "ScnrConfig"):
+                 "AutoStfConfig", "AppConfig", "ScnrConfig", "WhiteBalance",
+                 "RgbComposeConfig"):
         got = dataclasses.asdict(getattr(td, name)())
         want = dataclasses.asdict(getattr(jd, name)())
         assert {k: getattr(v, "value", v) for k, v in got.items()} == \
