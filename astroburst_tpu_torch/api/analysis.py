@@ -4,17 +4,21 @@ reference: src-tauri/src/cmd/analysis/mod.rs).
 Ported: the histogram command, star detection on a file or cache key
 (``detect_stars``) and on the composite's luminance
 (``detect_stars_composite``), both through kernels K10 and K11, and the
-subframe metrics (``analyze_subframes_cmd``). ``compute_fft_spectrum``
-waits for queue item A13.
+subframe metrics (``analyze_subframes_cmd``), and the display power
+spectrum (``compute_fft_spectrum``: ``torch.fft`` on the device, one
+fetch of the ≤ 1024² spectrum).
 """
 
 from __future__ import annotations
 
+import struct
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from astroburst_tpu_torch import constants as C
+from astroburst_tpu_torch.analysis.fft import compute_power_spectrum
 from astroburst_tpu_torch.analysis.star_detection import \
     detect_stars as _detect
 from astroburst_tpu_torch.analysis.subframe import (SubframeWeightConfig,
@@ -45,6 +49,28 @@ def compute_histogram_cmd(path: str, bins: Optional[int] = None, *,
 
 # keep the command name matching the reference registration
 compute_histogram_command = compute_histogram_cmd
+
+
+def compute_fft_spectrum(path: str, *,
+                         device: Optional[torch.device] = None) -> bytes:
+    """cmd/analysis/mod.rs:56 — binary: 32-byte LE header
+    [w, h, dc f32, max f32, elapsed u32, orig_size u32, windowed u32,
+    pad u32] + u8 spectrum, (v − min) · 255 / range truncated."""
+    t0 = Timer()
+    entry = load_from_cache_or_disk(path, device_or_cuda(device))
+    res = compute_power_spectrum(entry.image)
+    spec = res.spectrum.cpu().numpy()
+    rows, cols = spec.shape
+    mn = float(spec.min())
+    mx = float(spec.max())
+    inv = 255.0 / max(mx - mn, 1e-10)
+    dc = float(spec[rows // 2, cols // 2])
+    pixels = ((spec - mn) * inv).astype(np.uint8)
+    header = struct.pack("<IIffIIII", cols, rows,
+                         np.float32(dc), np.float32(mx),
+                         t0.elapsed_ms(), res.original_size,
+                         1 if res.windowed else 0, 0)
+    return header + pixels.tobytes()
 
 
 def _stars_payload(result, t0: Timer) -> dict:

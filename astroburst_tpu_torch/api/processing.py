@@ -7,8 +7,10 @@ Ported: ``resample_fits_cmd`` (the bicubic resize with its WCS rescale),
 ``apply_arcsinh_stretch_cmd``, ``masked_stretch_cmd`` (kernels K10, K11
 and K13), ``arcsinh_stretch_composite_cmd`` and
 ``masked_stretch_composite_cmd``, and the tone command
-``apply_tone_composite_cmd`` (STF → levels → curves → SCNR). Only
-``deconvolve_rl_cmd`` waits, for queue item A13.
+``apply_tone_composite_cmd`` (STF → levels → curves → SCNR), and
+``deconvolve_rl_cmd`` (``analysis.deconvolution``: Richardson-Lucy on
+``torch.fft``; with ``use_estimated_psf`` the PSF is estimated from the
+image's stars, through kernels K10 and K11).
 
 Each command resolves ``device`` first (``cuda_device()`` when None,
 which raises where there is no card). The composite commands read the
@@ -28,7 +30,9 @@ from astroburst_tpu_torch import constants as C
 from astroburst_tpu_torch.api import helpers
 from astroburst_tpu_torch.api.common import (MAX_PREVIEW_DIM, Timer,
                                              load_cached, png_path_for)
-from astroburst_tpu_torch.dtypes import StfParams
+from astroburst_tpu_torch.analysis.deconvolution import (
+    generate_gaussian_psf, richardson_lucy)
+from astroburst_tpu_torch.dtypes import RLConfig, StfParams
 from astroburst_tpu_torch.imaging.background import (BackgroundConfig,
                                                      extract_background)
 from astroburst_tpu_torch.imaging.curves import (LevelsParams, SplineCurve,
@@ -91,6 +95,55 @@ def resample_fits_cmd(path: str, output_dir: str, target_width: int,
         C.RES_ORIGINAL_DIMENSIONS: list(result.original_dims[::-1]),
         C.RES_DIMENSIONS: [target_width, target_height],
         C.RES_WCS_UPDATES: dict(result.header_updates),
+        C.RES_ELAPSED_MS: t0.elapsed_ms(),
+    }
+
+
+def deconvolve_rl_cmd(path: str, output_dir: str,
+                      iterations: Optional[int] = None,
+                      psf_sigma: Optional[float] = None,
+                      kernel_size: Optional[int] = None,
+                      regularization: Optional[float] = None,
+                      dering: Optional[bool] = None,
+                      dering_threshold: Optional[float] = None,
+                      use_estimated_psf: Optional[bool] = None,
+                      fast_precision: Optional[bool] = None, *,
+                      device: Optional[torch.device] = None) -> dict:
+    """RL with progress events (cmd/processing/deconvolution.rs:15).
+    ``fast_precision`` is the JAX package's TPU extension; it is
+    accepted and changes nothing here (true f32 either way:
+    ``analysis.deconvolution``)."""
+    t0 = Timer()
+    device = device_or_cuda(device)
+    out_dir = resolve_output_dir(output_dir)
+    entry = load_cached(path, device)
+    config = RLConfig(
+        iterations=iterations if iterations is not None else 20,
+        psf_sigma=psf_sigma if psf_sigma is not None else 2.0,
+        regularization=regularization or 0.0,
+        dering=dering if dering is not None else True,
+        dering_threshold=(dering_threshold if dering_threshold is not None
+                          else 0.1),
+        fast_precision=bool(fast_precision))
+    if use_estimated_psf:
+        from astroburst_tpu_torch.imaging.psf_estimation import (
+            estimate_psf, psf_to_kernel)
+        psf = psf_to_kernel(estimate_psf(entry.image))
+    else:
+        size = kernel_size if kernel_size is not None else 15
+        psf = generate_gaussian_psf(size, config.psf_sigma)
+    progress = ProgressHandle(C.EVENT_DECONV_PROGRESS,
+                              total=config.iterations)
+    result = richardson_lucy(entry.image, psf, config, progress)
+    fits_path = os.path.join(out_dir, f"{_stem(path)}_{C.SUFFIX_DECONV}.fits")
+    _write_fits(fits_path, result.image, entry.header)
+    png_path = png_path_for(path, out_dir, C.SUFFIX_DECONV)
+    _auto_preview(result.image, png_path)
+    return {
+        C.RES_FITS_PATH: fits_path,
+        C.RES_PNG_PATH: png_path,
+        C.RES_ITERATIONS_RUN: result.iterations_run,
+        C.RES_CONVERGENCE: result.convergence,
         C.RES_ELAPSED_MS: t0.elapsed_ms(),
     }
 

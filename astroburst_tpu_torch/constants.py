@@ -17,6 +17,7 @@ PROGRESS_EVENT = "background-progress"
 EVENT_STACK_PROGRESS = "stack-progress"
 EVENT_DRIZZLE_RGB_PROGRESS = "drizzle-rgb-progress"
 EVENT_WAVELET_PROGRESS = "wavelet-progress"
+EVENT_DECONV_PROGRESS = "deconv-progress"
 PROGRESS_STEPS = 4
 
 # --- response keys of the ported commands (the public API contract) -------
@@ -78,6 +79,19 @@ RES_APPLY_STF = "apply_stf"
 RES_COPY_METADATA = "copy_metadata"
 RES_BIT_DEPTH = "bit_depth"
 RES_LABEL = "label"
+RES_CONVERGENCE = "convergence"
+SUFFIX_DECONV = "deconv"
+
+# --- cubes (api/cube.py) ----------------------------------------------------
+RES_NAXIS1 = "naxis1"
+RES_NAXIS2 = "naxis2"
+RES_NAXIS3 = "naxis3"
+RES_FRAME_INDEX = "frame_index"
+RES_SPECTRUM = "spectrum"
+RES_SPECTRAL_CLASSIFICATION = "spectral_classification"
+RES_WAVELENGTHS = "wavelengths"
+RES_X = "x"
+RES_Y = "y"
 RES_WIDTH = "width"
 RES_HEIGHT = "height"
 RES_KERNEL_SIZE = "kernel_size"

@@ -203,6 +203,22 @@ class DrizzleConfig:
     alignment_method: AlignmentMethod = AlignmentMethod.PHASE_CORRELATION
 
 
+@dataclass(frozen=True)
+class RLConfig:
+    """Richardson-Lucy deconvolution config (types/stacking.rs:89).
+    ``fast_precision`` is the JAX package's TPU extension (bf16 MXU
+    passes for its matmul FFT); the port accepts it and runs true f32
+    either way (analysis/deconvolution.py)."""
+
+    iterations: int = 20
+    psf_sigma: float = 2.0
+    regularization: float = 0.0
+    dering: bool = True
+    dering_threshold: float = 0.1
+    kernel_image: Optional[object] = None  # empirical PSF kernel (np array)
+    fast_precision: bool = False
+
+
 # --- app config (types/config.rs) ------------------------------------------
 
 

@@ -9,7 +9,8 @@ parsed).
 
 from astroburst_tpu_torch.io.dispatcher import (resolve_inputs,
                                                 resolve_single_image)
-from astroburst_tpu_torch.io.fits_reader import (FitsImage, FitsRgb,
+from astroburst_tpu_torch.io.fits_reader import (FitsCube, FitsImage,
+                                                 FitsRgb, extract_cube,
                                                  extract_image,
                                                  extract_image_by_index,
                                                  list_extensions,
@@ -21,7 +22,8 @@ from astroburst_tpu_torch.io.png import (encode_gray_png, save_gray_png,
                                          save_rgb_png)
 
 __all__ = [
-    "HduHeader", "HduInfo", "FitsImage", "FitsRgb", "extract_image",
+    "HduHeader", "HduInfo", "FitsImage", "FitsRgb", "FitsCube",
+    "extract_image", "extract_cube",
     "extract_image_by_index", "try_extract_rgb", "list_extensions",
     "write_fits_mono", "write_fits_rgb", "encode_gray_png", "save_gray_png",
     "save_rgb_png",

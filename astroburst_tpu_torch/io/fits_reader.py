@@ -5,8 +5,8 @@ src-tauri/src/infra/fits/reader.rs).
 Header parse in 2880-byte blocks, multi-HDU scan, SCI-extension
 auto-select, primary ⊕ extension header merge, the BITPIX
 {8, 16, 32, -32, -64} big-endian decode with BSCALE/BZERO, and the
-NAXIS3 ∈ [3, 4] RGB-FITS planes. 3-D cubes (``extract_cube``) wait for
-the cube commands. The decode
+NAXIS3 ∈ [3, 4] RGB-FITS planes, and 3-D cubes (``extract_cube``: the
+first HDU with NAXIS = 3 and NAXIS3 > 1, reader.rs:513-557). The decode
 is numpy over a memory map, with no native library: BITPIX -32 with
 the identity scaling is one byte-swapping copy; any other case runs
 the per-pixel f64 math of the reference, then rounds to f32.
@@ -324,6 +324,63 @@ def try_extract_rgb(path: str) -> Optional[FitsRgb]:
             extension_count=len(hdus),
             extensions=[h2.info for h2 in hdus],
         )
+
+
+@dataclass
+class FitsCube:
+    header: HduHeader
+    cube: np.ndarray  # float32 [C, H, W]
+
+
+@dataclass
+class CubeHdu:
+    """Where a cube's pixels lie in its file, and how they decode."""
+    header: HduHeader
+    data_start: int
+    naxis1: int
+    naxis2: int
+    naxis3: int
+    bitpix: int
+    bzero: float
+    bscale: float
+
+    @property
+    def frame_bytes(self) -> int:
+        return self.naxis1 * self.naxis2 * (abs(self.bitpix) // 8)
+
+
+def find_cube_hdu(buf) -> CubeHdu:
+    """The first HDU with NAXIS = 3 and NAXIS3 > 1 (reader.rs:513-557);
+    FitsError when there is none."""
+    offset = 0
+    n = len(buf)
+    while offset + BLOCK_SIZE <= n:
+        parsed = parse_header_at(buf, offset)
+        h = parsed.header
+        if (h.get_i64("NAXIS") or 0) == 3 and (h.get_i64("NAXIS3") or 0) > 1:
+            bitpix = h.get_i64("BITPIX")
+            if bitpix is None:
+                raise FitsError("Missing BITPIX in cube HDU")
+            bzero, bscale = _scaling(h)
+            return CubeHdu(h, parsed.data_start, h.get_i64("NAXIS1") or 0,
+                           h.get_i64("NAXIS2") or 0, h.get_i64("NAXIS3"),
+                           bitpix, bzero, bscale)
+        offset = parsed.next_hdu_offset
+    raise FitsError("No 3D data block found")
+
+
+def extract_cube(path: str) -> FitsCube:
+    """The first NAXIS=3 HDU as a [C, H, W] f32 cube."""
+    with _Mapped(path) as buf:
+        hdu = find_cube_hdu(buf)
+        total = hdu.frame_bytes * hdu.naxis3
+        if hdu.data_start + total > len(buf):
+            raise FitsError("Cube data exceeds file size")
+        pixels = decode_pixels(
+            memoryview(buf)[hdu.data_start:hdu.data_start + total],
+            hdu.bitpix, hdu.bscale, hdu.bzero)
+        return FitsCube(hdu.header, pixels.reshape(hdu.naxis3, hdu.naxis2,
+                                                   hdu.naxis1))
 
 
 def list_extensions(path: str) -> List[HduInfo]:

@@ -10,6 +10,10 @@ pinned buffer until the copy has finished (it waits on that event),
 then drops it, and the caching host allocator hands the block to the
 next frame. On the CPU nothing is pinned.
 
+``load_cube`` puts a whole FITS cube on a device the same way, a chunk
+of frames at a time through two pinned buffers, so the decode of one
+chunk overlaps the copy of the last.
+
 ``prefetch_images`` runs loads on a bounded thread pool ``depth``
 ahead of the consumer::
 
@@ -26,7 +30,10 @@ import numpy as np
 import torch
 
 from astroburst_tpu_torch.io.dispatcher import resolve_single_image
-from astroburst_tpu_torch.io.fits_reader import Alloc, extract_image
+from astroburst_tpu_torch.errors import FitsError
+from astroburst_tpu_torch.io.fits_reader import (Alloc, _Mapped,
+                                                 decode_pixels, extract_cube,
+                                                 extract_image, find_cube_hdu)
 from astroburst_tpu_torch.runtime.device import device_or_cuda
 
 # loader(path, alloc) → an object whose ``image`` is the f32 ndarray
@@ -82,6 +89,55 @@ class DeviceLoader:
         copied.synchronize()   # the pinned buffer outlives the copy
         img.image = dev
         return img
+
+
+CUBE_CHUNK_BYTES = 64 << 20   # one pinned staging buffer
+
+
+def load_cube(path: str, device: torch.device):
+    """(header, [C, H, W] f32 tensor on ``device``) of the first
+    NAXIS=3 HDU of a FITS file (``io.fits_reader.extract_cube``). On a
+    CUDA device the frames are decoded a chunk at a time into one of
+    two pinned buffers and copied from there on a side stream; the
+    consumer stream waits for the last copy."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        fc = extract_cube(path)
+        return fc.header, torch.from_numpy(fc.cube).to(device)
+    with _Mapped(path) as buf:
+        hdu = find_cube_hdu(buf)
+        depth, fb = hdu.naxis3, hdu.frame_bytes
+        if hdu.data_start + depth * fb > len(buf):
+            raise FitsError("Cube data exceeds file size")
+        frame = (hdu.naxis2, hdu.naxis1)
+        chunk = max(1, min(depth, CUBE_CHUNK_BYTES // max(fb, 1)))
+        out = torch.empty((depth, *frame), dtype=torch.float32,
+                          device=device)
+        consumer = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(consumer)   # ``out`` was allocated there
+        stage = [torch.empty((chunk, *frame), dtype=torch.float32,
+                             pin_memory=True) for _ in range(2)]
+        done = [None, None]
+        view = memoryview(buf)
+        for i, z0 in enumerate(range(0, depth, chunk)):
+            k = min(chunk, depth - z0)
+            host = stage[i % 2][:k]
+            if done[i % 2] is not None:
+                done[i % 2].synchronize()   # its last copy has finished
+            start = hdu.data_start + z0 * fb
+            decode_pixels(view[start:start + k * fb], hdu.bitpix,
+                          hdu.bscale, hdu.bzero, host.numpy())
+            with torch.cuda.stream(side):
+                out[z0:z0 + k].copy_(host, non_blocking=True)
+                done[i % 2] = torch.cuda.Event()
+                done[i % 2].record(side)
+        consumer.wait_stream(side)
+        for ev in done:
+            if ev is not None:
+                ev.synchronize()   # the staging buffers outlive the copies
+        del view
+    return hdu.header, out
 
 
 def prefetch_images(paths: Sequence[str], depth: int = 2,

@@ -1,4 +1,5 @@
-"""Subpixel shift (counterpart of astroburst_tpu/ops/resample.py).
+"""Subpixel shift and area downsample (counterpart of
+astroburst_tpu/ops/resample.py).
 
 Catmull-Rom with clamped taps (sampling.rs:4-13, 51-80), zero where
 the source centre falls outside [-0.5, n-0.5] (align.rs:36-57), and
@@ -10,6 +11,9 @@ the fused shift+clip kernel (stacking/onepass_kernel.py).
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
 
@@ -70,3 +74,45 @@ def shift_bicubic_batch(stack: torch.Tensor, dys, dxs) -> torch.Tensor:
 def shift_bicubic(img: torch.Tensor, dy, dx) -> torch.Tensor:
     """out[y, x] = bicubic(img, y + dy, x + dx) for one [H, W] plane."""
     return shift_bicubic_batch(img[None], dy, dx)[0]
+
+
+@lru_cache(maxsize=None)
+def _box_edges(n_in: int, n_out: int):
+    """Per-output-box [y0, y1) bounds, host f64 exact
+    (downsample.rs:19-27 edge semantics)."""
+    scale = n_in / n_out
+    y0 = np.empty(n_out, np.float32)
+    y1 = np.empty(n_out, np.float32)
+    for o in range(n_out):
+        y0[o] = min(max(int(np.floor(o * scale)), 0), n_in - 1)
+        y1_raw = int(np.ceil((o + 1) * scale))
+        y1[o] = 0 if y1_raw <= 0 else min(y1_raw, n_in)
+    return y0, y1
+
+
+def _box_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_out, n_in] 0/1 box-membership matrix, built on ``device`` from
+    the host edge vectors."""
+    y0, y1 = (torch.from_numpy(e).to(device)[:, None]
+              for e in _box_edges(n_in, n_out))
+    j = torch.arange(n_in, dtype=torch.float32, device=device)[None, :]
+    return ((j >= y0) & (j < y1)).to(torch.float32)
+
+
+def area_downsample(img: torch.Tensor, out_rows: int,
+                    out_cols: int) -> torch.Tensor:
+    """NaN-aware box-average downsample (counterpart of
+    astroburst_tpu/ops/resample.py:area_downsample): the sums of the
+    finite values and their counts over each box, as two products with
+    0/1 box matrices each (plain ``torch.matmul``, true f32: TF32 is
+    off), then sum / count, 0 where a box holds no finite value."""
+    in_rows, in_cols = img.shape
+    if (in_rows, in_cols) == (out_rows, out_cols):
+        return img
+    my = _box_matrix(in_rows, out_rows, img.device)
+    mx = _box_matrix(in_cols, out_cols, img.device)
+    finite = torch.isfinite(img)
+    vals = torch.where(finite, img, 0.0)
+    s = my @ vals @ mx.T
+    c = my @ finite.to(torch.float32) @ mx.T
+    return torch.where(c > 0, s / torch.clamp(c, min=1.0), 0.0)

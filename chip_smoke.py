@@ -7,6 +7,9 @@
     python3 chip_smoke.py --phase-4j [SIDE ...]   # phase 4j alone, once
                                                   # per side of the
                                                   # wizard's colour commands
+    python3 chip_smoke.py --phase-4k [SIDE ...]   # phase 4k alone, once
+                                                  # per side of the RGB
+                                                  # tile pyramid
 
 Phases, each of which fails loudly (nothing is caught; any failure
 exits non-zero, and so does a machine without a CUDA device):
@@ -185,6 +188,22 @@ exits non-zero, and so does a machine without a CUDA device):
    planes, the modules against their plain path; each command cold and
    warm, counters reset and read around each, the alignment module
    calls timed alone.
+   (k) FFT, deconvolution, cubes, tiles and synth (``cube_synth_path``):
+   ``generate_synth_stack_cmd`` at the UI's defaults (5 x 2048^2) and at
+   16 x 4096^2 with 3000 stars, then the ``stack`` command on those 16
+   files (K1, K2, K3); ``generate_synth_cmd`` for each PSF and field
+   type; ``deconvolve_rl_cmd`` on 4c's 4096^2 field, 20 iterations,
+   with a Gaussian PSF and the estimated one (K10, K11);
+   ``compute_fft_spectrum`` at 4096^2 and on a bench frame (8192^2
+   FFT); a 2 GiB spectral cube (2048 x 512^2): ``get_cube_info``,
+   ``process_cube_lazy_cmd``, ``get_cube_frame``, ``get_cube_spectrum``
+   and ``process_cube_cmd`` on the card, with the peak device memory;
+   ``generate_tiles`` at 4096^2 and ``generate_tiles_rgb`` on a
+   composite filled by ``compose_rgb_cmd`` (K1, K2): synth files
+   byte-identical between two calls, the commands' files equal to the
+   module calls on the card, the card against the CPU (RL on a 512^2
+   crop, the spectra, the cube stats on 64 channels, one tile level);
+   each command cold and warm, counters reset and read around each.
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
@@ -3731,6 +3750,473 @@ def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
         shutil.rmtree(root)
 
 
+SYNTH_N, SYNTH_HW, SYNTH_STARS = 16, 4096, 3000   # BASELINE.md:13
+CUBE_SHAPE = (2048, 512, 512)   # 2 GiB of f32 (BASELINE.md:21)
+CUBE_CARDS = [("CTYPE3", "'WAVE'"), ("CUNIT3", "'um'"),
+              ("CRVAL3", "0.6"), ("CDELT3", "0.0005"), ("CRPIX3", "1.0")]
+TILE_RGB_HW = 4096   # phase 4k's RGB pyramid side (PERF.md §4)
+RL_CROP = 512        # the RL card-against-CPU check's crop
+
+
+def cube_bytes(cube, cards) -> bytes:
+    """A primary HDU of an [C, H, W] f32 tensor, written here and not
+    by the port's writer: the header with ``cards``, then the samples
+    big-endian (byte-swapped on the card, fetched once)."""
+    import torch
+
+    def card(key, value):
+        return f"{key:<8}= {value:>20}".ljust(80).encode()
+    c, h, w = cube.shape
+    head = [card("SIMPLE", "T"), card("BITPIX", "-32"), card("NAXIS", "3"),
+            card("NAXIS1", str(w)), card("NAXIS2", str(h)),
+            card("NAXIS3", str(c))] + [card(k, v) for k, v in cards]
+    blob = b"".join(head) + b"END".ljust(80)
+    blob += b" " * (-len(blob) % 2880)
+    swapped = cube.contiguous().view(torch.uint8).reshape(-1, 4).flip(1) \
+        .cpu().numpy()
+    return blob + swapped.tobytes() + b"\0" * (-swapped.size % 2880)
+
+
+def cube_synth_path(field, bench_frame, counters, smi,
+                    rgb_hw=TILE_RGB_HW):
+    """Phase 4k: the FFT, deconvolution, cube, tile and synth commands
+    (A13 + A14), at the sizes users run, under build/ (removed after).
+    Each command twice, timed on the host clock ending in a synchronize
+    ("cold" after the image cache and the open lazy cubes are cleared,
+    "warm" after it), with its peak device memory (beyond what the
+    phase already held, such as its own copy of the cube); the kernel
+    counters are reset just before each command's two calls and read
+    just after.
+
+    - synth: ``generate_synth_stack_cmd`` at the UI's defaults (5 x
+      2048^2, 500 stars) and at SYNTH_N x SYNTH_HW^2 with SYNTH_STARS
+      stars (each call's FITS byte-identical to the other's, frame 0
+      and the ground truth bit-equal to ``synth.generate`` on the card),
+      then the ``stack`` command on those files (K1, K2, K3; offsets
+      within 0.1 px of 0, the background within 1% of the noise
+      model's); ``generate_synth_cmd`` for each PSF and field type with
+      the vignette on; the card's ground truth within 1e-6 of its
+      largest value of the CPU's (512^2, 60 stars);
+    - ``deconvolve_rl_cmd`` on 4c's field (its NaN/inf pixels set to 0:
+      RL spreads a NaN over the whole plane) as FITS, 20 iterations,
+      kernel 15, and with the estimated PSF (K10, K11): the FITS
+      bit-equal to ``richardson_lucy`` on the card; ``richardson_lucy``
+      on the card within 5e-5 of its largest value of the CPU's on a
+      RL_CROP^2 crop, the same iterations;
+    - ``compute_fft_spectrum`` on that file (4096^2 FFT) and on a bench
+      frame of 5655 x 2206 (8192^2): the header exact, the bytes equal
+      to the truncating u8 of ``compute_power_spectrum`` on the card,
+      its |X| (the log1p undone) within 1e-5 of the largest of the CPU's
+      (FFT rounding is normwise: a coefficient near 0 can differ by
+      much of its own size; f32 log1p near the largest |X| alone is
+      ~1.2e-6 of it), the bytes within one level of the CPU's;
+    - a CUBE_SHAPE f32 cube (2 GiB, CUBE_CARDS) made on the card:
+      ``get_cube_info`` (the open), ``process_cube_lazy_cmd``,
+      ``get_cube_frame``, ``get_cube_spectrum`` and ``process_cube_cmd``
+      (eager, on the card): the geometry, classification and
+      wavelengths, spectra bit-equal to the cube, PNGs equal to the u8
+      of the card's planes, the global stats and the median collapse on
+      the card bit-equal to the CPU's on a 64-channel slice;
+    - ``generate_tiles`` on the 4096^2 file at tile 256 and
+      ``generate_tiles_rgb`` on a 3 x rgb_hw^2 composite filled by
+      ``compose_rgb_cmd`` (K1, K2) from three synth frames: the pyramid
+      and tile counts, and the decoded tiles of the coarsest level
+      equal to the module calls on the card and to the port's CPU run
+      on the same planes;
+    - the device stages alone by CUDA events: ``richardson_lucy``,
+      ``render_stars``, ``apply_noise``, ``compute_power_spectrum`` and
+      the cube's stats and collapses.
+
+    Returns (launches summed over the commands, times)."""
+    import filecmp
+    import os
+    import shutil
+    import struct
+    import tempfile
+    import torch
+    from astroburst_tpu_torch import api
+    from astroburst_tpu_torch import constants as C
+    from astroburst_tpu_torch.analysis.deconvolution import (
+        generate_gaussian_psf, richardson_lucy)
+    from astroburst_tpu_torch.analysis.fft import compute_power_spectrum
+    from astroburst_tpu_torch.api import cube as cube_api
+    from astroburst_tpu_torch.api import helpers
+    from astroburst_tpu_torch.api.synth import _build_config
+    from astroburst_tpu_torch.cube import eager as CE
+    from astroburst_tpu_torch.dtypes import RLConfig
+    from astroburst_tpu_torch.imaging.stf import (apply_stf_f32,
+                                                  apply_stf_u8, auto_stf)
+    from astroburst_tpu_torch.io import extract_image, write_fits_mono
+    from astroburst_tpu_torch.io.header import HduHeader
+    from astroburst_tpu_torch.ops.stats import compute_image_stats
+    from astroburst_tpu_torch.render import tiles as RT
+    from astroburst_tpu_torch.runtime.cache import GLOBAL_IMAGE_CACHE
+    from astroburst_tpu_torch.synth import generate
+    from astroburst_tpu_torch.synth.noise import apply_noise
+    from astroburst_tpu_torch.synth.pipeline import _ground_truth
+    cpu = torch.device("cpu")
+    dev = field.device
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cube_synth_", dir=build)
+    out = os.path.join(root, "out")
+    cmd_ms, launches, peak_gib, err, stage_ms = {}, {}, {}, {}, {}
+    total = {k: 0 for k in counters}
+    t_phase = time.perf_counter()
+
+    def expect(what, cond, detail=""):
+        if not cond:
+            raise AssertionError(f"{what} {detail}")
+
+    def reset_caches():
+        GLOBAL_IMAGE_CACHE.clear()
+        with cube_api._LAZY_LOCK:
+            for c in cube_api._LAZY_CUBES.values():
+                c.close()
+            cube_api._LAZY_CUBES.clear()
+
+    def counted(name, fn, cold=reset_caches):
+        """fn(0) after ``cold()`` and fn(1), timed, with the counters
+        reset just before and read just after and the peak device
+        memory the two allocate beyond what was held before them;
+        returns both results."""
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        cold()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        r0, cmd_ms[f"{name}_cold"] = host_ms(lambda: fn(0))
+        r1, cmd_ms[f"{name}_warm"] = host_ms(lambda: fn(1))
+        torch.cuda.synchronize()
+        peak_gib[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        launches[name] = {k: f.launches for k, f in counters.items()}
+        for k, v in launches[name].items():
+            total[k] += v
+        log(f"[4k] {name}: cold {cmd_ms[f'{name}_cold']:.3f} ms, warm "
+            f"{cmd_ms[f'{name}_warm']:.3f} ms, peak device memory "
+            f"{peak_gib[name]:.3f} GiB, launches {launches[name]}")
+        return r0, r1
+
+    def launched(name, kernels):
+        got = launches[name]
+        if kernels:
+            expect(f"{name}: a kernel never ran:",
+                   all(got[k] > 0 for k in kernels), got)
+        else:
+            expect(f"{name} launched a kernel:", not any(got.values()), got)
+
+    def same_bits(a, b):
+        a, b = a.cpu().contiguous(), b.cpu().contiguous()
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+
+    def fits(path):
+        return torch.from_numpy(extract_image(path).image)
+
+    def same_files(what, a, b):
+        expect(f"{what}: not byte-identical", all(
+            filecmp.cmp(x, y, shallow=False) for x, y in zip(a, b)))
+
+    def near_u8(what, got, want):
+        """u8 planes within one level; returns how many differ."""
+        d = np.abs(got.astype(np.int64) - want)
+        expect(what, d.max() <= 1, f"max {d.max()}")
+        return int((d > 0).sum())
+
+    def write(name, plane):
+        p = os.path.join(root, f"{name}.fits")
+        write_fits_mono(p, plane.cpu().numpy(),
+                        HduHeader([("OBJECT", f"'chip_smoke 4k {name}'")]))
+        return p
+
+    try:
+        os.makedirs(out)
+        # -- synth: the UI's defaults, then the bench's 16 x 4096^2 -------
+        s5 = counted("generate_synth_stack_cmd(5x2048^2)", lambda i: api.
+                     generate_synth_stack_cmd(os.path.join(root, f"s5_{i}")))
+        launched("generate_synth_stack_cmd(5x2048^2)", ())
+        expect("synth stack keys", set(s5[0]) == {
+            C.RES_FRAMES, C.RES_FRAME_COUNT, "ground_truth_path",
+            "catalog_path", "star_count", C.RES_ELAPSED_MS})
+        expect("synth stack defaults", s5[0][C.RES_FRAME_COUNT] == 5 and
+               s5[0]["star_count"] == 500 and
+               fits(s5[0][C.RES_FRAMES][0]).shape == (2048, 2048))
+        same_files("generate_synth_stack_cmd defaults", [
+            *s5[0][C.RES_FRAMES], s5[0]["ground_truth_path"]],
+            [*s5[1][C.RES_FRAMES], s5[1]["ground_truth_path"]])
+        s16 = counted(f"generate_synth_stack_cmd({SYNTH_N}x{SYNTH_HW}^2)",
+                      lambda i: api.generate_synth_stack_cmd(
+                          os.path.join(root, f"s16_{i}"), SYNTH_N, SYNTH_HW,
+                          SYNTH_HW, SYNTH_STARS))
+        frames16 = s16[0][C.RES_FRAMES]
+        same_files("generate_synth_stack_cmd 16", [
+            *frames16, s16[0]["ground_truth_path"]],
+            [*s16[1][C.RES_FRAMES], s16[1]["ground_truth_path"]])
+        cfg16 = _build_config(SYNTH_HW, SYNTH_HW, SYNTH_STARS, None, None,
+                              None, None, None, None, 1)
+        noisy0, gt16, _ = generate(cfg16, dev)
+        expect("synth frame 0 / ground truth against synth.generate",
+               same_bits(fits(frames16[0]), noisy0) and same_bits(
+                   fits(s16[0]["ground_truth_path"]), gt16))
+        del noisy0
+        shutil.rmtree(os.path.join(root, "s16_1"))
+        small = _build_config(512, 512, 60, 5, None, None, None, None, None,
+                              1)
+        g_card, _ = _ground_truth(small, dev)
+        g_cpu, _ = _ground_truth(small, cpu)
+        err["render_stars_card_vs_cpu"] = float(
+            (g_card.cpu() - g_cpu).abs().max() / g_cpu.abs().max())
+        expect("render_stars card vs CPU",
+               err["render_stars_card_vs_cpu"] <= 1e-6)
+
+        st16 = counted(f"stack({SYNTH_N}x{SYNTH_HW}^2 synth)",
+                       lambda i: api.stack(frames16,
+                                           os.path.join(root, "stacked")))
+        launched(f"stack({SYNTH_N}x{SYNTH_HW}^2 synth)",
+                 ("shift_clip", "coarse_box", "gather_crops"))
+        offs = np.abs(np.asarray(st16[1][C.RES_OFFSETS], np.float64))
+        err["stack_offsets_px"] = float(offs.max())
+        expect("stack offsets of undithered synth frames", offs.max() < 0.1)
+        nz = cfg16.noise
+        bg = (nz.sky_background * nz.gain * nz.exposure_time
+              + nz.dark_current * nz.exposure_time + nz.bias_level) / nz.gain
+        med = st16[1][C.RES_STATS][C.RES_MEDIAN]
+        expect("stacked background", abs(med - bg) <= 0.01 * bg,
+               f"{med} vs {bg}")
+
+        for psf in ("gaussian", "moffat", "airy"):
+            for ft in ("uniform", "king_cluster", "exponential_disk"):
+                name = f"generate_synth_cmd({psf},{ft})"
+                r = counted(name, lambda i: api.generate_synth_cmd(
+                    os.path.join(root, f"one_{i}"), field_type=ft,
+                    psf_type=psf, apply_vignette=True))
+                launched(name, ())
+                same_files(name, [r[0][C.RES_FITS_PATH]],
+                           [r[1][C.RES_FITS_PATH]])
+                expect(name, r[0]["star_count"] == 500)
+
+        # -- deconvolution: 4c's field, 20 iterations, kernel 15 ---------
+        hw = field.shape[0]
+        scrub = torch.where(torch.isfinite(field), field, 0.0)
+        p_field = write("field", scrub)
+        rl = counted("deconvolve_rl_cmd", lambda i: api.deconvolve_rl_cmd(
+            p_field, out, 20, None, 15))
+        launched("deconvolve_rl_cmd", ())
+        psf15 = generate_gaussian_psf(15, 2.0)
+        mod = richardson_lucy(scrub, psf15, RLConfig())
+        expect("deconvolve_rl_cmd FITS against richardson_lucy", same_bits(
+            fits(rl[1][C.RES_FITS_PATH]), mod.image) and
+            rl[1][C.RES_ITERATIONS_RUN] == mod.iterations_run)
+        expect("deconvolve_rl_cmd finite",
+               bool(torch.isfinite(mod.image).all()))
+        del mod
+        rle = counted("deconvolve_rl_cmd(estimated PSF)",
+                      lambda i: api.deconvolve_rl_cmd(
+                          p_field, out, 20, use_estimated_psf=True))
+        launched("deconvolve_rl_cmd(estimated PSF)",
+                 ("sort_tiles", "window_stats"))
+        crop = scrub[:RL_CROP, :RL_CROP].contiguous()
+        a = richardson_lucy(crop, psf15, RLConfig())
+        b = richardson_lucy(crop.cpu(), psf15, RLConfig())
+        err["rl_crop_card_vs_cpu"] = float(
+            (a.image.cpu() - b.image).abs().max() / b.image.abs().max())
+        expect("richardson_lucy card vs CPU",
+               err["rl_crop_card_vs_cpu"] <= 5e-5 and
+               a.iterations_run == b.iterations_run)
+        stage_ms[f"richardson_lucy({hw}^2,20,k15)"] = cuda_ms(
+            lambda: richardson_lucy(scrub, psf15, RLConfig()), 2)
+        stage_ms[f"render_stars({SYNTH_HW}^2,{SYNTH_STARS})"] = cuda_ms(
+            lambda: _ground_truth(cfg16, dev), 3)
+        stage_ms[f"apply_noise({SYNTH_HW}^2)"] = cuda_ms(
+            lambda: apply_noise(gt16, cfg16.noise), 3)
+
+        # -- the display spectrum: 4096^2 and the bench frame (8192^2) ---
+        p_bench = write("bench", bench_frame)
+        for name, path, plane in (
+                (f"compute_fft_spectrum({hw}^2)", p_field, scrub),
+                (f"compute_fft_spectrum({bench_frame.shape[1]}x"
+                 f"{bench_frame.shape[0]})", p_bench, bench_frame)):
+            size = 1 << (max(plane.shape) - 1).bit_length()
+            disp = min(size, 1024)
+            blob = counted(name, lambda i: api.compute_fft_spectrum(path))[1]
+            launched(name, ())
+            w, h, dc, mx, _ms, orig, win, pad = struct.unpack("<IIffIIII",
+                                                              blob[:32])
+            expect(f"{name} header", (w, h, orig, win, pad) ==
+                   (disp, disp, size, 1, 0), (w, h, orig, win, pad))
+            got = np.frombuffer(blob[32:], np.uint8).reshape(disp, disp)
+            card = compute_power_spectrum(plane).spectrum.cpu().numpy()
+            spec = compute_power_spectrum(plane.cpu()).spectrum.numpy()
+            # the transforms' rounding is normwise: compare |X| (box
+            # means of log1p|X| undone) against the largest one
+            mag, mag_cpu = np.expm1(card), np.expm1(spec)
+            err[f"{name}_card_vs_cpu"] = float(np.abs(mag - mag_cpu).max()
+                                               / mag_cpu.max())
+            err[f"{name}_log_card_vs_cpu"] = float(np.abs(card - spec).max())
+            log(f"[4k] {name}: card against CPU {err[f'{name}_card_vs_cpu']:.3e}"
+                f" of the largest |X|, log1p {err[f'{name}_log_card_vs_cpu']:.3e}")
+            expect(f"{name} spectrum card vs CPU",
+                   err[f"{name}_card_vs_cpu"] <= 1e-5)
+            expect(f"{name} max/dc", (mx, dc) == (card.max(), card[
+                disp // 2, disp // 2]))
+
+            def u8(sp):
+                mn = float(sp.min())
+                return ((sp - mn) * (255.0 / max(float(sp.max()) - mn,
+                                                 1e-10))).astype(np.uint8)
+            expect(f"{name} bytes", np.array_equal(got, u8(card)))
+            err[f"{name}_u8_off_cpu"] = near_u8(f"{name} bytes card vs CPU",
+                                                got, u8(spec))
+
+        for name, plane in ((f"{hw}^2", scrub), (
+                f"{bench_frame.shape[1]}x{bench_frame.shape[0]}",
+                bench_frame)):
+            stage_ms[f"compute_power_spectrum({name})"] = cuda_ms(
+                lambda: compute_power_spectrum(plane), 3)
+
+        # -- the 2 GiB spectral cube ------------------------------------
+        t0 = time.perf_counter()
+        depth, ch, cw = CUBE_SHAPE
+        g = torch.Generator(device=dev).manual_seed(4)
+        z = torch.arange(depth, device=dev, dtype=torch.float32)[:, None,
+                                                                 None]
+        yy = torch.arange(ch, device=dev, dtype=torch.float32)[:, None]
+        xx = torch.arange(cw, device=dev, dtype=torch.float32)[None, :]
+        src = torch.exp(-((yy - ch / 2) ** 2 + (xx - cw / 2) ** 2) / 800.0)
+        cube = (1.0 + 0.2 * src + 5.0 * src * torch.exp(
+            -(z - depth / 2) ** 2 / 200.0)
+            + 0.05 * torch.randn(CUBE_SHAPE, generator=g, device=dev))
+        cube[:, 10:14, 20:30] = float("nan")     # dead spaxels
+        cube[:, 40:44, :] = 0.0                  # a masked row band
+        p_cube = os.path.join(root, "cube.fits")
+        with open(p_cube, "wb") as f:
+            f.write(cube_bytes(cube, CUBE_CARDS))
+        t_cube_file = time.perf_counter() - t0
+        info = counted("get_cube_info", lambda i: api.get_cube_info(p_cube))
+        launched("get_cube_info", ())
+        expect("get_cube_info", (info[0][C.RES_NAXIS1], info[0][
+            C.RES_NAXIS2], info[0][C.RES_NAXIS3], info[0][C.RES_BITPIX]) ==
+            (cw, ch, depth, -32) and info[0][C.RES_SPECTRAL_CLASSIFICATION][
+                "is_spectral"] and len(info[0][C.RES_WAVELENGTHS]) == depth
+            and info[0][C.RES_WAVELENGTHS][0] == 0.6, info[0])
+        lazy = counted("process_cube_lazy_cmd",
+                       lambda i: api.process_cube_lazy_cmd(p_cube, out))
+        launched("process_cube_lazy_cmd", ())
+        centre = cube[:, ch // 2, cw // 2].cpu()
+        expect("process_cube_lazy_cmd", lazy[1][C.RES_FRAME_COUNT] == 16
+               and lazy[1]["total_frames"] == depth and same_bits(
+                   torch.tensor(lazy[1]["center_spectrum"]), centre))
+        fr = counted("get_cube_frame",
+                     lambda i: api.get_cube_frame(p_cube, depth // 2, out))
+        launched("get_cube_frame", ())
+        plane = cube[depth // 2]
+        expect("get_cube_frame PNG", np.array_equal(
+            decode_png(fr[1][C.RES_PNG_PATH]), cube_api._norm_u8(
+                plane, CE.compute_global_stats(plane)).cpu().numpy()))
+        sx, sy = cw // 2, 3 * ch // 5
+        sp = counted("get_cube_spectrum",
+                     lambda i: api.get_cube_spectrum(p_cube, sx, sy))
+        launched("get_cube_spectrum", ())
+        expect("get_cube_spectrum", same_bits(torch.tensor(
+            sp[1][C.RES_SPECTRUM]), cube[:, sy, sx]))
+        eager = counted("process_cube_cmd",
+                        lambda i: api.process_cube_cmd(p_cube, out))
+        launched("process_cube_cmd", ())
+        gst = CE.compute_global_stats(cube)
+        expect("process_cube_cmd", eager[1][C.RES_FRAME_COUNT] == 16 and
+               eager[1]["center_spectrum"] == lazy[1]["center_spectrum"] and
+               np.array_equal(decode_png(eager[1]["collapsed_median_path"]),
+                              cube_api._norm_u8(CE.collapse_median(cube),
+                                                gst).cpu().numpy()))
+        sl = cube[:64]
+        expect("global stats card vs CPU (64 channels)",
+               CE.compute_global_stats(sl) == CE.compute_global_stats(
+                   sl.cpu()))
+        expect("median collapse card vs CPU (64 channels)", same_bits(
+            CE.collapse_median(sl), CE.collapse_median(sl.cpu())))
+        err["cube_global_stats"] = gst.__dict__
+        for name, fn in (("compute_global_stats", CE.compute_global_stats),
+                         ("collapse_mean", CE.collapse_mean),
+                         ("collapse_median", CE.collapse_median)):
+            stage_ms[f"{name}(cube)"] = cuda_ms(lambda: fn(cube), 2)
+        del cube, sl, z, src, plane
+        reset_caches()
+        os.remove(p_cube)
+
+        # -- tile pyramids: 4096^2 mono, and the RGB composite -----------
+        tl = counted(f"generate_tiles({hw}^2,256)", lambda i: api.
+                     generate_tiles(p_field, os.path.join(root, f"t{i}"),
+                                    256))
+        launched(f"generate_tiles({hw}^2,256)", ())
+        levels = tl[1]["levels"]
+        expect("generate_tiles levels", len(levels) == RT.compute_num_levels(
+            hw, hw, 256) and sum(lv["cols"] * lv["rows"] for lv in levels)
+            == sum(4 ** k for k in range(len(levels))), levels)
+        st = compute_image_stats(scrub)
+
+        def mono_level0(plane):
+            stretched = apply_stf_f32(plane, auto_stf(st), st)
+            lo, hi = RT._bounds(stretched).unbind()
+            for _ in range(len(levels) - 1):
+                stretched = RT.downsample_2x(stretched)
+            return RT.quantize(stretched, lo, hi).cpu().numpy()
+        lv0 = mono_level0(scrub)
+        tile0 = decode_png(os.path.join(tl[1]["base_dir"], "0", "0_0.png"))
+        expect("generate_tiles level 0 against the module calls",
+               np.array_equal(tile0[:lv0.shape[0], :lv0.shape[1]], lv0))
+        expect("generate_tiles level 0 card vs CPU",
+               np.array_equal(lv0, mono_level0(scrub.cpu())))
+
+        rgb_paths = [write(f"rgb_{k}", fits(frames16[k])[:rgb_hw, :rgb_hw])
+                     for k in range(3)]
+        comp = counted("compose_rgb_cmd(synth)", lambda i: api.
+                       compose_rgb_cmd(out, r_path=rgb_paths[0],
+                                       g_path=rgb_paths[1],
+                                       b_path=rgb_paths[2]))
+        launched("compose_rgb_cmd(synth)", ("coarse_box", "gather_crops"))
+        expect("compose offsets", max(map(abs, comp[1]["offset_g"] +
+                                          comp[1]["offset_b"])) < 0.1)
+        tr = counted(f"generate_tiles_rgb({rgb_hw}^2,256)", lambda i: api.
+                     generate_tiles_rgb(os.path.join(root, f"r{i}"), 256),
+                     cold=lambda: None)
+        launched(f"generate_tiles_rgb({rgb_hw}^2,256)", ())
+        er, eg, eb = helpers.load_composite_rgb(dev)
+        linked = helpers.compute_linked_stf(er.stats, eg.stats, eb.stats)
+        n_lv = len(tr[1]["levels"])
+
+        def rgb_level0(planes):
+            out = []
+            for p, e in zip(planes, (er, eg, eb)):
+                for _ in range(n_lv - 1):
+                    p = RT.downsample_2x(p)
+                out.append(apply_stf_u8(p, linked, e.stats).cpu().numpy())
+            return np.stack(out, -1)
+        lv0 = rgb_level0([er.image, eg.image, eb.image])
+        tile0 = decode_png(os.path.join(tr[1]["base_dir"], "0", "0_0.png"))
+        expect("generate_tiles_rgb level 0 against the module calls",
+               np.array_equal(tile0[:lv0.shape[0], :lv0.shape[1]], lv0))
+        expect("generate_tiles_rgb level 0 card vs CPU", np.array_equal(
+            lv0, rgb_level0([er.image.cpu(), eg.image.cpu(),
+                             eb.image.cpu()])))
+        GLOBAL_IMAGE_CACHE.clear()
+
+        times = {"commands_ms": cmd_ms, "device_stages_ms": stage_ms,
+                 "peak_device_gib": peak_gib,
+                 "cube_file_s": t_cube_file,
+                 "phase_s": time.perf_counter() - t_phase}
+        log(f"[path] phase 4k launches: {json.dumps(launches)}")
+        log(f"[path] phase 4k checks: {json.dumps(err)}")
+        log(f"[time] {smi}: FFT/deconvolution/cube/tile/synth commands "
+            f"(phase 4k {times['phase_s']:.1f} s with its files and "
+            f"checks; RGB pyramid 3 x {rgb_hw}^2): " + json.dumps(times))
+        return total, times
+    finally:
+        reset_caches()
+        shutil.rmtree(root)
+
+
 def stf_preview(img):
     """stats_core → auto-STF → u8 stretch of one plane: (stf [2], u8)."""
     import torch
@@ -4567,7 +5053,6 @@ def main() -> None:
 
     # ---- 4g. open and inspect: FITS, RGB, MEF, ASDF in; previews out --
     launches_open, _ = open_inspect_path(field, bench_frame, counters, smi)
-    del bench_frame
 
     # ---- 4i. stretch, tone, denoise, detection: files and the composite --
     launches_tone, _ = tone_detect_path(ms_field, (f_ys, f_xs, f_amps, dead),
@@ -4581,6 +5066,15 @@ def main() -> None:
         if launches_compose[name] < 1:
             raise AssertionError(f"{name} never ran on the compose path: "
                                  f"{launches_compose}")
+
+    # ---- 4k. FFT, deconvolution, cubes, tiles and synth: A13 + A14 -----
+    launches_cube, _ = cube_synth_path(field, bench_frame, counters, smi)
+    del bench_frame
+    for name in ("shift_clip", "coarse_box", "gather_crops", "sort_tiles",
+                 "window_stats"):
+        if launches_cube[name] < 1:
+            raise AssertionError(f"{name} never ran on the FFT, cube, tile "
+                                 f"and synth path: {launches_cube}")
     if "jax" in sys.modules or "astroburst_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
 
@@ -4625,7 +5119,8 @@ def main() -> None:
              "open_and_inspect(commands)": launches_open,
              "calibrate+pipeline+drizzle+export(commands)": launches_export,
              "stretch+tone+denoise+detection(commands)": launches_tone,
-             "compose(commands)+drizzle_rgb": launches_compose}
+             "compose(commands)+drizzle_rgb": launches_compose,
+             "fft+deconvolution+cube+tiles+synth(commands)": launches_cube}
     kernels = []
     for name, (source, replaces) in meta.items():
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -4734,8 +5229,52 @@ def phase_4j_alone(sides) -> None:
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
 
 
+def phase_4k_alone(sides) -> None:
+    """Phase 4k alone, once per side of the RGB tile pyramid in
+    ``sides``: the build, 4c's detection field and one bench frame, then
+    ``cube_synth_path`` with its checks and the counters of the kernels
+    it reaches; prints the card's name and power limit and each run's
+    seconds."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                 "is false); this script runs only on the card")
+    from astroburst_tpu_torch.alignment.coarse_kernel import \
+        coarse_downsample_stack
+    from astroburst_tpu_torch.analysis.tile_sort_kernel import (
+        sort_tiles, sort_tiles_chunked)
+    from astroburst_tpu_torch.analysis.window_kernel import window_stats
+    from astroburst_tpu_torch.ops.crop_kernel import gather_crops
+    from astroburst_tpu_torch.runtime import kernels as K
+    from astroburst_tpu_torch.runtime.device import cuda_device
+    from astroburst_tpu_torch.stacking.onepass_kernel import \
+        shift_clip_onepass
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    lib = K.library()
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvcc {lib.build_seconds:.1f} s")
+    dev = cuda_device()
+    (field, *_), _ = detection_fields(dev)
+    bench_frame = torch.as_tensor(make_frames(1, H, W)[0], device=dev)
+    counters = {"shift_clip": shift_clip_onepass,
+                "coarse_box": coarse_downsample_stack,
+                "gather_crops": gather_crops, "sort_tiles": sort_tiles,
+                "sort_tiles_chunked": sort_tiles_chunked,
+                "window_stats": window_stats}
+    for side in sides:
+        t0 = time.perf_counter()
+        total, _ = cube_synth_path(field, bench_frame, counters, smi,
+                                   rgb_hw=side)
+        log(f"[4k] RGB pyramid 3 x {side}^2: phase "
+            f"{time.perf_counter() - t0:.1f} s, launches {total}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--phase-4i"]:
+    if sys.argv[1:2] == ["--phase-4k"]:
+        phase_4k_alone([int(a) for a in sys.argv[2:]] or [TILE_RGB_HW])
+    elif sys.argv[1:2] == ["--phase-4i"]:
         phase_4i_alone([int(a) for a in sys.argv[2:]] or [COMP_HW])
     elif sys.argv[1:2] == ["--phase-4j"]:
         phase_4j_alone([int(a) for a in sys.argv[2:]] or [COMP_HW])

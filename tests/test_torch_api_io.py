@@ -518,7 +518,12 @@ def test_commands_have_the_jax_signature_plus_device():
                      "update_composite_channel_cmd", "blend_channels_cmd",
                      "align_channels_cmd", "crop_channels_cmd",
                      "export_aligned_channels_cmd", "calibrate_and_scnr_cmd",
-                     "compute_auto_wb_cmd", "reset_wb_cmd"}
+                     "compute_auto_wb_cmd", "reset_wb_cmd",
+                     "compute_fft_spectrum", "deconvolve_rl_cmd",
+                     "process_cube_cmd", "process_cube_lazy_cmd",
+                     "get_cube_info", "get_cube_frame", "get_cube_spectrum",
+                     "generate_tiles", "generate_tiles_rgb",
+                     "generate_synth_cmd", "generate_synth_stack_cmd"}
     assert tapi.compute_histogram is tapi.compute_histogram_cmd
     for name in names:
         got = inspect.signature(getattr(tapi, name)).parameters
@@ -575,7 +580,16 @@ def test_commands_without_a_device_raise_where_there_is_no_card(tmp_path,
              ("crop_channels_cmd", ([path], out)),
              ("export_aligned_channels_cmd", ([path, path], out)),
              ("calibrate_and_scnr_cmd", (out, 1.0, 1.0, 1.0)),
-             ("compute_auto_wb_cmd", ()), ("reset_wb_cmd", (out,))]
+             ("compute_auto_wb_cmd", ()), ("reset_wb_cmd", (out,)),
+             ("compute_fft_spectrum", (path,)),
+             ("deconvolve_rl_cmd", (path, out)),
+             ("process_cube_cmd", (path, out)),
+             ("process_cube_lazy_cmd", (path, out)),
+             ("get_cube_info", (path,)), ("get_cube_frame", (path, 0, out)),
+             ("get_cube_spectrum", (path, 0, 0)),
+             ("generate_tiles", (path, out)), ("generate_tiles_rgb", (out,)),
+             ("generate_synth_cmd", (out, 8, 8, 1)),
+             ("generate_synth_stack_cmd", (out, 2, 8, 8, 1))]
     assert {n for n, _ in calls} | {"compute_histogram_cmd"} == \
         set(tapi.__all__)
     for name, args in calls:

@@ -205,7 +205,7 @@ def test_port_constants_dtypes_errors_match_jax_package():
     import dataclasses
     for name in ("StackConfig", "DrizzleConfig", "ImageStats", "StfParams",
                  "AutoStfConfig", "AppConfig", "ScnrConfig", "WhiteBalance",
-                 "RgbComposeConfig"):
+                 "RgbComposeConfig", "RLConfig"):
         got = dataclasses.asdict(getattr(td, name)())
         want = dataclasses.asdict(getattr(jd, name)())
         assert {k: getattr(v, "value", v) for k, v in got.items()} == \
