@@ -1,33 +1,29 @@
 """The command API of the port (counterpart of astroburst_tpu.api, the
-reference's Tauri commands): the same names, arguments, defaults and
-response keys, plus a keyword-only ``device`` (default
-``cuda_device()``, which raises where there is no card). Ported so
-far, 53 of the 60 registered commands: the stacking commands
-(``stack``, ``calibrate``, ``run_pipeline_cmd``), the export commands
-(``export_fits``, ``export_fits_rgb``, ``export_png``,
-``export_rgb_png``, ``resample_fits_cmd``), the open-and-inspect
-commands (``process_fits``, ``process_fits_full``,
-``get_raw_pixels_preview``, ``apply_stf_render``,
-``compute_histogram_cmd`` and its alias ``compute_histogram``, the
-header commands and the output-dir commands), the stretch, tone and
-denoise commands (``apply_arcsinh_stretch_cmd``, ``masked_stretch_cmd``,
-``arcsinh_stretch_composite_cmd``, ``masked_stretch_composite_cmd``,
-``apply_tone_composite_cmd``, ``wavelet_denoise_cmd``,
-``extract_background_cmd``) and the detection and analysis commands
-(``detect_stars``, ``detect_stars_composite``,
-``analyze_subframes_cmd``, ``estimate_psf_cmd``), the compose commands
-(``compose_rgb_cmd``, ``restretch_composite_cmd``,
-``clear_composite_cache_cmd``, ``update_composite_channel_cmd``,
-``blend_channels_cmd``, ``align_channels_cmd``, ``crop_channels_cmd``,
-``export_aligned_channels_cmd``, ``calibrate_and_scnr_cmd``,
-``compute_auto_wb_cmd``, ``reset_wb_cmd``), the FFT and deconvolution
-commands (``compute_fft_spectrum``, ``deconvolve_rl_cmd``), the cube
-commands (``process_cube_cmd``, ``process_cube_lazy_cmd``,
-``get_cube_info``, ``get_cube_frame``, ``get_cube_spectrum``), the
-deep-zoom pyramids (``generate_tiles``, ``generate_tiles_rgb``) and the
-synthetic fixtures (``generate_synth_cmd``,
-``generate_synth_stack_cmd``); and two that the reference does not
-register, ``drizzle_stack_cmd`` and ``export_zip_bundle``.
+reference's Tauri commands): all 60 registered commands, under the same
+names, arguments, defaults and response keys, plus a keyword-only
+``device`` (default ``cuda_device()``, which raises where there is no
+card; every command resolves it first, also the host-only header,
+output-dir, config and WCS commands). By module:
+
+- ``api/io``, ``api/visualization``, ``api/analysis``: ``process_fits``,
+  ``process_fits_full``, ``get_raw_pixels_preview``, ``apply_stf_render``,
+  ``compute_histogram`` (alias of ``compute_histogram_cmd``),
+  ``compute_fft_spectrum``, ``detect_stars``, ``detect_stars_composite``,
+  ``analyze_subframes_cmd``, ``generate_tiles``, ``generate_tiles_rgb``;
+- ``api/metadata``, ``api/output``: the header commands and the
+  output-dir commands;
+- ``api/stacking``, ``api/export``: ``stack``, ``calibrate``,
+  ``run_pipeline_cmd``, the export commands; ``api/processing``: the
+  resample, stretch, tone, denoise, background and deconvolution
+  commands; ``api/psf``: ``estimate_psf_cmd``;
+- ``api/compose``: the compose and wizard commands; ``api/cube``: the
+  cube commands; ``api/synth``: the synthetic fixtures;
+- ``api/astrometry``: ``plate_solve_cmd``, ``get_wcs_info``;
+  ``api/spcc``: ``spcc_calibrate_cmd``; ``api/config``: ``get_config``,
+  ``update_config``, ``save_api_key``, ``get_api_key``;
+
+and two that the reference does not register, ``drizzle_stack_cmd`` and
+``export_zip_bundle``.
 """
 
 from astroburst_tpu_torch.api.analysis import (analyze_subframes_cmd,
@@ -35,11 +31,14 @@ from astroburst_tpu_torch.api.analysis import (analyze_subframes_cmd,
                                                compute_histogram_cmd,
                                                detect_stars,
                                                detect_stars_composite)
+from astroburst_tpu_torch.api.astrometry import get_wcs_info, plate_solve_cmd
 from astroburst_tpu_torch.api.compose import (
     align_channels_cmd, blend_channels_cmd, calibrate_and_scnr_cmd,
     clear_composite_cache_cmd, compose_rgb_cmd, compute_auto_wb_cmd,
     crop_channels_cmd, export_aligned_channels_cmd, reset_wb_cmd,
     restretch_composite_cmd, update_composite_channel_cmd)
+from astroburst_tpu_torch.api.config import (get_api_key, get_config,
+                                             save_api_key, update_config)
 from astroburst_tpu_torch.api.cube import (get_cube_frame, get_cube_info,
                                            get_cube_spectrum,
                                            process_cube_cmd,
@@ -61,6 +60,7 @@ from astroburst_tpu_torch.api.processing import (
     masked_stretch_cmd, masked_stretch_composite_cmd, resample_fits_cmd,
     wavelet_denoise_cmd)
 from astroburst_tpu_torch.api.psf import estimate_psf_cmd
+from astroburst_tpu_torch.api.spcc import spcc_calibrate_cmd
 from astroburst_tpu_torch.api.stacking import (calibrate, drizzle_stack_cmd,
                                                run_pipeline_cmd, stack)
 from astroburst_tpu_torch.api.synth import (generate_synth_cmd,
@@ -95,4 +95,6 @@ __all__ = [
     "process_cube_lazy_cmd", "get_cube_info", "get_cube_frame",
     "get_cube_spectrum", "generate_tiles", "generate_tiles_rgb",
     "generate_synth_cmd", "generate_synth_stack_cmd",
+    "plate_solve_cmd", "get_wcs_info", "spcc_calibrate_cmd", "get_config",
+    "update_config", "save_api_key", "get_api_key",
 ]

@@ -162,6 +162,78 @@ KERNEL_LANCZOS = "lanczos"
 
 DEFAULT_OUTPUT_MAX_BYTES = 2 * 1024 * 1024 * 1024
 
+# --- the astrometry, SPCC and config commands' keys and defaults ---------
+RES_CENTER_RA = "center_ra"
+RES_CENTER_DEC = "center_dec"
+RES_PIXEL_SCALE_ARCSEC = "pixel_scale_arcsec"
+RES_FOV_W_ARCMIN = "field_of_view_w_arcmin"
+RES_FOV_H_ARCMIN = "field_of_view_h_arcmin"
+RES_FOV_ARCMIN = "fov_arcmin"
+RES_WCS_PARAMS = "wcs_params"
+RES_WCS_CRPIX1 = "crpix1"
+RES_WCS_CRPIX2 = "crpix2"
+RES_WCS_CRVAL1 = "crval1"
+RES_WCS_CRVAL2 = "crval2"
+RES_WCS_CD = "cd"
+RES_WCS_PROJECTION = "projection"
+RES_STARS_MATCHED = "stars_matched"
+RES_STARS_TOTAL = "stars_total"
+RES_AVG_COLOR_INDEX = "avg_color_index"
+RES_WHITE_REF = "white_reference"
+RES_CATALOG_NAME = "catalog_name"
+RES_SAVED = "saved"
+RES_SERVICE = "service"
+DEFAULT_API_KEY_SERVICE = "astrometry"
+
+# --- the rest of astroburst_tpu/constants.py (keys the ported commands
+# write as literals, limits and names), so that the port's constants are a
+# superset of the JAX package's (tests/test_torch_api_surface.py) --------
+HISTOGRAM_BINS = 65536
+MIN_GRID_SIZE = 3
+MAX_GRID_SIZE = 32
+MIN_POLY_DEGREE = 1
+MAX_POLY_DEGREE = 5
+MIN_ITERATIONS = 1
+MAX_ITERATIONS = 10
+MODE_DIVIDE = "divide"
+EVENT_CALIBRATE_PROGRESS = "calibrate-progress"
+RES_NAXIS = "naxis"
+RES_PIXELS_B64 = "pixels_b64"
+RES_FRAME_COUNT_R = "frame_count_r"
+RES_FRAME_COUNT_G = "frame_count_g"
+RES_FRAME_COUNT_B = "frame_count_b"
+RES_DY = "dy"
+RES_DX = "dx"
+RES_IS_SPECTRAL = "is_spectral"
+RES_SPECTRAL_REASON = "reason"
+RES_AXIS_TYPE = "axis_type"
+RES_AXIS_UNIT = "axis_unit"
+RES_EXTNAME = "extname"
+RES_HAS_DATA = "has_data"
+RES_FILTER = "filter"
+RES_FILTER_ID = "filter_id"
+RES_HUBBLE_CHANNEL = "hubble_channel"
+RES_MATCHED_KEYWORD = "matched_keyword"
+RES_MATCHED_VALUE = "matched_value"
+DEFAULT_WB_VALUE = 1.0
+SCNR_METHOD_MAXIMUM = "maximum"
+STAGE_RENDER = "render"
+STAGE_SAVE = "save"
+FILE_DRIZZLE_RGB_PNG = "drizzle_rgb.png"
+FILE_DRIZZLE_RGB_FITS = "drizzle_rgb.fits"
+RES_CHANNEL_PREVIEWS = "channel_previews"
+RES_RGB_PREVIEW = "rgb_preview"
+RES_PEAK = "peak"
+RES_FLUX = "flux"
+RES_FWHM = "fwhm"
+RES_ELLIPTICITY = "ellipticity"
+RES_SNR = "snr"
+RES_CLEANED_BYTES = "cleaned_bytes"
+RES_CLEANED_FILES = "cleaned_files"
+RES_FILE_COUNT = "file_count"
+RES_OUTPUT_DIR = "output_dir"
+RES_TOTAL_SIZE = "total_size"
+
 # --- pinned cache keys (never evicted) ------------------------------------
 COMPOSITE_KEY_R = "__composite_r"
 COMPOSITE_KEY_G = "__composite_g"

@@ -27,3 +27,7 @@ class Cancelled(AstroError):
 
 class CacheMiss(AstroError):
     """Requested cache key not present."""
+
+
+class SolveError(AstroError):
+    """Plate solving failed."""

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase-4k [SIDE ...]   # phase 4k alone, once
                                                   # per side of the RGB
                                                   # tile pyramid
+    python3 chip_smoke.py --phase-4l              # phase 4l alone
 
 Phases, each of which fails loudly (nothing is caught; any failure
 exits non-zero, and so does a machine without a CUDA device):
@@ -204,6 +205,20 @@ exits non-zero, and so does a machine without a CUDA device):
    module calls on the card, the card against the CPU (RL on a 512^2
    crop, the spectra, the cube stats on 64 channels, one tile level);
    each command cold and warm, counters reset and read around each.
+   (l) astrometry, SPCC and config (``astrometry_spcc_path``), with the
+   config directory, tempfile's directory and ``urllib.request.urlopen``
+   replaced for the phase (astrometry.net and Gaia DR3 TAP played by
+   ``ServiceStandIn``; no request leaves the machine): the config
+   round-trip; ``get_wcs_info`` on the 4096^2 field with TAN and
+   CDELT/CROTA2 cards against a numpy f64 oracle; ``plate_solve_cmd`` on
+   a bench frame and on the 4096^2 field (each resampled on the card to
+   at most 2048 px; the uploaded plane against the CPU resample) and on
+   a 1024^2 file (uploaded byte for byte); ``spcc_calibrate_cmd`` on a
+   3 x 4096^2 composite of the field (K10, K11), against its plain
+   detection on the card and the port on the CPU, and through the Gaia
+   route against ``compute_correction_factors`` on rows built from the
+   fetched planes; each command cold and warm, counters reset and read
+   around each.
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
@@ -4217,6 +4232,543 @@ def cube_synth_path(field, bench_frame, counters, smi,
         shutil.rmtree(root)
 
 
+SPCC_CARDS = [("OBJECT", "'chip_smoke 4l'"), ("CRPIX1", "2048.5"),
+              ("CRPIX2", "2048.5"), ("CRVAL1", "150.0"), ("CRVAL2", "30.0"),
+              ("CD1_1", "-0.0002"), ("CD1_2", "1.2E-6"), ("CD2_1", "-1.0E-6"),
+              ("CD2_2", "0.0002"), ("CTYPE1", "'RA---TAN'"),
+              ("CTYPE2", "'DEC--TAN'")]
+SPCC_CDELT_CARDS = [("OBJECT", "'chip_smoke 4l'"), ("CRPIX1", "1024.5"),
+                    ("CRPIX2", "3000.25"), ("CRVAL1", "83.822"),
+                    ("CRVAL2", "-5.391"), ("CDELT1", "-2.7777E-4"),
+                    ("CDELT2", "2.7777E-4"), ("CROTA2", "12.0")]
+SOLVE_URL = "http://localhost:9"   # answered by ServiceStandIn, never dialled
+SOLVE_CALIBRATION = {"ra": 150.0123, "dec": 30.00456, "orientation": 179.87,
+                     "pixscale": 0.7201, "width_arcsec": 184.3,
+                     "height_arcsec": 92.15}
+SOLVE_ANNOTATIONS = [
+    {"type": "ngc", "names": ["NGC 3031", "M 81"], "pixelx": 812.5,
+     "pixely": 401.25, "radius": 120.0},
+    {"type": "bright", "names": ["HD 85532"], "pixelx": 12.0,
+     "pixely": 1017.0, "radius": None}]
+GAIA_TAP_URL = "https://gea.esac.esa.int/tap-server/tap/sync"   # spcc.py
+GAIA_MAX_STARS = 200   # the Gaia run's max_stars (the default; PERF.md §4)
+
+
+def fits_plane(blob: bytes) -> np.ndarray:
+    """The f32 plane of a primary HDU of BITPIX -32, decoded here and not
+    by the port's reader."""
+    cards = {}
+    for i in range(0, len(blob), 80):
+        card = blob[i:i + 80].decode("ascii")
+        if card[:8].strip() == "END":
+            start = -(-(i + 80) // 2880) * 2880
+            break
+        if card[8:10] == "= ":
+            cards[card[:8].strip()] = card[10:].split("/")[0].strip()
+    if cards["BITPIX"] != "-32" or cards["NAXIS"] != "2":
+        raise AssertionError(f"upload: not a 2-D f32 FITS: {cards}")
+    w, h = int(cards["NAXIS1"]), int(cards["NAXIS2"])
+    return np.frombuffer(blob, ">f4", h * w, start).reshape(h, w) \
+        .astype(np.float32)
+
+
+class ServiceStandIn:
+    """A stand-in for astrometry.net and the Gaia DR3 TAP service, put in
+    place of ``urllib.request.urlopen``: it answers the client's login,
+    upload, submission, job, info and annotation requests under
+    ``SOLVE_URL`` (the job solved at the first poll, so the client never
+    sleeps) and the TAP POST with ``gaia_csv``, keeps every request and
+    every uploaded file, and raises on any other URL. Nothing leaves the
+    machine."""
+
+    def __init__(self):
+        self.requests = []
+        self.uploads = []
+        self.gaia_csv = b""
+
+    def __call__(self, req, timeout=None):
+        import io
+        import urllib.parse
+
+        class Reply(io.BytesIO):
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *a):
+                return False
+
+        url = req.full_url
+        self.requests.append((url, req.data))
+        if url == GAIA_TAP_URL:
+            form = urllib.parse.parse_qs(req.data.decode("ascii"))
+            if form["REQUEST"] != ["doQuery"] or "CIRCLE" not in \
+                    form["QUERY"][0]:
+                raise AssertionError(f"not a TAP cone search: {form}")
+            return Reply(self.gaia_csv)
+        if not url.startswith(SOLVE_URL + "/api/"):
+            raise AssertionError(f"the stand-in has no reply for {url}")
+        path = url[len(SOLVE_URL) + 5:]
+        if path == "upload":
+            head, rest = req.data.split(
+                b'filename="upload.fits"\r\nContent-Type: '
+                b'application/octet-stream\r\n\r\n')
+            tail = b"\r\n--astroburstBoundary--\r\n"
+            if not rest.endswith(tail):
+                raise AssertionError("upload: the multipart body is cut")
+            self.uploads.append((json.loads(head.split(
+                b'name="request-json"\r\n\r\n')[1].split(b"\r\n")[0]),
+                rest[:-len(tail)]))
+        replies = {
+            "login": {"status": "success", "session": "s3ss"},
+            "upload": {"status": "success", "subid": 77},
+            "submissions/77": {"jobs": [None, 4242]},
+            "jobs/4242": {"status": "success"},
+            "jobs/4242/info": {"calibration": SOLVE_CALIBRATION,
+                               "calibration_index": "index-5203-09",
+                               "objects_in_field_count": 23},
+            "jobs/4242/annotations": {"annotations": SOLVE_ANNOTATIONS}}
+        if path not in replies:
+            raise AssertionError(f"the stand-in has no reply for {url}")
+        return Reply(json.dumps(replies[path]).encode())
+
+
+def solve_response() -> dict:
+    """plate_solve_cmd's response to the stand-in's solution, under the
+    JAX package's keys (without elapsed_ms)."""
+    c = SOLVE_CALIBRATION
+    return {"success": True, "ra_center": c["ra"], "dec_center": c["dec"],
+            "orientation": c["orientation"], "pixel_scale": c["pixscale"],
+            "field_w_arcmin": c["width_arcsec"] / 60.0,
+            "field_h_arcmin": c["height_arcsec"] / 60.0,
+            "index_name": "index-5203-09", "stars_used": 23,
+            "wcs_headers": {}, "annotations": SOLVE_ANNOTATIONS}
+
+
+def wcs_info_oracle(cards, h: int, w: int) -> dict:
+    """get_wcs_info's dict (without elapsed_ms) in numpy f64 from the
+    cards: CD, else CDELT + CROTA2; the TAN deprojection of the centre
+    pixel (wcs.rs), the pixel scale, the field of view and the
+    display format (wcs.rs:33-52)."""
+    v = {k: float(x) for k, x in cards if k.startswith(("CR", "CD"))}
+    if "CD1_1" in v:
+        cd = np.array([[v["CD1_1"], v["CD1_2"]], [v["CD2_1"], v["CD2_2"]]])
+    else:
+        t = math.radians(v.get("CROTA2", 0.0))
+        cd = np.array([[v["CDELT1"] * math.cos(t), -v["CDELT2"] * math.sin(t)],
+                       [v["CDELT1"] * math.sin(t), v["CDELT2"] * math.cos(t)]])
+    dx = np.array([w / 2.0]) - v["CRPIX1"] + 1.0
+    dy = np.array([h / 2.0]) - v["CRPIX2"] + 1.0
+    xi = math.radians(1.0) * (cd[0, 0] * dx + cd[0, 1] * dy)
+    eta = math.radians(1.0) * (cd[1, 0] * dx + cd[1, 1] * dy)
+    s0 = math.sin(math.radians(v["CRVAL2"]))
+    c0 = math.cos(math.radians(v["CRVAL2"]))
+    denom = c0 - eta * s0
+    ra = float((np.degrees(math.radians(v["CRVAL1"]) + np.arctan2(
+        xi, denom)) % 360.0)[0])
+    dec = float(np.degrees(np.arctan2(s0 + eta * c0, np.sqrt(
+        xi * xi + denom * denom)))[0])
+    ra_h = ra / 15.0
+    hh, mm = int(ra_h), int((ra_h - int(ra_h)) * 60.0)
+    d_abs = abs(dec)
+    d, dm = int(d_abs), int((d_abs - int(d_abs)) * 60.0)
+    text = (f"{hh:02d}h{mm:02d}m{(ra_h - hh) * 3600.0 - mm * 60.0:05.2f}s "
+            f"{'+' if dec >= 0 else '-'}{d}°{dm:02d}'"
+            f"{(d_abs - d) * 3600.0 - dm * 60.0:05.2f}\"")
+    sx = math.hypot(cd[0, 0], cd[1, 0])
+    sy = math.hypot(cd[0, 1], cd[1, 1])
+    return {"center_ra": ra, "center_dec": dec, "center_formatted": text,
+            "pixel_scale_arcsec": (sx + sy) / 2.0 * 3600.0,
+            "field_of_view_w_arcmin": w * sx * 60.0,
+            "field_of_view_h_arcmin": h * sy * 60.0,
+            "wcs_params": {"crpix1": v["CRPIX1"], "crpix2": v["CRPIX2"],
+                           "crval1": v["CRVAL1"], "crval2": v["CRVAL2"],
+                           "cd": cd.tolist(), "projection": "TAN"}}
+
+
+def aperture_oracle(img: np.ndarray, x: float, y: float,
+                    radius: float) -> float:
+    """Annulus-corrected aperture photometry (spcc.rs:328-367) on the
+    whole host plane, in f64."""
+    h, w = img.shape
+    outer, inner = radius * 1.8, radius * 1.2
+    y0, y1 = max(int(math.floor(y - outer)), 0), \
+        min(int(math.ceil(y + outer)), h - 1)
+    x0, x1 = max(int(math.floor(x - outer)), 0), \
+        min(int(math.ceil(x + outer)), w - 1)
+    yy, xx = np.mgrid[y0:y1 + 1, x0:x1 + 1]
+    d2 = (xx - x) ** 2 + (yy - y) ** 2
+    patch = img[y0:y1 + 1, x0:x1 + 1].astype(np.float64)
+    flux = float(patch[d2 <= radius * radius].sum())
+    annulus = patch[(d2 >= inner * inner) & (d2 <= outer * outer)]
+    if annulus.size > 0:
+        flux -= float(annulus.mean()) * math.pi * radius * radius
+    return max(flux, 0.0)
+
+
+def same_nonfinite_and_near(got: np.ndarray, want: np.ndarray,
+                            rel: float) -> float:
+    """NaN and +-inf at the same pixels; the finite values within
+    ``rel`` of the largest finite magnitude of ``want``. Returns the
+    largest difference over that magnitude."""
+    fin = np.isfinite(want)
+    if got.shape != want.shape or not np.array_equal(np.isfinite(got), fin) \
+            or not np.array_equal(got[~fin], want[~fin], equal_nan=True):
+        raise AssertionError("non-finite pixels differ")
+    scale = float(np.abs(want[fin]).max())
+    d = float(np.abs(got[fin] - want[fin]).max()) / scale
+    if d > rel:
+        raise AssertionError(f"{d} of the largest magnitude, past {rel}")
+    return d
+
+
+def astrometry_spcc_path(field, bench_frame, counters, smi):
+    """Phase 4l: the astrometry, SPCC and config commands (A18), under
+    build/ (removed after), with ``ASTROBURST_CONFIG_DIR`` pointed at a
+    directory of the phase, ``tempfile``'s directory at another (empty
+    after every command) and ``urllib.request.urlopen`` replaced by
+    ``ServiceStandIn`` for the phase's duration (all three restored
+    after). Each command twice, timed on the host clock ending in a
+    synchronize ("cold" after the image cache is emptied), with its peak
+    device memory and the kernel counters reset just before and read
+    just after its two calls.
+
+    - config: ``get_config`` (the defaults), ``update_config`` of the
+      service URL, ``save_api_key`` and ``get_api_key`` round-trip; the
+      key file's mode 0o600; an unknown field raises KeyError;
+    - ``get_wcs_info`` on the 4096^2 field (4c's, NaN and +-inf pixels)
+      written with TAN CD cards, then with CDELT/CROTA2 cards: the dict
+      equal to ``wcs_info_oracle``, value for value;
+    - ``plate_solve_cmd`` on a 5655 x 2206 bench frame and on the 4096^2
+      field: each resampled on the card to at most 2048 px, the plane
+      the stand-in decodes from the multipart upload within 1e-5 of its
+      largest magnitude of the port's ``resample_image`` on the CPU
+      (phase 4h's bound, ROADMAP C19), NaN/inf at the same pixels; on a
+      1024^2 file: the upload byte-identical to the file; the responses
+      equal to the stand-in's solution under the JAX keys;
+    - ``spcc_calibrate_cmd`` on a 3 x 4096^2 composite (the field x 1.2,
+      1.0, 0.8 as ORIG and KEY; ``path`` the TAN file; the default
+      config: min_snr 20, max_stars 200, the built-in catalog): K10 and
+      K11 launched; the kept stars equal in number and order to the
+      plain detection's (positions within 1e-3 px: K11 sums in another
+      order), the result against ``spcc_calibrate_rgb(plain=True)`` on
+      the card and against the port on the CPU on the fetched planes
+      (the same counts, factors within rel 1e-4 and 1e-6); r < b;
+    - the same with ``catalog="gaia_dr3"`` and ``ASTROBURST_GAIA_TAP=1``:
+      the stand-in answers the TAP POST with the kept stars' sky
+      positions and chosen Bp-Rp values; Gaia named, not synthetic, the
+      factors equal to ``compute_correction_factors`` on rows built here
+      (``aperture_oracle`` on the fetched planes);
+    - by CUDA events: the luminance, ``select_stars`` (detection and
+      stats) and ``gather_windows``.
+
+    Returns (launches summed over the commands, times)."""
+    import os
+    import shutil
+    import stat
+    import tempfile
+    import urllib.parse
+    import urllib.request
+    import torch
+    from astroburst_tpu_torch import api
+    from astroburst_tpu_torch.api import helpers
+    from astroburst_tpu_torch.astrometry import spcc as SP
+    from astroburst_tpu_torch.astrometry.wcs import WcsTransform
+    from astroburst_tpu_torch.dtypes import AppConfig
+    from astroburst_tpu_torch.imaging.resample import resample_image
+    from astroburst_tpu_torch.io import extract_image, write_fits_mono
+    from astroburst_tpu_torch.io.header import HduHeader
+    from astroburst_tpu_torch.ops.stats import compute_image_stats
+    from astroburst_tpu_torch.runtime.cache import GLOBAL_IMAGE_CACHE
+    cpu = torch.device("cpu")
+    dev = field.device
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="astrometry_", dir=build)
+    cfg_dir, tmp_dir = os.path.join(root, "config"), os.path.join(root, "tmp")
+    os.makedirs(tmp_dir)
+    saved = {k: os.environ.get(k) for k in ("ASTROBURST_CONFIG_DIR",
+                                           "ASTROBURST_GAIA_TAP")}
+    saved_urlopen, saved_tempdir = urllib.request.urlopen, tempfile.tempdir
+    service = ServiceStandIn()
+    cmd_ms, launches, peak_gib, stage_ms, err = {}, {}, {}, {}, {}
+    total = {k: 0 for k in counters}
+    t_phase = time.perf_counter()
+
+    def expect(what, cond, detail=""):
+        if not cond:
+            raise AssertionError(f"{what} {detail}")
+
+    def counted(name, fn, cold=GLOBAL_IMAGE_CACHE.clear):
+        """fn() after ``cold()`` and again, timed, with the counters
+        reset just before and read just after, the peak device memory
+        the two allocate beyond what was held before them, and
+        tempfile's directory empty after each; returns both results."""
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        cold()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = []
+        for temp in ("cold", "warm"):
+            r, cmd_ms[f"{name}_{temp}"] = host_ms(fn)
+            expect(f"{name}: a temporary file was left:",
+                   not os.listdir(tmp_dir), os.listdir(tmp_dir))
+            res.append(r)
+        torch.cuda.synchronize()
+        peak_gib[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        launches[name] = {k: f.launches for k, f in counters.items()}
+        for k, v in launches[name].items():
+            total[k] += v
+        log(f"[4l] {name}: cold {cmd_ms[f'{name}_cold']:.3f} ms, warm "
+            f"{cmd_ms[f'{name}_warm']:.3f} ms, peak device memory "
+            f"{peak_gib[name]:.3f} GiB, launches {launches[name]}")
+        return res
+
+    def launched(name, kernels):
+        got = launches[name]
+        if kernels:
+            expect(f"{name}: a kernel never ran:",
+                   all(got[k] > 0 for k in kernels), got)
+        else:
+            expect(f"{name} launched a kernel:", not any(got.values()), got)
+
+    def write(name, plane, cards):
+        p = os.path.join(root, f"{name}.fits")
+        write_fits_mono(p, plane.cpu().numpy(), HduHeader(cards))
+        return p
+
+    def factors(d):
+        return np.array([d["r_factor"], d["g_factor"], d["b_factor"],
+                         d["avg_color_index"]])
+
+    try:
+        os.environ["ASTROBURST_CONFIG_DIR"] = cfg_dir
+        os.environ.pop("ASTROBURST_GAIA_TAP", None)
+        tempfile.tempdir = tmp_dir
+        urllib.request.urlopen = service
+        log("[4l] astrometry.net and Gaia DR3 TAP are played by a local "
+            "stand-in for the remote services (urllib.request.urlopen "
+            "replaced); the decode, resample, detection and photometry "
+            "run on the card")
+        hw = field.shape[0]
+        t0 = time.perf_counter()
+        p_tan = write("field_tan", field, SPCC_CARDS)
+        p_cdelt = write("field_cdelt", field, SPCC_CDELT_CARDS)
+        p_bench = write("bench", bench_frame, SPCC_CDELT_CARDS)
+        p_small = write("small", field[:1024, :1024], SPCC_CARDS)
+        log(f"[data] 4l: FITS files written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # -- config ------------------------------------------------------
+        got = counted("get_config", api.get_config)
+        launched("get_config", ())
+        expect("get_config: defaults", got[0] == got[1] ==
+               AppConfig().to_dict(), got)
+        got = counted("update_config", lambda: api.update_config(
+            "astrometry_api_url", SOLVE_URL))
+        launched("update_config", ())
+        expect("update_config", got[1]["astrometry_api_url"] == SOLVE_URL
+               and api.get_config() == got[1], got)
+        got = counted("save_api_key", lambda: api.save_api_key(
+            "chip-smoke-key"))
+        launched("save_api_key", ())
+        expect("save_api_key", got[1] == {"saved": True,
+                                          "service": "astrometry"}, got)
+        key_mode = stat.S_IMODE(os.stat(os.path.join(
+            cfg_dir, "astrometry.key")).st_mode)
+        expect("the key file's mode", key_mode == 0o600, oct(key_mode))
+        got = counted("get_api_key", api.get_api_key)
+        launched("get_api_key", ())
+        expect("get_api_key", got[1] == {"service": "astrometry",
+                                         "api_key": "chip-smoke-key"}, got)
+        before = api.get_config()
+        try:
+            api.update_config("no_such_field", 1)
+            raise AssertionError("update_config accepted an unknown field")
+        except KeyError:
+            pass
+        expect("update_config: an unknown field changed the config",
+               api.get_config() == before)
+
+        # -- WCS readout -------------------------------------------------
+        for tag, path, cards in (("tan", p_tan, SPCC_CARDS),
+                                 ("cdelt_crota2", p_cdelt, SPCC_CDELT_CARDS)):
+            name = f"get_wcs_info({tag},{hw}^2)"
+            got = counted(name, lambda: api.get_wcs_info(path))
+            launched(name, ())
+            want = wcs_info_oracle(cards, hw, hw)
+            for r in got:
+                expect(f"{name} against the f64 oracle",
+                       {k: v for k, v in r.items() if k != "elapsed_ms"}
+                       == want, f"{r} != {want}")
+            log(f"[4l] {name}: {got[1]['center_formatted']}, "
+                f"{got[1]['pixel_scale_arcsec']:.6f}\"/px, equal to the "
+                f"f64 oracle")
+
+        # -- plate solve: two downsampling solves and one upload as is ---
+        for tag, path, plane in (("bench", p_bench, bench_frame),
+                                 (f"{hw}^2", p_tan, field)):
+            name = f"plate_solve_cmd({tag})"
+            service.uploads.clear()
+            got = counted(name, lambda: api.plate_solve_cmd(path))
+            launched(name, ())
+            for r in got:
+                expect(f"{name}: response", {k: v for k, v in r.items()
+                                             if k != "elapsed_ms"}
+                       == solve_response() and "elapsed_ms" in r, r)
+            scale = min(2048 / max(plane.shape), 1.0)   # api/astrometry.py
+            shape = (max(int(plane.shape[0] * scale), 1),
+                     max(int(plane.shape[1] * scale), 1))
+            want = resample_image(plane.cpu(), *shape).numpy()
+            for args, blob in service.uploads:
+                expect(f"{name}: upload fields", args["session"] == "s3ss"
+                       and args["publicly_visible"] == "n", args)
+                err[name] = same_nonfinite_and_near(fits_plane(blob), want,
+                                                    1e-5)
+            expect(f"{name}: two uploads", len(service.uploads) == 2)
+            log(f"[4l] {name}: {tuple(plane.shape)} → {shape} on the card, "
+                f"upload against the CPU resample max|d| {err[name]:.3e} "
+                f"of the largest magnitude")
+        login = json.loads(urllib.parse.parse_qs(
+            service.requests[0][1].decode())["request-json"][0])
+        expect("login carries the saved key",
+               login == {"apikey": "chip-smoke-key"}, login)
+        service.uploads.clear()
+        got = counted("plate_solve_cmd(1024^2)",
+                      lambda: api.plate_solve_cmd(p_small, 150.0, 30.0))
+        launched("plate_solve_cmd(1024^2)", ())
+        with open(p_small, "rb") as f:
+            small = f.read()
+        expect("plate_solve_cmd(1024^2): the upload is the file",
+               all(blob == small for _, blob in service.uploads)
+               and len(service.uploads) == 2)
+        expect("plate_solve_cmd(1024^2): hints", service.uploads[0][0][
+            "center_ra"] == 150.0 and service.uploads[0][0]["radius"] == 10.0)
+
+        # -- SPCC on the 3 x 4096^2 composite ----------------------------
+        planes = [field * 1.2, field, field * 0.8]
+        header = extract_image(p_tan).header
+
+        def seed():
+            GLOBAL_IMAGE_CACHE.clear()
+            helpers.insert_composite_and_orig(
+                *planes, *(compute_image_stats(p) for p in planes))
+        cfg = SP.SpccConfig()
+        got = counted(f"spcc_calibrate_cmd({hw}^2,builtin)",
+                      lambda: api.spcc_calibrate_cmd(p_tan), cold=seed)
+        launched(f"spcc_calibrate_cmd({hw}^2,builtin)",
+                 ("sort_tiles", "window_stats"))
+        expect("spcc: the two calls agree", {k: v for k, v in got[0].items()
+                                             if k != "elapsed_ms"} ==
+               {k: v for k, v in got[1].items() if k != "elapsed_ms"})
+        res = got[1]
+        lum = SP.luminance(*planes)
+        kept = SP.select_stars(lum, cfg)
+        kept_plain = SP.select_stars(lum, cfg, plain=True)
+        d_pos = max(math.hypot(a.x - b.x, a.y - b.y)
+                    for a, b in zip(kept, kept_plain))
+        plain = SP.spcc_calibrate_rgb(*planes, header, cfg, plain=True) \
+            .to_dict()
+        on_cpu = SP.spcc_calibrate_rgb(*(p.cpu() for p in planes), header,
+                                       cfg, device=cpu).to_dict()
+        f_res = factors(res)
+        err["spcc_vs_plain_rel"] = float(np.abs(
+            f_res / factors(plain) - 1).max())
+        err["spcc_vs_cpu_rel"] = float(np.abs(
+            f_res / factors(on_cpu) - 1).max())
+        err["spcc_vs_plain_bit_equal"] = bool(np.array_equal(
+            f_res, factors(plain)))
+        log(f"[4l] spcc builtin: {res['stars_total']} kept, "
+            f"{res['stars_matched']} matched, r {res['r_factor']:.9f} g "
+            f"{res['g_factor']} b {res['b_factor']:.9f}; kept stars against "
+            f"the plain detection max {d_pos:.3e} px; factors against "
+            f"plain=True rel {err['spcc_vs_plain_rel']:.3e} (bit-equal: "
+            f"{err['spcc_vs_plain_bit_equal']}), against the CPU rel "
+            f"{err['spcc_vs_cpu_rel']:.3e}")
+        expect("spcc: kept stars against the plain detection",
+               len(kept) == len(kept_plain) == res["stars_total"]
+               and d_pos <= 1e-3, f"{len(kept)} / {len(kept_plain)}")
+        for what, other, rel in (("plain=True", plain, 1e-4),
+                                 ("the CPU", on_cpu, 1e-6)):
+            expect(f"spcc against {what}: counts", all(
+                res[k] == other[k] for k in ("stars_total", "stars_matched",
+                                             "catalog_name",
+                                             "is_synthetic_catalog")),
+                f"{res} / {other}")
+            expect(f"spcc against {what}: factors", np.allclose(
+                f_res, factors(other), rtol=rel, atol=0))
+        expect("spcc: r < b", res["r_factor"] < res["b_factor"]
+               and res["g_factor"] == 1.0 and res["is_synthetic_catalog"])
+
+        # -- the same through the Gaia route -----------------------------
+        kept = kept[:GAIA_MAX_STARS]
+        wcs = WcsTransform.from_header(header)
+        ras, decs = wcs.pixel_to_world_batch([s.x for s in kept],
+                                             [s.y for s in kept])
+        bp_rp = np.linspace(-0.2, 3.1, len(kept))
+        service.gaia_csv = ("ra,dec,bp_rp,phot_g_mean_mag\n" + "\n".join(
+            f"{float(a)!r},{float(d)!r},{float(c)!r},12.0"
+            for a, d, c in zip(ras, decs, bp_rp))).encode()
+        os.environ["ASTROBURST_GAIA_TAP"] = "1"
+        name = f"spcc_calibrate_cmd({hw}^2,gaia_dr3)"
+        got = counted(name, lambda: api.spcc_calibrate_cmd(
+            p_tan, max_stars=GAIA_MAX_STARS, catalog="gaia_dr3"), cold=seed)
+        os.environ.pop("ASTROBURST_GAIA_TAP")
+        launched(name, ("sort_tiles", "window_stats"))
+        host = [p.cpu().numpy() for p in planes]
+        rows = []
+        for s, c in zip(kept, bp_rp):
+            radius = max(s.fwhm * 1.5, 3.0)
+            f = [aperture_oracle(p, s.x, s.y, radius) for p in host]
+            if min(f) > 0:
+                rows.append({"bp_rp": float(c), "r": f[0], "g": f[1],
+                             "b": f[2]})
+        want = np.array(SP.compute_correction_factors(
+            rows, *SP.white_reference_rgb(cfg)))
+        for r in got:
+            expect(f"{name}: the catalog", not r["is_synthetic_catalog"]
+                   and r["catalog_name"] == "Gaia DR3 (VizieR)"
+                   and r["stars_matched"] == len(rows), r)
+            err["spcc_gaia_vs_oracle_rel"] = float(np.abs(
+                factors(r) / want - 1).max())
+            expect(f"{name} against the f64 oracle", np.allclose(
+                factors(r), want, rtol=1e-12, atol=0),
+                f"{factors(r)} != {want}")
+        log(f"[4l] {name}: {len(rows)} matched, factors {want.tolist()}, "
+            f"against the oracle rel {err['spcc_gaia_vs_oracle_rel']:.3e}")
+
+        # -- the device stages alone -------------------------------------
+        stage_ms["luminance"] = cuda_ms(lambda: SP.luminance(*planes), 20)
+        stage_ms["select_stars"] = cuda_ms(
+            lambda: SP.select_stars(lum, cfg), 10)
+        stage_ms["gather_windows"] = cuda_ms(
+            lambda: SP.gather_windows(planes, kept), 20)
+        expect("phase 4l: a request left for an unknown URL", all(
+            u == GAIA_TAP_URL or u.startswith(SOLVE_URL + "/api/")
+            for u, _ in service.requests))
+        times = {"commands_ms": cmd_ms, "device_stages_ms": stage_ms,
+                 "peak_device_gib": peak_gib,
+                 "phase_s": time.perf_counter() - t_phase}
+        log(f"[path] phase 4l launches: {json.dumps(launches)}")
+        log(f"[path] phase 4l checks: {json.dumps(err)}")
+        log(f"[time] {smi}: astrometry/SPCC/config commands (phase 4l "
+            f"{times['phase_s']:.1f} s with its files and checks): "
+            + json.dumps(times))
+        return total, times
+    finally:
+        urllib.request.urlopen = saved_urlopen
+        tempfile.tempdir = saved_tempdir
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        GLOBAL_IMAGE_CACHE.clear()
+        shutil.rmtree(root)
+
+
 def stf_preview(img):
     """stats_core → auto-STF → u8 stretch of one plane: (stf [2], u8)."""
     import torch
@@ -5069,12 +5621,20 @@ def main() -> None:
 
     # ---- 4k. FFT, deconvolution, cubes, tiles and synth: A13 + A14 -----
     launches_cube, _ = cube_synth_path(field, bench_frame, counters, smi)
-    del bench_frame
     for name in ("shift_clip", "coarse_box", "gather_crops", "sort_tiles",
                  "window_stats"):
         if launches_cube[name] < 1:
             raise AssertionError(f"{name} never ran on the FFT, cube, tile "
                                  f"and synth path: {launches_cube}")
+
+    # ---- 4l. astrometry, SPCC and config: A18 --------------------------
+    launches_astro, _ = astrometry_spcc_path(field, bench_frame, counters,
+                                             smi)
+    del bench_frame
+    for name in ("sort_tiles", "window_stats"):
+        if launches_astro[name] < 1:
+            raise AssertionError(f"{name} never ran on the astrometry, SPCC "
+                                 f"and config path: {launches_astro}")
     if "jax" in sys.modules or "astroburst_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
 
@@ -5120,7 +5680,8 @@ def main() -> None:
              "calibrate+pipeline+drizzle+export(commands)": launches_export,
              "stretch+tone+denoise+detection(commands)": launches_tone,
              "compose(commands)+drizzle_rgb": launches_compose,
-             "fft+deconvolution+cube+tiles+synth(commands)": launches_cube}
+             "fft+deconvolution+cube+tiles+synth(commands)": launches_cube,
+             "astrometry+spcc+config(commands)": launches_astro}
     kernels = []
     for name, (source, replaces) in meta.items():
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -5271,8 +5832,40 @@ def phase_4k_alone(sides) -> None:
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
 
 
+def phase_4l_alone() -> None:
+    """Phase 4l alone: the build, 4c's detection field and one bench
+    frame, then ``astrometry_spcc_path`` with its checks and the K10/K11
+    counters; prints the card's name and power limit and the seconds."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                 "is false); this script runs only on the card")
+    from astroburst_tpu_torch.analysis.tile_sort_kernel import (
+        sort_tiles, sort_tiles_chunked)
+    from astroburst_tpu_torch.analysis.window_kernel import window_stats
+    from astroburst_tpu_torch.runtime import kernels as K
+    from astroburst_tpu_torch.runtime.device import cuda_device
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    lib = K.library()
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvcc {lib.build_seconds:.1f} s")
+    dev = cuda_device()
+    (field, *_), _ = detection_fields(dev)
+    bench_frame = torch.as_tensor(make_frames(1, H, W)[0], device=dev)
+    counters = {"sort_tiles": sort_tiles,
+                "sort_tiles_chunked": sort_tiles_chunked,
+                "window_stats": window_stats}
+    t0 = time.perf_counter()
+    total, _ = astrometry_spcc_path(field, bench_frame, counters, smi)
+    log(f"[4l] phase {time.perf_counter() - t0:.1f} s, launches {total}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--phase-4k"]:
+    if sys.argv[1:2] == ["--phase-4l"]:
+        phase_4l_alone()
+    elif sys.argv[1:2] == ["--phase-4k"]:
         phase_4k_alone([int(a) for a in sys.argv[2:]] or [TILE_RGB_HW])
     elif sys.argv[1:2] == ["--phase-4i"]:
         phase_4i_alone([int(a) for a in sys.argv[2:]] or [COMP_HW])

@@ -523,7 +523,10 @@ def test_commands_have_the_jax_signature_plus_device():
                      "process_cube_cmd", "process_cube_lazy_cmd",
                      "get_cube_info", "get_cube_frame", "get_cube_spectrum",
                      "generate_tiles", "generate_tiles_rgb",
-                     "generate_synth_cmd", "generate_synth_stack_cmd"}
+                     "generate_synth_cmd", "generate_synth_stack_cmd",
+                     "plate_solve_cmd", "get_wcs_info", "spcc_calibrate_cmd",
+                     "get_config", "update_config", "save_api_key",
+                     "get_api_key"}
     assert tapi.compute_histogram is tapi.compute_histogram_cmd
     for name in names:
         got = inspect.signature(getattr(tapi, name)).parameters
@@ -589,7 +592,11 @@ def test_commands_without_a_device_raise_where_there_is_no_card(tmp_path,
              ("get_cube_spectrum", (path, 0, 0)),
              ("generate_tiles", (path, out)), ("generate_tiles_rgb", (out,)),
              ("generate_synth_cmd", (out, 8, 8, 1)),
-             ("generate_synth_stack_cmd", (out, 2, 8, 8, 1))]
+             ("generate_synth_stack_cmd", (out, 2, 8, 8, 1)),
+             ("plate_solve_cmd", (path,)), ("get_wcs_info", (path,)),
+             ("spcc_calibrate_cmd", (path,)), ("get_config", ()),
+             ("update_config", ("output_dir", out)),
+             ("save_api_key", ("k3y",)), ("get_api_key", ())]
     assert {n for n, _ in calls} | {"compute_histogram_cmd"} == \
         set(tapi.__all__)
     for name, args in calls:
