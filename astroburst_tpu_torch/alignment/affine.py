@@ -423,14 +423,17 @@ def align_channel_affine(reference, target,
 
 
 def _warp_direct(image: torch.Tensor, params: torch.Tensor, out_rows: int,
-                 out_cols: int) -> torch.Tensor:
+                 out_cols: int, row0: int = 0) -> torch.Tensor:
     """out[y, x] = Catmull-Rom 4×4 sample of ``image`` at (sy, sx) =
     T·(x, y), taps clamped to the plane; 0 where the source point falls
-    outside [0, cols−1) × [0, rows−1) (the JAX ``_warp_kernel``)."""
+    outside [0, cols−1) × [0, rows−1) (the JAX ``_warp_kernel``).
+    ``row0``: the output rows are [row0, row0 + out_rows) of the canvas
+    (a row block of the sharded warp, parallel/warp.py)."""
     src_rows, src_cols = image.shape
     dev = image.device
     a, b, tx, c, d, ty = params.unbind()
-    y = torch.arange(out_rows, dtype=torch.float32, device=dev)[:, None]
+    y = torch.arange(row0, row0 + out_rows, dtype=torch.float32,
+                     device=dev)[:, None]
     x = torch.arange(out_cols, dtype=torch.float32, device=dev)[None, :]
     sx = a * x + b * y + tx
     sy = c * x + d * y + ty

@@ -137,6 +137,20 @@ def _corr_to_shift(corr: torch.Tensor, fft_rows: int, fft_cols: int):
     return raw_dy + sub_dy, raw_dx + sub_dx, confidence
 
 
+def _frame_by_frame(fn, x: torch.Tensor, **kw) -> torch.Tensor:
+    """``fn`` (a 2-D transform) over the frames of ``x`` [..., R, C]. On
+    the CPU each frame is transformed on its own: MKL's batched
+    real-to-complex transforms round a frame differently with the batch
+    it is in, and a frame's offset must not depend on which frames
+    share its call (the sharded step aligns each shard's frames alone:
+    parallel/pipeline.py). cuFFT's batched plans are used as they are."""
+    if x.is_cuda or x.ndim == 2:
+        return fn(x, **kw)
+    flat = x.reshape(-1, *x.shape[-2:])
+    out = torch.cat([fn(flat[i:i + 1], **kw) for i in range(flat.shape[0])])
+    return out.reshape(*x.shape[:-2], *out.shape[-2:])
+
+
 def correlate_single(a: torch.Tensor, b: torch.Tensor):
     """Single-scale phase correlation of b [..., R, C] against a [R, C].
 
@@ -149,9 +163,11 @@ def correlate_single(a: torch.Tensor, b: torch.Tensor):
     fft_rows = F.next_power_of_two(rows)
     fft_cols = F.next_power_of_two(cols)
     fa = torch.fft.rfft2(_windowed_padded(a, fft_rows, fft_cols))
-    fb = torch.fft.rfft2(_windowed_padded(b, fft_rows, fft_cols))
+    fb = _frame_by_frame(torch.fft.rfft2,
+                         _windowed_padded(b, fft_rows, fft_cols))
     cr, ci = F.cross_power(fb.real, fb.imag, fa.real, fa.imag, EPSILON)
-    corr = torch.fft.irfft2(torch.complex(cr, ci), s=(fft_rows, fft_cols))
+    corr = _frame_by_frame(torch.fft.irfft2, torch.complex(cr, ci),
+                           s=(fft_rows, fft_cols))
     dy, dx, confidence = _corr_to_shift(corr, fft_rows, fft_cols)
     bad = _is_constant_or_zero(a) | _is_constant_or_zero(b)
     zero = torch.zeros_like(dy)

@@ -35,6 +35,16 @@
 // share rows. The rest is the per-pixel clip: arithmetic on the pixel's
 // n values, which sets the time unless those values stay in registers.
 //
+// The slab entry (onepass_kernel.py:shift_clip_onepass_slab, for a row
+// shard of parallel/pipeline.py; TPU: onepass_kernel.py:491) runs the
+// same instances on [n, local_h + 2 halo, w]: output row r reads the
+// slab rows around r + halo, the taps clamp to the slab (its halos hold
+// the neighbours' rows, or replicas of the edge row at the image's
+// edges), and the outside-source mask takes the global row grow0 + r
+// against the global height gh. With halo >= ceil(max |dy|) + 2 no tap
+// reaches past the slab, so the stitched slabs are bit-equal to the
+// whole-stack launch.
+//
 // Design: one thread per output pixel, blocks of 32 x by threads so a
 // warp reads 32 neighbouring floats of a row (coalesced). Nothing
 // carries between blocks. Three instances, chosen by the wrapper's plan
@@ -101,12 +111,17 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// Frame f's value at slab row y, column x, shifted by (dy, dx): the
+// taps clamp to the slab's rows [0, h); the outside-source mask takes
+// the global row gy against the global height gh (a whole stack is its
+// own slab: gy = y, gh = h).
 __device__ float shifted_value(const float* __restrict__ f, int h, int w,
-                               int y, int x, float dy, float dx) {
+                               int y, int x, float dy, float dx, int gy,
+                               int gh) {
   if (dy == 0.0f && dx == 0.0f) return f[(size_t)y * w + x];
-  const float sy = (float)y + dy;
+  const float sy = (float)gy + dy;
   const float sx = (float)x + dx;
-  if (!(sy >= -0.5f && sy <= (float)h - 0.5f && sx >= -0.5f &&
+  if (!(sy >= -0.5f && sy <= (float)gh - 0.5f && sx >= -0.5f &&
         sx <= (float)w - 0.5f))
     return 0.0f;
   const float fky = floorf(dy);
@@ -394,7 +409,8 @@ struct SelectColFrames : ColFrames {
   const float *__restrict__ stack, const float *__restrict__ dys,         \
       const float *__restrict__ dxs, int n, int h, int w,                 \
       float sigma_low, float sigma_high, int max_iter, int y0, int rows,  \
-      float *__restrict__ out, int *__restrict__ rejected
+      int out_off, int grow0, int gh, float *__restrict__ out,            \
+      int *__restrict__ rejected
 
 // This thread's output pixel (y, x) of the band [y0, y0 + rows).
 __device__ __forceinline__ bool pixel_of(int w, int y0, int rows, int& y,
@@ -418,8 +434,9 @@ shift_clip_kernel(ABT_CLIP_PARAMS) {
   for (int k = 0; k < CAP; ++k) {
     fr.v[k] = 0.0f;
     if (k < n) {
-      const float val = shifted_value(stack + (size_t)k * plane, h, w, y, x,
-                                      dys[k], dxs[k]);
+      const float val = shifted_value(stack + (size_t)k * plane, h, w,
+                                      y + out_off, x, dys[k], dxs[k],
+                                      y + grow0, gh);
       fr.v[k] = val;
       if (isfinite(val)) {
         fr.keep |= 1u << k;
@@ -437,12 +454,13 @@ __device__ __forceinline__ int load_column(const ColFrames& fr,
                                            const float* __restrict__ stack,
                                            const float* __restrict__ dys,
                                            const float* __restrict__ dxs,
-                                           int h, int w, int y, int x) {
+                                           int h, int w, int y, int x,
+                                           int gy, int gh) {
   const size_t plane = (size_t)h * (size_t)w;
   int count0 = 0;
   for (int k = 0; k < fr.n; ++k) {
     const float val = shifted_value(stack + (size_t)k * plane, h, w, y, x,
-                                    dys[k], dxs[k]);
+                                    dys[k], dxs[k], gy, gh);
     fr.V(k) = val;
     count0 += isfinite(val) ? 1 : 0;
   }
@@ -459,7 +477,8 @@ shift_clip_shared_kernel(ABT_CLIP_PARAMS) {
   const int threads = blockDim.x * blockDim.y;
   SortedColFrames fr{{s_cols + threadIdx.y * blockDim.x + threadIdx.x,
                       (size_t)threads, n}};
-  const int count0 = load_column(fr, stack, dys, dxs, h, w, y, x);
+  const int count0 = load_column(fr, stack, dys, dxs, h, w, y + out_off,
+                                 x, y + grow0, gh);
   clip_pixel(fr, count0, sigma_low, sigma_high, max_iter,
              (size_t)y * w + x, out, rejected);
 }
@@ -478,7 +497,8 @@ shift_clip_scratch_kernel(ABT_CLIP_PARAMS, float* __restrict__ scratch) {
   SelectColFrames fr{{scratch + (size_t)(y - y0) * w + x, band, n},
                      s_hist + threadIdx.y * blockDim.x + threadIdx.x,
                      threads};
-  const int count0 = load_column(fr, stack, dys, dxs, h, w, y, x);
+  const int count0 = load_column(fr, stack, dys, dxs, h, w, y + out_off,
+                                 x, y + grow0, gh);
   clip_pixel(fr, count0, sigma_low, sigma_high, max_iter,
              (size_t)y * w + x, out, rejected);
 }
@@ -487,22 +507,28 @@ shift_clip_scratch_kernel(ABT_CLIP_PARAMS, float* __restrict__ scratch) {
 
 }  // namespace
 
-// K3 over output rows [y0, y0 + rows) of an [n, h, w] stack, in the
-// instance the wrapper's plan chose: cap > 0 the register instance of
-// CAP = cap (a multiple of 4, n <= cap <= 32), blocks of 32 x 8; cap = 0
-// and scratch null the shared instance (33 <= n <= 128), blocks of
-// 32 x by with 2n * 32 * by floats of shared memory; cap = 0 and scratch
-// [n, rows, w] f32 the scratch instance (n > 128), blocks of 32 x 8.
-// out f32 and rejected i32 [h, w]. Returns cudaGetLastError() after the
-// launch; a plan that does not hold n is refused (cudaErrorInvalidValue).
+// K3 over output rows [y0, y0 + rows) of an [n, h, w] slab whose output
+// is its rows [out_off, h - out_off) (a whole stack: out_off 0), output
+// row r at global row grow0 + r of an image of gh rows (a whole stack:
+// grow0 0, gh h), in the instance the wrapper's plan chose: cap > 0 the
+// register instance of CAP = cap (a multiple of 4, n <= cap <= 32),
+// blocks of 32 x 8; cap = 0 and scratch null the shared instance
+// (33 <= n <= 128), blocks of 32 x by with 2n * 32 * by floats of shared
+// memory; cap = 0 and scratch [n, rows, w] f32 the scratch instance
+// (n > 128), blocks of 32 x 8.
+// out f32 and rejected i32 [h - 2 out_off, w]. Returns cudaGetLastError()
+// after the launch; a plan that does not hold n is refused
+// (cudaErrorInvalidValue).
 extern "C" int abt_shift_clip(const float* stack, const float* dys,
                               const float* dxs, int n, int h, int w,
                               float sigma_low, float sigma_high,
                               int max_iter, int cap, int by, int y0,
-                              int rows, float* scratch, float* out,
-                              int* rejected, void* stream) {
+                              int rows, int out_off, int grow0, int gh,
+                              float* scratch, float* out, int* rejected,
+                              void* stream) {
   if (n < 1 || h < 1 || w < 1 || max_iter < 0 || y0 < 0 || rows < 1 ||
-      y0 + rows > h || by < 1 || 32 * by > 256)
+      out_off < 0 || y0 + rows > h - 2 * out_off || grow0 < 0 || gh < 1 ||
+      by < 1 || 32 * by > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(32, by);
   const dim3 grid((w + block.x - 1) / block.x,
@@ -510,7 +536,7 @@ extern "C" int abt_shift_clip(const float* stack, const float* dys,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ABT_CLIP_ARGS                                                      \
   stack, dys, dxs, n, h, w, sigma_low, sigma_high, max_iter, y0, rows,    \
-      out, rejected
+      out_off, grow0, gh, out, rejected
   if (cap > 0) {
     if (cap % 4 != 0 || cap > kMaxRegFrames || n > cap || by != 8 ||
         scratch != nullptr)

@@ -31,10 +31,20 @@ def as_offsets(d, n: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(d, dtype=torch.float32, device=device).reshape(n)
 
 
-def shift_bicubic_batch(stack: torch.Tensor, dys, dxs) -> torch.Tensor:
+def shift_bicubic_batch(stack: torch.Tensor, dys, dxs, *, out_off: int = 0,
+                        grow0: int = 0, gh: int | None = None
+                        ) -> torch.Tensor:
     """Per-frame global shifts of a [N, H, W] stack:
-    out[k, y, x] = bicubic(stack[k], y + dys[k], x + dxs[k])."""
+    out[k, y, x] = bicubic(stack[k], y + dys[k], x + dxs[k]).
+
+    A row slab (parallel/pipeline.py) passes ``out_off`` (its halo): the
+    output is its rows [out_off, H - out_off), the taps clamp to the
+    slab's rows, and output row r is global row ``grow0 + r`` of an
+    image of ``gh`` rows for the outside-source mask. The defaults are
+    the whole stack."""
     n, rows, cols = stack.shape
+    out_rows = rows - 2 * out_off
+    gh = rows if gh is None else gh
     dev = stack.device
     dy = as_offsets(dys, n, dev)
     dx = as_offsets(dxs, n, dev)
@@ -42,33 +52,37 @@ def shift_bicubic_batch(stack: torch.Tensor, dys, dxs) -> torch.Tensor:
     kx = torch.floor(dx).to(torch.int64)
     fy = dy - ky.to(torch.float32)
     fx = dx - kx.to(torch.float32)
-    ar = torch.arange(rows, device=dev)
+    ar = torch.arange(out_rows, device=dev)
     ac = torch.arange(cols, device=dev)
 
     tmp = None
     for j in range(4):
         w = catmull_rom(fy - (j - 1))[:, None, None]
-        idx = torch.clamp(ar[None, :] + ky[:, None] + (j - 1), 0, rows - 1)
-        take = torch.gather(stack, 1, idx[:, :, None].expand(n, rows, cols))
+        idx = torch.clamp(ar[None, :] + (ky[:, None] + (out_off + j - 1)),
+                          0, rows - 1)
+        take = torch.gather(stack, 1,
+                            idx[:, :, None].expand(n, out_rows, cols))
         term = w * take
         tmp = term if tmp is None else tmp + term
     out = None
     for i in range(4):
         w = catmull_rom(fx - (i - 1))[:, None, None]
         idx = torch.clamp(ac[None, :] + kx[:, None] + (i - 1), 0, cols - 1)
-        take = torch.gather(tmp, 2, idx[:, None, :].expand(n, rows, cols))
+        take = torch.gather(tmp, 2, idx[:, None, :].expand(n, out_rows,
+                                                           cols))
         term = w * take
         out = term if out is None else out + term
 
-    sy = ar.to(torch.float32)[None, :, None] + dy[:, None, None]
+    sy = (ar + grow0).to(torch.float32)[None, :, None] + dy[:, None, None]
     sx = ac.to(torch.float32)[None, None, :] + dx[:, None, None]
-    inside = ((sy >= -0.5) & (sy <= rows - 0.5) &
+    inside = ((sy >= -0.5) & (sy <= gh - 0.5) &
               (sx >= -0.5) & (sx <= cols - 0.5))
     shifted = torch.where(inside, out, torch.zeros((), device=dev))
     # the reference returns the image untouched for a true zero shift —
     # zero-weight taps would otherwise bleed NaN around dead pixels
     exact_zero = (torch.abs(dy) < 1e-12) & (torch.abs(dx) < 1e-12)
-    return torch.where(exact_zero[:, None, None], stack, shifted)
+    return torch.where(exact_zero[:, None, None],
+                       stack[:, out_off:out_off + out_rows], shifted)
 
 
 def shift_bicubic(img: torch.Tensor, dy, dx) -> torch.Tensor:

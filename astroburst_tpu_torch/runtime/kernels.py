@@ -53,9 +53,9 @@ _F = ctypes.c_float
 # C entry point → argtypes (restype is int: the cudaError_t code)
 SIGNATURES = {
     # stack, dys, dxs, n, h, w, sigma_low, sigma_high, max_iter, cap, by,
-    # y0, rows, scratch, out, rejected, stream
+    # y0, rows, out_off, grow0, gh, scratch, out, rejected, stream
     "abt_shift_clip": (_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P),
+                       _I, _I, _I, _P, _P, _P, _P),
     # stack, n, h, w, by, bx, ds_r, ds_c, scale, with_stats,
     # out, part_min, part_max, part_cnt, stream
     "abt_coarse_box": (_P, _I, _I, _I, _I, _I, _I, _I, _F, _I,

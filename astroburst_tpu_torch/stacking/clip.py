@@ -10,6 +10,12 @@ holds ≥ 2 values and its last pass removed something; the result is
 the mean of the survivors, else the last finite centre, else 0. Values
 take part iff finite (combine.rs:168-173). This is the plain version of
 the clip half of kernel K3 (stacking/onepass_kernel.py).
+
+Every sum over the frames adds them one after another in frame order,
+from +0, as K3 does (``_frame_sum``): each pixel's arithmetic is then
+its own, whatever the plane's shape. (``torch.sum`` over the frame
+axis picks its order by the tensor's shape on the CPU, so a row slab of
+a stack, parallel/pipeline.py, would round otherwise.)
 """
 
 from __future__ import annotations
@@ -26,6 +32,14 @@ def _select_axis0(stack: torch.Tensor, mask: torch.Tensor,
     inf = torch.full_like(stack, float("inf"))
     svals = torch.sort(torch.where(mask, stack, inf), dim=0).values
     return torch.gather(svals, 0, rank[None].to(torch.int64))[0]
+
+
+def _frame_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ_k x[k] over axis 0, in frame order from +0."""
+    acc = torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
+    for k in range(x.shape[0]):
+        acc = acc + x[k]
+    return acc
 
 
 def sigma_clip_core(stack: torch.Tensor, sigma_low: float = 3.0,
@@ -51,9 +65,10 @@ def sigma_clip_core(stack: torch.Tensor, sigma_low: float = 3.0,
             mad = _select_axis0(torch.abs(stack - center), mask, cnt // 2)
             sigma = torch.clamp(mad * MAD_TO_SIGMA, min=1e-10)
         else:
-            center = torch.where(mask, stack, zero).sum(dim=0) / cntf
-            var = torch.where(mask, (stack - center) ** 2, zero).sum(
-                dim=0) / torch.clamp(cntf - 1.0, min=1.0)
+            center = _frame_sum(torch.where(mask, stack, zero)) / cntf
+            var = _frame_sum(torch.where(mask, (stack - center) ** 2,
+                                         zero)) / torch.clamp(cntf - 1.0,
+                                                              min=1.0)
             sigma = torch.clamp(torch.sqrt(var), min=1e-10)
         active = (cnt >= 2) & ~stopped
         dev = stack - center
@@ -65,7 +80,7 @@ def sigma_clip_core(stack: torch.Tensor, sigma_low: float = 3.0,
         mask = new_mask
 
     final_cnt = mask.sum(dim=0)
-    mean_final = torch.where(mask, stack, zero).sum(dim=0) / torch.clamp(
+    mean_final = _frame_sum(torch.where(mask, stack, zero)) / torch.clamp(
         final_cnt.to(torch.float32), min=1.0)
     fallback = torch.where(torch.isfinite(last_center), last_center, zero)
     combined = torch.where(final_cnt > 0, mean_final, fallback)

@@ -331,7 +331,8 @@ def _drizzle_kernel_exact(stack, d_ys, d_xs, scale: float, pixfrac: float,
                           kernel: DrizzleKernel, out_rows: int,
                           out_cols: int, sigma_low: float,
                           sigma_high: float, sigma_iterations: int,
-                          band_rows: int = 64, *, plain: bool = False):
+                          band_rows: int = 64, *, plain: bool = False,
+                          row0_offset: int = 0):
     """Exact drizzle: per-(frame, tap) candidate planes with the
     reference's capped push-list semantics, banded over output rows to
     bound the [n·taps², band_rows, out_cols] candidate tensor.
@@ -341,9 +342,13 @@ def _drizzle_kernel_exact(stack, d_ys, d_xs, scale: float, pixfrac: float,
     stack); ``plain`` runs the JAX package's XLA route instead (the
     masked candidates of ``_frame_candidates``, ``_masked_candidates``
     here, then ``_finalize_exact``), to hold the kernel to it on the
-    card. The x taps are the same for every band and are made once. Returns (image [out_rows, out_cols] f32, weight
-    map f32, rejected: 0-d int64 tensor, summed over every band row as
-    the JAX function sums it)."""
+    card. The x taps are the same for every band and are made once.
+    ``row0_offset`` makes the call compute rows [row0_offset,
+    row0_offset + out_rows) of the whole output grid (the row-sharded
+    drizzle, parallel/drizzle.py): it is added to every band's origin,
+    as the JAX function adds it (stacking/drizzle.py:302-306). Returns
+    (image [out_rows, out_cols] f32, weight map f32, rejected: 0-d int64
+    tensor, summed over every band row as the JAX function sums it)."""
     from astroburst_tpu_torch.stacking.drizzle_kernel import (
         drizzle_finalize_fused)
     n, in_rows, in_cols = stack.shape
@@ -357,7 +362,7 @@ def _drizzle_kernel_exact(stack, d_ys, d_xs, scale: float, pixfrac: float,
 
     n_bands = -(-out_rows // band_rows)
     r0s = _div(torch.arange(n_bands, dtype=torch.float32, device=dev)
-               * band_rows, scale)            # r0 / scale, r0 in f32
+               * band_rows + float(row0_offset), scale)  # r0 / scale, f32
     img = torch.empty((n_bands * band_rows, out_cols), dtype=torch.float32,
                       device=dev)
     wgt = torch.empty_like(img)

@@ -22,10 +22,19 @@ that it stays within ``SCRATCH_MAX_BYTES``.
 
 ``shift_clip_onepass`` launches the kernel for a CUDA tensor and runs
 ``shift_clip_onepass_plain`` for a CPU tensor; it never falls back.
+
+``shift_clip_onepass_slab`` is the row-shard entry (TPU:
+onepass_kernel.py:491, for parallel/pipeline.py): the same kernel on a
+slab [N, local_h + 2·halo, W] whose halo rows hold the neighbours' rows
+(replicas of the edge row at the image's edges), with the
+outside-source mask in global rows. The port does not clamp offsets,
+so the halo is not the TPU's off_max + 2 but ``slab_halo``:
+ceil(max |dy|) + 2, the rows the taps can reach.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -76,13 +85,23 @@ def shift_clip_onepass_plain(stack: torch.Tensor, dys, dxs,
 
 
 def shift_clip_maps(stack: torch.Tensor, dys, dxs, sigma_low: float = 3.0,
-                    sigma_high: float = 3.0, max_iter: int = 5):
+                    sigma_high: float = 3.0, max_iter: int = 5, *,
+                    out_off: int = 0, grow0: int = 0,
+                    gh: int | None = None, counter=None):
     """K3 on a CUDA stack [N, H, W]: (combined [H, W] f32, rejected
-    [H, W] i32, the plan it ran)."""
+    [H, W] i32, the plan it ran). A slab passes its halo as ``out_off``
+    (the output is its rows [out_off, H - out_off)), its first output
+    row's global index ``grow0`` and the global height ``gh``; each
+    launch adds one to ``counter.launches`` (``shift_clip_onepass``'s
+    by default)."""
     K.require_cuda(stack, "stack", 3)
-    n, h, w = stack.shape
+    n, slab_h, w = stack.shape
+    h = slab_h - 2 * out_off
     if max_iter < 0:
         raise ValueError(f"max_iter must be >= 0, got {max_iter}")
+    if out_off < 0 or h < 1 or grow0 < 0:
+        raise ValueError(f"slab of {slab_h} rows, halo {out_off}, first "
+                         f"row {grow0}")
     plan = _clip_plan(n, h, w)
     dy = as_offsets(dys, n, stack.device)
     dx = as_offsets(dxs, n, stack.device)
@@ -97,13 +116,15 @@ def shift_clip_maps(stack: torch.Tensor, dys, dxs, sigma_low: float = 3.0,
     scratch = torch.empty((n, plan.band_rows, w), dtype=torch.float32,
                           device=stack.device) \
         if plan.instance == "scratch" else None
+    gh = slab_h if gh is None else gh
     for y0 in range(0, h, plan.band_rows):
         K.launch("abt_shift_clip", stack.data_ptr(), dy.data_ptr(),
-                 dx.data_ptr(), n, h, w, float(sigma_low), float(sigma_high),
-                 int(max_iter), plan.cap, plan.block_rows, y0,
-                 min(plan.band_rows, h - y0), K.ptr(scratch), out.data_ptr(),
+                 dx.data_ptr(), n, slab_h, w, float(sigma_low),
+                 float(sigma_high), int(max_iter), plan.cap,
+                 plan.block_rows, y0, min(plan.band_rows, h - y0), out_off,
+                 grow0, gh, K.ptr(scratch), out.data_ptr(),
                  rejected.data_ptr(), K.stream_handle(stack))
-        shift_clip_onepass.launches += 1
+        (counter or shift_clip_onepass).launches += 1
     return out, rejected, plan
 
 
@@ -122,3 +143,56 @@ def shift_clip_onepass(stack: torch.Tensor, dys, dxs,
 
 
 shift_clip_onepass.launches = 0
+
+
+def slab_halo(dys) -> int:
+    """The halo a slab needs for offsets ``dys`` (host values): the
+    rows the Catmull-Rom taps can reach, ceil(max |dy|) + 2."""
+    dy = torch.as_tensor(dys, dtype=torch.float32, device="cpu")
+    return int(math.ceil(float(dy.abs().max()))) + 2 if dy.numel() else 2
+
+
+def shift_clip_onepass_slab_plain(slab: torch.Tensor, dys, dxs, halo: int,
+                                  grow0: int, gh: int,
+                                  sigma_low: float = 3.0,
+                                  sigma_high: float = 3.0,
+                                  max_iter: int = 5):
+    """The slab's shift (taps clamped to the slab, the mask in global
+    rows) + sigma_clip_core, in torch."""
+    return sigma_clip_core(shift_bicubic_batch(
+        slab, dys, dxs, out_off=halo, grow0=grow0, gh=gh), sigma_low,
+        sigma_high, max_iter)
+
+
+def shift_clip_onepass_slab(slab: torch.Tensor, dys, dxs, halo: int,
+                            grow0: int, gh: int, sigma_low: float = 3.0,
+                            sigma_high: float = 3.0, max_iter: int = 5):
+    """K3 on one row shard: ``slab`` [N, local_h + 2·halo, W] holds the
+    shard's output rows and ``halo`` rows above and below, filled by
+    the caller (neighbours' rows, edge replicas at the image's edges);
+    ``grow0`` is the shard's first output row in the image and ``gh``
+    the image's height. Returns (combined [local_h, W] f32, rejected:
+    0-d int64 tensor).
+
+    ``dys`` and ``dxs`` may be host values (the sharded callers fetch
+    the offsets once); the halo is checked against them, so a tensor on
+    the card costs one fetch here. Raises when ``halo`` is below
+    ``slab_halo(dys)``: a tap would then clamp inside the slab where
+    the whole image holds other rows."""
+    n = slab.shape[0]
+    host_dy = dys.detach().cpu() if isinstance(dys, torch.Tensor) else dys
+    need = slab_halo(as_offsets(host_dy, n, torch.device("cpu")))
+    if halo < need:
+        raise ValueError(f"halo {halo} < ceil(max |dy|) + 2 = {need}")
+    if not K.use_kernel(slab, "shift_clip_onepass_slab"):
+        return shift_clip_onepass_slab_plain(slab, dys, dxs, halo, grow0,
+                                             gh, sigma_low, sigma_high,
+                                             max_iter)
+    out, rejected, _ = shift_clip_maps(slab, dys, dxs, sigma_low,
+                                       sigma_high, max_iter, out_off=halo,
+                                       grow0=grow0, gh=gh,
+                                       counter=shift_clip_onepass_slab)
+    return out, rejected.sum()
+
+
+shift_clip_onepass_slab.launches = 0

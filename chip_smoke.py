@@ -11,6 +11,7 @@
                                                   # per side of the RGB
                                                   # tile pyramid
     python3 chip_smoke.py --phase-4l              # phase 4l alone
+    python3 chip_smoke.py --phase-4m              # phase 4m alone
 
 Phases, each of which fails loudly (nothing is caught; any failure
 exits non-zero, and so does a machine without a CUDA device):
@@ -93,7 +94,12 @@ exits non-zero, and so does a machine without a CUDA device):
    it: stars masked, output in [0, 1], background within 0.02 of 0.25;
    (e) ``drizzle_exact_parity`` on the calibrated lights of (b) with
    the offsets ``drizzle_stack`` found, and on the drizzle bench stack,
-   against ``_drizzle_kernel_exact`` at one band (no band offset).
+   against ``_drizzle_kernel_exact`` at one band (no band offset);
+   then the gaussian and lanczos3 kernels on the calibrated lights
+   through both routes (ROADMAP C36: the parity plan's taps come from
+   the host's exp/sin, the one-band route's from the card's), held to
+   the JAX test's tolerances, bit-equality and the pixels and rejected
+   values that differ reported.
    (f) the ``stack`` command (``astroburst_tpu_torch.api.stack``): the
    bench frames written as 16 FITS files (BITPIX -32, the port's
    writer) and the 150 frames of 1024^2 as 150 more; the command cold
@@ -219,6 +225,19 @@ exits non-zero, and so does a machine without a CUDA device):
    route against ``compute_correction_factors`` on rows built from the
    fetched planes; each command cold and warm, counters reset and read
    around each.
+   (m) the multi-device layer (``sharded_path``), 4 shards on this
+   card: K3's slab entry on the first, an interior and the last of 4
+   row slabs of the bench stack (±12 px) and of 150 frames of 1024^2
+   (±30 px, the scratch instance) against its plain version and, bit
+   for bit, the whole-stack K3's rows; then, counted,
+   ``make_sharded_stack_step`` on a (2, 2) mesh at the bench shape
+   (combined, preview, offsets, stf and rejected bit-equal to
+   ``align_stack_stretch``), ``sharded_drizzle`` (10 x 2048^2 →
+   4096^2, bit-equal), the sharded FFT, RL and power spectrum at
+   4096^2, the compose (3 x 2048^2, bit-equal to one shard), the cube
+   collapses (256 x 512^2), the à trous smooth (4096^2) and the warp
+   (5655 x 2206), each against one device; the step and the slab entry
+   timed beside ``align_stack_stretch`` and the plain version.
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
@@ -1665,6 +1684,34 @@ def check_parity_drizzle(what, got, want) -> dict:
         raise AssertionError(f"{what}: not bit-equal to the one-band route")
     return {"max_abs_err": d_img, "weights_max_abs_err": d_wgt,
             "bit_equal": bit}
+
+
+def check_parity_kernel(what, got, want) -> dict:
+    """``drizzle_exact_parity`` against the one-band
+    ``_drizzle_kernel_exact`` for a gaussian or lanczos3 kernel, at the
+    tolerances of tests/test_torch_drizzle.py:11-13 (image atol 2e-4 /
+    rtol 1e-6, weights atol 1e-5, rejected count within max(5, 5 %)):
+    reports whether they are bit-equal and how many pixels and rejected
+    values differ (ROADMAP C36)."""
+    import torch
+    if got is None:
+        raise AssertionError(f"{what}: the parity plan refused")
+    d_img = float((got[0] - want[0]).abs().max())
+    d_wgt = float((got[1] - want[1]).abs().max())
+    px_img = int((got[0] != want[0]).sum())
+    px_wgt = int((got[1] != want[1]).sum())
+    rej = (int(got[2]), int(want[2]))
+    bit = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"  {what}: bit-equal {bit}; image max|d|={d_img:.3e} on {px_img} "
+        f"pixels, weights max|d|={d_wgt:.3e} on {px_wgt}, rejected "
+        f"{rej[0]} vs {rej[1]}")
+    if not (torch.allclose(got[0], want[0], rtol=1e-6, atol=2e-4)
+            and torch.allclose(got[1], want[1], rtol=0.0, atol=1e-5)
+            and abs(rej[0] - rej[1]) <= max(5, 0.05 * rej[1])):
+        raise AssertionError(f"{what}: beyond the JAX test's tolerances")
+    return {"max_abs_err": d_img, "weights_max_abs_err": d_wgt,
+            "pixels_differ": px_img, "weight_pixels_differ": px_wgt,
+            "rejected": list(rej), "bit_equal": bit}
 
 
 STACK_CMD_KEYS = {"fits_path", "png_path", "dimensions", "frame_count",
@@ -4833,7 +4880,8 @@ def main() -> None:
         drizzle_finalize, drizzle_finalize_fused,
         drizzle_finalize_fused_plain, drizzle_finalize_plain)
     from astroburst_tpu_torch.stacking.onepass_kernel import (
-        _clip_plan, shift_clip_onepass, shift_clip_onepass_plain)
+        _clip_plan, shift_clip_onepass, shift_clip_onepass_plain,
+        shift_clip_onepass_slab)
     from astroburst_tpu_torch.imaging.star_mask_kernel import paint_mask
     from astroburst_tpu_torch.stacking.drizzle import drizzle_exact_parity
     from astroburst_tpu_torch.stacking.drizzle_gather_kernel import (
@@ -5189,6 +5237,7 @@ def main() -> None:
 
     # ---- 4a. main paths of the earlier slice, through the kernels ------
     counters = {"shift_clip": shift_clip_onepass,
+                "shift_clip_slab": shift_clip_onepass_slab,
                 "coarse_box": coarse_downsample_stack,
                 "gather_crops": gather_crops,
                 "drizzle_finalize_fused": drizzle_finalize_fused,
@@ -5310,6 +5359,10 @@ def main() -> None:
     log(f"[time] {smi}: stack_images {MANY_N}x{MANY_HW}^2 kernels "
         f"{ms_m:.3f} ms | plain {ms_mp:.3f} ms (host offsets fetch "
         f"included)")
+
+    # ---- 4m. the multi-device layer: 4 shards on this card -------------
+    launches_sharded, report["shift_clip_slab"], times_sharded = \
+        sharded_path(stack, counters, smi)
 
     # ---- 4f. the stack command: FITS in, stacked FITS + preview out ----
     launches_cmd, _ = stack_command_path(stack, shifts, many_list,
@@ -5439,6 +5492,15 @@ def main() -> None:
         if not bool(torch.isfinite(got[0]).all()):
             raise AssertionError(f"parity drizzle {tag}: image not finite")
     del par_cal, par_bench, want
+    # ROADMAP C36: the gaussian and lanczos3 kernels through both routes
+    # (the parity plan's taps come from the host's exp/sin, the one-band
+    # route's from the card's)
+    for kern in (DrizzleKernel.GAUSSIAN, DrizzleKernel.LANCZOS3):
+        a = exact_args[:5] + (kern,) + exact_args[6:]
+        parity_err[kern.value] = check_parity_kernel(
+            f"[path] drizzle_exact_parity {kern.value} (calibrated lights) "
+            f"vs one-band _drizzle_kernel_exact", drizzle_exact_parity(*a),
+            _drizzle_kernel_exact(*a, band_rows=out_hw))
     torch.cuda.reset_peak_memory_stats()
     ms_par = cuda_ms(lambda: drizzle_exact_parity(*exact_args), 5)
     peak_par = torch.cuda.max_memory_allocated()
@@ -5642,6 +5704,8 @@ def main() -> None:
     meta = {
         "shift_clip": ("astroburst_tpu_torch/csrc/shift_clip.cu",
                        "astroburst_tpu/stacking/onepass_kernel.py:262"),
+        "shift_clip_slab": ("astroburst_tpu_torch/csrc/shift_clip.cu",
+                            "astroburst_tpu/stacking/onepass_kernel.py:491"),
         "coarse_box": ("astroburst_tpu_torch/csrc/coarse_box.cu",
                        "astroburst_tpu/alignment/coarse_kernel.py:155"),
         "gather_crops": ("astroburst_tpu_torch/csrc/gather_crops.cu",
@@ -5681,7 +5745,9 @@ def main() -> None:
              "stretch+tone+denoise+detection(commands)": launches_tone,
              "compose(commands)+drizzle_rgb": launches_compose,
              "fft+deconvolution+cube+tiles+synth(commands)": launches_cube,
-             "astrometry+spcc+config(commands)": launches_astro}
+             "astrometry+spcc+config(commands)": launches_astro,
+             "sharded(step,drizzle,fft,rl,spectrum,compose,cube,atrous,"
+             "warp)": launches_sharded}
     kernels = []
     for name, (source, replaces) in meta.items():
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -5709,6 +5775,7 @@ def main() -> None:
         {n: {"kernels_ms": k, "plain_ms": p} for n, (k, p)
          in times_parity.items()}) + f"; against the one-band exact "
         f"route: {json.dumps(parity_err)}")
+    log(f"[path] sharded paths (phase 4m): {json.dumps(times_sharded)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -5832,6 +5899,357 @@ def phase_4k_alone(sides) -> None:
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
 
 
+# --- phase 4m: the multi-device layer, 4 shards on one card ---------------
+
+MESH_SHAPE = (2, 2)        # ("frames", "rows") shards, all on cuda:0
+MESH_ROWS = 4              # the one-axis meshes' shards
+SLAB_N, SLAB_HW, SLAB_SHIFT = 150, 1024, 30   # K3's scratch instance (C14)
+MESH_DRZ_N, MESH_DRZ_HW = 10, 2048            # sharded drizzle → 4096^2
+MESH_FFT_HW = 4096                            # FFT, RL, power spectrum
+MESH_RL_ITERS, MESH_RL_PSF = 10, 15
+MESH_COMP_HW = 2048
+MESH_CUBE = (256, 512, 512)
+MESH_ATROUS_HW = 4096
+
+
+def slab_of(stack, g: int, local_h: int, halo: int):
+    """Row shard g's slab of [n, H, W]: its ``local_h`` rows and
+    ``halo`` rows on either side, the edge rows repeated past the image
+    (what the halo exchange gives that shard), in one gather."""
+    import torch
+    idx = torch.clamp(torch.arange(g * local_h - halo,
+                                   (g + 1) * local_h + halo,
+                                   device=stack.device), 0,
+                      stack.shape[1] - 1)
+    return stack.index_select(1, idx)
+
+
+def check_slabs(what: str, stack, dys, dxs, shards: int,
+                lo: float = 3.0, hi: float = 3.0, timed: bool = False
+                ) -> dict:
+    """K3's slab entry on the first, an interior and the last of
+    ``shards`` row slabs of ``stack``: against its plain version
+    (``check_flips``) and, map for map, bit-equal to the whole-stack
+    K3's rows. With ``timed``, the interior slab's kernel and plain
+    times and its bound."""
+    import torch
+    from astroburst_tpu_torch.stacking.onepass_kernel import (
+        _clip_plan, shift_clip_maps, shift_clip_onepass_slab,
+        shift_clip_onepass_slab_plain, slab_halo)
+    n, h, w = stack.shape
+    local_h = -(-h // shards)
+    host = torch.stack([dys, dxs]).cpu()
+    halo = slab_halo(host[0])
+    whole = shift_clip_maps(stack, dys, dxs, lo, hi, 5)
+    entry = {}
+    for g in (0, shards // 2, shards - 1):
+        slab = slab_of(stack, g, local_h, halo)
+        g0, rows = g * local_h, min(local_h, h - g * local_h)
+        got = shift_clip_onepass_slab(slab, host[0], host[1], halo, g0, h,
+                                      lo, hi, 5)
+        ref = shift_clip_onepass_slab_plain(slab, host[0], host[1], halo,
+                                            g0, h, lo, hi, 5)
+        maps = shift_clip_maps(slab, dys, dxs, lo, hi, 5, out_off=halo,
+                               grow0=g0, gh=h)
+        torch.cuda.synchronize()
+        err, flips = check_flips(
+            f"[K3 slab] {what} slab {g} of {shards} ({local_h} rows + "
+            f"halo {halo}, {_clip_plan(n, local_h, w).instance} instance) "
+            f"vs plain", n, got[0], ref[0], got[1], ref[1])
+        if not (torch.equal(maps[0][:rows], whole[0][g0:g0 + rows])
+                and torch.equal(maps[1][:rows], whole[1][g0:g0 + rows])):
+            raise AssertionError(f"{what} slab {g}: not bit-equal to the "
+                                 f"whole-stack K3's rows")
+        entry[f"max_abs_err_slab{g}"] = err
+        entry[f"flips_slab{g}"] = flips
+        if timed and g == shards // 2:
+            args = (slab, host[0], host[1], halo, g0, h, lo, hi, 5)
+            # the entry uploads the host offsets it checked the halo
+            # against; shift_clip_maps launches on the card's offsets
+            entry.update({
+                "shape": list(slab.shape), "halo": halo,
+                "ms": cuda_ms(lambda: shift_clip_onepass_slab(*args), 10),
+                "ms_launch_only": cuda_ms(lambda: shift_clip_maps(
+                    slab, dys, dxs, lo, hi, 5, out_off=halo, grow0=g0,
+                    gh=h), 10),
+                "plain_ms": cuda_ms(
+                    lambda: shift_clip_onepass_slab_plain(*args), 3)})
+            # bytes: the slab once, the image rows and their rejected
+            # map; operations: K3's 88 a pixel-frame (see shift_clip)
+            entry.update(zip(("bound_ms", "bound_by"), bound(
+                4 * slab.numel() + 8 * local_h * w, 88 * n * local_h * w)))
+    log(f"  [K3 slab] {what}: {shards} slabs of {local_h} rows, bit-equal "
+        f"to the whole-stack K3 where they are cut from it")
+    return entry
+
+
+def sharded_path(stack, counters, smi):
+    """Phase 4m: the multi-device layer (``astroburst_tpu_torch/
+    parallel``) with 4 shards on one card. K3's slab entry on the bench
+    stack and at 150 frames of 1024^2 (the scratch instance) against its
+    plain version and the whole-stack K3; then, counters reset just
+    before and read just after, ``make_sharded_stack_step`` on a (2, 2)
+    mesh at the bench shape (K1, K2, K3's slab entry), ``sharded_drizzle``
+    (10 x 2048^2 → 4096^2, K7), ``sharded_fft2``/``sharded_ifft2``,
+    ``sharded_deconvolve`` and ``sharded_power_spectrum`` at 4096^2,
+    ``make_sharded_compose`` (3 x 2048^2), ``sharded_collapse_mean``/
+    ``median`` (256 x 512^2), ``sharded_atrous_smooth`` (4096^2) and
+    ``make_sharded_warp`` (5655 x 2206, 0.4 deg). Checks: the step's
+    combined, preview, offsets, stf and rejected count bit-equal to
+    ``align_stack_stretch``; drizzle, atrous, warp, the cube median (to
+    a sort on the card) and compose (to the same compose on one shard)
+    bit-equal; the FFT and the spectrum's magnitudes within 1e-5 of the
+    largest, RL within 5e-5 (ROADMAP C30), the cube mean within 1e-5
+    (the shards' sums add in another order). Returns (launches,
+    report entry of the slab entry, times)."""
+    import math
+    import torch
+    from astroburst_tpu_torch.alignment.affine import (AffineTransform,
+                                                        warp_image)
+    from astroburst_tpu_torch.analysis.deconvolution import (
+        generate_gaussian_psf, richardson_lucy)
+    from astroburst_tpu_torch.analysis.fft import _spectrum
+    from astroburst_tpu_torch.cube.eager import collapse_mean
+    from astroburst_tpu_torch.dtypes import DrizzleKernel, RLConfig
+    from astroburst_tpu_torch.imaging.wavelet import atrous_smooth
+    from astroburst_tpu_torch.parallel import (align_stack_stretch,
+                                               make_mesh,
+                                               make_sharded_stack_step)
+    from astroburst_tpu_torch.parallel.compose import make_sharded_compose
+    from astroburst_tpu_torch.parallel.cube import (sharded_collapse_mean,
+                                                    sharded_collapse_median)
+    from astroburst_tpu_torch.parallel.drizzle import sharded_drizzle
+    from astroburst_tpu_torch.parallel.fft import (sharded_deconvolve,
+                                                   sharded_fft2,
+                                                   sharded_ifft2,
+                                                   sharded_power_spectrum)
+    from astroburst_tpu_torch.parallel.halo import sharded_atrous_smooth
+    from astroburst_tpu_torch.parallel.mesh import shard
+    from astroburst_tpu_torch.parallel.warp import make_sharded_warp
+    from astroburst_tpu_torch.stacking.drizzle import _drizzle_kernel_exact
+
+    t_phase = time.perf_counter()
+    dev = stack.device
+    n, h, w = stack.shape
+    rng = np.random.default_rng(41)
+
+    # K3's slab entry against its plain version and the whole-stack K3
+    offs = rng.uniform(-12, 12, (2, n)).astype(np.float32)
+    offs[:, 0] = 0.0
+    dys, dxs = (torch.as_tensor(o, device=dev) for o in offs)
+    entry = check_slabs(f"{n}x{h}x{w} +-12", stack, dys, dxs, 4,
+                        timed=True)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    many = torch.randn((SLAB_N, SLAB_HW, SLAB_HW), generator=gen,
+                       device=dev) * 5.0 + 100.0
+    many[:, 7, 9] = float("nan")
+    mo = rng.uniform(-SLAB_SHIFT, SLAB_SHIFT, (2, SLAB_N)).astype(np.float32)
+    mo[:, 0] = 0.0
+    entry.update({f"{k}_150_frames": v for k, v in check_slabs(
+        f"{SLAB_N}x{SLAB_HW}^2 +-{SLAB_SHIFT}", many,
+        *(torch.as_tensor(o, device=dev) for o in mo), 4, 2.5).items()})
+    del many
+
+    # the inputs of the other paths, made before the counted run
+    mesh = make_mesh(shape=MESH_SHAPE)
+    rows4 = make_mesh(shape=(MESH_ROWS,), axis_names=("rows",))
+    frames4 = make_mesh(shape=(MESH_ROWS,), axis_names=("frames",))
+    log(f"[4m] meshes {mesh.shape}, {rows4.shape}, {frames4.shape} over "
+        f"{sorted({str(d) for d in mesh.devices.flat})}")
+    placed = shard(mesh, stack, 0, "frames")
+    dstack = torch.randn((MESH_DRZ_N, MESH_DRZ_HW, MESH_DRZ_HW),
+                         generator=gen, device=dev) * 8.0 + 100.0
+    d_off = torch.as_tensor(rng.uniform(-2, 2, (2, MESH_DRZ_N)),
+                            dtype=torch.float32, device=dev)
+    d_out = 2 * MESH_DRZ_HW
+    d_args = (2.0, 0.7, DrizzleKernel.SQUARE, d_out, d_out, 3.0, 3.0, 5)
+    plane = torch.randn((MESH_FFT_HW, MESH_FFT_HW), generator=gen,
+                        device=dev) * 4.0 + 50.0
+    plane[1000:1003, 2000:2003] += 400.0
+    psf = generate_gaussian_psf(MESH_RL_PSF, 2.0)
+    rl_cfg = RLConfig(iterations=MESH_RL_ITERS, dering=True)
+    chans = torch.rand((3, MESH_COMP_HW, MESH_COMP_HW), generator=gen,
+                       device=dev) * 80.0
+    chans[0, :3, :5] = 0.0
+    chans[1, 10, 10] = float("nan")
+    weights = torch.tensor([[0.8, 0.1, 0.0], [0.2, 0.7, 0.1],
+                            [0.0, 0.2, 0.9]])
+    cube = torch.randn(MESH_CUBE, generator=gen, device=dev) * 3.0 + 10.0
+    cube[:, 1, 1] = float("nan")
+    cube[:40, 5, 5] = float("nan")
+    th = math.radians(0.4)
+    ct, st = math.cos(th), math.sin(th)
+    cy, cx = h / 2.0, w / 2.0
+    tf = AffineTransform(a=ct, b=-st, tx=cx - ct * cx + st * cy + 3.2,
+                         c=st, d=ct, ty=cy - st * cx - ct * cy - 2.1)
+    step = make_sharded_stack_step(mesh)
+    compose4 = make_sharded_compose(rows4, "rows")
+    compose1 = make_sharded_compose(make_mesh(shape=(1,),
+                                              axis_names=("rows",)), "rows")
+    warp4 = make_sharded_warp(rows4, tf, h, w)
+    zeros = torch.zeros_like(plane)
+    torch.cuda.synchronize()
+
+    for fn in counters.values():
+        fn.launches = 0
+    for m in (mesh, rows4, frames4):
+        m.reset_counts()
+    out = step(placed)
+    moved_step = dict(mesh.moved)
+    drz = sharded_drizzle(mesh, dstack, d_off[0], d_off[1], *d_args,
+                          axis_name=("frames", "rows"))
+    fr, fi = sharded_fft2(rows4, plane, zeros)
+    calls_fwd = rows4.calls["all_to_all"]
+    br, _ = sharded_ifft2(rows4, fr, fi)
+    calls_trip = rows4.calls["all_to_all"]
+    rl = sharded_deconvolve(rows4, plane, psf, rl_cfg)
+    spec = sharded_power_spectrum(rows4, plane, True)
+    comp = compose4(chans, weights, [1.0, 1.0, 1.0])
+    mean = sharded_collapse_mean(cube, frames4)
+    med = sharded_collapse_median(cube, frames4)
+    smooth = {s: sharded_atrous_smooth(plane, rows4, "rows", s)
+              for s in (1, 2, 4)}
+    warped = warp4(stack[1])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"[path] kernel launches in the sharded paths (step, drizzle, "
+        f"FFT, RL, spectrum, compose, cube, atrous, warp): {launches}")
+    for name in ("shift_clip_slab", "coarse_box", "gather_crops",
+                 "drizzle_finalize_fused"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never ran: {launches}")
+    if launches["shift_clip"]:
+        raise AssertionError("the sharded step launched the whole-stack K3")
+    log(f"[4m] collectives, elements moved: step {moved_step}; rows mesh "
+        f"{dict(rows4.moved)}; frames mesh {dict(frames4.moved)}")
+    if calls_fwd != 1 or calls_trip != 2:
+        raise AssertionError(f"FFT round trip: {calls_trip} all-to-alls")
+
+    # the checks, after the counted run
+    single = align_stack_stretch(stack)
+    torch.cuda.synchronize()
+    same = {k: torch.equal(out[k].full() if k in ("combined", "preview")
+                           else out[k], single[k])
+            for k in ("combined", "preview", "offsets", "stf", "rejected")}
+    same["confidences"] = torch.equal(out["confidences"],
+                                      single["confidences"])
+    log(f"[4m] sharded step {n}x{h}x{w} on {MESH_SHAPE} vs "
+        f"align_stack_stretch, bit-equal: {same}")
+    if not all(v for k, v in same.items() if k != "confidences"):
+        raise AssertionError(f"sharded step differs from one device: {same}")
+    want = _drizzle_kernel_exact(dstack, d_off[0], d_off[1], *d_args)
+    if not (torch.equal(drz[0].full(), want[0])
+            and torch.equal(drz[1].full(), want[1])
+            and int(drz[2]) == int(want[2])):
+        raise AssertionError("sharded drizzle differs from the unsharded")
+    ref = torch.fft.fft2(plane.to(torch.complex64))
+    scale = float(ref.abs().max())
+    d_fft = max(float((fr.full() - ref.real).abs().max()),
+                float((fi.full() - ref.imag).abs().max())) / scale
+    d_back = float((br.full() - plane).abs().max()) / float(
+        plane.abs().max())
+    rl_ref = richardson_lucy(plane, psf, rl_cfg)
+    d_rl = float((rl[0].full() - rl_ref.image).abs().max()) / float(
+        rl_ref.image.abs().max())
+    # the spectrum is log1p |X|: compared as |X|, where the transforms'
+    # rounding is a fraction of the largest magnitude (in the log the
+    # faintest bins would amplify it)
+    spec_ref = torch.expm1(_spectrum(plane, MESH_FFT_HW, True))
+    d_spec = float((torch.expm1(spec.full()) - spec_ref).abs().max()) / \
+        float(spec_ref.abs().max())
+    log(f"[4m] FFT {MESH_FFT_HW}^2 rel max|d| {d_fft:.2e} (round trip "
+        f"{d_back:.2e}, 2 all-to-alls); RL x{MESH_RL_ITERS} {d_rl:.2e} "
+        f"({rl[1]} vs {rl_ref.iterations_run} iterations); spectrum "
+        f"{d_spec:.2e}")
+    if d_fft > 1e-5 or d_back > 1e-5 or d_spec > 1e-5 or d_rl > 5e-5 \
+            or rl[1] != rl_ref.iterations_run:
+        raise AssertionError("sharded FFT / RL / spectrum beyond tolerance")
+    one = compose1(chans, weights, [1.0, 1.0, 1.0])
+    if not (torch.equal(comp["rgb"].full(), one["rgb"].full())
+            and torch.equal(comp["preview"].full(), one["preview"].full())
+            and torch.equal(comp["stf"], one["stf"])
+            and torch.equal(comp["wb"], one["wb"])):
+        raise AssertionError("sharded compose differs from one shard")
+    d_mean = float((mean.full() - collapse_mean(cube)).abs().max())
+    fin = torch.isfinite(cube)
+    cnt = fin.sum(0)
+    srt = torch.sort(torch.where(fin, cube, float("inf")), dim=0).values
+    rank = torch.clamp(torch.div(cnt + 1, 2, rounding_mode="floor") - 1,
+                       min=0)
+    med_ref = torch.where(cnt > 0, torch.gather(srt, 0, rank[None])[0],
+                          0.0)
+    log(f"[4m] cube {MESH_CUBE}: mean max|d| {d_mean:.2e}, median "
+        f"bit-equal {torch.equal(med.full(), med_ref)}; compose "
+        f"3 x {MESH_COMP_HW}^2 bit-equal to one shard, wb "
+        f"{comp['wb'].tolist()}")
+    if d_mean > 1e-5 or not torch.equal(med.full(), med_ref):
+        raise AssertionError("sharded cube collapse differs")
+    for s, got in smooth.items():
+        if not torch.equal(got.full(), atrous_smooth(plane, s)):
+            raise AssertionError(f"sharded atrous step {s} differs")
+    if not torch.equal(warped.full(), warp_image(stack[1], tf, h, w)):
+        raise AssertionError("sharded warp differs from warp_image")
+    log("[4m] drizzle, atrous (steps 1, 2, 4) and warp bit-equal to one "
+        "device")
+    del dstack, cube, chans, srt
+
+    times = {"sharded_step": cuda_ms(lambda: step(placed), 5),
+             "align_stack_stretch": cuda_ms(
+                 lambda: align_stack_stretch(stack), 5)}
+    times["sharded_step_again"] = cuda_ms(lambda: step(placed), 5)
+    times["phase_s"] = time.perf_counter() - t_phase
+    log(f"[time] {smi}: sharded step {n}x{h}x{w} on {MESH_SHAPE} "
+        f"{times['sharded_step']:.3f} / {times['sharded_step_again']:.3f} "
+        f"ms | align_stack_stretch {times['align_stack_stretch']:.3f} ms; "
+        f"K3 slab {entry['shape']} {entry['ms']:.3f} ms (launch alone "
+        f"{entry['ms_launch_only']:.3f} ms) | plain "
+        f"{entry['plain_ms']:.3f} ms | bound {entry['bound_ms']:.4f} ms "
+        f"({entry['bound_by']}); phase 4m {times['phase_s']:.1f} s")
+    entry["max_abs_err"] = max(v for k, v in entry.items()
+                               if k.startswith("max_abs_err_slab"))
+    entry["library_ms"] = None
+    return launches, entry, times
+
+
+def phase_4m_alone() -> None:
+    """Phase 4m alone: the build, the bench stack, then ``sharded_path``
+    with every K1/K2/K3/K7 counter; prints the card's name and power
+    limit and the seconds."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                 "is false); this script runs only on the card")
+    from astroburst_tpu_torch.alignment.coarse_kernel import (
+        coarse_downsample_stack)
+    from astroburst_tpu_torch.convert import stack_from_numpy
+    from astroburst_tpu_torch.ops.crop_kernel import gather_crops
+    from astroburst_tpu_torch.runtime import kernels as K
+    from astroburst_tpu_torch.runtime.device import cuda_device
+    from astroburst_tpu_torch.stacking.drizzle_kernel import (
+        drizzle_finalize_fused)
+    from astroburst_tpu_torch.stacking.onepass_kernel import (
+        shift_clip_onepass, shift_clip_onepass_slab)
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    lib = K.library()
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvcc {lib.build_seconds:.1f} s")
+    for name, regs, smem, stack_b, sst, sld in ptxas_summary(lib.build_log):
+        if name.startswith("shift_clip"):
+            log(f"[build]   {name}: {regs} registers, {smem} B smem, "
+                f"{stack_b} B stack, spills {sst}/{sld} B")
+    stack = stack_from_numpy(make_frames(N_FRAMES, H, W), cuda_device())
+    counters = {"shift_clip": shift_clip_onepass,
+                "shift_clip_slab": shift_clip_onepass_slab,
+                "coarse_box": coarse_downsample_stack,
+                "gather_crops": gather_crops,
+                "drizzle_finalize_fused": drizzle_finalize_fused}
+    launches, entry, times = sharded_path(stack, counters, smi)
+    log(f"[4m] launches {launches}; slab entry {json.dumps(entry)}; "
+        f"times {json.dumps(times)}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
+
+
 def phase_4l_alone() -> None:
     """Phase 4l alone: the build, 4c's detection field and one bench
     frame, then ``astrometry_spcc_path`` with its checks and the K10/K11
@@ -5863,7 +6281,9 @@ def phase_4l_alone() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--phase-4l"]:
+    if sys.argv[1:2] == ["--phase-4m"]:
+        phase_4m_alone()
+    elif sys.argv[1:2] == ["--phase-4l"]:
         phase_4l_alone()
     elif sys.argv[1:2] == ["--phase-4k"]:
         phase_4k_alone([int(a) for a in sys.argv[2:]] or [TILE_RGB_HW])

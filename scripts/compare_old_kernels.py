@@ -102,6 +102,12 @@ def current_abi(old_dir: Path) -> bool:
     return "int cap, int by" in (old_dir / "src" / "shift_clip.cu").read_text()
 
 
+def slab_abi(old_dir: Path) -> bool:
+    """Whether the other K3 also takes the slab entry's row offset,
+    global first row and global height (the current entry point)."""
+    return "int out_off" in (old_dir / "src" / "shift_clip.cu").read_text()
+
+
 def binned_abi(old_dir: Path, name: str) -> bool:
     """Whether the other K12 or K13 has the entry of 50d146b: the
     all-pairs vote (split over blockIdx.y, no scratch) or the raster fed
@@ -456,8 +462,10 @@ def build_old(old_dir: Path):
                     *map(str, objs)], check=True)
     lib = ctypes.CDLL(str(lib_path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.abt_shift_clip.argtypes = list(K.SIGNATURES["abt_shift_clip"]) \
-        if current_abi(old_dir) else [P, P, P, I, I, I, F, F, I, P, P, P]
+    lib.abt_shift_clip.argtypes = (
+        list(K.SIGNATURES["abt_shift_clip"]) if slab_abi(old_dir) else
+        [P, P, P, I, I, I, F, F, I, I, I, I, I, P, P, P, P]
+        if current_abi(old_dir) else [P, P, P, I, I, I, F, F, I, P, P, P])
     lib.abt_drizzle_finalize_fused.argtypes = [P, P, P, I, I, I, I, I, I, F,
                                                F, I, P, P, P, P, P]
     lib.abt_drizzle_finalize.argtypes = [P, P, I, I, I, I, F, F, I, P, P, P,
@@ -573,12 +581,13 @@ def main() -> None:
         plan = _clip_plan(n, h, w)
         scratch = torch.empty((n, plan.band_rows, w), device=dev) \
             if plan.instance == "scratch" else None
+        slab = (0, 0, h) if slab_abi(old_dir) else ()
         for y0 in range(0, h, plan.band_rows):
             st = old.abt_shift_clip(
                 stack.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, h, w, lo,
                 hi, iters, plan.cap, plan.block_rows, y0,
-                min(plan.band_rows, h - y0), K.ptr(scratch), out.data_ptr(),
-                rej.data_ptr(), K.stream_handle(stack))
+                min(plan.band_rows, h - y0), *slab, K.ptr(scratch),
+                out.data_ptr(), rej.data_ptr(), K.stream_handle(stack))
             if st != 0:
                 raise RuntimeError(f"old abt_shift_clip: CUDA error {st}")
         return out, rej

@@ -136,7 +136,11 @@ def test_port_and_chip_smoke_import_nothing_of_jax_or_the_jax_package():
                 "compose/channel_blend.py", "compose/lrgb.py",
                 "compose/rgb.py", "compose/drizzle_rgb.py",
                 "metadata/presets.py", "metadata/wizard.py",
-                "metadata/channel_mapper.py"):
+                "metadata/channel_mapper.py", "parallel/mesh.py",
+                "parallel/halo.py", "parallel/pipeline.py",
+                "parallel/drizzle.py", "parallel/fft.py",
+                "parallel/compose.py", "parallel/cube.py",
+                "parallel/warp.py"):
         assert REPO / "astroburst_tpu_torch" / new in files, new
     asdf = REPO / "astroburst_tpu_torch" / "io" / "asdf.py"
     bad = []
