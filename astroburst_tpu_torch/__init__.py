@@ -13,7 +13,8 @@ Ported slices: align → stack → stretch
 (``stacking.calibration``, ``stacking.drizzle.drizzle_stack``) and star
 detection → affine alignment → warp (``analysis.detect_stars``,
 ``alignment.affine.align_channel_affine`` and ``warp_image``,
-``alignment.pair.align_pair``), star mask → masked stretch
+``alignment.pair.align_pair``; on the card the fused one-fetch chain
+``alignment.fused_chain``), star mask → masked stretch
 (``imaging.masked_stretch``, ``imaging.star_mask``) and the parity
 drizzle (``stacking.drizzle.drizzle_exact_parity``). Every Pallas
 kernel of the JAX package has its CUDA counterpart. Of the command API,

@@ -17,9 +17,9 @@ f64, the same seeded hypothesis table). The warp is the direct clamped
 Catmull-Rom sampler of the JAX ``_warp_kernel`` (its ``exact=True``
 form) in plain torch; a pure translation goes to ``shift_bicubic``. The
 shear-decomposed and two-pass warps of the JAX package are TPU
-workarounds and are not ported, nor is the fused device chain
-(alignment/fused_chain, ROADMAP A10): ``align_channel_affine`` is the
-host chain on every device.
+workarounds and are not ported. ``align_channel_affine`` is the host
+chain on every device; the device chain is alignment/fused_chain, which
+``alignment/pair`` and the compose paths take on the card.
 
 ``plain`` runs the kernels' plain torch versions instead (to hold the
 kernels to them on the card).
@@ -116,18 +116,19 @@ def normalize_for_detection(image: torch.Tensor) -> torch.Tensor:
     dev = image.device
     n_rows = max(min(-(-100_000 // cols), rows), 1)
     ridx = torch.clamp((torch.arange(n_rows, dtype=torch.float32, device=dev)
-                        * torch.tensor(rows / n_rows, dtype=torch.float32,
-                                       device=dev)).to(torch.int64),
+                        * torch.full((), rows / n_rows, dtype=torch.float32,
+                                     device=dev)).to(torch.int64),
                        max=rows - 1)
     samples = image[ridx].reshape(-1)
     finite = torch.isfinite(samples)
     cnt = finite.sum()
     svals = torch.sort(torch.where(finite, samples, float("inf"))).values
     m = samples.shape[0]
-    lo = svals[torch.clamp(torch.div(cnt, 100, rounding_mode="floor"), 0,
-                           m - 1)]
-    hi = svals[torch.clamp(torch.div(cnt * 999, 1000, rounding_mode="floor"),
-                           0, m - 1)]
+    # torch.take: indexing by a 0-d tensor would fetch the index to the host
+    lo = torch.take(svals, torch.clamp(
+        torch.div(cnt, 100, rounding_mode="floor"), 0, m - 1))
+    hi = torch.take(svals, torch.clamp(
+        torch.div(cnt * 999, 1000, rounding_mode="floor"), 0, m - 1))
     rng = hi - lo
     ok = (cnt >= 100) & (rng >= 1e-15)
     norm = torch.clamp((image - lo) / torch.where(ok, rng, 1.0), 0.0, 1.0)
@@ -459,6 +460,13 @@ def _warp_direct(image: torch.Tensor, params: torch.Tensor, out_rows: int,
     return torch.where(inside, out, 0.0)
 
 
+def is_translation(t: AffineTransform) -> bool:
+    """True when the linear part is the identity (to 1e-12): the
+    transform ``warp_image`` warps by the separable shift."""
+    return (abs(t.a - 1.0) < 1e-12 and abs(t.d - 1.0) < 1e-12 and
+            abs(t.b) < 1e-12 and abs(t.c) < 1e-12)
+
+
 def warp_image(image, transform: AffineTransform, out_rows: int,
                out_cols: int) -> torch.Tensor:
     """Bicubic warp: out[y,x] = img(T·(x,y)); outside → 0. A pure
@@ -468,9 +476,7 @@ def warp_image(image, transform: AffineTransform, out_rows: int,
     goes to ``cuda_device()``)."""
     img = as_f32(image)
     t = transform
-    if (abs(t.a - 1.0) < 1e-12 and abs(t.d - 1.0) < 1e-12 and
-            abs(t.b) < 1e-12 and abs(t.c) < 1e-12 and
-            img.shape == (out_rows, out_cols)):
+    if is_translation(t) and img.shape == (out_rows, out_cols):
         return shift_bicubic(img, t.ty, t.tx)
     params = torch.tensor(t.as_tuple(), dtype=torch.float32, device=img.device)
     return _warp_direct(img, params, out_rows, out_cols)

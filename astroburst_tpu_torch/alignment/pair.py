@@ -2,12 +2,16 @@
 reference: src-tauri/src/core/alignment/pair.rs and
 src-tauri/src/core/stacking/align.rs:84-170).
 
-``align_pair(AFFINE)`` always runs the host chain of alignment/affine
+``align_pair(AFFINE)`` takes the fused device chain
+(alignment/fused_chain: one device program, one host fetch) for planes
+on the card when the canvas is the reference's, as the JAX package
+takes it on its TPU; ``ref_stars`` (``fused_chain.detect_ref_stars``)
+then skips detecting a shared reference again. Elsewhere — planes on
+the CPU, or another canvas — it runs the host chain of alignment/affine
 (detect, vote and warp on the device, triangles, matching and RANSAC on
-the host) and warps with ``warp_image``; the JAX package's fused device
-chain, its TPU path, is not ported (ROADMAP A10). ``plain`` runs the
-kernels' plain torch versions instead (drizzle's affine route and the
-compose pipeline hold the kernels to them on the card).
+the host) and warps with ``warp_image``. ``plain`` runs the kernels'
+plain torch versions instead (drizzle's affine route and the compose
+pipeline hold the kernels to them on the card).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from dataclasses import dataclass
 
 import torch
 
+from astroburst_tpu_torch.alignment import fused_chain
 from astroburst_tpu_torch.alignment.affine import (align_channel_affine,
                                                    warp_image)
 from astroburst_tpu_torch.alignment.phase_correlation import phase_correlate
@@ -61,13 +66,22 @@ def estimate_offset(reference, target, method: AlignMethod, *,
 
 
 def align_pair(reference, target, method: AlignMethod, rows: int,
-               cols: int, *, plain: bool = False) -> AlignPairResult:
+               cols: int, ref_stars=None, *,
+               plain: bool = False) -> AlignPairResult:
     """Align ``target`` onto ``reference`` and resample it onto a
     rows × cols canvas (affine) or shift it (phase correlation)."""
     if method == AlignMethod.AFFINE:
-        result = align_channel_affine(reference, target, plain=plain)
-        warped = warp_image(as_f32(target), result.transform,
-                            rows, cols)
+        ref = as_f32(reference)
+        if (fused_chain.takes_fused_chain(ref)
+                and (rows, cols) == tuple(ref.shape)):
+            # the fused chain warps onto the reference's canvas, so it
+            # takes only that canvas; another goes to the host chain
+            warped, result = fused_chain.align_and_warp(
+                ref, target, ref_stars=ref_stars, plain=plain)
+        else:
+            result = align_channel_affine(ref, target, plain=plain)
+            warped = warp_image(as_f32(target), result.transform,
+                                rows, cols)
         return AlignPairResult(
             aligned=warped,
             offset=(result.transform.ty, result.transform.tx),
@@ -87,9 +101,10 @@ def align_pair(reference, target, method: AlignMethod, rows: int,
 
 
 def align_pair_with_label(reference, target, method: AlignMethod, rows: int,
-                          cols: int, label: str, *,
+                          cols: int, label: str, ref_stars=None, *,
                           plain: bool = False) -> AlignPairResult:
-    result = align_pair(reference, target, method, rows, cols, plain=plain)
+    result = align_pair(reference, target, method, rows, cols,
+                        ref_stars=ref_stars, plain=plain)
     log.info("%s alignment: %s, offset=(%.2f, %.2f), confidence=%.4f, "
              "inliers=%d", label, result.method_used, result.offset[0],
              result.offset[1], result.confidence, result.inliers)

@@ -209,8 +209,11 @@ def _background(image: torch.Tensor, tile_size: int, plain: bool = False):
     # tiles with < 8 valid pixels are excluded (star_detection.rs:60)
     ok = counts >= 8
     mid = torch.clamp(_floordiv2(ok.sum()), max=ok.numel() - 1)
-    g_med = torch.sort(torch.where(ok, med, float("inf"))).values[mid]
-    g_sig = torch.sort(torch.where(ok, sig, float("inf"))).values[mid]
+    # torch.take: indexing by a 0-d tensor would fetch the index to the host
+    g_med = torch.take(torch.sort(torch.where(ok, med, float("inf"))).values,
+                       mid)
+    g_sig = torch.take(torch.sort(torch.where(ok, sig, float("inf"))).values,
+                       mid)
     none = ~ok.any()
     return (torch.where(none, 0.0, g_med),
             torch.where(none, 1.0, torch.clamp(g_sig, min=1e-10)))

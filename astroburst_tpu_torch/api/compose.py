@@ -7,9 +7,12 @@ Each command resolves ``device`` first (``cuda_device()`` when None,
 which raises where there is no card). Files are decoded onto that
 device; the composite and wizard planes are read from the cache for
 that device, and planes held for another device count as missing
-(``CacheMiss``). Alignment is one ``align_pair`` per target, the JAX
-package's host chain: phase correlation reaches kernels K1 and K2,
-the affine method K10, K11 and K12.
+(``CacheMiss``). Alignment is one ``align_pair`` per target: phase
+correlation reaches kernels K1 and K2; the affine method on the card
+takes the fused chain (K10, K11, K12 and the chain's scans), with the
+reference's stars detected once for all targets
+(``_shared_ref_stars``), as the JAX package does on its TPU; on the
+CPU it takes the host chain.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from astroburst_tpu_torch import constants as C
+from astroburst_tpu_torch.alignment import fused_chain
 from astroburst_tpu_torch.alignment.pair import align_pair_with_label
 from astroburst_tpu_torch.api import helpers
 from astroburst_tpu_torch.api.common import (MAX_PREVIEW_DIM, Timer,
@@ -32,7 +36,8 @@ from astroburst_tpu_torch.compose.channel_blend import blend_channels
 from astroburst_tpu_torch.compose.lrgb import apply_lrgb
 from astroburst_tpu_torch.compose.rgb import process_rgb
 from astroburst_tpu_torch.compose.white_balance import select_wb_reference
-from astroburst_tpu_torch.dtypes import RgbComposeConfig, StfParams
+from astroburst_tpu_torch.dtypes import (AlignMethod, RgbComposeConfig,
+                                         StfParams)
 from astroburst_tpu_torch.errors import CacheMiss, InvalidInput
 from astroburst_tpu_torch.imaging.resample import resample_image
 from astroburst_tpu_torch.imaging.scnr import apply_scnr
@@ -253,6 +258,18 @@ def _bin_ids(bin_ids: Optional[Sequence[str]], n: int) -> list:
     return [ids[i] if i < len(ids) else f"ch{i}" for i in range(n)]
 
 
+def _shared_ref_stars(ref_image: torch.Tensor, method, n_targets: int,
+                      rows: int, cols: int):
+    """The reference channel's stars, detected once when several targets
+    align to it through the fused chain (``fused_chain.detect_ref_stars``);
+    None otherwise, and ``align_pair`` then detects them itself."""
+    if (n_targets < 2 or method != AlignMethod.AFFINE
+            or not fused_chain.takes_fused_chain(ref_image)
+            or min(rows, cols) < 16):
+        return None
+    return fused_chain.detect_ref_stars(ref_image)
+
+
 def align_channels_cmd(paths: Sequence[str], output_dir: str = "",
                        align_method: Optional[str] = None,
                        bin_ids: Optional[Sequence[str]] = None,
@@ -271,6 +288,8 @@ def align_channels_cmd(paths: Sequence[str], output_dir: str = "",
     entries = load_many_from_cache_or_disk(paths, device=device)
     ref_entry = entries[0]
     rows, cols = (int(d) for d in ref_entry.image.shape)
+    ref_stars = _shared_ref_stars(ref_entry.image, method, len(paths) - 1,
+                                  rows, cols)
     results = []
     cache_keys = []
     for i, bin_id in enumerate(_bin_ids(bin_ids, len(paths))):
@@ -287,7 +306,7 @@ def align_channels_cmd(paths: Sequence[str], output_dir: str = "",
             continue
         entry = entries[i]
         res = align_pair_with_label(ref_entry.image, entry.image, method,
-                                    rows, cols, bin_id)
+                                    rows, cols, bin_id, ref_stars=ref_stars)
         GLOBAL_IMAGE_CACHE.insert(key, res.aligned,
                                   stats=compute_image_stats(res.aligned),
                                   header=entry.header)
@@ -382,6 +401,8 @@ def export_aligned_channels_cmd(paths: Sequence[str], output_dir: str = "",
     method = helpers.parse_align_method(align_method)
     ref_entry = load_from_cache_or_disk(paths[0], device)
     rows, cols = (int(d) for d in ref_entry.image.shape)
+    ref_stars = _shared_ref_stars(ref_entry.image, method, len(paths) - 1,
+                                  rows, cols)
     exported = []
     for i, p in enumerate(paths):
         stem = os.path.splitext(os.path.basename(p))[0]
@@ -392,7 +413,7 @@ def export_aligned_channels_cmd(paths: Sequence[str], output_dir: str = "",
             continue
         entry = load_from_cache_or_disk(p, device)
         res = align_pair_with_label(ref_entry.image, entry.image, method,
-                                    rows, cols, stem)
+                                    rows, cols, stem, ref_stars=ref_stars)
         header = entry.header.copy() if entry.header else None
         if header is not None:
             crpix1 = header.get_f64("CRPIX1")

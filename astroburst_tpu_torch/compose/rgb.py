@@ -8,11 +8,10 @@ the reference channel, white-balance multipliers, the linked STF from
 the (R+G+B)/3 merge, the STF, SCNR; the pre-stretch linear planes and
 their stats are kept (the ORIG side of the ORIG/KEY cache).
 
-Alignment is one ``align_pair`` per target with the reference's stars
-detected for each (the JAX package's host chain). The JAX package runs
-both targets of an affine compose through ``fused_chain`` with the
-reference's stars detected once, but only on a TPU; that chain is not
-ported yet (ROADMAP A10).
+Alignment: on the card an affine compose with both G and B runs
+both targets through the fused chain (``fused_chain.align_and_warp_many``)
+with the reference's stars detected once and one host fetch, as the
+JAX package does on its TPU; otherwise one ``align_pair`` per target.
 """
 
 from __future__ import annotations
@@ -23,17 +22,19 @@ from typing import Optional, Tuple
 
 import torch
 
+from astroburst_tpu_torch.alignment import fused_chain
 from astroburst_tpu_torch.alignment.pair import align_pair_with_label
 from astroburst_tpu_torch.compose.white_balance import select_wb_reference
 from astroburst_tpu_torch.constants import MAX_DIMENSION_RATIO
-from astroburst_tpu_torch.dtypes import (ImageStats, RgbComposeConfig,
-                                         StfParams, WhiteBalanceMode)
+from astroburst_tpu_torch.dtypes import (AlignMethod, ImageStats,
+                                         RgbComposeConfig, StfParams,
+                                         WhiteBalanceMode)
 from astroburst_tpu_torch.errors import InvalidInput
 from astroburst_tpu_torch.imaging.resample import resample_image
 from astroburst_tpu_torch.imaging.scnr import apply_scnr
 from astroburst_tpu_torch.imaging.stf import apply_stf_f32, auto_stf
 from astroburst_tpu_torch.ops.stats import compute_image_stats
-from astroburst_tpu_torch.runtime.device import as_f32_all
+from astroburst_tpu_torch.runtime.device import as_f32, as_f32_all
 
 log = logging.getLogger("astroburst_tpu_torch.align")
 
@@ -141,6 +142,23 @@ def align_rgb_channels(r, g, b, rows: int, cols: int, method, *,
     r_img, g_img, b_img = _synth_all(r, g, b, rows, cols)
     off_g = (0.0, 0.0)
     off_b = (0.0, 0.0)
+    if (g is not None and b is not None and method == AlignMethod.AFFINE
+            and min(rows, cols) >= 16):
+        ref_t = as_f32(ref)
+        if (fused_chain.takes_fused_chain(ref_t)
+                and tuple(ref_t.shape) == (rows, cols)):
+            # both aligns share the reference channel: its stars are
+            # detected once, and both chains end in one info fetch
+            ref_stars = fused_chain.detect_ref_stars(ref_t, plain=plain)
+            (g_img, res_g), (b_img, res_b) = fused_chain.align_and_warp_many(
+                ref_t, [g_img, b_img], ref_stars=ref_stars, plain=plain)
+            for label, res in (("G", res_g), ("B", res_b)):
+                log.info("%s alignment: %s, offset=(%.2f, %.2f), "
+                         "inliers=%d", label, res.method,
+                         res.transform.ty, res.transform.tx, res.inliers)
+            return (r_img, g_img, b_img,
+                    (res_g.transform.ty, res_g.transform.tx),
+                    (res_b.transform.ty, res_b.transform.tx))
     if g is not None:
         res = align_pair_with_label(ref, g_img, method, rows, cols, "G",
                                     plain=plain)

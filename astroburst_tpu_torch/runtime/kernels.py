@@ -87,6 +87,10 @@ SIGNATURES = {
     # ref_ratios, ref_verts, t_ref, tgt_ratios, tgt_verts, t_tgt, tol,
     # grid, scratch, votes, stream
     "abt_triangle_vote": (_P, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P),
+    # packed, k, out_xy, out_n, stream
+    "abt_dedupe_topk": (_P, _I, _P, _P, _P),
+    # votes, min_votes, ris, tis, count, stream
+    "abt_greedy_match": (_P, _I, _P, _P, _P, _P),
 }
 
 

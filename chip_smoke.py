@@ -12,6 +12,7 @@
                                                   # tile pyramid
     python3 chip_smoke.py --phase-4l              # phase 4l alone
     python3 chip_smoke.py --phase-4m              # phase 4m alone
+    python3 chip_smoke.py --phase-4n              # phase 4n alone
 
 Phases, each of which fails loudly (nothing is caught; any failure
 exits non-zero, and so does a machine without a CUDA device):
@@ -184,7 +185,10 @@ exits non-zero, and so does a machine without a CUDA device):
    rotated by 0.4 deg for the affine method), an L plane and four
    narrowband planes, written as FITS under build/; ``compose_rgb_cmd``
    at 3 x 4096^2 by phase correlation (K1, K2), by the affine method
-   (K10, K11, K12) and with L; ``align_channels_cmd``,
+   (the fused chain: K10, K11, K12 and chain_scan, the reference
+   detected once; launches against the prediction, the offsets and
+   planes equal to ``align_and_warp``, held to ``plain=True`` and to
+   the host chain as (n) holds them) and with L; ``align_channels_cmd``,
    ``crop_channels_cmd`` and ``export_aligned_channels_cmd`` at 3 x
    4096^2; the wizard's colour commands (blend, auto WB, WB + SCNR,
    reset, restretch, update, clear) at 3 x ``COMP_HW``^2;
@@ -238,6 +242,20 @@ exits non-zero, and so does a machine without a CUDA device):
    collapses (256 x 512^2), the à trous smooth (4096^2) and the warp
    (5655 x 2206), each against one device; the step and the slab entry
    timed beside ``align_stack_stretch`` and the plain version.
+   (n) the fused affine chain (``fused_chain_path``; it runs after (c)):
+   the JAX package's affine benches (bench_ops.py:299-325, 800-820) at
+   5655 x 2206 with 90 stars, one target at 0.4 deg and two sharing one
+   reference detection; counted runs of ``align_and_warp`` and of
+   ``detect_ref_stars`` + ``align_and_warp_many`` against
+   CHAIN_PREDICTED; chain_scan (csrc/chain_scan.cu) against its plain
+   loops on the main path's records and tables and on
+   ``chain_scan_cases`` (duplicates at exactly 3 px, more than 196
+   duplicates among the 256 brightest, tied fluxes, fewer than 4 stars,
+   none valid, NaN/inf on invalid slots; tied votes, an empty table,
+   three cells, a full row and column); the chain against its
+   ``plain=True`` run with the detections held, against the card's host
+   chain (``hold_to_host_chain``) and the rotations; its body under
+   ``torch.cuda.set_sync_debug_mode("error")``; both routes timed.
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
@@ -270,7 +288,20 @@ package's bound between its two forms: f32 sums in another order),
 recomputed in f64 from each side's second moments in the
 well-conditioned form (``check_packed``).
 K12: votes equal. Affine: the same method and inlier count on both
-paths, transform parameters within 1e-3. K13: bit-equal. K9: as K7.
+paths, transform parameters within 1e-3. chain_scan: bit-equal (the
+dedupe's kept x/y and count, the match's pairs and count). The fused
+chain: its info vectors and warped planes bit-equal to ``plain=True``
+with the detections held (free, K11's rounding: the same method and
+inliers, the transform within 1e-3); against the host chain on the
+chain's own stars the same method, matched count and inliers and the
+transform within 5e-3 (its f32 RANSAC against the host's f64); against
+the whole host chain the same method and the translation within 0.1
+px, and where the scan cap kept 60 stars on both planes also the same
+inliers and 5e-3 (JAX's dedupe walks only the 256 brightest
+candidates: at the bench ~9 candidates a star keep 47–49 stars, so
+the star lists differ from the host's top 60; ROADMAP C40); each warped
+plane bit-equal to ``warp_image`` of its transform. K13: bit-equal. K9:
+as K7.
 The parity drizzle against the one-band exact route: bit-equal, and
 within the JAX package's tolerances (tests/test_reference_impl.py:
 295-299: image atol 2e-4 / rtol 1e-6, weights atol 1e-5, rejected
@@ -313,6 +344,7 @@ DRZ_BAND64 = 64                          # drizzle_stack's own band
 DRZ_SEED = 10
 DET_HW, DET_STARS = 4096, 3000         # BASELINE.md:13
 AFF_STARS_5K, AFF_STARS_4K = 90, 80    # bench_ops.py:299, BASELINE.md:17
+AFF_MOVES = ((0.4, 3.2, -2.1), (-0.3, -1.7, 2.6))   # bench_ops.py:811-812
 DRA_N, DRA_HW = 4, 1024                # drizzle by the AFFINE method
 MS_PEAKS = 4096                        # masked_stretch.py:206
 MS_SCALE = 4000.0   # the star field / 4000: background 0.025, peaks < 0.8
@@ -457,12 +489,14 @@ def detection_fields(dev):
                                                g5_amps, dead5)
 
 
-def affine_scene(h, w, n_stars, seed, device):
+def affine_scene(h, w, n_stars, seed, device, moves=AFF_MOVES[:1]):
     """The JAX package's affine bench pair (bench_ops.py:299-320),
     rendered here on the card: a star field with halos (amp 5000 · (0.1
     + Pareto(2) ≤ 9), FWHM 3), and the target sampled from it at the
     nearest pixel (truncation) of a 0.4 deg rotation about the centre
-    plus a (3.2, -2.1) shift, with N(0, 1.5) noise."""
+    plus a (3.2, -2.1) shift, with N(0, 1.5) noise. With more ``moves``
+    (deg, tx, ty), one target each (bench_ops.py:800-820's two targets:
+    AFF_MOVES). Returns (base, *targets)."""
     import torch
     rng = np.random.default_rng(seed)
     g = torch.Generator(device=device).manual_seed(seed)
@@ -472,18 +506,20 @@ def affine_scene(h, w, n_stars, seed, device):
     amps = 5000.0 * (0.1 + rng.pareto(2.0, n_stars).clip(max=9.0))
     base = base + render_stars(h, w, ys, xs, amps, 0.0, 0.0, 3.0 / 2.3548,
                                device, radius=14, halo=0.06)
-    th = math.radians(0.4)
-    ct, st = math.cos(th), math.sin(th)
     cy, cx = h / 2.0, w / 2.0
     yy = torch.arange(h, dtype=torch.float32, device=device)[:, None]
     xx = torch.arange(w, dtype=torch.float32, device=device)[None, :]
-    sx = ct * (xx - cx) - st * (yy - cy) + cx + 3.2
-    sy = st * (xx - cx) + ct * (yy - cy) + cy - 2.1
-    xi = torch.clamp(sx.to(torch.int64), 0, w - 1)
-    yi = torch.clamp(sy.to(torch.int64), 0, h - 1)
-    target = base[yi, xi] + 1.5 * torch.randn((h, w), generator=g,
-                                              device=device)
-    return base, target
+    targets = []
+    for deg, tx, ty in moves:
+        th = math.radians(deg)
+        ct, st = math.cos(th), math.sin(th)
+        sx = ct * (xx - cx) - st * (yy - cy) + cx + tx
+        sy = st * (xx - cx) + ct * (yy - cy) + cy + ty
+        xi = torch.clamp(sx.to(torch.int64), 0, w - 1)
+        yi = torch.clamp(sy.to(torch.int64), 0, h - 1)
+        targets.append(base[yi, xi] + 1.5 * torch.randn(
+            (h, w), generator=g, device=device))
+    return (base, *targets)
 
 
 def isolated_bright(ys, xs, amps, h, w, min_amp, sep=15.0, margin=25.0,
@@ -765,6 +801,91 @@ def vote_cases(rng, t: int) -> dict:
     dead[::3, 1] = np.nan
     cases["no_live_ref"] = (dead, ids(t), *pad(uniform(k)))
     return cases
+
+
+def chain_scan_cases(rng, k: int = 1024) -> tuple:
+    """Inputs the fields do not reach, for csrc/chain_scan.cu against its
+    plain loops: (packed candidate records name → [10, k] f32, vote
+    tables name → [64, 64] i32). Records: rows cy, cx, flux and valid
+    (0, 1, 2, 8) matter; coordinates are finite except where a case says
+    otherwise. Tables: integer votes >= 0."""
+    def packed(ys, xs, flux, valid):
+        p = np.zeros((10, k), np.float32)
+        n = len(ys)
+        p[0, :n], p[1, :n], p[2, :n], p[8, :n] = ys, xs, flux, valid
+        p[0, n:] = rng.uniform(0, 500, k - n)     # dead slots, finite
+        p[1, n:] = rng.uniform(0, 500, k - n)
+        return p
+
+    def field(n, lo=20.0, hi=2000.0):
+        return (rng.uniform(lo, hi, n).astype(np.float32),
+                rng.uniform(lo, hi, n).astype(np.float32))
+
+    recs = {}
+    # pairs exactly 3 px apart (kept: the test is d^2 < 9) and 2.5 px
+    # apart (dropped), on integer coordinates, each pair's dimmer second
+    base_y = np.repeat(np.arange(40, dtype=np.float32) * 40 + 20, 3)
+    base_x = np.tile(np.float32([20.0, 20.0, 20.0]), 40) + np.repeat(
+        np.arange(40, dtype=np.float32) * 17, 3)
+    ys = base_y + np.tile(np.float32([0.0, 3.0, 0.0]), 40)
+    xs = base_x + np.tile(np.float32([0.0, 0.0, 2.5]), 40)
+    flux = rng.uniform(100, 1000, 120).astype(np.float32)
+    flux[1::3] = flux[0::3] * 0.5
+    flux[2::3] = flux[0::3] * 0.25
+    recs["dup_at_3px"] = packed(ys, xs, flux, np.ones(120))
+    # 20 bright stars with 12 duplicates each within 1 px (240 of the 256
+    # brightest are duplicates), then 400 dimmer distinct stars past the
+    # scan cap
+    cy, cx = field(20)
+    ys = np.concatenate([np.repeat(cy, 13) + rng.uniform(-0.7, 0.7, 260),
+                         field(400)[0]]).astype(np.float32)
+    xs = np.concatenate([np.repeat(cx, 13) + rng.uniform(-0.7, 0.7, 260),
+                         field(400)[1]]).astype(np.float32)
+    flux = np.concatenate([rng.uniform(5000, 9000, 260),
+                           rng.uniform(10, 4000, 400)]).astype(np.float32)
+    recs["dup_heavy"] = packed(ys, xs, flux, np.ones(660))
+    # tied fluxes (a stable order: index decides), invalid ones between
+    ys, xs = field(600)
+    flux = rng.choice(np.float32([50.0, 80.0, 120.0]), 600)
+    valid = (rng.random(600) > 0.3).astype(np.float32)
+    recs["tied_flux"] = packed(ys, xs, flux, valid)
+    # fewer than 4 stars; none valid; every slot valid (past the cap)
+    ys, xs = field(3)
+    recs["three_stars"] = packed(ys, xs, np.float32([10, 30, 20]),
+                                 np.ones(3))
+    ys, xs = field(300)
+    recs["none_valid"] = packed(ys, xs, rng.uniform(1, 9, 300),
+                                np.zeros(300))
+    ys, xs = field(k)
+    recs["all_valid"] = packed(ys, xs, rng.uniform(1, 9e4, k), np.ones(k))
+    # invalid slots with NaN/inf flux and coordinates (sorted last)
+    ys, xs = field(500)
+    flux = rng.uniform(1, 100, 500).astype(np.float32)
+    valid = np.ones(500, np.float32)
+    bad = rng.random(500) < 0.3
+    valid[bad] = 0.0
+    flux[bad & (rng.random(500) < 0.5)] = np.nan
+    flux[bad & (rng.random(500) < 0.5)] = np.inf
+    ys[bad] = np.nan
+    xs[bad] = np.inf
+    recs["nonfinite_invalid"] = packed(ys, xs, flux, valid)
+
+    tabs = {}
+    tabs["ties"] = rng.integers(0, 4, (64, 64)).astype(np.int32)
+    t = rng.integers(0, 20, (64, 64)).astype(np.int32)
+    t[rng.random((64, 64)) < 0.9] = 0
+    tabs["sparse"] = t
+    tabs["all_equal"] = np.full((64, 64), 5, np.int32)
+    tabs["zero"] = np.zeros((64, 64), np.int32)
+    t = np.zeros((64, 64), np.int32)
+    t[[3, 7, 59], [11, 2, 40]] = (9, 1, 4)
+    tabs["three_cells"] = t
+    t = np.zeros((64, 64), np.int32)
+    t[5, :] = 30
+    t[:, 9] = 30
+    t[60:, 60:] = 3     # rows and columns past the 60 stars
+    tabs["cross"] = t
+    return recs, tabs
 
 
 def star_mask_cases(rng, h: int, w: int, k: int) -> dict:
@@ -3322,6 +3443,7 @@ def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
     import torch
     from astroburst_tpu_torch import api
     from astroburst_tpu_torch import constants as C
+    from astroburst_tpu_torch.alignment import fused_chain as FC
     from astroburst_tpu_torch.alignment.affine import (align_channel_affine,
                                                        warp_image)
     from astroburst_tpu_torch.alignment.pair import align_pair
@@ -3333,7 +3455,8 @@ def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
     from astroburst_tpu_torch.compose.drizzle_rgb import (
         drizzle_rgb, process_drizzle_rgb)
     from astroburst_tpu_torch.compose.lrgb import apply_lrgb
-    from astroburst_tpu_torch.compose.rgb import process_rgb
+    from astroburst_tpu_torch.compose.rgb import (align_rgb_channels,
+                                                  process_rgb)
     from astroburst_tpu_torch.compose.white_balance import \
         select_wb_reference
     from astroburst_tpu_torch.dtypes import (AlignMethod, RgbComposeConfig,
@@ -3516,12 +3639,21 @@ def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
             f"card; kernel vs plain offsets {d_off:.2e} px; launches "
             f"{launches['compose_rgb_cmd']}")
 
-        # -- compose_rgb_cmd by the affine chain: K10, K11, K12 -----------
+        # -- compose_rgb_cmd by the fused affine chain: K10, K11, K12 and
+        # the chain's scans; per call the reference's detection once and
+        # two targets (K10 3, K11 3, dedupe 3, K12 2, match 2), cold and
+        # warm
         res = counted("compose_rgb_cmd_affine", lambda: api.compose_rgb_cmd(
             out, r_path=p["r"], g_path=p["g_aff"], b_path=p["b_aff"],
             align_method="affine"))
         launched("compose_rgb_cmd_affine",
-                 ("sort_tiles", "window_stats", "vote"))
+                 ("sort_tiles", "window_stats", "vote", "dedupe_topk",
+                  "greedy_match"))
+        want = {"sort_tiles": 6, "window_stats": 6, "dedupe_topk": 6,
+                "vote": 4, "greedy_match": 4}
+        got = launches["compose_rgb_cmd_affine"]
+        expect("compose_rgb_cmd affine: launches", all(
+            got[k] == want.get(k, 0) for k in got), f"{got}, want {want}")
         err["aff_offset_g"] = near("compose_rgb_cmd affine offset_g",
                                    res["offset_g"], aff_g, 0.1)
         err["aff_offset_b"] = near("compose_rgb_cmd affine offset_b",
@@ -3537,26 +3669,37 @@ def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
         png_is("compose_rgb_cmd affine", res["png_path"],
                rgb_u8([amod.r, amod.g, amod.b]))
         rot = {}
+        stars = FC.detect_ref_stars(aff_in[0])
+        aligned_rgb = align_rgb_channels(*aff_in, hw, hw, AlignMethod.AFFINE)
         for n, tgt in (("g", aff_in[1]), ("b", aff_in[2])):
-            kr = align_channel_affine(aff_in[0], tgt)
-            pr = align_channel_affine(aff_in[0], tgt, plain=True)
+            kw, kr = FC.align_and_warp(aff_in[0], tgt, ref_stars=stars)
+            _, pr = FC.align_and_warp(aff_in[0], tgt, plain=True)
             rot[n] = kr.transform.rotation_deg()
             d_t = float(np.abs(np.subtract(kr.transform.as_tuple(),
                                            pr.transform.as_tuple())).max())
-            expect(f"affine {n} kernel vs plain", (kr.method, kr.inliers) ==
-                   (pr.method, pr.inliers) and d_t <= 1e-3,
+            expect(f"fused affine {n} kernel vs plain", (kr.method,
+                   kr.inliers) == (pr.method, pr.inliers) and d_t <= 1e-3,
                    f"{kr} vs {pr}")
+            held = hold_to_host_chain(f"compose_rgb_cmd affine {n}", kr,
+                                      stars, aff_in[0], tgt)
             expect(f"affine {n}: offset", (kr.transform.ty, kr.transform.tx)
                    == tuple(res[f"offset_{n}"]), res[f"offset_{n}"])
+            expect(f"affine {n}: plane", same_bits(
+                kw, aligned_rgb["rgb".index(n)]))
             err[f"aff_{n}_plain_transform"] = d_t
+            err[f"aff_{n}_host_chain"] = held
         err["aff_rotation_g"] = near("compose_rgb_cmd affine rotation",
                                      rot["g"], AFF_DEG, 0.1)
         near("compose_rgb_cmd affine rotation of B", rot["b"], 0.0, 0.1)
-        del amod
-        log(f"[path] compose_rgb_cmd (affine) 3 x {hw}^2: offsets G "
-            f"{res['offset_g']} (generator {aff_g}), B {res['offset_b']} "
-            f"(generator {AFF_SHIFT_B}), rotation {rot['g']:.4f} deg; "
-            f"ORIG and PNG equal to process_rgb; launches "
+        del amod, aligned_rgb
+        log(f"[path] compose_rgb_cmd (fused affine chain) 3 x {hw}^2: "
+            f"offsets G {res['offset_g']} (generator {aff_g}), B "
+            f"{res['offset_b']} (generator {AFF_SHIFT_B}), rotation "
+            f"{rot['g']:.4f} deg; ORIG and PNG equal to process_rgb, the "
+            f"offsets and planes to align_and_warp; transform against "
+            f"plain=True {err['aff_g_plain_transform']:.2e}, "
+            f"{err['aff_b_plain_transform']:.2e}, against the host chain "
+            f"{err['aff_g_host_chain']}, {err['aff_b_host_chain']}; launches "
             f"{launches['compose_rgb_cmd_affine']}")
 
         # -- compose_rgb_cmd with L (LRGB) --------------------------------
@@ -3792,6 +3935,8 @@ def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
             ("align_channel_affine+warp_image", lambda: warp_image(
                 aff_in[1], align_channel_affine(aff_in[0], aff_in[1])
                 .transform, hw, hw)),
+            ("fused_chain_align_and_warp", lambda: FC.align_and_warp(
+                aff_in[0], aff_in[1])),
             ("process_rgb_phase_correlation", lambda: process_rgb(
                 *rgb_in, cfg)),
             ("process_rgb_affine", lambda: process_rgb(*aff_in, acfg)),
@@ -4856,6 +5001,8 @@ def main() -> None:
     from astroburst_tpu_torch.alignment import affine as AF
     from astroburst_tpu_torch.alignment.coarse_kernel import (
         box_plan, coarse_downsample_stack, coarse_downsample_stack_plain)
+    from astroburst_tpu_torch.alignment.fused_chain import (dedupe_topk,
+                                                            greedy_match)
     from astroburst_tpu_torch.alignment.vote_kernel import vote
     from astroburst_tpu_torch.analysis import star_detection as SD
     from astroburst_tpu_torch.analysis.tile_sort_kernel import (
@@ -4919,7 +5066,7 @@ def main() -> None:
             "tile_sort_chunked_kernel", "window_stats_kernel",
             "triangle_vote_kernel", "drizzle_gather_kernel",
             "drizzle_gather_shared_kernel", "drizzle_gather_scratch_kernel",
-            "star_mask_kernel"}
+            "star_mask_kernel", "dedupe_topk_kernel", "greedy_match_kernel"}
     if not want <= built:
         raise AssertionError(f"kernels missing from the build: "
                              f"{want - built}")
@@ -4932,7 +5079,7 @@ def main() -> None:
         "shift_clip_kernel<", "drizzle_finalize_kernel<",
         "drizzle_gather_kernel<", "gather_crops_kernel",
         "window_stats_kernel", "triangle_vote_kernel",
-        "star_mask_kernel"))]
+        "star_mask_kernel", "greedy_match_kernel"))]
     if framed:
         raise AssertionError(f"register instances with a stack frame: "
                              f"{framed}")
@@ -5247,7 +5394,9 @@ def main() -> None:
                 "window_stats": window_stats,
                 "vote": vote,
                 "paint_mask": paint_mask,
-                "drizzle_gather_finalize": drizzle_gather_finalize}
+                "drizzle_gather_finalize": drizzle_gather_finalize,
+                "dedupe_topk": dedupe_topk,
+                "greedy_match": greedy_match}
     big_list = [torch.as_tensor(f, device=dev) for f in big_frames]
     del big_frames
     torch.cuda.synchronize()
@@ -5658,6 +5807,10 @@ def main() -> None:
         log(f"[time] {smi}: {name} kernels {times_c[name][0]:.3f} ms | "
             f"plain {times_c[name][1]:.3f} ms (host fetches included)")
 
+    # ---- 4n. the fused affine chain: one device program, one fetch ----
+    launches_fused, report["chain_scan"], times_fused = fused_chain_path(
+        counters, smi)
+
     # ---- 4d. star mask → masked stretch on the 4096^2 field ----------
     launches_mask, times_mask, d_ms_img, d_ms_cov = masked_stretch_path(
         ms_field, counters)
@@ -5676,7 +5829,8 @@ def main() -> None:
     launches_compose, _ = compose_path(field, (f_ys, f_xs, f_amps, dead),
                                        counters, smi)
     for name in ("coarse_box", "gather_crops", "sort_tiles", "window_stats",
-                 "vote", "drizzle_finalize_fused"):
+                 "vote", "drizzle_finalize_fused", "dedupe_topk",
+                 "greedy_match"):
         if launches_compose[name] < 1:
             raise AssertionError(f"{name} never ran on the compose path: "
                                  f"{launches_compose}")
@@ -5747,7 +5901,9 @@ def main() -> None:
              "fft+deconvolution+cube+tiles+synth(commands)": launches_cube,
              "astrometry+spcc+config(commands)": launches_astro,
              "sharded(step,drizzle,fft,rl,spectrum,compose,cube,atrous,"
-             "warp)": launches_sharded}
+             "warp)": launches_sharded,
+             "fused_chain(align_and_warp,detect_ref_stars"
+             "+align_and_warp_many)": launches_fused}
     kernels = []
     for name, (source, replaces) in meta.items():
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -5756,6 +5912,23 @@ def main() -> None:
                  "launches_by_path": by_path}
         entry.update(report[name])
         kernels.append(entry)
+    # not a TPU port: the lax.scan steps of the JAX chain's dedupe and
+    # greedy match, one CUDA source with two entries
+    by_entry = {e: {path: counts[e] for path, counts in paths.items()}
+                for e in ("dedupe_topk", "greedy_match")}
+    entry = {"name": "chain_scan", "route": "cuda",
+             "source": "astroburst_tpu_torch/csrc/chain_scan.cu",
+             "replaces": "astroburst_tpu/alignment/fused_chain.py:71",
+             "replaces_note": "no pl.pallas_call: the lax.scan steps of "
+                              "_dedupe_topk (:71) and _greedy_match (:178)",
+             "launches": sum(sum(b.values()) for b in by_entry.values()),
+             "launches_by_path": {path: sum(b[path] for b in
+                                            by_entry.values())
+                                  for path in paths},
+             "launches_by_entry": {e: sum(b.values())
+                                   for e, b in by_entry.items()}}
+    entry.update(report["chain_scan"])
+    kernels.append(entry)
     kernels[0]["also_replaces"] = [
         "astroburst_tpu/stacking/fused_kernel.py:223",
         "astroburst_tpu/stacking/rolling_kernel.py:226",
@@ -5776,6 +5949,7 @@ def main() -> None:
          in times_parity.items()}) + f"; against the one-band exact "
         f"route: {json.dumps(parity_err)}")
     log(f"[path] sharded paths (phase 4m): {json.dumps(times_sharded)}")
+    log(f"[path] fused chain (phase 4n): {json.dumps(times_fused)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -5828,6 +6002,8 @@ def phase_4j_alone(sides) -> None:
                  "is false); this script runs only on the card")
     from astroburst_tpu_torch.alignment.coarse_kernel import \
         coarse_downsample_stack
+    from astroburst_tpu_torch.alignment.fused_chain import (dedupe_topk,
+                                                            greedy_match)
     from astroburst_tpu_torch.alignment.vote_kernel import vote
     from astroburst_tpu_torch.analysis.tile_sort_kernel import (
         sort_tiles, sort_tiles_chunked)
@@ -5847,7 +6023,8 @@ def phase_4j_alone(sides) -> None:
                 "gather_crops": gather_crops, "sort_tiles": sort_tiles,
                 "sort_tiles_chunked": sort_tiles_chunked,
                 "window_stats": window_stats, "vote": vote,
-                "drizzle_finalize_fused": drizzle_finalize_fused}
+                "drizzle_finalize_fused": drizzle_finalize_fused,
+                "dedupe_topk": dedupe_topk, "greedy_match": greedy_match}
     for side in sides:
         t0 = time.perf_counter()
         total, _ = compose_path(field, (ys, xs, amps, dead), counters, smi,
@@ -6211,6 +6388,403 @@ def sharded_path(stack, counters, smi):
     return launches, entry, times
 
 
+CHAIN_PREDICTED = {   # launches of the counted runs of phase 4n
+    "align_and_warp": {"sort_tiles": 2, "window_stats": 2, "dedupe_topk": 2,
+                       "vote": 1, "greedy_match": 1},
+    "detect_ref_stars+align_and_warp_many": {
+        "sort_tiles": 3, "window_stats": 3, "dedupe_topk": 3, "vote": 2,
+        "greedy_match": 2}}
+
+
+def host_chain_on_stars(ref_stars, tgt, rows: int, cols: int):
+    """The host chain after its detection (``align_channel_affine``:
+    numpy triangles, the greedy sweep, the f64 RANSAC and its gates, the
+    affine → rigid order) on the fused chain's own star lists: the
+    reference's ``ref_stars`` and the target's dedupe-top60. It holds
+    the chain's f32 device stages to the host's f64 ones apart from the
+    detection's scan cap (the JAX chain dedupes only the 256 brightest
+    candidates: fused_chain.py:_dedupe_topk). None where the host would
+    fall back to phase correlation."""
+    import torch
+    from astroburst_tpu_torch.alignment import affine as AF
+    from astroburst_tpu_torch.alignment import fused_chain as FC
+    from astroburst_tpu_torch.analysis import star_detection as SD
+    txy, tn = FC._detect_device(tgt, SD.MAX_PEAKS, False)
+    lists = []
+    for xy, n in ((torch.stack([ref_stars.xs, ref_stars.ys]), ref_stars.n),
+                  (txy, tn)):
+        a = xy.cpu().numpy().astype(np.float64)
+        lists.append(np.stack([a[0, :int(n)], a[1, :int(n)]], 1))
+    rs, ts = lists
+    counts = (len(rs), len(ts))
+    if min(counts) < AF.MIN_MATCHES_RIGID:
+        return None, counts
+    matches = AF.match_triangles(rs, ts, AF.build_triangles(rs),
+                                 AF.build_triangles(ts), tgt.device)
+    if len(matches) < AF.MIN_MATCHES_RIGID:
+        return None, counts
+    for method in ("affine", "rigid"):
+        if method == "affine" and len(matches) < AF.MIN_MATCHES_AFFINE:
+            continue
+        r = AF.ransac_affine(matches, method)
+        if r is not None and AF.check_transform_sanity(r, rows, cols) is None:
+            return r, counts
+    return None, counts
+
+
+def hold_to_host_chain(what, r, ref_stars, ref, tgt) -> dict:
+    """The fused chain's result ``r`` (``ref_stars`` its reference's
+    stars) against the card's host chain. On the chain's own stars
+    (``host_chain_on_stars``): the same method, matched count and
+    inliers, the transform within 5e-3. The whole host chain
+    (``align_channel_affine``, whose dedupe walks every candidate): the
+    same method and the translation within 0.1 px; where the scan cap
+    kept 60 stars on both planes (then the star lists are the host's top
+    60), also the same inliers and the transform within 5e-3. Returns
+    the differences."""
+    from astroburst_tpu_torch.alignment import affine as AF
+    rows, cols = ref.shape
+    s, kept = host_chain_on_stars(ref_stars, tgt, rows, cols)
+    h = AF.align_channel_affine(ref, tgt)
+
+    def dist(a, b):
+        return float(np.abs(np.subtract(a.transform.as_tuple(),
+                                        b.transform.as_tuple())).max())
+    d_s = dist(r, s) if s is not None else math.inf
+    d_h = dist(r, h)
+    d_off = max(abs(r.transform.tx - h.transform.tx),
+                abs(r.transform.ty - h.transform.ty))
+    full = min(kept) == 60
+    log(f"[path] {what}: fused {r.method}, {r.matched_stars} matched, "
+        f"{r.inliers} inliers ({kept[0]} and {kept[1]} stars kept); the "
+        f"host chain on its stars: {s.method if s else None}, "
+        f"{s.matched_stars if s else 0} matched, {s.inliers if s else 0} "
+        f"inliers, max|d| {d_s:.3e}; the whole host chain: {h.method}, "
+        f"{h.matched_stars} matched, {h.inliers} inliers, max|d| "
+        f"{d_h:.3e}, translation {d_off:.3e} px")
+    if s is None or (r.method, r.matched_stars, r.inliers) != (
+            s.method, s.matched_stars, s.inliers) or d_s > 5e-3:
+        raise AssertionError(f"{what}: fused {r} vs the host chain on its "
+                             f"stars {s}")
+    if r.method != h.method or d_off > 0.1 or (full and (
+            r.inliers != h.inliers or d_h > 5e-3)):
+        raise AssertionError(f"{what}: fused {r} vs the host chain {h}")
+    return {"host_chain_on_stars": d_s, "host_chain": d_h,
+            "host_chain_translation": d_off, "stars_kept": list(kept),
+            "matched": [r.matched_stars, h.matched_stars]}
+
+
+def check_chain_scan(dev, packed, votes) -> dict:
+    """csrc/chain_scan.cu's two entries against their plain loops, bit
+    for bit: the dedupe on ``packed`` (the main path's records of the
+    reference and its targets) and on ``chain_scan_cases``' records, the
+    greedy match on ``votes`` (the main path's tables) and on its tables;
+    timed at the main path's shapes (the first target's record and
+    table). Returns the report entry."""
+    import torch
+    from astroburst_tpu_torch.alignment import fused_chain as FC
+    recs, tabs = chain_scan_cases(np.random.default_rng(61))
+    recs = {**{f"main_{k}": p for k, p in enumerate(packed)},
+            **{k: torch.from_numpy(r).to(dev) for k, r in recs.items()}}
+    tabs = {**{f"main_votes_{k}": v for k, v in enumerate(votes)},
+            **{k: torch.from_numpy(v).to(dev) for k, v in tabs.items()}}
+    for tag, p in recs.items():
+        (a, na), (b, nb) = FC.dedupe_topk(p), FC.dedupe_topk_plain(p)
+        torch.cuda.synchronize()
+        if not (torch.equal(a.view(torch.int32), b.view(torch.int32))
+                and int(na) == int(nb)):
+            raise AssertionError(f"chain_scan dedupe differs from the plain "
+                                 f"loop on {tag}")
+        log(f"[chain_scan] dedupe {tag} [10, {p.shape[1]}]: bit-equal, "
+            f"{int(na)} stars kept")
+    for tag, v in tabs.items():
+        a, b = FC.greedy_match(v), FC.greedy_match_plain(v)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"chain_scan greedy match differs from the "
+                                 f"plain loop on {tag}")
+        log(f"[chain_scan] greedy match {tag}: equal, {int(a[2])} pairs")
+    p, v = packed[1], votes[0]
+    k = p.shape[1]
+    steps = min(int((p[8] > 0.5).sum()), FC.SCAN_CAP)
+    pairs = int(FC.greedy_match(v)[2])
+    # bytes: 4 rows of the record and the table read, x/y, the pairs and
+    # the counts written; operations: a sort of the k keys (k log2 k
+    # compares), 6 for each slot of each valid candidate's scan step, and
+    # a compare over the table and its kill for each step of the match
+    nbytes = 4 * (4 * k + 2 * FC.N_TRI_STARS + 1) + 4 * (
+        FC.STAR_CAP ** 2 + 2 * FC.STAR_CAP + 1)
+    ops = (k * math.ceil(math.log2(k)) + 6 * FC.SCAN_CAP * steps
+           + FC.STAR_CAP ** 2 * (2 * pairs + 1))
+    ms_d = cuda_ms(lambda: FC.dedupe_topk(p), 50)
+    ms_m = cuda_ms(lambda: FC.greedy_match(v), 50)
+    pl_d = cuda_ms(lambda: FC.dedupe_topk_plain(p), 3)
+    pl_m = cuda_ms(lambda: FC.greedy_match_plain(v), 3)
+    entry = {"max_abs_err": 0.0, "cases": list(recs) + list(tabs),
+             "ms": ms_d + ms_m, "plain_ms": pl_d + pl_m,
+             "entries": {"abt_dedupe_topk": {"ms": ms_d, "plain_ms": pl_d,
+                                             "candidates": k,
+                                             "scan_steps": steps},
+                         "abt_greedy_match": {"ms": ms_m, "plain_ms": pl_m,
+                                              "pairs": pairs}},
+             "library_ms": None,
+             "library": "none (no single call)"}
+    entry.update(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))
+    return entry
+
+
+def fused_chain_path(counters, smi):
+    """Phase 4n: the fused affine chain (``alignment/fused_chain.py``) at
+    the JAX package's affine benches, rendered on the card as 4c renders
+    them: a 5655 x 2206 field of 90 stars (BASELINE.md config #3) and
+    targets moved by AFF_MOVES (0.4 deg, (3.2, -2.1); -0.3 deg, (-1.7,
+    2.6); noise 1.5). Counted runs, every counter reset just before and
+    read just after, each against CHAIN_PREDICTED: ``align_and_warp`` on
+    the first target, ``detect_ref_stars`` + ``align_and_warp_many`` on
+    both. Checks:
+
+    - csrc/chain_scan.cu against its plain loops (``check_chain_scan``);
+    - the chain against its ``plain=True`` run with the detections held
+      (each plane's detection record from the kernel path replayed):
+      info vectors and warped planes bit for bit; and free (K11 rounds
+      its sums in another order than its plain version: 4c's rule, the
+      same method and inliers, the transform within 1e-3);
+    - the many-target call bit-equal to per-target calls, the direct call
+      to the cached one, each warped plane to ``warp_image`` of its
+      transform;
+    - against the card's host chain (``align_channel_affine`` +
+      ``warp_image``): the same method and inliers, the transform within
+      5e-3; the rotations within 0.1 deg;
+    - the chain body (``detect_ref_stars`` and both targets' bodies)
+      under ``torch.cuda.set_sync_debug_mode("error")``, its one info
+      fetch after.
+
+    Both routes timed, one and two targets: the first call in the phase
+    (host wall) and warm (CUDA events and host wall over 5 calls, fused
+    and host in turns: F, H, H, F), host fetches included. Returns
+    (launches summed over the counted runs, the chain_scan report entry,
+    times in ms)."""
+    import torch
+    from astroburst_tpu_torch.alignment import affine as AF
+    from astroburst_tpu_torch.alignment import fused_chain as FC
+    from astroburst_tpu_torch.alignment.vote_kernel import vote
+    from astroburst_tpu_torch.analysis import star_detection as SD
+    from astroburst_tpu_torch.runtime.device import cuda_device
+    t_phase = time.perf_counter()
+    dev = cuda_device()
+    ref, *tgts = affine_scene(H, W, AFF_STARS_5K, 8, dev, AFF_MOVES)
+    torch.cuda.synchronize()
+
+    def host_one():
+        r = AF.align_channel_affine(ref, tgts[0])
+        return AF.warp_image(tgts[0], r.transform, H, W), r
+
+    def host_two():
+        out = []
+        for t in tgts:
+            r = AF.align_channel_affine(ref, t)
+            out.append((AF.warp_image(t, r.transform, H, W), r))
+        return out
+
+    def fused_one():
+        return FC.align_and_warp(ref, tgts[0])
+
+    def fused_two():
+        return FC.align_and_warp_many(ref, tgts,
+                                      ref_stars=FC.detect_ref_stars(ref))
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    times = {}
+    _, times["host_one_first_ms"] = wall(host_one)
+    _, times["host_two_first_ms"] = wall(host_two)
+    launches = {}
+    for name, fn in (("align_and_warp", fused_one),
+                     ("detect_ref_stars+align_and_warp_many", fused_two)):
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        out, times[f"fused_{'one' if fn is fused_one else 'two'}_first_ms"] \
+            = wall(fn)
+        got = {k: f.launches for k, f in counters.items()}
+        want = CHAIN_PREDICTED[name]
+        if any(v != want.get(k, 0) for k, v in got.items()):
+            raise AssertionError(f"{name}: launches {got}, predicted {want}")
+        log(f"[path] kernel launches in {name}: {got} (as predicted)")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        if fn is fused_one:
+            one = out
+        else:
+            two = out
+
+    def same(a, b):
+        return (a.method, a.matched_stars, a.inliers, a.residual_px,
+                a.transform.as_tuple()) == (b.method, b.matched_stars,
+                                            b.inliers, b.residual_px,
+                                            b.transform.as_tuple())
+
+    def bits(a, b):
+        return a.shape == b.shape and torch.equal(
+            a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+    err = {}
+    # the many-target call against per-target and direct calls; the warp
+    rs = FC.detect_ref_stars(ref)
+    for k, (t, (w, r)) in enumerate(zip(tgts, two)):
+        ws, r_s = FC.align_and_warp(ref, t, ref_stars=rs)
+        if not (same(r, r_s) and bits(w, ws)):
+            raise AssertionError(f"align_and_warp_many target {k}: {r} vs "
+                                 f"the per-target call {r_s}")
+        if not bits(w, AF.warp_image(t, r.transform, H, W)):
+            raise AssertionError(f"target {k}: the chain's warp is not "
+                                 f"warp_image of its transform")
+        if r.method not in ("affine", "rigid"):
+            raise AssertionError(f"target {k}: {r}")
+    if not (same(one[1], two[0][1]) and bits(one[0], two[0][0])):
+        raise AssertionError("the direct call differs from the cached one")
+    # against the card's host chain; the rotations
+    for k, ((_, r), (deg, _, _), t) in enumerate(zip(two, AFF_MOVES, tgts)):
+        rot = r.transform.rotation_deg()
+        log(f"[path] fused chain target {k}: {r.method}, {r.matched_stars} "
+            f"matched, {r.inliers} inliers, residual {r.residual_px:.4f} "
+            f"px, rotation {rot:.4f} deg, transform "
+            f"{[round(v, 5) for v in r.transform.as_tuple()]}")
+        err[f"target_{k}"] = hold_to_host_chain(
+            f"fused chain target {k}", r, rs, ref, t)
+        if abs(abs(rot) - abs(deg)) > 0.1:
+            raise AssertionError(f"target {k}: rotation {rot} deg, moved "
+                                 f"by {deg}")
+        err[f"rotation_{k}"] = abs(abs(rot) - abs(deg))
+
+    # the chain against plain=True, detections held: bit for bit
+    record, infos = [], []
+    orig_detect, orig_interpret = SD._detect, FC._interpret_info
+
+    def recording(*a, **kw):
+        record.append(orig_detect(*a, **kw))
+        return record[-1]
+
+    def interpreting(info, *a, **kw):
+        infos.append(list(info))
+        return orig_interpret(info, *a, **kw)
+
+    try:
+        SD._detect, FC._interpret_info = recording, interpreting
+        kern = FC.align_and_warp_many(ref, tgts)
+        SD._detect = lambda *a, **kw: record.pop(0)
+        held = FC.align_and_warp_many(ref, tgts, plain=True)
+    finally:
+        SD._detect, FC._interpret_info = orig_detect, orig_interpret
+    if record or infos[:2] != infos[2:] or not all(
+            bits(a[0], b[0]) for a, b in zip(kern, held)):
+        raise AssertionError(f"the chain with its detections held differs "
+                             f"from plain=True: {infos}")
+    free = FC.align_and_warp_many(ref, tgts, plain=True)
+    for k, ((_, a), (wb, b)) in enumerate(zip(kern, free)):
+        d = float(np.abs(np.subtract(a.transform.as_tuple(),
+                                     b.transform.as_tuple())).max())
+        if (a.method, a.inliers) != (b.method, b.inliers) or d > 1e-3:
+            raise AssertionError(f"target {k}: kernels {a} vs plain {b}")
+        err[f"plain_{k}"] = d
+        err[f"plain_{k}_bit_equal"] = same(a, b) and bits(kern[k][0], wb)
+    log(f"[path] fused chain vs plain=True: detections held, info vectors "
+        f"and planes bit-equal; free, transform max|d| "
+        f"{[err['plain_0'], err['plain_1']]} (bit-equal: "
+        f"{[err['plain_0_bit_equal'], err['plain_1_bit_equal']]})")
+    del kern, held, free
+
+    # no hidden synchronisation: the body under sync-debug "error"
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rs_sync = FC.detect_ref_stars(ref)
+        body = [FC._chain_body(rs_sync, t, 0.035, False) for t in tgts]
+        info = torch.stack([i for _, i in body])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    fetched = info.tolist()
+    if fetched != infos[:2]:
+        raise AssertionError(f"the body under sync-debug gave {fetched}")
+    log("[path] fused chain body (detect_ref_stars + 2 targets) ran under "
+        "sync-debug 'error': no synchronisation before its one fetch")
+    del body, info
+
+    # the chain's scans against their plain loops
+    packed = [SD._detect(AF.normalize_for_detection(p), SD._tile_size(H, W),
+                         AF.DETECTION_SIGMA, SD.MAX_PEAKS)
+              for p in (ref, *tgts)]
+    votes = []
+    for t in tgts:
+        txy, _ = FC._detect_device(t, SD.MAX_PEAKS, False)
+        votes.append(vote(rs.ratios, rs.verts,
+                          *FC.device_triangles(txy[0], txy[1])))
+    entry = check_chain_scan(dev, packed, votes)
+    del packed, votes
+
+    # both routes warm, in turns
+    for tag, fused, host in (("one", fused_one, host_one),
+                             ("two", fused_two, host_two)):
+        runs = {"fused": [], "host": []}
+        for route in ("fused", "host", "host", "fused"):
+            fn = fused if route == "fused" else host
+            ms = cuda_ms(fn, 5)
+            walls = [wall(fn)[1] for _ in range(5)]
+            runs[route].append({"cuda_events_ms": ms,
+                                "host_wall_ms": sum(walls) / len(walls)})
+        times[f"warm_{tag}"] = runs
+    times["phase_s"] = time.perf_counter() - t_phase
+    log(f"[time] {smi}: fused chain vs host chain at {H}x{W}, "
+        f"{AFF_STARS_5K} stars (phase 4n, host fetches included): "
+        + json.dumps(times))
+    log(f"[path] phase 4n errors: {json.dumps(err)}")
+    return launches, entry, times
+
+
+def phase_4n_alone() -> None:
+    """Phase 4n alone: the build, then ``fused_chain_path`` with the
+    K1/K2 (the fallback's) and K10/K11/K12/chain_scan counters; prints
+    the card's name and power limit, the phase's seconds and its
+    chain_scan entry."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                 "is false); this script runs only on the card")
+    from astroburst_tpu_torch.alignment.coarse_kernel import \
+        coarse_downsample_stack
+    from astroburst_tpu_torch.alignment.fused_chain import (dedupe_topk,
+                                                            greedy_match)
+    from astroburst_tpu_torch.alignment.vote_kernel import vote
+    from astroburst_tpu_torch.analysis.tile_sort_kernel import (
+        sort_tiles, sort_tiles_chunked)
+    from astroburst_tpu_torch.analysis.window_kernel import window_stats
+    from astroburst_tpu_torch.ops.crop_kernel import gather_crops
+    from astroburst_tpu_torch.runtime import kernels as K
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    lib = K.library()
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvcc {lib.build_seconds:.1f} s")
+    for name, regs, smem, stack_b, sst, sld in ptxas_summary(lib.build_log):
+        if name in ("dedupe_topk_kernel", "greedy_match_kernel"):
+            log(f"[build]   {name}: {regs} registers, {smem} B smem, "
+                f"{stack_b} B stack, spills {sst}/{sld} B")
+    counters = {"coarse_box": coarse_downsample_stack,
+                "gather_crops": gather_crops, "sort_tiles": sort_tiles,
+                "sort_tiles_chunked": sort_tiles_chunked,
+                "window_stats": window_stats, "vote": vote,
+                "dedupe_topk": dedupe_topk, "greedy_match": greedy_match}
+    launches, entry, times = fused_chain_path(counters, smi)
+    log(f"[4n] phase {times['phase_s']:.1f} s, launches {launches}; "
+        f"chain_scan {json.dumps(entry)}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
+
+
 def phase_4m_alone() -> None:
     """Phase 4m alone: the build, the bench stack, then ``sharded_path``
     with every K1/K2/K3/K7 counter; prints the card's name and power
@@ -6281,7 +6855,9 @@ def phase_4l_alone() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--phase-4m"]:
+    if sys.argv[1:2] == ["--phase-4n"]:
+        phase_4n_alone()
+    elif sys.argv[1:2] == ["--phase-4m"]:
         phase_4m_alone()
     elif sys.argv[1:2] == ["--phase-4l"]:
         phase_4l_alone()
