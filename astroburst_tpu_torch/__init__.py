@@ -22,7 +22,9 @@ kernel of the JAX package has its CUDA counterpart. Of the command API,
 commands (``process_fits``, its histogram and header, the raw preview,
 ``apply_stf_render``, the header and output-dir commands), FITS, RGB
 FITS and ASDF in (``io``), the images in the port's own image cache
-(``runtime.cache``).
+(``runtime.cache``). Every FITS decode and the BITPIX 16 and -32 writes
+run in the host codec (``native``: C++/OpenMP, built with g++ at first
+use).
 
 The package imports neither ``jax`` nor anything of ``astroburst_tpu``:
 the constants, records, errors and io it needs are its own copies

@@ -1,8 +1,10 @@
 """Host-side I/O: FITS and ASDF decode, file dispatch, PNG encode
 (counterpart of astroburst_tpu/io; reference: src-tauri/src/infra/).
 
-Decode runs on the host with numpy over a memory map; io/prefetch.py
-puts the planes on the device through pinned host memory. ASDF files
+FITS decode and the BITPIX 16 and -32 writes run on the host in the
+port's C++/OpenMP codec (``astroburst_tpu_torch.native``) over a memory
+map; io/prefetch.py puts the planes on the device through pinned host
+memory. ASDF files
 are read by ``io.asdf`` (PyYAML, imported only when an ASDF tree is
 parsed).
 """

@@ -7,9 +7,11 @@ auto-select, primary ⊕ extension header merge, the BITPIX
 {8, 16, 32, -32, -64} big-endian decode with BSCALE/BZERO, and the
 NAXIS3 ∈ [3, 4] RGB-FITS planes, and 3-D cubes (``extract_cube``: the
 first HDU with NAXIS = 3 and NAXIS3 > 1, reader.rs:513-557). The decode
-is numpy over a memory map, with no native library: BITPIX -32 with
-the identity scaling is one byte-swapping copy; any other case runs
-the per-pixel f64 math of the reference, then rounds to f32.
+runs the port's host codec (``native``, C++/OpenMP) over a memory map:
+BITPIX -32 with the identity scaling is one byte-swapping copy; any
+other case runs the per-pixel f64 math of the reference, then rounds to
+f32. ``decode_pixels_plain`` is the same decode in numpy, bit for bit
+(tests/test_torch_native.py).
 
 ``extract_image`` takes an optional ``alloc(shape)`` that returns the
 f32 array the pixels are decoded into, so a caller can decode straight
@@ -28,6 +30,8 @@ from astroburst_tpu_torch.constants import BLOCK_SIZE, CARD_SIZE
 from astroburst_tpu_torch.errors import FitsError
 from astroburst_tpu_torch.io.header import (HduHeader, HduInfo,
                                             extract_header_value)
+from astroburst_tpu_torch.native import checked_target as _checked
+from astroburst_tpu_torch.native import decode_pixels_native
 
 _BITPIX_DTYPES = {
     8: np.dtype(">u1"),
@@ -42,17 +46,27 @@ Alloc = Callable[[Tuple[int, ...]], np.ndarray]
 
 def decode_pixels(raw, bitpix: int, bscale: float, bzero: float,
                   out: Optional[np.ndarray] = None) -> np.ndarray:
-    """Decode big-endian FITS data bytes to float32 with BSCALE/BZERO,
-    into ``out`` (a C-contiguous f32 array of as many elements) when it
-    is given. BITPIX -32 with bscale 1 and bzero 0 is a pure byteswap
-    (reader.rs:42-101 keeps the same shortcut); otherwise the values go
-    through f64, as the reference's per-pixel math does."""
+    """Decode big-endian FITS data bytes to float32 with BSCALE/BZERO
+    through the host codec (``native``, on every core), into ``out`` (a
+    C-contiguous f32 array of as many elements) when it is given. BITPIX
+    -32 with bscale 1 and bzero 0 is a pure byteswap (reader.rs:42-101
+    keeps the same shortcut); otherwise the values go through f64, as
+    the reference's per-pixel math does."""
+    if bitpix not in _BITPIX_DTYPES:
+        raise FitsError(f"Unsupported BITPIX {bitpix}")
+    return decode_pixels_native(raw, bitpix, bscale, bzero, out)
+
+
+def decode_pixels_plain(raw, bitpix: int, bscale: float, bzero: float,
+                        out: Optional[np.ndarray] = None) -> np.ndarray:
+    """``decode_pixels`` in numpy, the codec's plain version: the bits
+    it must give."""
     dt = _BITPIX_DTYPES.get(bitpix)
     if dt is None:
         raise FitsError(f"Unsupported BITPIX {bitpix}")
     n = len(raw) // dt.itemsize
     out = np.empty(n, np.float32) if out is None else _checked(out, n)
-    vals = np.frombuffer(raw, dtype=dt)
+    vals = np.frombuffer(raw, dtype=dt, count=n)
     flat = out.reshape(-1)
     if bitpix == -32 and bscale == 1.0 and bzero == 0.0:
         np.copyto(flat, vals)
@@ -63,14 +77,6 @@ def decode_pixels(raw, bitpix: int, bscale: float, bzero: float,
     if bzero != 0.0:
         phys += bzero
     np.copyto(flat, phys, casting="same_kind")
-    return out
-
-
-def _checked(out: np.ndarray, n: int) -> np.ndarray:
-    if out.dtype != np.float32 or not out.flags.c_contiguous \
-            or out.size != n:
-        raise ValueError(f"decode target must be a C-contiguous f32 array "
-                         f"of {n} elements")
     return out
 
 

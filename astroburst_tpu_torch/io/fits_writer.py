@@ -2,10 +2,16 @@
 (its own copy of astroburst_tpu/io/fits_writer.py; reference:
 src-tauri/src/infra/fits/writer.rs).
 
-The encode is numpy big-endian views, with no native library. The
-header has no date card, so the bytes written are a function of the
-array and the header alone: the same as the JAX package's writer
-(tests/test_torch_io.py compares the files byte for byte).
+BITPIX 16 and -32 planes are encoded by the port's host codec
+(``native.encode_be_to_fd``: C++/OpenMP, 4 MB chunks written straight
+to the file), as the JAX package's writer routes them; BITPIX -64 is
+numpy, as in the JAX package, which has no -64 encoder.
+``_encode_plane`` and ``_write_fits_file_plain`` are the numpy encode
+and write, the codec's plain versions (tests/test_torch_native.py
+holds the files byte-equal). The header has no date card, so the bytes
+written are a function of the array and the header alone: the same as
+the JAX package's writer (tests/test_torch_io.py compares the files
+byte for byte).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import numpy as np
 from astroburst_tpu_torch.constants import BLOCK_SIZE
 from astroburst_tpu_torch.errors import FitsError
 from astroburst_tpu_torch.io.header import HduHeader
+from astroburst_tpu_torch.native import encode_be_to_fd
 
 # WCS keyword whitelist (writer.rs:10-19)
 WCS_PREFIXES = (
@@ -79,13 +86,14 @@ def _encode_plane(data: np.ndarray, bitpix: int, bzero: float,
     """Big-endian encode of one plane, as an array that ``f.write``
     takes without another copy. BITPIX 16 rounds half away from zero
     after clamping, as the reference's Rust ``f64::round``
-    (writer.rs:100-119)."""
+    (writer.rs:100-119), and writes NaN as 0, as Rust's saturating
+    ``as i16`` does (a cast of NaN to an integer is undefined)."""
     flat = np.ascontiguousarray(data, dtype=np.float32).ravel()
     if bitpix == 16:
         physical = (flat.astype(np.float64) - bzero) / bscale
         clamped = np.clip(physical, -32768.0, 32767.0)
         rounded = np.copysign(np.floor(np.abs(clamped) + 0.5), clamped)
-        return rounded.astype(">i2")
+        return np.where(np.isnan(rounded), 0.0, rounded).astype(">i2")
     if bitpix == -64:
         return flat.astype(">f8")
     return flat.astype(">f4")
@@ -131,6 +139,23 @@ def _header_bytes(dims: Tuple[int, ...], bitpix: int, bzero: float,
 
 def _write_fits_file(path: str, hdr: bytes, planes, bitpix: int,
                      bzero: float, bscale: float) -> None:
+    """The header, each plane through the codec's chunked encode to the
+    file descriptor (BITPIX 16 and -32), then the pad."""
+    if bitpix == -64:
+        _write_fits_file_plain(path, hdr, planes, bitpix, bzero, bscale)
+        return
+    bpp = abs(bitpix) // 8
+    total = planes[0].size * bpp * len(planes)
+    with open(path, "wb") as f:
+        f.write(hdr)
+        f.flush()   # the codec writes to the descriptor after it
+        for p in planes:
+            encode_be_to_fd(p, f.fileno(), bitpix, bzero, bscale)
+        f.write(_pad(total))
+
+
+def _write_fits_file_plain(path: str, hdr: bytes, planes, bitpix: int,
+                           bzero: float, bscale: float) -> None:
     bpp = abs(bitpix) // 8
     total = planes[0].size * bpp * len(planes)
     with open(path, "wb") as f:

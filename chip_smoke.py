@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phase-4l              # phase 4l alone
     python3 chip_smoke.py --phase-4m              # phase 4m alone
     python3 chip_smoke.py --phase-4n              # phase 4n alone
+    python3 chip_smoke.py --phase-4o              # phase 4o alone
 
 Phases, each of which fails loudly (nothing is caught; any failure
 exits non-zero, and so does a machine without a CUDA device):
@@ -256,6 +257,23 @@ exits non-zero, and so does a machine without a CUDA device):
    ``plain=True`` run with the detections held, against the card's host
    chain (``hold_to_host_chain``) and the rotations; its body under
    ``torch.cuda.set_sync_debug_mode("error")``; both routes timed.
+   (o) the host FITS codec (``native_codec_path``; it runs after (f),
+   on the bench stack): its build (g++, the flags, the seconds,
+   ``os.cpu_count()``, the libgomp that the codec and torch link and
+   the one mapped); the codec bit for bit against its plain numpy
+   versions on a 5655 x 2206 plane of every BITPIX {8, 16, 32, -32,
+   -64} with NaN (payloads, signalling), +-inf, -0.0 and subnormals at
+   identity scaling, (0.37, 32768) and C32's (0.01, 20): the decode,
+   the f32 and i16 encodes of ``encode_be_to_fd`` (.5 ties, clamps,
+   NaN) and its files against the plain writer's at BITPIX 16 and -32;
+   then timed in turns with the plain versions, files under build/: 10
+   x 4096^2 BITPIX -32 decoded (and one frame in memory, one file into
+   a mapped buffer), a 4096^2 BITPIX 16 decode with BSCALE/BZERO,
+   ``write_fits_rgb`` of 3 x 7180^2 (618 MB, the files byte-equal),
+   ``stacked.fits``, ``load_cached_many`` over the 16 bench files and
+   the ``stack`` command on them cold and warm (checked as in (f); K1,
+   K2, K3 counted); ``stacked.fits`` and the ``stack`` command also with
+   the codec's write on one thread (``CodecWriteThreads``).
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
@@ -326,6 +344,8 @@ port.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import re
@@ -5516,6 +5536,10 @@ def main() -> None:
     # ---- 4f. the stack command: FITS in, stacked FITS + preview out ----
     launches_cmd, _ = stack_command_path(stack, shifts, many_list,
                                          many_shifts, counters, smi)
+
+    # ---- 4o. the host FITS codec against its plain versions ----------
+    launches_codec, times_codec = native_codec_path(stack, shifts, counters,
+                                                    smi)
     bench_frame = stack[0].clone()      # for phase 4g
     del stack, many_list
 
@@ -5894,6 +5918,7 @@ def main() -> None:
                  launches_mask,
              "drizzle_exact_parity(calibrated,bench)": launches_parity,
              "stack(command)": launches_cmd,
+             "native_codec(stack command)": launches_codec,
              "open_and_inspect(commands)": launches_open,
              "calibrate+pipeline+drizzle+export(commands)": launches_export,
              "stretch+tone+denoise+detection(commands)": launches_tone,
@@ -5951,6 +5976,7 @@ def main() -> None:
     log(f"[path] sharded paths (phase 4m): {json.dumps(times_sharded)}")
     log(f"[path] fused chain (phase 4n): {json.dumps(times_fused)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
+    log(f"[codec] {smi}: " + json.dumps(times_codec))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -6854,8 +6880,380 @@ def phase_4l_alone() -> None:
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
 
 
+# --- phase 4o: the host FITS codec (native/) ---------------------------------
+
+CODEC_SCALINGS = (("identity", 1.0, 0.0), ("u16", 0.37, 32768.0),
+                  ("c32", 0.01, 20.0))   # ROADMAP C32: raw -2000 cancels
+BATCH_N, BATCH_HW = 10, 4096   # BASELINE.md batch processing: 10 x 64 MB
+RGB_EXPORT_HW = 7180           # 3 x 7180^2 f32 = 618 MB (BASELINE.md)
+REF_BATCH_MS = 450.0           # BASELINE.md, Ryzen 9 7950X (16 cores)
+REF_RGB_EXPORT_MS = 617.0      # BASELINE.md, the app's workstation
+
+
+def codec_plane(bitpix: int, seed: int, hw=None) -> np.ndarray:
+    """A big-endian plane of ``bitpix`` at the bench frame's shape:
+    random values; at the float BITPIX NaN (quiet, signalling, with
+    payloads), +-inf, -0.0, +0.0, f32 and f64 subnormals and -2000
+    scattered through it; at the integer ones the extremes and -2000
+    (C32's cancelling value)."""
+    h, w = hw or (H, W)
+    n = h * w
+    rng = np.random.default_rng(seed)
+    if bitpix > 0:
+        lo, hi, dt = {8: (0, 256, ">u1"), 16: (-32768, 32768, ">i2"),
+                      32: (-2**31, 2**31, ">i4")}[bitpix]
+        v = rng.integers(lo, hi, n).astype(dt)
+        v[:3] = (lo, hi - 1, 200 if bitpix == 8 else -2000)
+        return v.reshape(h, w)
+    f, u = (np.float32, np.uint32) if bitpix == -32 else (np.float64,
+                                                          np.uint64)
+    v = (rng.standard_normal(n) * 1e3).astype(f)
+    fi = np.finfo(f)
+    nan_bits = ([0x7FC00000, 0x7F800001, 0xFFC00123] if bitpix == -32 else
+                [0x7FF8000000000000, 0x7FF0000000000001,
+                 0xFFF8000000012345])
+    special = np.concatenate([
+        np.array(nan_bits, u).view(f),
+        np.array([np.inf, -np.inf, -0.0, 0.0, fi.smallest_subnormal,
+                  -3 * fi.smallest_subnormal, fi.tiny, -2000.0, 1e-40,
+                  -3e-42, 0.5], f)])
+    for s in special:   # each special value at ~n/2000 places
+        v[rng.integers(0, n, n // 2000)] = s
+    v[:special.size] = special
+    return v.astype(">f4" if bitpix == -32 else ">f8").reshape(h, w)
+
+
+def same_bytes(what: str, got, want) -> None:
+    g = np.ascontiguousarray(got).reshape(-1).view(np.uint8)
+    w = np.ascontiguousarray(want).reshape(-1).view(np.uint8)
+    if g.size != w.size or not np.array_equal(g, w):
+        raise AssertionError(f"{what}: the codec's bytes differ from the "
+                             f"plain version's")
+
+
+def same_file(what: str, a: str, b: str) -> None:
+    fa, fb = np.memmap(a, np.uint8, mode="r"), np.memmap(b, np.uint8,
+                                                         mode="r")
+    if fa.size != fb.size or not np.array_equal(fa, fb):
+        raise AssertionError(f"{what}: {a} and {b} differ")
+
+
+class PlainCodec:
+    """Within ``with PlainCodec():`` the reader's decode and the writer's
+    file write are their plain numpy versions (module attributes that
+    every reader and writer path reads), for the plain side of a
+    timing."""
+
+    def __enter__(self):
+        from astroburst_tpu_torch.io import fits_reader as R
+        from astroburst_tpu_torch.io import fits_writer as Wr
+        self._saved = R.decode_pixels, Wr._write_fits_file
+
+        def plain(raw, bitpix, bscale, bzero, out=None):
+            return R.decode_pixels_plain(raw, bitpix, bscale, bzero, out)
+
+        R.decode_pixels, Wr._write_fits_file = \
+            plain, Wr._write_fits_file_plain
+        return self
+
+    def __exit__(self, *exc):
+        from astroburst_tpu_torch.io import fits_reader as R
+        from astroburst_tpu_torch.io import fits_writer as Wr
+        R.decode_pixels, Wr._write_fits_file = self._saved
+        return False
+
+
+class CodecWriteThreads:
+    """Within ``with CodecWriteThreads(k):`` the writer's encode runs on
+    ``k`` codec threads (the port's writer uses every core): a probe of
+    whether the codec's OpenMP team slows the ``stack`` command around
+    its ``stacked.fits`` write."""
+
+    def __init__(self, threads: int):
+        self.threads = threads
+
+    def __enter__(self):
+        from astroburst_tpu_torch import native
+        from astroburst_tpu_torch.io import fits_writer as Wr
+        self._saved = Wr.encode_be_to_fd
+        Wr.encode_be_to_fd = functools.partial(native.encode_be_to_fd,
+                                               threads=self.threads)
+        return self
+
+    def __exit__(self, *exc):
+        from astroburst_tpu_torch.io import fits_writer as Wr
+        Wr.encode_be_to_fd = self._saved
+        return False
+
+
+def in_turns(fn, reps: int = 2) -> dict:
+    """{"codec_ms": [...], "plain_ms": [...]}: ``fn()`` timed on the host
+    clock (``host_ms``) plain, codec, codec, plain, ... ``reps`` times
+    each."""
+    out = {"codec_ms": [], "plain_ms": []}
+    for k in range(2 * reps):
+        plain = k % 4 in (0, 3)
+        if plain:
+            with PlainCodec():
+                _, ms = host_ms(fn)
+        else:
+            _, ms = host_ms(fn)
+        out["plain_ms" if plain else "codec_ms"].append(ms)
+    return out
+
+
+def native_codec_path(stack, shifts, counters, smi):
+    """Phase 4o: the host FITS codec (``astroburst_tpu_torch/native``) on
+    the card's host. Its build (compiler, flags, seconds, cores, the
+    OpenMP runtimes); the codec against its plain numpy versions, bit
+    for bit, on a 5655 x 2206 plane of every BITPIX with NaN, +-inf,
+    -0.0 and subnormals at identity scaling, (0.37, 32768) and C32's
+    (0.01, 20): the decode, the f32 and i16 encodes of
+    ``encode_be_to_fd`` (ties, clamps, NaN) and its files against the
+    plain writer's. Then, in turns with the plain versions (warm page
+    cache, files under build/ as 4f's): the decode of 10 x 4096^2
+    BITPIX -32 (the batch row), that decode's parts (one frame in memory
+    into a mapped buffer, one file into it), a 4096^2 BITPIX 16 decode
+    with BSCALE/BZERO, ``write_fits_rgb`` of 3 x 7180^2 at -32 (618 MB),
+    ``stacked.fits``, ``load_cached_many`` over the 16 bench files and
+    the ``stack`` command on them cold and warm, its kernel launches
+    counted; ``stacked.fits`` and the ``stack`` command also with the
+    codec's write on one thread. Returns (launches, times)."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from astroburst_tpu_torch import api, native
+    from astroburst_tpu_torch.api import common as C
+    from astroburst_tpu_torch.io import (extract_image, fits_reader as R,
+                                         fits_writer as Wr, write_fits_mono,
+                                         write_fits_rgb)
+    from astroburst_tpu_torch.io.header import HduHeader
+    from astroburst_tpu_torch.runtime.cache import GLOBAL_IMAGE_CACHE
+    from astroburst_tpu_torch.stacking.combine import stack_images
+    t_phase = time.perf_counter()
+    dev = stack.device
+    codec = native.library()
+    gxx = subprocess.run([native.compiler(), "--version"],
+                         capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+
+    def gomp_of(lib):
+        out = subprocess.run(["ldd", str(lib)], capture_output=True,
+                             text=True).stdout
+        return [ln.strip() for ln in out.splitlines() if "gomp" in ln]
+
+    torch_cpu = os.path.join(os.path.dirname(torch.__file__), "lib",
+                             "libtorch_cpu.so")
+    log(f"[codec] build: {codec.build_log.splitlines()[0]}")
+    log(f"[codec] {gxx}; built in {codec.build_seconds:.2f} s at first "
+        f"use; os.cpu_count() {os.cpu_count()}, {native.default_threads()} "
+        f"usable; OpenMP {codec.lib.astro_openmp_version()}")
+    log(f"[codec] libgomp: the codec links {gomp_of(codec.path)}, torch "
+        f"links {gomp_of(torch_cpu)}; mapped in this process: "
+        f"{native.openmp_runtimes()}")
+
+    # the files go where 4f's go (build/ of the checkout)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_codec_", dir=build)
+    times = {}
+    try:
+        # bit for bit against the plain versions
+        def encoded(data, bitpix, bz, bs):
+            """The bytes ``encode_be_to_fd`` writes for ``data``."""
+            path = os.path.join(root, "encoded.bin")
+            with open(path, "wb") as f:
+                native.encode_be_to_fd(data, f.fileno(), bitpix, bz, bs)
+            return np.fromfile(path, np.uint8)
+
+        checked = []
+        with np.errstate(invalid="ignore", over="ignore"):
+            for bitpix in (8, 16, 32, -32, -64):
+                raw = codec_plane(bitpix, seed=abs(bitpix)).tobytes()
+                for name, bscale, bzero in CODEC_SCALINGS:
+                    same_bytes(f"decode BITPIX {bitpix} {name}",
+                               R.decode_pixels(raw, bitpix, bscale, bzero),
+                               R.decode_pixels_plain(raw, bitpix, bscale,
+                                                     bzero))
+                    checked.append(f"decode {bitpix}/{name}")
+            plane = R.decode_pixels(codec_plane(-32, seed=32).tobytes(),
+                                    -32, 1.0, 0.0).reshape(H, W)
+            same_bytes("encode f32", encoded(plane, -32, 0.0, 1.0),
+                       plane.astype(">f4"))
+            ties = (np.arange(-40000, 40000) + 0.5)
+            tie_phys = np.concatenate([ties, [np.nan, np.inf, -np.inf, 1e30,
+                                              -1e30, -0.0]])
+            tie_planes = [((tie_phys * bs + bz).astype(np.float32), bz, bs)
+                          for bz, bs in ((0.0, 1.0), (0.0, 2.2),
+                                         (-3.0, 0.5))]
+            bzero, bscale = Wr._compute_bzero_bscale([plane])
+            for data, bz, bs in [(plane, bzero, bscale)] + tie_planes:
+                same_bytes(f"encode i16 ({bz}, {bs})",
+                           encoded(data, 16, bz, bs),
+                           Wr._encode_plane(data, 16, bz, bs))
+            checked += ["encode f32", "encode i16 x4"]
+        sections = {"build+bits": time.perf_counter() - t_phase}
+        hdr = HduHeader([("OBJECT", "'chip_smoke 4o'")])
+        for bitpix in (16, -32):
+            a, b = (os.path.join(root, f"{k}_{bitpix}.fits")
+                    for k in ("codec", "plain"))
+            write_fits_mono(a, plane, hdr, bitpix=bitpix)
+            with PlainCodec():
+                write_fits_mono(b, plane, hdr, bitpix=bitpix)
+            same_file(f"write_fits_mono BITPIX {bitpix}", a, b)
+            checked.append(f"encode_be_to_fd {bitpix}")
+        log(f"[codec] bit for bit against the plain versions on "
+            f"{H} x {W}: {', '.join(checked)}")
+
+        # the batch row: 10 x 4096^2 BITPIX -32, and BITPIX 16 scaled
+        rng = np.random.default_rng(40)
+        batch = []
+        for k in range(BATCH_N):
+            batch.append(os.path.join(root, f"batch_{k}.fits"))
+            write_fits_mono(batch[-1], rng.random(
+                (BATCH_HW, BATCH_HW), dtype=np.float32) * 1000.0, hdr)
+        p16 = os.path.join(root, "scaled_16.fits")
+        write_fits_mono(p16, rng.random((BATCH_HW, BATCH_HW),
+                                        dtype=np.float32) * 1000.0, hdr,
+                        bitpix=16)
+
+        def decode_batch():
+            for p in batch:
+                extract_image(p)
+
+        times["decode_10x4096^2_-32"] = in_turns(decode_batch)
+        # the decode alone: one frame's bytes in memory into a buffer
+        # that is already mapped (no page faults on either side)
+        with open(batch[0], "rb") as f:
+            blob = f.read()[2880:2880 + 4 * BATCH_HW * BATCH_HW]
+        buf = np.empty(BATCH_HW * BATCH_HW, np.float32)
+        R.decode_pixels(blob, -32, 1.0, 0.0, buf)
+        times["decode_4096^2_-32_in_memory"] = in_turns(
+            lambda: R.decode_pixels(blob, -32, 1.0, 0.0, buf), reps=3)
+        # one file through its memory map into that touched buffer
+        times["decode_4096^2_-32_file_into_touched_buffer"] = in_turns(
+            lambda: extract_image(batch[1], lambda shape: buf.reshape(
+                shape)), reps=3)
+        del blob, buf
+        times["decode_4096^2_16_scaled"] = in_turns(
+            lambda: extract_image(p16), reps=3)
+
+        sections["decodes"] = time.perf_counter() - t_phase
+        # the RGB export: 3 x 7180^2 at -32, 618 MB
+        rgb = [rng.random((RGB_EXPORT_HW, RGB_EXPORT_HW), dtype=np.float32)
+               for _ in range(3)]
+        p_rgb = os.path.join(root, "export_rgb.fits")
+        times["write_fits_rgb_3x7180^2_-32"] = in_turns(
+            lambda: write_fits_rgb(p_rgb, *rgb, hdr))
+        with PlainCodec():
+            write_fits_rgb(p_rgb + ".plain", *rgb, hdr)
+        same_file("write_fits_rgb 3 x 7180^2", p_rgb, p_rgb + ".plain")
+        times["rgb_export_bytes"] = os.path.getsize(p_rgb)
+        del rgb
+        os.unlink(p_rgb + ".plain")
+
+        sections["rgb_export"] = time.perf_counter() - t_phase
+        # the stack command's files: stacked.fits, load_cached_many, cold
+        # and warm
+        bench = write_fits_frames(os.path.join(root, "bench"), stack)
+        ref = stack_images(list(stack))
+        host = ref.image.cpu().numpy()
+        p_st = os.path.join(root, "stacked.fits")
+        times["write_stacked.fits"] = in_turns(
+            lambda: write_fits_mono(p_st, host, hdr), reps=3)
+        with CodecWriteThreads(1):
+            times["write_stacked.fits"]["codec_1_thread_ms"] = [
+                host_ms(lambda: write_fits_mono(p_st, host, hdr))[1]
+                for _ in range(3)]
+
+        def cold_many():
+            GLOBAL_IMAGE_CACHE.clear()
+            torch.cuda.synchronize()
+            return C.load_cached_many(bench, device=dev)
+
+        times[f"load_cached_many_{len(bench)}_cold"] = in_turns(cold_many)
+
+        GLOBAL_IMAGE_CACHE.clear()
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        # plain, codec, the codec writing on one thread, in turns
+        sides = ("plain_ms", "codec_ms", "codec_1_thread_write_ms",
+                 "codec_1_thread_write_ms", "codec_ms", "plain_ms")
+        cold = {side: [] for side in sides}
+        warm = {side: [] for side in sides}
+        for k, side in enumerate(sides):
+            with (PlainCodec() if side == "plain_ms" else
+                  CodecWriteThreads(1) if side.startswith("codec_1") else
+                  contextlib.nullcontext()):
+                GLOBAL_IMAGE_CACHE.clear()
+                res, ms = host_ms(lambda: api.stack(
+                    bench, os.path.join(root, f"out_cold_{k}")))
+                cold[side].append(ms)
+                check_stack_command(f"stack ({side[:-3]}) cold", res,
+                                    stack.shape[1:], shifts, ref, dev)
+                res, ms = host_ms(lambda: api.stack(
+                    bench, os.path.join(root, f"out_warm_{k}")))
+                warm[side].append(ms)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        for name in ("shift_clip", "coarse_box", "gather_crops"):
+            if launches[name] < 1:
+                raise AssertionError(f"{name} never ran: {launches}")
+        times["stack_command_cold"] = cold
+        times["stack_command_warm"] = warm
+        GLOBAL_IMAGE_CACHE.clear()
+    finally:
+        shutil.rmtree(root)
+    sections["stack"] = time.perf_counter() - t_phase
+    times["sections_s"] = sections
+    times["phase_s"] = time.perf_counter() - t_phase
+    log(f"[time] {smi}: the host FITS codec (phase 4o) against its plain "
+        f"versions (batch row {REF_BATCH_MS} ms, RGB export "
+        f"{REF_RGB_EXPORT_MS} ms on the reference's machines): "
+        + json.dumps(times))
+    return launches, times
+
+
+def phase_4o_alone() -> None:
+    """Phase 4o alone: the build, the bench stack, then
+    ``native_codec_path`` with the K1/K2/K3 counters of its ``stack``
+    commands; prints the card's name and power limit, the codec's times
+    and the seconds."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                 "is false); this script runs only on the card")
+    from astroburst_tpu_torch.alignment.coarse_kernel import (
+        coarse_downsample_stack)
+    from astroburst_tpu_torch.convert import stack_from_numpy
+    from astroburst_tpu_torch.ops.crop_kernel import gather_crops
+    from astroburst_tpu_torch.runtime import kernels as K
+    from astroburst_tpu_torch.runtime.device import cuda_device
+    from astroburst_tpu_torch.stacking.onepass_kernel import (
+        shift_clip_onepass)
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    lib = K.library()
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvcc {lib.build_seconds:.1f} s")
+    stack = stack_from_numpy(make_frames(N_FRAMES, H, W), cuda_device())
+    counters = {"shift_clip": shift_clip_onepass,
+                "coarse_box": coarse_downsample_stack,
+                "gather_crops": gather_crops}
+    launches, times = native_codec_path(
+        stack, bench_shifts(N_FRAMES, H, W), counters, smi)
+    log(f"[4o] phase {times['phase_s']:.1f} s, launches {launches}")
+    log(f"[codec] {smi}: " + json.dumps(times))
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--phase-4n"]:
+    if sys.argv[1:2] == ["--phase-4o"]:
+        phase_4o_alone()
+    elif sys.argv[1:2] == ["--phase-4n"]:
         phase_4n_alone()
     elif sys.argv[1:2] == ["--phase-4m"]:
         phase_4m_alone()

@@ -140,7 +140,8 @@ def test_port_and_chip_smoke_import_nothing_of_jax_or_the_jax_package():
                 "parallel/halo.py", "parallel/pipeline.py",
                 "parallel/drizzle.py", "parallel/fft.py",
                 "parallel/compose.py", "parallel/cube.py",
-                "parallel/warp.py", "alignment/fused_chain.py"):
+                "parallel/warp.py", "alignment/fused_chain.py",
+                "native/__init__.py"):
         assert REPO / "astroburst_tpu_torch" / new in files, new
     asdf = REPO / "astroburst_tpu_torch" / "io" / "asdf.py"
     bad = []
