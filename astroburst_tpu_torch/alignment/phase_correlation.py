@@ -30,6 +30,7 @@ from astroburst_tpu_torch.ops import fft as F
 from astroburst_tpu_torch.ops.crop_kernel import (gather_crops,
                                                   gather_crops_plain)
 from astroburst_tpu_torch.ops.window import hann_periodic
+from astroburst_tpu_torch.runtime import trace
 
 COARSE_MAX_DIM = 512        # phase_correlation.rs:10
 REFINE_CROP_SIZE = 512      # phase_correlation.rs:11
@@ -159,6 +160,11 @@ def correlate_single(a: torch.Tensor, b: torch.Tensor):
     so shift_bicubic(b, dy, dx) maps b back onto a (align.rs:92-105).
     ``rfft2``/``irfft2`` with ``s=`` cover odd (1-pixel) axes too.
     """
+    with trace.span("alignment.correlate"):
+        return _correlate_single(a, b)
+
+
+def _correlate_single(a: torch.Tensor, b: torch.Tensor):
     rows, cols = a.shape[-2], a.shape[-1]
     fft_rows = F.next_power_of_two(rows)
     fft_cols = F.next_power_of_two(cols)
@@ -208,6 +214,12 @@ def phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor, *,
     runs their plain torch versions instead (to hold the kernels to
     them on the card).
     """
+    with trace.span("alignment.phase_corr"):
+        return _phase_correlate_stack(ref, targets, plain)
+
+
+def _phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor,
+                           plain: bool):
     coarse = coarse_downsample_stack_plain if plain else \
         coarse_downsample_stack
     crop = gather_crops_plain if plain else gather_crops
@@ -215,10 +227,11 @@ def phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor, *,
     if rows <= COARSE_MAX_DIM and cols <= COARSE_MAX_DIM:
         return correlate_single(ref, targets)
 
-    ref_ds, by, bx, rmn, rmx, rcnt = coarse(ref[None], COARSE_MAX_DIM,
-                                            with_stats=True)
-    tgt_ds, _, _, tmn, tmx, tcnt = coarse(targets, COARSE_MAX_DIM,
-                                          with_stats=True)
+    with trace.span("alignment.coarse"):
+        ref_ds, by, bx, rmn, rmx, rcnt = coarse(ref[None], COARSE_MAX_DIM,
+                                                with_stats=True)
+        tgt_ds, _, _, tmn, tmx, tcnt = coarse(targets, COARSE_MAX_DIM,
+                                              with_stats=True)
     cdy, cdx, _ = correlate_single(ref_ds[0], tgt_ds)
 
     ref_cy = rows // 2
@@ -231,8 +244,9 @@ def phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor, *,
                                     REFINE_CROP_SIZE)
     s_r = min(REFINE_CROP_SIZE, rows)
     s_c = min(REFINE_CROP_SIZE, cols)
-    crops = crop(targets, tgt_y0, tgt_x0, s_r, s_c)
-    ref_crop = _centered_crop_static(ref, REFINE_CROP_SIZE)
+    with trace.span("alignment.crops"):
+        crops = crop(targets, tgt_y0, tgt_x0, s_r, s_c)
+        ref_crop = _centered_crop_static(ref, REFINE_CROP_SIZE)
     ref_y0, ref_x0 = _crop_origin_static(rows, cols, REFINE_CROP_SIZE)
     rdy, rdx, rconf = correlate_single(ref_crop, crops)
     dy = (tgt_y0 - ref_y0).float() + rdy

@@ -27,6 +27,7 @@ from astroburst_tpu_torch.errors import CacheMiss
 from astroburst_tpu_torch.imaging.stf import apply_stf_u8, auto_stf
 from astroburst_tpu_torch.io.png import save_gray_png, save_rgb_png
 from astroburst_tpu_torch.ops.ipc import nearest_downsample
+from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.runtime.cache import GLOBAL_IMAGE_CACHE
 
 
@@ -95,7 +96,10 @@ def save_preview_png(u8_plane: torch.Tensor, path: str,
     """Downsample a u8 plane on its device, fetch it and save it as a
     mono preview. Prefer save_stf_preview_png when you have the f32
     plane."""
-    save_gray_png(nearest_downsample(u8_plane, max_dim).cpu().numpy(), path)
+    small = nearest_downsample(u8_plane, max_dim)
+    with trace.span("io.fetch"):
+        host = small.cpu().numpy()
+    save_gray_png(host, path)
 
 
 def save_stf_preview_png(plane: torch.Tensor, stf: StfParams,
@@ -104,13 +108,17 @@ def save_stf_preview_png(plane: torch.Tensor, stf: StfParams,
     """Nearest-downsample the f32 plane first, then STF-map and
     quantise (the STF is pointwise, so it commutes with subsampling),
     fetch the u8 preview and save it."""
-    small = nearest_downsample(plane, max_dim)
-    save_gray_png(apply_stf_u8(small, stf, stats).cpu().numpy(), path)
+    with trace.span("stats.stf"):
+        u8 = apply_stf_u8(nearest_downsample(plane, max_dim), stf, stats)
+    with trace.span("io.fetch"):
+        host = u8.cpu().numpy()
+    save_gray_png(host, path)
 
 
 def _save_rgb_u8(planes, path: str) -> None:
     """Fetch three u8 planes of one shape in one transfer; save RGB."""
-    r, g, b = torch.stack(planes).cpu().numpy()
+    with trace.span("io.fetch"):
+        r, g, b = torch.stack(planes).cpu().numpy()
     save_rgb_png(r, g, b, path)
 
 

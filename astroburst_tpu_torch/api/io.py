@@ -27,14 +27,16 @@ from astroburst_tpu_torch.io.prefetch import DeviceLoader
 from astroburst_tpu_torch.ops.ipc import encode_with_header_downsampled
 from astroburst_tpu_torch.ops.stats import (compute_histogram_with_stats,
                                             compute_image_stats)
+from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.runtime.cache import GLOBAL_IMAGE_CACHE
 from astroburst_tpu_torch.runtime.device import device_or_cuda
 from astroburst_tpu_torch.runtime.output import resolve_output_dir
 
 
 def _histogram_payload(x, stats, stf_params) -> dict:
-    hist = compute_histogram_with_stats(x, stats,
-                                        bins=C.HISTOGRAM_BINS_DISPLAY)
+    with trace.span("stats.histogram"):
+        hist = compute_histogram_with_stats(x, stats,
+                                            bins=C.HISTOGRAM_BINS_DISPLAY)
     return {
         C.RES_BINS: hist.bins,
         C.RES_BIN_COUNT: len(hist.bins),
@@ -114,28 +116,31 @@ def process_fits(path: str, output_dir: str = "", *,
 def process_fits_full(path: str, output_dir: str = "", *,
                       device: Optional[torch.device] = None) -> dict:
     """process_fits + 512-bin display histogram + header (io/mod.rs:129)."""
-    t0 = Timer()
-    device = device_or_cuda(device)
-    out_dir = resolve_output_dir(output_dir)
-    rgb_result = _process_rgb_fits(path, out_dir, t0, True, device)
-    if rgb_result is not None:
-        return rgb_result
-    entry = load_cached_full(path, device)
-    stats = entry.stats
-    stf_params = auto_stf(stats)
-    png_path = png_path_for(path, out_dir)
-    helpers.save_stf_preview_png(entry.image, stf_params, stats,
-                                 png_path, MAX_PREVIEW_DIM)
-    h, w = entry.image.shape
-    return {
-        C.RES_PNG_PATH: png_path,
-        C.RES_DIMENSIONS: [w, h],
-        C.RES_ELAPSED_MS: t0.elapsed_ms(),
-        C.RES_STATS: helpers.stats_json_full(stats),
-        C.RES_STF: helpers.stf_json(stf_params),
-        C.RES_HEADER: dict(entry.header.index) if entry.header else None,
-        C.RES_HISTOGRAM: _histogram_payload(entry.image, stats, stf_params),
-    }
+    with trace.span("api.process_fits_full"):
+        t0 = Timer()
+        device = device_or_cuda(device)
+        out_dir = resolve_output_dir(output_dir)
+        rgb_result = _process_rgb_fits(path, out_dir, t0, True, device)
+        if rgb_result is not None:
+            return rgb_result
+        entry = load_cached_full(path, device)
+        stats = entry.stats
+        with trace.span("stats.stf"):
+            stf_params = auto_stf(stats)
+        png_path = png_path_for(path, out_dir)
+        helpers.save_stf_preview_png(entry.image, stf_params, stats,
+                                     png_path, MAX_PREVIEW_DIM)
+        h, w = entry.image.shape
+        return {
+            C.RES_PNG_PATH: png_path,
+            C.RES_DIMENSIONS: [w, h],
+            C.RES_ELAPSED_MS: t0.elapsed_ms(),
+            C.RES_STATS: helpers.stats_json_full(stats),
+            C.RES_STF: helpers.stf_json(stf_params),
+            C.RES_HEADER: dict(entry.header.index) if entry.header else None,
+            C.RES_HISTOGRAM: _histogram_payload(entry.image, stats,
+                                                stf_params),
+        }
 
 
 def get_raw_pixels_preview(path: str, max_dim: Optional[int] = None, *,

@@ -32,6 +32,7 @@ from astroburst_tpu_torch.io.header import (HduHeader, HduInfo,
                                             extract_header_value)
 from astroburst_tpu_torch.native import checked_target as _checked
 from astroburst_tpu_torch.native import decode_pixels_native
+from astroburst_tpu_torch.runtime import trace
 
 _BITPIX_DTYPES = {
     8: np.dtype(">u1"),
@@ -54,7 +55,10 @@ def decode_pixels(raw, bitpix: int, bscale: float, bzero: float,
     the reference's per-pixel math does."""
     if bitpix not in _BITPIX_DTYPES:
         raise FitsError(f"Unsupported BITPIX {bitpix}")
-    return decode_pixels_native(raw, bitpix, bscale, bzero, out)
+    with trace.span("io.decode"):
+        px = decode_pixels_native(raw, bitpix, bscale, bzero, out)
+        trace.count("io.decode_bytes", px.nbytes)
+    return px
 
 
 def decode_pixels_plain(raw, bitpix: int, bscale: float, bzero: float,

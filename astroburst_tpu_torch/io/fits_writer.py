@@ -24,6 +24,7 @@ from astroburst_tpu_torch.constants import BLOCK_SIZE
 from astroburst_tpu_torch.errors import FitsError
 from astroburst_tpu_torch.io.header import HduHeader
 from astroburst_tpu_torch.native import encode_be_to_fd
+from astroburst_tpu_torch.runtime import trace
 
 # WCS keyword whitelist (writer.rs:10-19)
 WCS_PREFIXES = (
@@ -177,7 +178,8 @@ def write_fits_mono(path: str, data: np.ndarray,
     else:
         bzero, bscale = 0.0, 1.0
     hdr = _header_bytes(data.shape, bitpix, bzero, bscale, header, rgb=False)
-    _write_fits_file(path, hdr, [data], bitpix, bzero, bscale)
+    with trace.span("io.write"):
+        _write_fits_file(path, hdr, [data], bitpix, bzero, bscale)
 
 
 def write_fits_rgb(path: str, r: np.ndarray, g: np.ndarray, b: np.ndarray,

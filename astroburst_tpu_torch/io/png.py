@@ -16,6 +16,7 @@ import zlib
 import numpy as np
 
 from astroburst_tpu_torch.errors import InvalidInput
+from astroburst_tpu_torch.runtime import trace
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _GRAY, _RGB = 0, 2   # PNG colour types
@@ -30,14 +31,18 @@ def _png_bytes(samples: np.ndarray, bit_depth: int, colour: int) -> bytes:
     """The PNG file of [H, W] (gray) or [H, W, 3] (RGB) samples cast to
     u8 at ``bit_depth`` 8 or to big-endian u16 at 16."""
     dtype = ">u2" if bit_depth == 16 else np.uint8
-    arr = np.ascontiguousarray(samples, dtype=dtype)
-    h, w = arr.shape[:2]
-    raw = arr.view(np.uint8).reshape(h, -1)
-    scanlines = np.concatenate([np.zeros((h, 1), np.uint8), raw], axis=1)
+    with trace.span("io.png.scanlines"):
+        arr = np.ascontiguousarray(samples, dtype=dtype)
+        h, w = arr.shape[:2]
+        raw = arr.view(np.uint8).reshape(h, -1)
+        scanlines = np.concatenate([np.zeros((h, 1), np.uint8), raw], axis=1)
+    with trace.span("io.png.deflate"):
+        trace.count("io.png.raw_bytes", scanlines.nbytes)
+        idat = zlib.compress(scanlines, 6)
+        trace.count("io.png.out_bytes", len(idat))
     ihdr = struct.pack(">IIBBBBB", w, h, bit_depth, colour, 0, 0, 0)
     return b"".join((_SIGNATURE, _png_chunk(b"IHDR", ihdr),
-                     _png_chunk(b"IDAT", zlib.compress(scanlines, 6)),
-                     _png_chunk(b"IEND", b"")))
+                     _png_chunk(b"IDAT", idat), _png_chunk(b"IEND", b"")))
 
 
 def encode_gray_png(pixels: np.ndarray, bit_depth: int = 8) -> bytes:
@@ -49,7 +54,7 @@ def encode_gray_png(pixels: np.ndarray, bit_depth: int = 8) -> bytes:
 
 
 def _save(path: str, data: bytes) -> None:
-    with open(path, "wb") as f:
+    with trace.span("io.write"), open(path, "wb") as f:
         f.write(data)
 
 

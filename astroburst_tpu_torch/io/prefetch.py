@@ -34,6 +34,7 @@ from astroburst_tpu_torch.errors import FitsError
 from astroburst_tpu_torch.io.fits_reader import (Alloc, _Mapped,
                                                  decode_pixels, extract_cube,
                                                  extract_image, find_cube_hdu)
+from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.runtime.device import device_or_cuda
 
 # loader(path, alloc) → an object whose ``image`` is the f32 ndarray
@@ -63,8 +64,9 @@ class DeviceLoader:
     def __call__(self, path: str):
         if not self._cuda:
             img = self.loader(path, None)
-            img.image = torch.from_numpy(
-                np.ascontiguousarray(img.image, np.float32)).to(self.device)
+            with trace.span("io.upload"):
+                img.image = torch.from_numpy(np.ascontiguousarray(
+                    img.image, np.float32)).to(self.device)
             return img
         pinned: List[torch.Tensor] = []
 
@@ -78,15 +80,16 @@ class DeviceLoader:
             raise ValueError(f"loader did not decode {path} into the one "
                              f"buffer alloc gave it")
         host = pinned[0]
-        with torch.cuda.stream(self._side):
-            dev = torch.empty(host.shape, dtype=torch.float32,
-                              device=self.device)
-            dev.copy_(host, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(self._side)
-        self._consumer.wait_event(copied)
-        dev.record_stream(self._consumer)
-        copied.synchronize()   # the pinned buffer outlives the copy
+        with trace.span("io.upload"):
+            with torch.cuda.stream(self._side):
+                dev = torch.empty(host.shape, dtype=torch.float32,
+                                  device=self.device)
+                dev.copy_(host, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(self._side)
+            self._consumer.wait_event(copied)
+            dev.record_stream(self._consumer)
+            copied.synchronize()   # the pinned buffer outlives the copy
         img.image = dev
         return img
 

@@ -35,6 +35,7 @@ from astroburst_tpu_torch.constants import (HISTOGRAM_BINS_DISPLAY,
                                             MAD_TO_SIGMA)
 from astroburst_tpu_torch.dtypes import Histogram, ImageStats
 from astroburst_tpu_torch.ops.masking import validity_mask
+from astroburst_tpu_torch.runtime import trace
 
 EXACT_PATH_MAX_PIXELS = 4_000_000  # stats.rs:18
 
@@ -58,6 +59,11 @@ def _rank_median(sorted_vals: torch.Tensor, count: torch.Tensor,
 def stats_core(x: torch.Tensor, exact_pair: bool):
     """(min, max, sum, count, median, mad) of the valid pixels of x
     (any shape), as 0-d tensors on x's device."""
+    with trace.span("stats.core"):
+        return _stats_core(x, exact_pair)
+
+
+def _stats_core(x: torch.Tensor, exact_pair: bool):
     flat = x.reshape(-1)
     mask = validity_mask(flat)
     count = mask.sum()
@@ -79,8 +85,10 @@ def compute_image_stats(x: torch.Tensor) -> ImageStats:
     host in one transfer (as f64: exact for the f32 values and the
     count)."""
     exact_pair = x.numel() <= EXACT_PATH_MAX_PIXELS
-    mn, mx, total, count, med, mad = torch.stack(
-        [v.to(torch.float64) for v in stats_core(x, exact_pair)]).tolist()
+    with trace.span("stats.core"):
+        mn, mx, total, count, med, mad = torch.stack(
+            [v.to(torch.float64) for v in _stats_core(x, exact_pair)]
+        ).tolist()
     n = int(count)
     if n == 0:
         return ImageStats()

@@ -36,6 +36,7 @@ from astroburst_tpu_torch.ops.stats import stats_core
 from astroburst_tpu_torch.parallel.halo import exchange_row_halos
 from astroburst_tpu_torch.parallel.mesh import (Mesh, Sharded, as_sharded,
                                                 on_shards)
+from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.stacking.onepass_kernel import (
     shift_clip_onepass, shift_clip_onepass_plain, shift_clip_onepass_slab,
     shift_clip_onepass_slab_plain, slab_halo)
@@ -54,33 +55,36 @@ def align_stack_stretch(stack: torch.Tensor, sigma_low: float = 3.0,
     ``plain`` runs the plain torch versions of the kernels instead (to
     hold the kernels to them on the card).
     """
-    n = stack.shape[0]
-    zeros = torch.zeros(n, dtype=torch.float32, device=stack.device)
-    if align and n > 1:
-        dys1, dxs1, confs1 = phase_correlate_stack(stack[0], stack[1:],
-                                                   plain=plain)
-        dys = torch.cat([zeros[:1], dys1])
-        dxs = torch.cat([zeros[:1], dxs1])
-        confs = torch.cat([zeros[:1], confs1])
-    else:
-        dys = dxs = confs = zeros
+    with trace.span("pipeline.align_stack_stretch"):
+        n = stack.shape[0]
+        zeros = torch.zeros(n, dtype=torch.float32, device=stack.device)
+        if align and n > 1:
+            dys1, dxs1, confs1 = phase_correlate_stack(stack[0], stack[1:],
+                                                       plain=plain)
+            dys = torch.cat([zeros[:1], dys1])
+            dxs = torch.cat([zeros[:1], dxs1])
+            confs = torch.cat([zeros[:1], confs1])
+        else:
+            dys = dxs = confs = zeros
 
-    clip = shift_clip_onepass_plain if plain else shift_clip_onepass
-    combined, rejected = clip(stack, dys, dxs, sigma_low, sigma_high,
-                              max_iter)
-    mn, mx, _total, count, med, mad = stats_core(combined, exact_pair)
-    sigma = torch.clamp(mad * 1.4826, min=1e-30)
-    shadow, midtone = auto_stf_traced(mn, mx, med, sigma, count)
-    preview = apply_stf_traced(combined, mn, mx, shadow, midtone, as_u8=True)
-    return {
-        "combined": combined,
-        "preview": preview,
-        "offsets": torch.stack([dys, dxs], dim=1),
-        "confidences": confs,
-        "rejected": rejected,
-        "stf": torch.stack([shadow, midtone]),
-        "data_range": torch.stack([mn, mx]),
-    }
+        clip = shift_clip_onepass_plain if plain else shift_clip_onepass
+        combined, rejected = clip(stack, dys, dxs, sigma_low, sigma_high,
+                                  max_iter)
+        mn, mx, _total, count, med, mad = stats_core(combined, exact_pair)
+        with trace.span("stats.stf"):
+            sigma = torch.clamp(mad * 1.4826, min=1e-30)
+            shadow, midtone = auto_stf_traced(mn, mx, med, sigma, count)
+            preview = apply_stf_traced(combined, mn, mx, shadow, midtone,
+                                       as_u8=True)
+        return {
+            "combined": combined,
+            "preview": preview,
+            "offsets": torch.stack([dys, dxs], dim=1),
+            "confidences": confs,
+            "rejected": rejected,
+            "stf": torch.stack([shadow, midtone]),
+            "data_range": torch.stack([mn, mx]),
+        }
 
 
 # ---- sharded statistics --------------------------------------------------

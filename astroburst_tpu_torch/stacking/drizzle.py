@@ -66,6 +66,7 @@ from astroburst_tpu_torch.constants import MAD_TO_SIGMA
 from astroburst_tpu_torch.dtypes import (AlignMethod, AlignmentMethod,
                                          DrizzleConfig, DrizzleKernel)
 from astroburst_tpu_torch.errors import InvalidInput
+from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.runtime.device import cuda_device
 
 PRESENT = 1e-12  # a push counts when its weight exceeds this (drizzle.rs)
@@ -349,6 +350,16 @@ def _drizzle_kernel_exact(stack, d_ys, d_xs, scale: float, pixfrac: float,
     as the JAX function adds it (stacking/drizzle.py:302-306). Returns
     (image [out_rows, out_cols] f32, weight map f32, rejected: 0-d int64
     tensor, summed over every band row as the JAX function sums it)."""
+    with trace.span("stacking.drizzle"):
+        return _drizzle_bands(stack, d_ys, d_xs, scale, pixfrac, kernel,
+                              out_rows, out_cols, sigma_low, sigma_high,
+                              sigma_iterations, band_rows, plain,
+                              row0_offset)
+
+
+def _drizzle_bands(stack, d_ys, d_xs, scale, pixfrac, kernel, out_rows,
+                   out_cols, sigma_low, sigma_high, sigma_iterations,
+                   band_rows, plain, row0_offset):
     from astroburst_tpu_torch.stacking.drizzle_kernel import (
         drizzle_finalize_fused)
     n, in_rows, in_cols = stack.shape
@@ -367,24 +378,29 @@ def _drizzle_kernel_exact(stack, d_ys, d_xs, scale: float, pixfrac: float,
                       device=dev)
     wgt = torch.empty_like(img)
     rejected = torch.zeros((), dtype=torch.int64, device=dev)
+    trace.count("stacking.drizzle.bands", n_bands)
     for b in range(n_bands):
         # band rows [r0, r0 + band_rows) are the full drizzle of a
         # vertically offset output: cy' = cy − r0
-        idy, wy = _exact_taps(band_rows, in_rows, d_ys - r0s[b], scale,
-                              pixfrac, kernel)
-        cand = _gather(stack, idy, idx)
-        if plain:
-            bi, bw, br = _finalize_exact(
-                *_masked_candidates(cand, _outer(wy, wx)), cap, sigma_low,
-                sigma_high, sigma_iterations)
-        else:
-            bi, bw, br = drizzle_finalize_fused(
-                cand, wy.reshape(n * taps, band_rows).T.contiguous(), wxs,
-                n, taps, taps, cap, sigma_low, sigma_high, sigma_iterations)
-        rows = slice(b * band_rows, (b + 1) * band_rows)
-        img[rows] = bi
-        wgt[rows] = bw
-        rejected += br.sum()
+        with trace.span("stacking.drizzle.taps"):
+            idy, wy = _exact_taps(band_rows, in_rows, d_ys - r0s[b], scale,
+                                  pixfrac, kernel)
+        with trace.span("stacking.drizzle.gather"):
+            cand = _gather(stack, idy, idx)
+        with trace.span("stacking.drizzle.finalize"):
+            if plain:
+                bi, bw, br = _finalize_exact(
+                    *_masked_candidates(cand, _outer(wy, wx)), cap,
+                    sigma_low, sigma_high, sigma_iterations)
+            else:
+                bi, bw, br = drizzle_finalize_fused(
+                    cand, wy.reshape(n * taps, band_rows).T.contiguous(),
+                    wxs, n, taps, taps, cap, sigma_low, sigma_high,
+                    sigma_iterations)
+            rows = slice(b * band_rows, (b + 1) * band_rows)
+            img[rows] = bi
+            wgt[rows] = bw
+            rejected += br.sum()
     return img[:out_rows], wgt[:out_rows], rejected
 
 
@@ -565,6 +581,12 @@ def drizzle_stack(images: Sequence, config: DrizzleConfig = DrizzleConfig(),
     with ``tick_with_stage`` and ``check_cancelled``. ``plain`` runs the
     plain torch versions of the kernels (to hold the kernels to them on
     the card)."""
+    with trace.span("stacking.drizzle_stack"):
+        return _drizzle_stack(images, config, progress, exact, device,
+                              plain)
+
+
+def _drizzle_stack(images, config, progress, exact, device, plain):
     if len(images) == 0:
         raise InvalidInput("No images to drizzle")
     if len(images) < 2:

@@ -41,6 +41,7 @@ import torch
 
 from astroburst_tpu_torch.ops.resample import as_offsets, shift_bicubic_batch
 from astroburst_tpu_torch.runtime import kernels as K
+from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.stacking.clip import sigma_clip_core
 
 MAX_REG_FRAMES = 32        # register instances: CAP 4, 8, ..., 32
@@ -134,12 +135,13 @@ def shift_clip_onepass(stack: torch.Tensor, dys, dxs,
     """Shift frame k of [N, H, W] by (dys[k], dxs[k]) bicubically, then
     sigma-clip combine over the frames. Returns (combined [H, W] f32,
     rejected: 0-d int64 tensor)."""
-    if not K.use_kernel(stack, "shift_clip_onepass"):
-        return shift_clip_onepass_plain(stack, dys, dxs, sigma_low,
-                                        sigma_high, max_iter)
-    out, rejected, _ = shift_clip_maps(stack, dys, dxs, sigma_low,
-                                       sigma_high, max_iter)
-    return out, rejected.sum()
+    with trace.span("stacking.shift_clip"):
+        if not K.use_kernel(stack, "shift_clip_onepass"):
+            return shift_clip_onepass_plain(stack, dys, dxs, sigma_low,
+                                            sigma_high, max_iter)
+        out, rejected, _ = shift_clip_maps(stack, dys, dxs, sigma_low,
+                                           sigma_high, max_iter)
+        return out, rejected.sum()
 
 
 shift_clip_onepass.launches = 0
