@@ -75,6 +75,10 @@ SIGNATURES = {
     # sigma_high, iterations, scratch, img, wgt, rej, stream
     "abt_drizzle_gather": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                            _F, _I, _P, _P, _P, _P, _P),
+    # stack, iy, wys_t, ix, wxs, n, taps, in_h, in_w, h, w, cap,
+    # sigma_low, sigma_high, iterations, scratch, img, wgt, rej, stream
+    "abt_drizzle_gather_banded": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _F, _F, _I, _P, _P, _P, _P, _P),
     # xs, ys, radii, k, softness, h, w, out, stream
     "abt_star_mask": (_P, _P, _P, _I, _F, _I, _I, _P, _P),
     # plane, ty, tx, step, csize, threads, out, counts, stream

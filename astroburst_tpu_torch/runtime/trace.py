@@ -83,12 +83,19 @@ Name                                Where
 ``stacking.shift_clip``             ``stacking.onepass_kernel.
                                     shift_clip_onepass`` (kernel K3)
 ``stacking.drizzle``                the body of ``stacking.drizzle.
-                                    _drizzle_kernel_exact``; counter
-                                    ``stacking.drizzle.bands``
-``stacking.drizzle.taps``           each band's row taps
-``stacking.drizzle.gather``         each band's candidate gather
-``stacking.drizzle.finalize``       each band's finalize (kernel K7) and
-                                    its writes into the image and weights
+                                    _drizzle_kernel_exact``; counters
+                                    ``stacking.drizzle.bands`` (its bands)
+                                    and ``stacking.drizzle.fused`` (1 a
+                                    call that takes the one launch: a CUDA
+                                    stack, not ``plain``)
+``stacking.drizzle.taps``           the one launch's batched tap pass; in
+                                    the band loop each band's row taps
+``stacking.drizzle.gather``         the one launch of
+                                    ``drizzle_gather_banded``; in the band
+                                    loop each band's candidate gather
+``stacking.drizzle.finalize``       the band loop's finalize of a band
+                                    (kernel K7) and its writes into the
+                                    image and weights
 ``trace.dropped``                   counter: records past ``MAX_RECORDS``
 ==================================  ========================================
 """

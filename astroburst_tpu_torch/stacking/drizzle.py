@@ -10,14 +10,20 @@ map = Σw).
 The JAX package's gather-side formulation is kept: the frame → output
 mapping is a uniform scale plus a per-frame offset and every kernel is
 separable, so each frame's contributions come from per-axis tap
-vectors (index, weight). The exact mode (the default) gathers one
-candidate plane per (frame, y-tap, x-tap) in the reference's push
-order, banded over output rows, and finalizes the capped push list per
-pixel — kernel K7 (stacking/drizzle_kernel.py) on the card. The
-pre-averaging mode collapses each frame's contributions to one
-estimate first; ``drizzle_stack`` routes to it when no output pixel can
-receive two contributions of one frame (square kernel,
-1 + pixfrac·scale ≤ scale).
+vectors (index, weight). The exact mode (the default) takes one
+candidate per (frame, y-tap, x-tap) in the reference's push order,
+banded over output rows, and finalizes the capped push list per pixel.
+On the card every band runs in one launch: one tap pass makes the row
+taps of all bands (``_band_row_tables``) and the x taps, and
+``drizzle_gather_banded`` (stacking/drizzle_gather_kernel.py,
+csrc/drizzle_banded.cu) gathers each pixel's candidates from the stack
+through those tables and finalizes them as kernel K7 does; no candidate
+tensor exists. On a CPU stack, or with ``plain``, the band loop runs
+(``_drizzle_bands``: each band's candidate tensor, then K7's plain
+version or the XLA route), with the same bits. The pre-averaging mode
+collapses each frame's contributions to one estimate first;
+``drizzle_stack`` routes to it when no output pixel can receive two
+contributions of one frame (square kernel, 1 + pixfrac·scale ≤ scale).
 
 Differences from the JAX module, none of them in the arithmetic:
 
@@ -66,6 +72,7 @@ from astroburst_tpu_torch.constants import MAD_TO_SIGMA
 from astroburst_tpu_torch.dtypes import (AlignMethod, AlignmentMethod,
                                          DrizzleConfig, DrizzleKernel)
 from astroburst_tpu_torch.errors import InvalidInput
+from astroburst_tpu_torch.runtime import kernels as K
 from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.runtime.device import cuda_device
 
@@ -334,32 +341,111 @@ def _drizzle_kernel_exact(stack, d_ys, d_xs, scale: float, pixfrac: float,
                           sigma_high: float, sigma_iterations: int,
                           band_rows: int = 64, *, plain: bool = False,
                           row0_offset: int = 0):
-    """Exact drizzle: per-(frame, tap) candidate planes with the
-    reference's capped push-list semantics, banded over output rows to
-    bound the [n·taps², band_rows, out_cols] candidate tensor.
+    """Exact drizzle: per-(frame, tap) candidates with the reference's
+    capped push-list semantics, over bands of ``band_rows`` output rows,
+    each the drizzle of a vertically offset output.
 
-    Each band is finalized by kernel K7 (``drizzle_finalize_fused``: the
-    raw candidates and the per-axis weights; its plain version on a CPU
-    stack); ``plain`` runs the JAX package's XLA route instead (the
-    masked candidates of ``_frame_candidates``, ``_masked_candidates``
-    here, then ``_finalize_exact``), to hold the kernel to it on the
-    card. The x taps are the same for every band and are made once.
-    ``row0_offset`` makes the call compute rows [row0_offset,
-    row0_offset + out_rows) of the whole output grid (the row-sharded
-    drizzle, parallel/drizzle.py): it is added to every band's origin,
-    as the JAX function adds it (stacking/drizzle.py:302-306). Returns
-    (image [out_rows, out_cols] f32, weight map f32, rejected: 0-d int64
-    tensor, summed over every band row as the JAX function sums it)."""
+    On a CUDA stack every band runs in one launch
+    (``_drizzle_one_launch``: the bands' row taps from one batched tap
+    pass, then ``drizzle_gather_banded``, which gathers each pixel's
+    candidates itself and finalizes them as K7 does). On a CPU stack, or
+    with ``plain``, the band loop (``_drizzle_bands``) runs: each band's
+    candidate tensor finalized by K7's plain version, or with ``plain``
+    by the JAX package's XLA route (the masked candidates of
+    ``_frame_candidates``, ``_masked_candidates`` here, then
+    ``_finalize_exact``), to hold the kernel to it on the card. Both
+    routes give the same bits. ``row0_offset`` makes the call compute rows
+    [row0_offset, row0_offset + out_rows) of the whole output grid (the
+    row-sharded drizzle, parallel/drizzle.py): it is added to every
+    band's origin, as the JAX function adds it
+    (stacking/drizzle.py:302-306). Returns (image [out_rows, out_cols]
+    f32, weight map f32, rejected: 0-d int64 tensor, summed over every
+    band row as the JAX function sums it)."""
+    args = (stack, d_ys, d_xs, scale, pixfrac, kernel, out_rows, out_cols,
+            sigma_low, sigma_high, sigma_iterations, band_rows, row0_offset)
     with trace.span("stacking.drizzle"):
-        return _drizzle_bands(stack, d_ys, d_xs, scale, pixfrac, kernel,
-                              out_rows, out_cols, sigma_low, sigma_high,
-                              sigma_iterations, band_rows, plain,
-                              row0_offset)
+        if plain or not K.use_kernel(stack, "drizzle_gather_banded"):
+            return _drizzle_bands(*args, plain=plain)
+        return _drizzle_one_launch(*args)
+
+
+def _band_origins(n_bands: int, band_rows: int, row0_offset: int,
+                  scale: float, dev) -> torch.Tensor:
+    """r0 / scale of every band, f32 [n_bands]."""
+    return _div(torch.arange(n_bands, dtype=torch.float32, device=dev)
+                * band_rows + float(row0_offset), scale)
+
+
+def _band_row_tables(in_rows: int, d_ys: torch.Tensor, r0s: torch.Tensor,
+                     band_rows: int, scale: float, pixfrac: float,
+                     kernel: DrizzleKernel):
+    """The row taps of every band from one ``_exact_taps`` call, the
+    band offsets broadcast (every element is the per-band call's f32
+    formula), laid out per output row of the padded grid: (iy [n_bands ·
+    band_rows, n·taps] int32, wys_t [n_bands · band_rows, n·taps] f32,
+    taps); row b·band_rows + r, column f·taps + t is band b's tap t of
+    frame f at row r."""
+    n, n_bands = d_ys.shape[0], r0s.shape[0]
+    idy, wy = _exact_taps(band_rows, in_rows,
+                          (d_ys[None, :] - r0s[:, None]).reshape(-1), scale,
+                          pixfrac, kernel)
+    taps = idy.shape[1]
+
+    def per_row(a):
+        return (a.reshape(n_bands, n, taps, band_rows).permute(0, 3, 1, 2)
+                .reshape(n_bands * band_rows, n * taps).contiguous())
+    return per_row(idy.to(torch.int32)), per_row(wy), taps
+
+
+def _one_launch_tables(stack, d_ys, d_xs, scale: float, pixfrac: float,
+                       kernel: DrizzleKernel, out_cols: int, n_bands: int,
+                       band_rows: int, row0_offset: int):
+    """The tap tables of ``drizzle_gather_banded`` for every band: (iy,
+    wys_t, ix [n·taps, out_cols] int32, wxs [n·taps, out_cols] f32,
+    taps), ``iy`` and ``wys_t`` from ``_band_row_tables``."""
+    n, in_rows, in_cols = stack.shape
+    idx, wx = _exact_taps(out_cols, in_cols, d_xs, scale, pixfrac, kernel)
+    iy, wys_t, taps = _band_row_tables(
+        in_rows, d_ys, _band_origins(n_bands, band_rows, row0_offset, scale,
+                                     stack.device),
+        band_rows, scale, pixfrac, kernel)
+    return (iy, wys_t, idx.reshape(n * taps, out_cols).to(torch.int32),
+            wx.reshape(n * taps, out_cols), taps)
+
+
+def _drizzle_one_launch(stack, d_ys, d_xs, scale, pixfrac, kernel, out_rows,
+                        out_cols, sigma_low, sigma_high, sigma_iterations,
+                        band_rows, row0_offset):
+    """Every band of the exact drizzle at once: one batched tap pass
+    (``_one_launch_tables``), then one ``drizzle_gather_banded`` over the
+    padded grid (its plain version on a CPU stack). No candidate tensor
+    exists."""
+    from astroburst_tpu_torch.stacking.drizzle_gather_kernel import (
+        drizzle_gather_banded)
+    n = stack.shape[0]
+    dev = stack.device
+    d_ys = torch.as_tensor(d_ys, dtype=torch.float32, device=dev)
+    d_xs = torch.as_tensor(d_xs, dtype=torch.float32, device=dev)
+    n_bands = -(-out_rows // band_rows)
+    trace.count("stacking.drizzle.bands", n_bands)
+    trace.count("stacking.drizzle.fused")
+    with trace.span("stacking.drizzle.taps"):
+        tables = _one_launch_tables(stack, d_ys, d_xs, scale, pixfrac,
+                                    kernel, out_cols, n_bands, band_rows,
+                                    row0_offset)
+    with trace.span("stacking.drizzle.gather"):
+        img, wgt, rej = drizzle_gather_banded(
+            stack, *tables, max(n * 2, 4), sigma_low, sigma_high,
+            sigma_iterations)
+    return img[:out_rows], wgt[:out_rows], rej.sum(dtype=torch.int64)
 
 
 def _drizzle_bands(stack, d_ys, d_xs, scale, pixfrac, kernel, out_rows,
                    out_cols, sigma_low, sigma_high, sigma_iterations,
-                   band_rows, plain, row0_offset):
+                   band_rows, row0_offset, *, plain: bool = False):
+    """The band loop: each band's row taps, candidate tensor and
+    finalize (K7, or with ``plain`` the XLA route) in turn. The x taps
+    are the same for every band and are made once."""
     from astroburst_tpu_torch.stacking.drizzle_kernel import (
         drizzle_finalize_fused)
     n, in_rows, in_cols = stack.shape
@@ -372,8 +458,7 @@ def _drizzle_bands(stack, d_ys, d_xs, scale, pixfrac, kernel, out_rows,
     wxs = wx.reshape(n * taps, out_cols)
 
     n_bands = -(-out_rows // band_rows)
-    r0s = _div(torch.arange(n_bands, dtype=torch.float32, device=dev)
-               * band_rows + float(row0_offset), scale)  # r0 / scale, f32
+    r0s = _band_origins(n_bands, band_rows, row0_offset, scale, dev)
     img = torch.empty((n_bands * band_rows, out_cols), dtype=torch.float32,
                       device=dev)
     wgt = torch.empty_like(img)

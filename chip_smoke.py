@@ -14,6 +14,8 @@
     python3 chip_smoke.py --phase-4m              # phase 4m alone
     python3 chip_smoke.py --phase-4n              # phase 4n alone
     python3 chip_smoke.py --phase-4o              # phase 4o alone
+    python3 chip_smoke.py --phase-4e-banded       # the one-launch exact
+                                                  # drizzle of phase 4e
 
 Phases, each of which fails loudly (nothing is caught; any failure
 exits non-zero, and so does a machine without a CUDA device):
@@ -101,7 +103,14 @@ exits non-zero, and so does a machine without a CUDA device):
    through both routes (ROADMAP C36: the parity plan's taps come from
    the host's exp/sin, the one-band route's from the card's), held to
    the JAX test's tolerances, bit-equality and the pixels and rejected
-   values that differ reported.
+   values that differ reported. Then the exact drizzle in one launch
+   (``check_banded_drizzle``: ``_drizzle_kernel_exact`` on the card,
+   one tap pass and ``drizzle_gather_banded``) against the band loop it
+   replaced (``_drizzle_bands``: taps, candidate gather and K7 band by
+   band), bit-equal at the drizzle bench (band 64) and on tie stacks in
+   every instance with the three kernels, a shard's ``row0_offset`` and
+   scale 1.5; its registers, stack and spills; its time beside the band
+   loop's and K9's.
    (f) the ``stack`` command (``astroburst_tpu_torch.api.stack``): the
    bench frames written as 16 FITS files (BITPIX -32, the port's
    writer) and the 150 frames of 1024^2 as 150 more; the command cold
@@ -148,8 +157,8 @@ exits non-zero, and so does a machine without a CUDA device):
    ``run_batch_pipeline`` on the card, each ``preview_b64`` equal to
    the 1024 downsample of the u8 STF; no kernel), ``drizzle_stack_cmd``
    on the 10 calibrated files (``drizzled.fits`` bit-equal to 4b's
-   ``drizzle_stack``; K1, K2 and K7 launched), ``resample_fits_cmd``
-   4096^2 → 2048^2 and 5655 x 2206 → 8192 x 3196 (within 1e-5 of the
+   ``drizzle_stack``; K1, K2 and the one-launch drizzle launched),
+   ``resample_fits_cmd`` 4096^2 → 2048^2 and 5655 x 2206 → 8192 x 3196 (within 1e-5 of the
    plane's largest magnitude of a numpy tap oracle, ``wcs_updates``
    exact), ``export_fits`` of ``drizzled.fits`` at BITPIX -32 (bit-equal)
    and 16 (half a quantum + 2 ulp) with the STF on and off,
@@ -194,8 +203,8 @@ exits non-zero, and so does a machine without a CUDA device):
    4096^2; the wizard's colour commands (blend, auto WB, WB + SCNR,
    reset, restretch, update, clear) at 3 x ``COMP_HW``^2;
    ``process_drizzle_rgb`` and ``drizzle_rgb`` (3 x 4 frames of 1024^2
-   → 2048^2: K1, K2, K7): offsets within 0.1 px of the generator's, the
-   rotation within 0.1 deg, cache planes and FITS bit-equal to the
+   → 2048^2: K1, K2, the one-launch drizzle): offsets within 0.1 px of
+   the generator's, the rotation within 0.1 deg, cache planes and FITS bit-equal to the
    module calls on the card, every PNG equal to the u8 of the card's
    planes, the modules against their plain path; each command cold and
    warm, counters reset and read around each, the alignment module
@@ -1415,6 +1424,22 @@ def check_vote(dev) -> dict:
     return entry
 
 
+def drizzle_bench(dev):
+    """The drizzle bench (bench_ops.py:366-397): 10 x 4096^2 f32 frames
+    of noise on 100 and offsets in +-2 px, from DRZ_SEED: (stack, d_ys,
+    d_xs) on ``dev``."""
+    import torch
+    drng = np.random.default_rng(DRZ_SEED)
+    gen = torch.Generator(device=dev).manual_seed(DRZ_SEED)
+    dstack = torch.randn((DRZ_N, DRZ_HW, DRZ_HW), generator=gen,
+                         device=dev) * 8.0 + 100.0
+    dd_ys = torch.as_tensor(drng.uniform(-2, 2, DRZ_N), dtype=torch.float32,
+                            device=dev)
+    dd_xs = torch.as_tensor(drng.uniform(-2, 2, DRZ_N), dtype=torch.float32,
+                            device=dev)
+    return dstack, dd_ys, dd_xs
+
+
 def parity_args(stack, d_ys, d_xs, pixfrac: float, iterations: int = 5):
     """K9's arguments for the exact square drizzle of ``stack`` at scale
     2: the plan's shifts and weights (stacking/drizzle.py:_plan_parity)
@@ -1853,6 +1878,156 @@ def check_parity_kernel(what, got, want) -> dict:
     return {"max_abs_err": d_img, "weights_max_abs_err": d_wgt,
             "pixels_differ": px_img, "weight_pixels_differ": px_wgt,
             "rejected": list(rej), "bit_equal": bit}
+
+
+# (frames, instance) of the one-launch exact drizzle at depth 2n (2 x 2
+# taps at pixfrac 1, cap 2n)
+BANDED_INSTANCES = ((4, "registers, CAP 8"), (16, "registers, CAP 32"),
+                    (20, "shared memory, 32 x 8"),
+                    (100, "shared memory, 32 x 2"), (150, "global scratch"))
+
+
+def same_bits(what: str, got, want) -> None:
+    """Image and weights equal by ``torch.equal``, the rejected count
+    equal; raises otherwise."""
+    import torch
+    d_img = float((got[0] - want[0]).abs().max()) if got[0].numel() else 0.0
+    ok = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+          and int(got[2]) == int(want[2]))
+    log(f"  {what}: bit-equal {ok}; image max|d|={d_img:.3e}, rejected "
+        f"{int(got[2])} vs {int(want[2])}")
+    if not ok:
+        raise AssertionError(f"{what}: not bit-equal to the band loop")
+
+
+def check_banded_drizzle(dstack, dd_ys, dd_xs, smi) -> dict:
+    """The exact drizzle in one launch (``_drizzle_kernel_exact`` on the
+    card: one batched tap pass, ``drizzle_gather_banded``) against the band
+    loop it replaces (``_drizzle_bands``: each band's taps, candidate
+    gather and K7): bit-equal at the drizzle bench (10 x 4096^2 → 8192^2,
+    band 64, pixfrac 0.7: one launch, no K7) and on ``tie_stack`` stacks
+    in every instance (BANDED_INSTANCES) with the square, gaussian and
+    lanczos3 kernels, the whole grid and a shard from row 24 (the
+    row-sharded drizzle's ``row0_offset``), and at scale 1.5. Prints the
+    build's registers, stack and spills of each instance and fails on a
+    spill or a register instance with a stack frame. Times the kernel
+    alone, the route, the band loop and K9 with CUDA events. Returns the
+    report entry."""
+    import torch
+    from astroburst_tpu_torch.dtypes import DrizzleKernel
+    from astroburst_tpu_torch.runtime import kernels as K
+    from astroburst_tpu_torch.stacking import drizzle as drz
+    from astroburst_tpu_torch.stacking.drizzle_gather_kernel import (
+        drizzle_gather_banded, drizzle_gather_banded_plain,
+        drizzle_gather_finalize)
+    from astroburst_tpu_torch.stacking.drizzle_kernel import (
+        drizzle_finalize_fused)
+    rows = [r for r in ptxas_summary(K.library().build_log)
+            if r[0].startswith("drizzle_banded")]
+    for name, regs, smem, stack_b, sst, sld in rows:
+        log(f"[banded]   {name}: {regs} registers, {smem} B smem, "
+            f"{stack_b} B stack, spills {sst}/{sld} B")
+    if {r[0].split("<")[0] for r in rows} != {
+            "drizzle_banded_kernel", "drizzle_banded_shared_kernel",
+            "drizzle_banded_scratch_kernel"}:
+        raise AssertionError(f"drizzle_banded instances missing: {rows}")
+    bad = [r[0] for r in rows if r[4] or r[5] or (
+        r[3] and r[0].startswith("drizzle_banded_kernel<"))]
+    if bad:
+        raise AssertionError(f"drizzle_banded spills or keeps a stack "
+                             f"frame: {bad}")
+    build = {r[0]: {"registers": r[1], "stack": r[3], "spills": r[4] + r[5]}
+             for r in rows}
+
+    n, h, w = dstack.shape
+    out = 2 * h
+    args = (dstack, dd_ys, dd_xs, 2.0, 0.7, DrizzleKernel.SQUARE, out, out,
+            3.0, 3.0, 5)
+    torch.cuda.synchronize()
+    l0 = (drizzle_gather_banded.launches, drizzle_finalize_fused.launches)
+    got = drz._drizzle_kernel_exact(*args)
+    launches = (drizzle_gather_banded.launches - l0[0],
+                drizzle_finalize_fused.launches - l0[1])
+    if launches != (1, 0):
+        raise AssertionError(f"the exact drizzle launched the banded gather "
+                             f"and K7 {launches} times, not (1, 0)")
+    want = drz._drizzle_bands(*args, 64, 0)
+    torch.cuda.synchronize()
+    same_bits(f"[banded] _drizzle_kernel_exact {n}x{h}x{w} -> {out}^2, "
+              f"band 64, one launch, vs the band loop (K7)", got, want)
+    del got, want
+
+    rng = np.random.default_rng(41)
+    kerns = (DrizzleKernel.SQUARE, DrizzleKernel.GAUSSIAN,
+             DrizzleKernel.LANCZOS3)
+    for nf, inst in BANDED_INSTANCES:
+        es = torch.as_tensor(tie_stack(nf, rng), device=dstack.device)
+        ed = torch.as_tensor(rng.uniform(-2, 2, (2, nf)).astype(np.float32),
+                             device=dstack.device)
+        # (kernel, scale, output columns, first row, rows)
+        cases = [(k, 2.0, 144, r0, n_rows)
+                 for k in kerns for r0, n_rows in ((0, 80), (24, 40))]
+        if nf == 4:
+            cases.append((DrizzleKernel.SQUARE, 1.5, 108, 0, 60))
+        for k, scale, cols, r0, n_rows in cases:
+            a = (es, ed[0], ed[1], scale, 1.0, k, n_rows, cols, 2.5, 3.0, 5)
+            same_bits(f"[banded] {nf}x40x72 {k.value} scale {scale}, rows "
+                      f"[{r0}, {r0 + n_rows}) in bands of 16, {inst}; ties, "
+                      f"+-0, NaN/inf",
+                      drz._drizzle_kernel_exact(*a, band_rows=16,
+                                                row0_offset=r0),
+                      drz._drizzle_bands(*a, 16, r0))
+        if nf == 150:   # the kernel against its own plain version too
+            tables = drz._one_launch_tables(es, ed[0], ed[1], 2.0, 1.0,
+                                            DrizzleKernel.SQUARE, 144, 5,
+                                            16, 0)
+            fin = (2 * nf, 2.5, 3.0, 5)
+            k_out = drizzle_gather_banded(es, *tables, *fin)
+            p_out = drizzle_gather_banded_plain(es, *tables, *fin)
+            same_bits(f"[banded] drizzle_gather_banded {nf}x40x72, "
+                      f"{inst}, vs its plain version",
+                      (k_out[0], k_out[1], k_out[2].sum()),
+                      (p_out[0], p_out[1], p_out[2].sum()))
+            if not torch.equal(k_out[2], p_out[2]):
+                raise AssertionError("rejected maps differ")
+
+    # times at the bench: the kernel alone, the route, the band loop, K9
+    n_bands = -(-out // 64)
+    tables = drz._one_launch_tables(dstack, dd_ys, dd_xs, 2.0, 0.7,
+                                    DrizzleKernel.SQUARE, out, n_bands, 64, 0)
+    fin = (max(2 * n, 4), 3.0, 3.0, 5)
+    taps = tables[4]
+    kernel_ms = cuda_ms(lambda: drizzle_gather_banded(dstack, *tables, *fin),
+                        10)
+    torch.cuda.reset_peak_memory_stats()
+    route_ms = cuda_ms(lambda: drz._drizzle_kernel_exact(*args), 10)
+    peak_route = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loop_ms = cuda_ms(lambda: drz._drizzle_bands(*args, 64, 0), 3)
+    peak_loop = torch.cuda.max_memory_allocated()
+    pargs = parity_args(dstack, dd_ys, dd_xs, 0.7)
+    k9_ms = cuda_ms(lambda: drizzle_gather_finalize(*pargs), 10)
+    route2_ms = cuda_ms(lambda: drz._drizzle_kernel_exact(*args), 10)
+    out_px = n_bands * 64 * out
+    m = n * taps * taps
+    # bytes: the stack, the four tables, three output planes; operations:
+    # w = wy·wx per candidate and the weight sum (K9's count)
+    t_bytes = 4 * (dstack.numel() + sum(t.numel() for t in tables[:4])) \
+        + 12 * out_px
+    entry = {"ms": kernel_ms, "route_ms": [route_ms, route2_ms],
+             "band_loop_ms": loop_ms, "k9_ms": k9_ms,
+             "peak_gib": {"route": peak_route / 2**30,
+                          "band_loop": peak_loop / 2**30},
+             "shape": [n, h, w], "candidates": m, "build": build,
+             "plain_ms": None, "library_ms": None}
+    entry.update(zip(("bound_ms", "bound_by"),
+                     bound(t_bytes, 2 * m * out_px)))
+    log(f"[time] {smi}: drizzle_gather_banded {n}x{h}^2 -> {out}^2 band 64 "
+        f"{kernel_ms:.3f} ms (bound {entry['bound_ms']:.3f}); "
+        f"_drizzle_kernel_exact one launch {route_ms:.3f} / {route2_ms:.3f} "
+        f"ms (peak {peak_route / 2**30:.2f} GiB) | band loop {loop_ms:.3f} "
+        f"ms (peak {peak_loop / 2**30:.2f} GiB) | K9 {k9_ms:.3f} ms")
+    return entry
 
 
 STACK_CMD_KEYS = {"fits_path", "png_path", "dimensions", "frame_count",
@@ -2609,10 +2784,10 @@ def calibrate_export_path(bias, darks, flats, lights, calibrated, dres,
     (``calibrated`` and ``dres`` are 4b's ``calibrate`` and
     ``drizzle_stack``). The kernel counters are reset before and read
     after each of three runs: calibrate + pipeline (no kernel: every
-    count 0), the drizzle command (K1, K2 and K7 launched), and the
-    resample + export commands (no kernel); the composite exports run
-    "cold" with the composite alone in the cache. Returns (launches
-    summed over the three runs, times in ms)."""
+    count 0), the drizzle command (K1, K2 and the one-launch drizzle
+    launched), and the resample + export commands (no kernel); the
+    composite exports run "cold" with the composite alone in the cache.
+    Returns (launches summed over the three runs, times in ms)."""
     import base64
     import os
     import shutil
@@ -2742,7 +2917,7 @@ def calibrate_export_path(bias, darks, flats, lights, calibrated, dres,
         for name in ("bias", "dark", "flat", "light"):
             shutil.rmtree(os.path.join(root, name))
 
-        # -- drizzle_stack_cmd: K1, K2, K7 -------------------------------
+        # -- drizzle_stack_cmd: K1, K2, the one-launch drizzle ----------
         reset()
         drz = run("drizzle_stack_cmd", lambda: api.drizzle_stack_cmd(
             paths["calibrated"], out))
@@ -2758,7 +2933,7 @@ def calibrate_export_path(bias, darks, flats, lights, calibrated, dres,
                    and res["input_dims"] == [hw, hw] and res["scale"] == 2.0
                    and res["frame_count"] == len(paths["calibrated"]),
                    {k: v for k, v in res.items() if k != "stats"})
-        for name in ("coarse_box", "gather_crops", "drizzle_finalize_fused"):
+        for name in ("coarse_box", "gather_crops", "drizzle_gather_banded"):
             expect(f"{name} never ran in drizzle_stack_cmd:",
                    launches_drz[name] > 0, launches_drz)
         log(f"[path] drizzle_stack_cmd ({len(paths['calibrated'])} "
@@ -3437,9 +3612,9 @@ def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
     ``restretch_composite_cmd`` → ``update_composite_channel_cmd`` →
     ``clear_composite_cache_cmd``); then ``process_drizzle_rgb`` on the
     three phase-correlation planes and ``drizzle_rgb`` on three channels
-    of DRZ_RGB_N dithered DRZ_RGB_HW^2 frames (K1, K2, K7). Each command
-    cold (empty image cache) and warm, or twice where it reads no file,
-    timed on the host clock ending in a synchronize; the kernel counters
+    of DRZ_RGB_N dithered DRZ_RGB_HW^2 frames (K1, K2, the one-launch
+    drizzle). Each command cold (empty image cache) and warm, or twice
+    where it reads no file, timed on the host clock ending in a synchronize; the kernel counters
     are reset just before each command and read just after. Checks:
 
     - offsets within 0.1 px of the generator's (phase correlation: the
@@ -3877,7 +4052,7 @@ def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
             f"KEY to ORIG x {tuple(round(f, 6) for f in factors)} → "
             f"apply_scnr, every PNG equal to the card's u8; no kernel")
 
-        # -- drizzle_rgb: K1, K2, K7 ---------------------------------------
+        # -- drizzle_rgb: K1, K2, the one-launch drizzle ------------------
         torch.cuda.synchronize()
         for f in counters.values():
             f.launches = 0
@@ -3919,7 +4094,7 @@ def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
         for k, v in launches["drizzle_rgb"].items():
             total[k] += v
         launched("drizzle_rgb", ("coarse_box", "gather_crops",
-                                 "drizzle_finalize_fused"))
+                                 "drizzle_gather_banded"))
         cmd_ms["drizzle_rgb"] = t_d
         expect("drizzle_rgb: dims", drz.out_dims == (2 * DRZ_RGB_HW,) * 2 and
                drz.frame_counts == {"r": DRZ_RGB_N, "g": DRZ_RGB_N,
@@ -5052,7 +5227,7 @@ def main() -> None:
     from astroburst_tpu_torch.imaging.star_mask_kernel import paint_mask
     from astroburst_tpu_torch.stacking.drizzle import drizzle_exact_parity
     from astroburst_tpu_torch.stacking.drizzle_gather_kernel import (
-        drizzle_gather_finalize)
+        drizzle_gather_banded, drizzle_gather_finalize)
 
     # ---- 1. device ---------------------------------------------------
     t_start = time.perf_counter()
@@ -5086,18 +5261,21 @@ def main() -> None:
             "tile_sort_chunked_kernel", "window_stats_kernel",
             "triangle_vote_kernel", "drizzle_gather_kernel",
             "drizzle_gather_shared_kernel", "drizzle_gather_scratch_kernel",
-            "star_mask_kernel", "dedupe_topk_kernel", "greedy_match_kernel"}
+            "drizzle_banded_kernel", "drizzle_banded_shared_kernel",
+            "drizzle_banded_scratch_kernel", "star_mask_kernel",
+            "dedupe_topk_kernel", "greedy_match_kernel"}
     if not want <= built:
         raise AssertionError(f"kernels missing from the build: "
                              f"{want - built}")
     spills = [r[0] for r in rows if r[4] or r[5]]
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
-    # the register instances of K3, K7/K8 and K9, and K2, K11, K12 and
-    # K13, keep their values out of local memory
+    # the register instances of K3, K7/K8, K9 and the one-launch drizzle,
+    # and K2, K11, K12 and K13, keep their values out of local memory
     framed = [r[0] for r in rows if r[3] and r[0].startswith((
         "shift_clip_kernel<", "drizzle_finalize_kernel<",
-        "drizzle_gather_kernel<", "gather_crops_kernel",
+        "drizzle_gather_kernel<", "drizzle_banded_kernel<",
+        "gather_crops_kernel",
         "window_stats_kernel", "triangle_vote_kernel",
         "star_mask_kernel", "greedy_match_kernel"))]
     if framed:
@@ -5248,14 +5426,7 @@ def main() -> None:
     # 10 x 4096^2 f32, offsets in +-2, scale 2, pixfrac 0.7, square,
     # 5 iterations → 2 x 2 taps, 40 candidates x 1024 x 8192)
     t0 = time.perf_counter()
-    drng = np.random.default_rng(DRZ_SEED)
-    gen = torch.Generator(device=dev).manual_seed(DRZ_SEED)
-    dstack = torch.randn((DRZ_N, DRZ_HW, DRZ_HW), generator=gen,
-                         device=dev) * 8.0 + 100.0
-    dd_ys = torch.as_tensor(drng.uniform(-2, 2, DRZ_N), dtype=torch.float32,
-                            device=dev)
-    dd_xs = torch.as_tensor(drng.uniform(-2, 2, DRZ_N), dtype=torch.float32,
-                            device=dev)
+    dstack, dd_ys, dd_xs = drizzle_bench(dev)
     out_hw = 2 * DRZ_HW
     r0 = 3 * DRZ_BAND   # the fourth band: r0/scale = 1536 in f32
     cand, wys, wxs, taps = _frame_candidates_raw(
@@ -5415,6 +5586,7 @@ def main() -> None:
                 "vote": vote,
                 "paint_mask": paint_mask,
                 "drizzle_gather_finalize": drizzle_gather_finalize,
+                "drizzle_gather_banded": drizzle_gather_banded,
                 "dedupe_topk": dedupe_topk,
                 "greedy_match": greedy_match}
     big_list = [torch.as_tensor(f, device=dev) for f in big_frames]
@@ -5561,7 +5733,7 @@ def main() -> None:
     launches_drizzle = {name: fn.launches for name, fn in counters.items()}
     log(f"[path] kernel launches in calibrate → drizzle_stack → stretch: "
         f"{launches_drizzle}")
-    for name in ("coarse_box", "gather_crops", "drizzle_finalize_fused"):
+    for name in ("coarse_box", "gather_crops", "drizzle_gather_banded"):
         if launches_drizzle[name] < 1:
             raise AssertionError(f"{name} never ran: {launches_drizzle}")
 
@@ -5658,7 +5830,7 @@ def main() -> None:
     parity_err = {}
     for tag, got, a in (("calibrated", par_cal, exact_args),
                         ("bench", par_bench, bench_args)):
-        want = _drizzle_kernel_exact(*a, band_rows=out_hw)   # K7, one band
+        want = _drizzle_kernel_exact(*a, band_rows=out_hw)   # one band
         parity_err[tag] = check_parity_drizzle(
             f"[path] drizzle_exact_parity {tag} vs one-band "
             f"_drizzle_kernel_exact", got, want)
@@ -5696,6 +5868,9 @@ def main() -> None:
                     "drizzle_stack_band64": (ms_d, ms_dp),
                     "drizzle_kernel_exact_band1024": (ms_b, ms_bp),
                     "drizzle_kernel_exact_one_band": (ms_one, None)}
+    # the exact drizzle in one launch against the band loop it replaces
+    report["drizzle_gather_banded"] = check_banded_drizzle(
+        dstack, dd_ys, dd_xs, smi)
     del cal_stack, dstack, exact_args, bench_args
 
     # ---- 4c. star detection → affine alignment → warp ----------------
@@ -5853,7 +6028,7 @@ def main() -> None:
     launches_compose, _ = compose_path(field, (f_ys, f_xs, f_amps, dead),
                                        counters, smi)
     for name in ("coarse_box", "gather_crops", "sort_tiles", "window_stats",
-                 "vote", "drizzle_finalize_fused", "dedupe_topk",
+                 "vote", "drizzle_gather_banded", "dedupe_topk",
                  "greedy_match"):
         if launches_compose[name] < 1:
             raise AssertionError(f"{name} never ran on the compose path: "
@@ -5954,6 +6129,19 @@ def main() -> None:
                                    for e, b in by_entry.items()}}
     entry.update(report["chain_scan"])
     kernels.append(entry)
+    # not a TPU port: the exact drizzle's band loop (taps, candidate
+    # gather, K7) in one launch
+    by_path = {path: counts["drizzle_gather_banded"]
+               for path, counts in paths.items()}
+    entry = {"name": "drizzle_gather_banded", "route": "cuda",
+             "source": "astroburst_tpu_torch/csrc/drizzle_banded.cu",
+             "replaces": "astroburst_tpu/stacking/drizzle.py:"
+                         "_drizzle_kernel_exact",
+             "replaces_note": "no pl.pallas_call: the band loop's XLA "
+                              "gather and K7 per band",
+             "launches": sum(by_path.values()), "launches_by_path": by_path}
+    entry.update(report["drizzle_gather_banded"])
+    kernels.append(entry)
     kernels[0]["also_replaces"] = [
         "astroburst_tpu/stacking/fused_kernel.py:223",
         "astroburst_tpu/stacking/rolling_kernel.py:226",
@@ -6037,8 +6225,8 @@ def phase_4j_alone(sides) -> None:
     from astroburst_tpu_torch.ops.crop_kernel import gather_crops
     from astroburst_tpu_torch.runtime import kernels as K
     from astroburst_tpu_torch.runtime.device import cuda_device
-    from astroburst_tpu_torch.stacking.drizzle_kernel import \
-        drizzle_finalize_fused
+    from astroburst_tpu_torch.stacking.drizzle_gather_kernel import \
+        drizzle_gather_banded
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     lib = K.library()
@@ -6049,7 +6237,7 @@ def phase_4j_alone(sides) -> None:
                 "gather_crops": gather_crops, "sort_tiles": sort_tiles,
                 "sort_tiles_chunked": sort_tiles_chunked,
                 "window_stats": window_stats, "vote": vote,
-                "drizzle_finalize_fused": drizzle_finalize_fused,
+                "drizzle_gather_banded": drizzle_gather_banded,
                 "dedupe_topk": dedupe_topk, "greedy_match": greedy_match}
     for side in sides:
         t0 = time.perf_counter()
@@ -6193,7 +6381,8 @@ def sharded_path(stack, counters, smi):
     plain version and the whole-stack K3; then, counters reset just
     before and read just after, ``make_sharded_stack_step`` on a (2, 2)
     mesh at the bench shape (K1, K2, K3's slab entry), ``sharded_drizzle``
-    (10 x 2048^2 → 4096^2, K7), ``sharded_fft2``/``sharded_ifft2``,
+    (10 x 2048^2 → 4096^2, the one-launch drizzle),
+    ``sharded_fft2``/``sharded_ifft2``,
     ``sharded_deconvolve`` and ``sharded_power_spectrum`` at 4096^2,
     ``make_sharded_compose`` (3 x 2048^2), ``sharded_collapse_mean``/
     ``median`` (256 x 512^2), ``sharded_atrous_smooth`` (4096^2) and
@@ -6318,7 +6507,7 @@ def sharded_path(stack, counters, smi):
     log(f"[path] kernel launches in the sharded paths (step, drizzle, "
         f"FFT, RL, spectrum, compose, cube, atrous, warp): {launches}")
     for name in ("shift_clip_slab", "coarse_box", "gather_crops",
-                 "drizzle_finalize_fused"):
+                 "drizzle_gather_banded"):
         if launches[name] < 1:
             raise AssertionError(f"{name} never ran: {launches}")
     if launches["shift_clip"]:
@@ -6813,8 +7002,8 @@ def phase_4n_alone() -> None:
 
 def phase_4m_alone() -> None:
     """Phase 4m alone: the build, the bench stack, then ``sharded_path``
-    with every K1/K2/K3/K7 counter; prints the card's name and power
-    limit and the seconds."""
+    with the K1/K2/K3 and one-launch drizzle counters; prints the card's
+    name and power limit and the seconds."""
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -6825,8 +7014,8 @@ def phase_4m_alone() -> None:
     from astroburst_tpu_torch.ops.crop_kernel import gather_crops
     from astroburst_tpu_torch.runtime import kernels as K
     from astroburst_tpu_torch.runtime.device import cuda_device
-    from astroburst_tpu_torch.stacking.drizzle_kernel import (
-        drizzle_finalize_fused)
+    from astroburst_tpu_torch.stacking.drizzle_gather_kernel import (
+        drizzle_gather_banded)
     from astroburst_tpu_torch.stacking.onepass_kernel import (
         shift_clip_onepass, shift_clip_onepass_slab)
     t_start = time.perf_counter()
@@ -6843,7 +7032,7 @@ def phase_4m_alone() -> None:
                 "shift_clip_slab": shift_clip_onepass_slab,
                 "coarse_box": coarse_downsample_stack,
                 "gather_crops": gather_crops,
-                "drizzle_finalize_fused": drizzle_finalize_fused}
+                "drizzle_gather_banded": drizzle_gather_banded}
     launches, entry, times = sharded_path(stack, counters, smi)
     log(f"[4m] launches {launches}; slab entry {json.dumps(entry)}; "
         f"times {json.dumps(times)}")
@@ -7249,9 +7438,31 @@ def phase_4o_alone() -> None:
     log(f"[codec] {smi}: " + json.dumps(times))
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
 
+def phase_4e_banded_alone() -> None:
+    """The one-launch exact drizzle alone: the build, the drizzle bench
+    stack of phase 3, then ``check_banded_drizzle``; prints the card's
+    name and power limit, the report entry and the seconds."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                 "is false); this script runs only on the card")
+    from astroburst_tpu_torch.runtime import kernels as K
+    from astroburst_tpu_torch.runtime.device import cuda_device
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    lib = K.library()
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvcc {lib.build_seconds:.1f} s")
+    dstack, dd_ys, dd_xs = drizzle_bench(cuda_device())
+    entry = check_banded_drizzle(dstack, dd_ys, dd_xs, smi)
+    log(f"[banded] {smi}: " + json.dumps(entry))
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
+
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--phase-4o"]:
+    if sys.argv[1:2] == ["--phase-4e-banded"]:
+        phase_4e_banded_alone()
+    elif sys.argv[1:2] == ["--phase-4o"]:
         phase_4o_alone()
     elif sys.argv[1:2] == ["--phase-4n"]:
         phase_4n_alone()

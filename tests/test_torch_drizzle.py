@@ -23,6 +23,11 @@ tolerances of tests/test_reference_impl.py:295-299 (image atol 2e-4 /
 rtol 1e-6, weights atol 1e-5, rejected count equal), and bit-equal to
 the port's own one-band ``_drizzle_kernel_exact``.
 
+The card's one-launch route (``_drizzle_one_launch``: one batched tap
+pass, then ``drizzle_gather_banded``) with the gather's plain version:
+its per-row tap tables bit-equal to the band loop's per-band taps, its
+result bit-equal to the band loop in every depth instance.
+
 The CUDA kernels themselves run only on the card: chip_smoke.py holds
 them to these plain versions there.
 """
@@ -400,6 +405,99 @@ def test_drizzle_taps_match_jax_vectors():
                         np.testing.assert_allclose(tw[k, t].numpy(),
                                                    np.asarray(jw),
                                                    atol=1e-6, rtol=1e-6)
+
+
+# ---- the one-launch route: per-row tap tables and the banded gather -------
+
+
+@pytest.mark.parametrize("kern,scale,pixfrac", [
+    ("square", 2.0, 0.7), ("gaussian", 2.0, 1.0), ("lanczos3", 1.5, 0.8)])
+@pytest.mark.parametrize("row0", [0, 37])
+def test_band_row_tables_equal_per_band_taps(kern, scale, pixfrac, row0):
+    """One batched tap pass equals the band loop's per-band
+    ``_exact_taps`` calls bit for bit, band by band and row by row (28
+    output rows in bands of 8: the last band is padded)."""
+    d_ys = torch.tensor([0.0, -0.37, 1.61, -2.2])
+    k = tdt.DrizzleKernel(kern)
+    n, band_rows, out_rows = 4, 8, 28
+    n_bands = -(-out_rows // band_rows)
+    r0s = tdz._band_origins(n_bands, band_rows, row0, scale, CPU)
+    iy, wys_t, taps = tdz._band_row_tables(14, d_ys, r0s, band_rows, scale,
+                                           pixfrac, k)
+    assert iy.dtype == torch.int32 and wys_t.dtype == torch.float32
+    assert iy.shape == wys_t.shape == (n_bands * band_rows, n * taps)
+    for b in range(n_bands):
+        idy, wy = tdz._exact_taps(band_rows, 14, d_ys - r0s[b], scale,
+                                  pixfrac, k)
+        rows = slice(b * band_rows, (b + 1) * band_rows)
+        assert torch.equal(iy[rows].T.reshape(n, taps, band_rows),
+                           idy.to(torch.int32))
+        assert torch.equal(wys_t[rows].T.reshape(n, taps, band_rows), wy)
+
+
+@pytest.mark.parametrize("kern,n,row0", [
+    ("square", 4, 0), ("gaussian", 4, 9), ("lanczos3", 4, 0),
+    ("square", 20, 13), ("square", 130, 0)],
+    ids=["square-depth8", "gaussian-depth8-row0", "lanczos3-depth8",
+         "square-depth40-row0", "square-depth260"])
+def test_one_launch_plain_equals_band_loop(rng, kern, n, row0):
+    """The card's route with the gather's plain version equals the band
+    loop (K7's plain version, and the XLA route) bit for bit: image and
+    weights by ``torch.equal``, the same rejected count; the depth
+    min(2n, n·taps²) in each of the kernel's instances (registers,
+    shared memory, the global scratch). The call computes 14 of the 28
+    output rows from ``row0``, as a shard of the row-sharded drizzle."""
+    stack = np.stack(_frames(rng, n, 14, 10))
+    d_ys = rng.uniform(-1.5, 1.5, n).astype(np.float32)
+    d_xs = rng.uniform(-1.5, 1.5, n).astype(np.float32)
+    d_ys[0] = d_xs[0] = 0.0
+    args = (stack_from_numpy(stack, CPU), torch.from_numpy(d_ys),
+            torch.from_numpy(d_xs), 2.0, 1.0, tdt.DrizzleKernel(kern), 14,
+            20, 2.5, 3.0, 5)
+    got = tdz._drizzle_one_launch(*args, 4, row0)
+    assert got[0].shape == got[1].shape == (14, 20)
+    for plain in (False, True):
+        want = tdz._drizzle_kernel_exact(*args, band_rows=4, plain=plain,
+                                         row0_offset=row0)
+        assert torch.equal(got[0], want[0]), plain
+        assert torch.equal(got[1], want[1]), plain
+        assert int(got[2]) == int(want[2]), plain
+    assert int(got[2]) > 0
+
+
+def test_gather_banded_refuses_mismatched_tables():
+    stack = torch.zeros((2, 4, 5))
+    iy = torch.zeros((8, 4), dtype=torch.int32)
+    wys_t = torch.zeros((8, 4))
+    ix = torch.zeros((4, 10), dtype=torch.int32)
+    wxs = torch.zeros((4, 10))
+    ok = (stack, iy, wys_t, ix, wxs, 2, 4, 3.0, 3.0, 3)
+    assert tdg.drizzle_gather_banded(*ok)[0].shape == (8, 10)
+    for i, bad in ((1, iy[:7]), (2, wys_t[:, :3]), (3, ix[:3]),
+                   (4, wxs[:, :9]), (5, 3), (0, stack[:, :, :, None])):
+        args = list(ok)
+        args[i] = bad
+        with pytest.raises(ValueError, match="shapes do not match"):
+            tdg.drizzle_gather_banded(*args)
+    with pytest.raises(ValueError, match="cap"):
+        tdg.drizzle_gather_banded(*ok[:6], 0, 3.0, 3.0, 3)
+    meta = [t.to("meta") for t in ok[:5]]
+    with pytest.raises(ValueError, match="device"):
+        tdg.drizzle_gather_banded(*meta, *ok[5:])
+
+
+def test_gather_banded_plain_refuses_out_of_plane_taps():
+    """A table index outside the plane is never present, whatever its
+    weight (the kernel refuses such an index too)."""
+    stack = torch.ones((1, 4, 4))
+    iy = torch.tensor([[-1, 0], [3, 4], [0, 1]], dtype=torch.int32)
+    ix = iy.T.contiguous()
+    img, wgt, rej = tdg.drizzle_gather_banded(stack, iy, torch.ones((3, 2)),
+                                              ix, torch.ones((2, 3)), 2, 4,
+                                              3.0, 3.0, 3)
+    assert wgt.tolist() == [[1.0, 1.0, 2.0], [1.0, 1.0, 2.0],
+                            [2.0, 2.0, 4.0]]
+    assert img.tolist() == [[1.0] * 3] * 3 and int(rej.sum()) == 0
 
 
 # ---- the parity drizzle (K9) ------------------------------------------------

@@ -16,6 +16,7 @@ spans its main paths record, on the CPU.
 import os
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -297,6 +298,32 @@ def test_drizzle_bands_each_record_their_steps(tracing):
     assert [s.name for s in kids] == [
         "stacking.drizzle.taps", "stacking.drizzle.gather",
         "stacking.drizzle.finalize"] * bands
+    assert "stacking.drizzle.fused" not in got.counters
+
+
+def _one_launch_route(monkeypatch):
+    """``_drizzle_kernel_exact`` routed as for a CUDA stack: its one
+    launch (``_drizzle_one_launch``), the gather's plain version here."""
+    monkeypatch.setattr(drz, "K", SimpleNamespace(
+        use_kernel=lambda t, name: True))
+
+
+def test_drizzle_one_launch_records_one_step_each(tracing, monkeypatch):
+    _one_launch_route(monkeypatch)
+    drz._drizzle_kernel_exact(*_drizzle_args(), band_rows=16)
+    got = trace.drain()
+    root = _root(got.spans, "stacking.drizzle")
+    assert got.counters["stacking.drizzle.bands"] == 5
+    assert got.counters["stacking.drizzle.fused"] == 1
+    assert [s.name for s in _children(got.spans, root)] == [
+        "stacking.drizzle.taps", "stacking.drizzle.gather"]
+    # called directly, the route records the same steps and count
+    drz._drizzle_one_launch(*_drizzle_args(), 16, 0)
+    got = trace.drain()
+    assert [s.name for s in got.spans] == [
+        "stacking.drizzle.taps", "stacking.drizzle.gather"]
+    assert got.counters == {"stacking.drizzle.bands": 5,
+                            "stacking.drizzle.fused": 1}
 
 
 def test_drizzle_stack_spans(tracing):
@@ -344,6 +371,10 @@ def _drizzle_bands(tmp_path):
     return drz._drizzle_kernel_exact(*_drizzle_args(), band_rows=16)
 
 
+def _drizzle_one_launch(tmp_path):
+    return drz._drizzle_one_launch(*_drizzle_args(), 16, 0)
+
+
 def _drizzle_stack(tmp_path):
     res = drz.drizzle_stack(list(_frames((3, 64, 72))),
                             DrizzleConfig(scale=2.0, pixfrac=0.7),
@@ -352,9 +383,10 @@ def _drizzle_stack(tmp_path):
 
 
 @pytest.mark.parametrize("call", [_open, _stretch, _drizzle_bands,
-                                  _drizzle_stack],
+                                  _drizzle_stack, _drizzle_one_launch],
                          ids=["process_fits_full", "align_stack_stretch",
-                              "drizzle_kernel_exact", "drizzle_stack"])
+                              "drizzle_kernel_exact", "drizzle_stack",
+                              "drizzle_one_launch"])
 def test_traced_call_is_bit_equal_to_untraced(call, tmp_path):
     was = trace.enabled()
     trace.disable()
