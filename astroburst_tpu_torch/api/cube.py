@@ -33,6 +33,7 @@ from astroburst_tpu_torch.cube import (GlobalCubeStats, LazyCube,
 from astroburst_tpu_torch.io.dispatcher import resolve_single_image
 from astroburst_tpu_torch.io.png import save_gray_png
 from astroburst_tpu_torch.io.prefetch import load_cube
+from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.runtime.device import device_or_cuda
 from astroburst_tpu_torch.runtime.output import resolve_output_dir
 
@@ -100,35 +101,40 @@ def process_cube_cmd(path: str, output_dir: str = "",
                      frame_step: Optional[int] = None, *,
                      device: Optional[torch.device] = None) -> dict:
     """Eager cube: collapses, spectrum, sampled frames (cmd/cube.rs:15)."""
-    t0 = Timer()
-    device = device_or_cuda(device)
-    out_dir = resolve_output_dir(output_dir)
-    header, cube = load_cube(resolve_single_image(path), device)
-    depth, rows, cols = cube.shape
+    with trace.span("api.process_cube"):
+        t0 = Timer()
+        device = device_or_cuda(device)
+        out_dir = resolve_output_dir(output_dir)
+        header, cube = load_cube(resolve_single_image(path), device)
+        depth, rows, cols = cube.shape
 
-    g = compute_global_stats(cube)
-    mean_img = collapse_mean(cube)
-    median_img = collapse_median(cube)
-    stem, collapsed_path, collapsed_median_path = _collapsed_paths(
-        path, out_dir)
-    _save_norm_png(mean_img, g, collapsed_path)
-    _save_norm_png(median_img, g, collapsed_median_path)
-    frames_dir = os.path.join(out_dir, f"{stem}_frames")
-    count = _save_frames(lambda z: cube[z], depth, frame_step, g, frames_dir)
+        with trace.span("cube.stats"):
+            g = compute_global_stats(cube)
+        with trace.span("cube.collapse"):
+            mean_img = collapse_mean(cube)
+            median_img = collapse_median(cube)
+        stem, collapsed_path, collapsed_median_path = _collapsed_paths(
+            path, out_dir)
+        frames_dir = os.path.join(out_dir, f"{stem}_frames")
+        with trace.span("cube.previews"):
+            _save_norm_png(mean_img, g, collapsed_path)
+            _save_norm_png(median_img, g, collapsed_median_path)
+            count = _save_frames(lambda z: cube[z], depth, frame_step, g,
+                                 frames_dir)
 
-    spectrum = cube[:, rows // 2, cols // 2].cpu().tolist()
-    classification = classify_spectral_cube(header, depth)
-    return {
-        C.RES_DIMENSIONS: [cols, rows, depth],
-        "collapsed_path": collapsed_path,
-        "collapsed_median_path": collapsed_median_path,
-        "frames_dir": frames_dir,
-        C.RES_FRAME_COUNT: count,
-        "center_spectrum": spectrum,
-        C.RES_WAVELENGTHS: build_wavelength_axis(header),
-        C.RES_SPECTRAL_CLASSIFICATION: classification.to_dict(),
-        C.RES_ELAPSED_MS: t0.elapsed_ms(),
-    }
+        spectrum = cube[:, rows // 2, cols // 2].cpu().tolist()
+        classification = classify_spectral_cube(header, depth)
+        return {
+            C.RES_DIMENSIONS: [cols, rows, depth],
+            "collapsed_path": collapsed_path,
+            "collapsed_median_path": collapsed_median_path,
+            "frames_dir": frames_dir,
+            C.RES_FRAME_COUNT: count,
+            "center_spectrum": spectrum,
+            C.RES_WAVELENGTHS: build_wavelength_axis(header),
+            C.RES_SPECTRAL_CLASSIFICATION: classification.to_dict(),
+            C.RES_ELAPSED_MS: t0.elapsed_ms(),
+        }
 
 
 def process_cube_lazy_cmd(path: str, output_dir: str = "",

@@ -102,8 +102,16 @@ def load_cube(path: str, device: torch.device):
     NAXIS=3 HDU of a FITS file (``io.fits_reader.extract_cube``). On a
     CUDA device the frames are decoded a chunk at a time into one of
     two pinned buffers and copied from there on a side stream; the
-    consumer stream waits for the last copy."""
+    consumer stream waits for the last copy. Span ``cube.load``, counter
+    ``cube.load_bytes`` (the f32 bytes put on the device)."""
     device = torch.device(device)
+    with trace.span("cube.load"):
+        header, cube = _load_cube(path, device)
+        trace.count("cube.load_bytes", cube.numel() * cube.element_size())
+    return header, cube
+
+
+def _load_cube(path: str, device: torch.device):
     if device.type != "cuda":
         fc = extract_cube(path)
         return fc.header, torch.from_numpy(fc.cube).to(device)

@@ -51,6 +51,16 @@ Name                                Where
                                     ``parallel.pipeline.align_stack_stretch``
 ``stacking.drizzle_stack``          the body of
                                     ``stacking.drizzle.drizzle_stack``
+``api.process_cube``                the body of ``api.cube.process_cube_cmd``
+``cube.load``                       ``io.prefetch.load_cube``: the cube's
+                                    decode and upload; counter
+                                    ``cube.load_bytes``: the f32 bytes put
+                                    on the device
+``cube.stats``                      in ``process_cube_cmd``: the global
+                                    stats (``compute_global_stats``)
+``cube.collapse``                   there: the mean and median collapses
+``cube.previews``                   there: the normalizations, fetches and
+                                    PNGs of the collapses and the frames
 ``io.decode``                       the host codec's decode of FITS pixels
                                     (``io.fits_reader.decode_pixels``);
                                     counter ``io.decode_bytes``: the f32
