@@ -16,16 +16,33 @@ moves the sub-pixel offsets.
 ``phase_correlate_stack`` replaces both ``phase_correlate_stack_traced``
 and ``phase_correlate_stack_padded`` of the JAX package, which differ
 only in TPU layout. ``phase_correlate`` is the host-level pair API.
+
+On the card a coarse-to-fine call is ~120 small torch ops a
+correlation, each costing the host far more than the card. So from the
+second call with the same (device, N, H, W, dtype) on, the two
+correlations are replayed as captured CUDA graphs (``_StackGraphs``):
+K1 fills buffers the graphs own, the first graph correlates the coarse
+surfaces and ends in the crop origins, K2 gathers the crops into the
+second graph's input, and the second correlates the crops and gates
+them. The graphs hold no pointer into the caller's stack, run the same
+ops as the eager call, and so give its bits. ``plain``, the CPU and
+planes of at most 512 px a side run eagerly, as does a key's first
+call; ``_GRAPHS`` keeps at most 4 keys.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import torch
 
 from astroburst_tpu_torch.alignment.coarse_kernel import (
-    coarse_downsample_stack, coarse_downsample_stack_plain, frame_stats_plain)
+    box_plan, coarse_downsample_stack, coarse_downsample_stack_plain,
+    frame_stats_plain, reduce_row_stats)
 from astroburst_tpu_torch.ops import fft as F
 from astroburst_tpu_torch.ops.crop_kernel import (gather_crops,
                                                   gather_crops_plain)
@@ -60,12 +77,20 @@ def _is_constant_or_zero(img: torch.Tensor) -> torch.Tensor:
     return _gate(*frame_stats_plain(img))
 
 
+@functools.lru_cache(maxsize=64)
+def hann_on(n: int, device: torch.device) -> torch.Tensor:
+    """``hann_periodic(n)`` as an f32 tensor on ``device``, made once per
+    (length, device): an upload from host memory on every call would
+    make the host wait for the card, and a CUDA graph cannot hold it."""
+    return torch.from_numpy(hann_periodic(n)).to(device)
+
+
 def _windowed_padded(img: torch.Tensor, fft_rows: int,
                      fft_cols: int) -> torch.Tensor:
     """Hann-window (zeroing non-finite) and zero-pad (fft.rs:202-226)."""
     rows, cols = img.shape[-2], img.shape[-1]
-    wy = torch.from_numpy(hann_periodic(rows)).to(img.device)
-    wx = torch.from_numpy(hann_periodic(cols)).to(img.device)
+    wy = hann_on(rows, img.device)
+    wx = hann_on(cols, img.device)
     vals = torch.where(torch.isfinite(img), img, torch.zeros_like(img))
     vals = vals * wy[:, None] * wx[None, :]
     return torch.nn.functional.pad(vals, (0, fft_cols - cols,
@@ -203,6 +228,30 @@ def _refine_origin(cy: torch.Tensor, cx: torch.Tensor, rows: int, cols: int,
     return y0, x0
 
 
+def _refine_origins(cdy: torch.Tensor, cdx: torch.Tensor, by: int, bx: int,
+                    rows: int, cols: int):
+    """Each target's refine-crop origin (int64 [N]) from its coarse
+    offset."""
+    tgt_cy = torch.clamp(torch.round(rows // 2 + cdy * by), 0,
+                         rows - 1).to(torch.int64)
+    tgt_cx = torch.clamp(torch.round(cols // 2 + cdx * bx), 0,
+                         cols - 1).to(torch.int64)
+    return _refine_origin(tgt_cy, tgt_cx, rows, cols, REFINE_CROP_SIZE)
+
+
+def _combine(tgt_y0, tgt_x0, rdy, rdx, rconf, ref_stats, tgt_stats,
+             rows: int, cols: int):
+    """The offsets from the crop origins and the refine, zeroed where
+    the reference or the target fails the validity gate."""
+    ref_y0, ref_x0 = _crop_origin_static(rows, cols, REFINE_CROP_SIZE)
+    dy = (tgt_y0 - ref_y0).float() + rdy
+    dx = (tgt_x0 - ref_x0).float() + rdx
+    bad = _gate(*ref_stats) | _gate(*tgt_stats)
+    zero = torch.zeros_like(dy)
+    return (torch.where(bad, zero, dy), torch.where(bad, zero, dx),
+            torch.where(bad, zero, rconf))
+
+
 def phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor, *,
                           plain: bool = False):
     """Coarse-to-fine phase correlation of each frame of ``targets``
@@ -210,9 +259,10 @@ def phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor, *,
     each f32 [N], on the inputs' device; nothing waits on the host.
 
     On a CUDA stack the coarse surfaces and the per-frame validity gate
-    come from kernel K1 and the refine crops from kernel K2. ``plain``
-    runs their plain torch versions instead (to hold the kernels to
-    them on the card).
+    come from kernel K1 and the refine crops from kernel K2, and a
+    shape seen before replays its CUDA graphs (module docstring).
+    ``plain`` runs their plain torch versions instead (to hold the
+    kernels to them on the card).
     """
     with trace.span("alignment.phase_corr"):
         return _phase_correlate_stack(ref, targets, plain)
@@ -220,42 +270,178 @@ def phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor, *,
 
 def _phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor,
                            plain: bool):
+    n, rows, cols = targets.shape
+    small = rows <= COARSE_MAX_DIM and cols <= COARSE_MAX_DIM
+    if targets.is_cuda and not plain:
+        key = None if small else graph_key(ref, targets)
+        graphs = None if key is None else _GRAPHS.get(key)
+        if graphs is not None:
+            return graphs.run(ref, targets)
+        trace.count("alignment.phase_corr.eager")
+    if small:
+        return correlate_single(ref, targets)
+
     coarse = coarse_downsample_stack_plain if plain else \
         coarse_downsample_stack
     crop = gather_crops_plain if plain else gather_crops
-    n, rows, cols = targets.shape
-    if rows <= COARSE_MAX_DIM and cols <= COARSE_MAX_DIM:
-        return correlate_single(ref, targets)
-
     with trace.span("alignment.coarse"):
-        ref_ds, by, bx, rmn, rmx, rcnt = coarse(ref[None], COARSE_MAX_DIM,
-                                                with_stats=True)
-        tgt_ds, _, _, tmn, tmx, tcnt = coarse(targets, COARSE_MAX_DIM,
-                                              with_stats=True)
+        ref_ds, by, bx, *ref_stats = coarse(ref[None], COARSE_MAX_DIM,
+                                            with_stats=True)
+        tgt_ds, _, _, *tgt_stats = coarse(targets, COARSE_MAX_DIM,
+                                          with_stats=True)
     cdy, cdx, _ = correlate_single(ref_ds[0], tgt_ds)
-
-    ref_cy = rows // 2
-    ref_cx = cols // 2
-    tgt_cy = torch.clamp(torch.round(ref_cy + cdy * by), 0,
-                         rows - 1).to(torch.int64)
-    tgt_cx = torch.clamp(torch.round(ref_cx + cdx * bx), 0,
-                         cols - 1).to(torch.int64)
-    tgt_y0, tgt_x0 = _refine_origin(tgt_cy, tgt_cx, rows, cols,
-                                    REFINE_CROP_SIZE)
+    tgt_y0, tgt_x0 = _refine_origins(cdy, cdx, by, bx, rows, cols)
     s_r = min(REFINE_CROP_SIZE, rows)
     s_c = min(REFINE_CROP_SIZE, cols)
     with trace.span("alignment.crops"):
         crops = crop(targets, tgt_y0, tgt_x0, s_r, s_c)
         ref_crop = _centered_crop_static(ref, REFINE_CROP_SIZE)
-    ref_y0, ref_x0 = _crop_origin_static(rows, cols, REFINE_CROP_SIZE)
     rdy, rdx, rconf = correlate_single(ref_crop, crops)
-    dy = (tgt_y0 - ref_y0).float() + rdy
-    dx = (tgt_x0 - ref_x0).float() + rdx
+    return _combine(tgt_y0, tgt_x0, rdy, rdx, rconf, ref_stats, tgt_stats,
+                    rows, cols)
 
-    bad = _gate(rmn, rmx, rcnt) | _gate(tmn, tmx, tcnt)
-    zero = torch.zeros_like(dy)
-    return (torch.where(bad, zero, dy), torch.where(bad, zero, dx),
-            torch.where(bad, zero, rconf))
+
+# ---- the coarse-to-fine correlation as CUDA graphs ---------------------------
+
+
+def graph_key(ref: torch.Tensor, targets: torch.Tensor):
+    """(device, N, H, W, dtype) of a call the graphs can take, or None:
+    at least one target, the reference one [H, W] plane of the same
+    device and dtype, both contiguous."""
+    n, rows, cols = targets.shape
+    if n < 1 or tuple(ref.shape) != (rows, cols) or \
+            ref.device != targets.device or ref.dtype != targets.dtype or \
+            not (ref.is_contiguous() and targets.is_contiguous()):
+        return None
+    return (targets.device, n, rows, cols, targets.dtype)
+
+
+class GraphCache:
+    """At most ``capacity`` keys, the least recently used dropped first.
+    A key's first sighting returns None (its call runs eagerly), the
+    second builds its entry with ``build(key)``, and later sightings
+    return that entry."""
+
+    def __init__(self, build, capacity: int = 4):
+        self._build = build
+        self._capacity = capacity
+        self._entries = OrderedDict()     # key -> entry, or None once seen
+        self._lock = threading.Lock()
+
+    def get(self, key):
+        with self._lock:
+            if key not in self._entries:
+                self._entries[key] = None
+                if len(self._entries) > self._capacity:
+                    self._entries.popitem(last=False)
+                return None
+            self._entries.move_to_end(key)
+            if self._entries[key] is None:
+                self._entries[key] = self._build(key)
+            return self._entries[key]
+
+    def keys(self) -> list:
+        with self._lock:
+            return list(self._entries)
+
+
+def capture_cuda(body, pool=None):
+    """Warm ``body`` up on a side stream (cuFFT's plans, the allocator's
+    blocks), capture it into a CUDA graph in ``pool`` (a new one where
+    None) and replay it once. Returns (the graph, what ``body``
+    returned: tensors the graph owns, which each replay overwrites)."""
+    current = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        body()
+    current.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool,
+                          capture_error_mode="thread_local"):
+        out = body()
+    graph.replay()
+    return graph, out
+
+
+class _StackGraphs:
+    """One key's coarse-to-fine correlation over buffers it owns: K1
+    fills the coarse surfaces and row stats, graph 1 (``_coarse``)
+    correlates them and ends in the int64 crop origins, K2 gathers the
+    crops and a copy takes the reference's crop, and graph 2
+    (``_refine``) correlates the crops and gates and combines the
+    offsets into [3, N]. Each is captured by ``capture`` on the entry's
+    first run; a run hands back a clone, never the graph's buffer."""
+
+    def __init__(self, key, capture=capture_cuda):
+        device, n, rows, cols, _ = key
+        self.device, self.rows, self.cols = device, rows, cols
+        self.by, self.bx, ds_r, ds_c = box_plan(rows, cols, COARSE_MAX_DIM)
+        self.s_r = min(REFINE_CROP_SIZE, rows)
+        self.s_c = min(REFINE_CROP_SIZE, cols)
+        f32 = dict(dtype=torch.float32, device=device)
+
+        def k1_out(m):
+            return (torch.empty((m, ds_r, ds_c), **f32),
+                    torch.empty((m, ds_r), **f32),
+                    torch.empty((m, ds_r), **f32),
+                    torch.empty((m, ds_r), dtype=torch.int32, device=device))
+        self.ref_k1, self.tgt_k1 = k1_out(1), k1_out(n)
+        self.crops = torch.empty((n, self.s_r, self.s_c), **f32)
+        self.ref_crop = torch.empty((self.s_r, self.s_c), **f32)
+        self._capture = capture
+        self._coarse = self._refine = None
+        self._origins = self._result = None
+        self._lock = threading.Lock()
+        self._cuda = device.type == "cuda"
+        # the last run's end: a run on another stream waits for it
+        # before it overwrites the buffers
+        self._done = torch.cuda.Event() if self._cuda else None
+
+    def _coarse_body(self):
+        cdy, cdx, _ = _correlate_single(self.ref_k1[0][0], self.tgt_k1[0])
+        return _refine_origins(cdy, cdx, self.by, self.bx, self.rows,
+                               self.cols)
+
+    def _refine_body(self):
+        rdy, rdx, rconf = _correlate_single(self.ref_crop, self.crops)
+        return torch.stack(_combine(
+            *self._origins, rdy, rdx, rconf,
+            reduce_row_stats(*self.ref_k1[1:]),
+            reduce_row_stats(*self.tgt_k1[1:]), self.rows, self.cols))
+
+    def run(self, ref: torch.Tensor, targets: torch.Tensor):
+        scope = torch.cuda.device(self.device) if self._cuda else \
+            contextlib.nullcontext()
+        with self._lock, scope:
+            if self._cuda:
+                torch.cuda.current_stream().wait_event(self._done)
+            coarse_downsample_stack(ref[None], COARSE_MAX_DIM,
+                                    out=self.ref_k1)
+            coarse_downsample_stack(targets, COARSE_MAX_DIM, out=self.tgt_k1)
+            if self._coarse is None:
+                trace.count("alignment.phase_corr.graph_capture")
+                self._coarse, self._origins = self._capture(
+                    self._coarse_body)
+            else:
+                self._coarse.replay()
+            gather_crops(targets, *self._origins, self.s_r, self.s_c,
+                         out=self.crops)
+            self.ref_crop.copy_(_centered_crop_static(ref,
+                                                      REFINE_CROP_SIZE))
+            if self._refine is None:
+                self._refine, self._result = self._capture(
+                    self._refine_body, self._coarse.pool())
+            else:
+                self._refine.replay()
+            out = self._result.clone()
+            if self._cuda:
+                self._done.record()
+        trace.count("alignment.phase_corr.graph_replay")
+        return out.unbind(0)
+
+
+_GRAPHS = GraphCache(_StackGraphs)
 
 
 def phase_correlate(reference, target, *,

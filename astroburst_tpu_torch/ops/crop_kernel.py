@@ -10,7 +10,9 @@ range). The origins stay on the device; on the card they are int64, as
 ``_refine_origin`` makes them, and the kernel reads them as they are.
 
 ``gather_crops`` launches the kernel for a CUDA tensor and runs
-``gather_crops_plain`` for a CPU tensor; it never falls back.
+``gather_crops_plain`` for a CPU tensor; it never falls back. Both
+write into ``out`` where the caller gives one (the phase correlation's
+CUDA graphs read it).
 """
 
 from __future__ import annotations
@@ -33,12 +35,25 @@ def _check(stack: torch.Tensor, n_out: int, size_r: int, size_c: int,
                          f"{stack.shape[0]}-frame stack")
 
 
+def _check_out(out: torch.Tensor, n_out: int, size_r: int, size_c: int,
+               device) -> None:
+    if tuple(out.shape) != (n_out, size_r, size_c) or \
+            out.dtype != torch.float32 or out.device != device or \
+            not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous f32 "
+                         f"{(n_out, size_r, size_c)} tensor on {device}")
+
+
 def gather_crops_plain(stack: torch.Tensor, y0s: torch.Tensor,
                        x0s: torch.Tensor, size_r: int, size_c: int,
-                       frame0: int = 0) -> torch.Tensor:
+                       frame0: int = 0, out=None) -> torch.Tensor:
     """[len(y0s), size_r, size_c] crops by index arithmetic in torch."""
     n_out = y0s.shape[0]
     _check(stack, n_out, size_r, size_c, frame0)
+    if out is not None:
+        _check_out(out, n_out, size_r, size_c, stack.device)
+        return out.copy_(gather_crops_plain(stack, y0s, x0s, size_r,
+                                            size_c, frame0))
     _, h, w = stack.shape
     dev = stack.device
     y0 = torch.clamp(y0s.to(device=dev, dtype=torch.int64), 0, h - size_r)
@@ -50,12 +65,15 @@ def gather_crops_plain(stack: torch.Tensor, y0s: torch.Tensor,
 
 
 def gather_crops(stack: torch.Tensor, y0s: torch.Tensor, x0s: torch.Tensor,
-                 size_r: int, size_c: int, frame0: int = 0) -> torch.Tensor:
+                 size_r: int, size_c: int, frame0: int = 0,
+                 out=None) -> torch.Tensor:
     """Crop k = stack[frame0 + k, y0s[k]:+size_r, x0s[k]:+size_c]. On the
     card the origins are int64 and the call makes one launch and
-    allocates the output, nothing else."""
+    allocates the output (unless ``out``, a contiguous f32
+    [len(y0s), size_r, size_c] tensor, is given), nothing else."""
     if not K.use_kernel(stack, "gather_crops"):
-        return gather_crops_plain(stack, y0s, x0s, size_r, size_c, frame0)
+        return gather_crops_plain(stack, y0s, x0s, size_r, size_c, frame0,
+                                  out)
     n_out = y0s.shape[0]
     K.require_cuda(stack, "stack", 3)
     _check(stack, n_out, size_r, size_c, frame0)
@@ -66,8 +84,11 @@ def gather_crops(stack: torch.Tensor, y0s: torch.Tensor, x0s: torch.Tensor,
         raise ValueError("y0s and x0s must be 1-D of equal length on the "
                          "stack's device")
     _, h, w = stack.shape
-    out = torch.empty((n_out, size_r, size_c), dtype=torch.float32,
-                      device=stack.device)
+    if out is None:
+        out = torch.empty((n_out, size_r, size_c), dtype=torch.float32,
+                          device=stack.device)
+    else:
+        _check_out(out, n_out, size_r, size_c, stack.device)
     K.launch("abt_gather_crops", stack.data_ptr(), y0s.data_ptr(),
              x0s.data_ptr(), n_out, h, w, size_r, size_c, frame0,
              out.data_ptr(), K.stream_handle(stack))

@@ -85,8 +85,17 @@ Name                                Where
 ``stats.histogram``                 the display histogram of
                                     ``process_fits_full``
 ``alignment.phase_corr``            the body of ``alignment.phase_correlation.
-                                    phase_correlate_stack``
-``alignment.coarse``                its coarse surfaces (kernel K1)
+                                    phase_correlate_stack``; counters
+                                    ``alignment.phase_corr.graph_replay``
+                                    (1 a call that replayed its CUDA
+                                    graphs, the capturing call too),
+                                    ``alignment.phase_corr.graph_capture``
+                                    (1 a capture of a key's two graphs)
+                                    and ``alignment.phase_corr.eager`` (1
+                                    a call on a CUDA stack, not ``plain``,
+                                    that ran eagerly)
+``alignment.coarse``                its coarse surfaces (kernel K1); only
+                                    on an eager call, as the two below
 ``alignment.correlate``             each ``correlate_single`` (cuFFT and
                                     the peak)
 ``alignment.crops``                 its refine crops (kernel K2)

@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phase-4o              # phase 4o alone
     python3 chip_smoke.py --phase-4e-banded       # the one-launch exact
                                                   # drizzle of phase 4e
+    python3 chip_smoke.py --phase-4p              # phase 4p alone
 
 Phases, each of which fails loudly (nothing is caught; any failure
 exits non-zero, and so does a machine without a CUDA device):
@@ -283,6 +284,15 @@ exits non-zero, and so does a machine without a CUDA device):
    the ``stack`` command on them cold and warm (checked as in (f); K1,
    K2, K3 counted); ``stacked.fits`` and the ``stack`` command also with
    the codec's write on one thread (``CodecWriteThreads``).
+   (p) the phase correlation's CUDA graphs (``check_phase_corr_graphs``;
+   it runs after (a)): at the bench stack's 15 targets and the drizzle
+   bench's 9 of 4096^2, the first call eager, the second capturing, the
+   later ones replaying, each bit-equal to the eager call, also on
+   another stack of the same shape and after its targets change in
+   place; a replayed and a warm eager call under
+   ``torch.cuda.set_sync_debug_mode("error")``; K1 twice and K2 once a
+   replayed call; eager against replay timed (the host's enqueue, CUDA
+   events, the wall, the profiler's device-busy time).
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
@@ -5701,6 +5711,9 @@ def main() -> None:
         f"{ms_m:.3f} ms | plain {ms_mp:.3f} ms (host offsets fetch "
         f"included)")
 
+    # ---- 4p. the phase correlation's CUDA graphs ----------------------
+    times_graphs = check_phase_corr_graphs(stack, dstack, smi)
+
     # ---- 4m. the multi-device layer: 4 shards on this card -------------
     launches_sharded, report["shift_clip_slab"], times_sharded = \
         sharded_path(stack, counters, smi)
@@ -6163,6 +6176,8 @@ def main() -> None:
         f"route: {json.dumps(parity_err)}")
     log(f"[path] sharded paths (phase 4m): {json.dumps(times_sharded)}")
     log(f"[path] fused chain (phase 4n): {json.dumps(times_fused)}")
+    log(f"[path] phase correlation graphs (phase 4p): "
+        f"{json.dumps(times_graphs)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
     log(f"[codec] {smi}: " + json.dumps(times_codec))
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -7438,6 +7453,158 @@ def phase_4o_alone() -> None:
     log(f"[codec] {smi}: " + json.dumps(times))
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
 
+def _busy_ms(fn, reps: int) -> float:
+    """Device-busy ms a call of ``fn``: the union of the intervals of
+    every device event torch.profiler records over ``reps`` calls, after
+    one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    return busy / reps / 1e3
+
+
+def check_phase_corr_graphs(stack, dstack, smi) -> dict:
+    """Phase 4p: ``phase_correlate_stack`` replayed as CUDA graphs
+    against its eager call (a cache that keeps no key), at the bench
+    stack (15 targets of 5655 x 2206) and the drizzle bench (9 of
+    4096^2): bit for bit on the capturing call and on replays, on
+    another stack of the same shape (its targets rolled) and after that
+    stack's targets change in place; a replayed and a warm eager call
+    make no host sync; K1 twice and K2 once a replayed call. Then each
+    mode timed: the host's enqueue of a call (median, us), CUDA events
+    over 20 calls, the wall of 20 calls ended by a synchronize, and the
+    profiler's device-busy time, ms a call."""
+    import torch
+    from astroburst_tpu_torch.alignment import phase_correlation as pc
+    from astroburst_tpu_torch.alignment.coarse_kernel import (
+        coarse_downsample_stack)
+    from astroburst_tpu_torch.ops.crop_kernel import gather_crops
+
+    def same(what, got, want):
+        for g, w in zip(got, want):
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(f"[4p] {what}: the replay is not "
+                                     f"bit-equal to the eager call")
+
+    def no_sync(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    t_phase = time.perf_counter()
+    entry = {"device": smi}
+    was = pc._GRAPHS
+    try:
+        for name, full in (("nircam16 15x5655x2206", stack),
+                           ("ref4096 9x4096^2", dstack)):
+            graphs = pc.GraphCache(pc._StackGraphs)
+            eager_only = pc.GraphCache(pc._StackGraphs, capacity=0)
+
+            def call(s, cache):
+                pc._GRAPHS = cache
+                return pc.phase_correlate_stack(s[0], s[1:])
+            eager = functools.partial(call, cache=eager_only)
+            graphed = functools.partial(call, cache=graphs)
+
+            want = eager(full)
+            mem0 = (torch.cuda.memory_allocated(),
+                    torch.cuda.memory_reserved())
+            same("first call (eager)", graphed(full), want)
+            same("capturing call", graphed(full), want)
+            mem = (torch.cuda.memory_allocated() - mem0[0],
+                   torch.cuda.memory_reserved() - mem0[1])
+            k1, k2 = coarse_downsample_stack.launches, gather_crops.launches
+            same("replay", no_sync(lambda: graphed(full)), want)
+            launches = (coarse_downsample_stack.launches - k1,
+                        gather_crops.launches - k2)
+            if launches != (2, 1):
+                raise AssertionError(f"[4p] K1, K2 launches in a replayed "
+                                     f"call: {launches}")
+            no_sync(lambda: eager(full))
+            other = full.clone()
+            other[1:] = torch.roll(full[1:], (5, -7), (1, 2))
+            got = graphed(other)
+            same("another stack", got, eager(other))
+            if torch.equal(got[0], want[0]):
+                raise AssertionError("[4p] the rolled stack's offsets did "
+                                     "not move")
+            other[1:] = torch.roll(other[1:], (-9, 4), (1, 2))
+            moved = graphed(other)
+            same("targets changed in place", moved, eager(other))
+            if torch.equal(moved[0], got[0]):
+                raise AssertionError("[4p] the changed targets' offsets "
+                                     "did not move")
+            del other
+            times = {}
+            for mode, fn in (("eager", lambda: eager(full)),
+                             ("replay", lambda: graphed(full))):
+                host = []
+                for _ in range(20):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    host.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / 20 * 1e3
+                times[mode] = {
+                    "host_enqueue_us": float(np.median(host)) * 1e6,
+                    "events_ms": cuda_ms(fn, 20), "wall_ms": wall,
+                    "device_busy_ms": _busy_ms(fn, 10)}
+            entry[name] = {"bit_equal": True, "launches_k1_k2": launches,
+                           "entry_allocated_bytes": mem[0],
+                           "entry_reserved_bytes": mem[1], **times}
+            log(f"[4p] {name}: " + json.dumps(entry[name]))
+    finally:
+        pc._GRAPHS = was
+    entry["phase_s"] = time.perf_counter() - t_phase
+    return entry
+
+
+def phase_4p_alone() -> None:
+    """Phase 4p alone: the build, the bench stack and the drizzle bench,
+    then ``check_phase_corr_graphs``; prints the card's name and power
+    limit, the entry and the seconds."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                 "is false); this script runs only on the card")
+    from astroburst_tpu_torch.convert import stack_from_numpy
+    from astroburst_tpu_torch.runtime import kernels as K
+    from astroburst_tpu_torch.runtime.device import cuda_device
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    lib = K.library()
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvcc {lib.build_seconds:.1f} s")
+    stack = stack_from_numpy(make_frames(N_FRAMES, H, W), cuda_device())
+    dstack, _, _ = drizzle_bench(cuda_device())
+    entry = check_phase_corr_graphs(stack, dstack, smi)
+    log(f"[graphs] {smi}: " + json.dumps(entry))
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
+
+
 def phase_4e_banded_alone() -> None:
     """The one-launch exact drizzle alone: the build, the drizzle bench
     stack of phase 3, then ``check_banded_drizzle``; prints the card's
@@ -7462,6 +7629,8 @@ def phase_4e_banded_alone() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase-4e-banded"]:
         phase_4e_banded_alone()
+    elif sys.argv[1:2] == ["--phase-4p"]:
+        phase_4p_alone()
     elif sys.argv[1:2] == ["--phase-4o"]:
         phase_4o_alone()
     elif sys.argv[1:2] == ["--phase-4n"]:
