@@ -20,9 +20,6 @@ shear-decomposed and two-pass warps of the JAX package are TPU
 workarounds and are not ported. ``align_channel_affine`` is the host
 chain on every device; the device chain is alignment/fused_chain, which
 ``alignment/pair`` and the compose paths take on the card.
-
-``plain`` runs the kernels' plain torch versions instead (to hold the
-kernels to them on the card).
 """
 
 from __future__ import annotations
@@ -37,7 +34,7 @@ import torch
 
 from astroburst_tpu_torch.alignment.phase_correlation import phase_correlate
 from astroburst_tpu_torch.alignment.vote_kernel import (  # noqa: F401
-    STAR_CAP, TRIANGLE_TOLERANCE, vote, vote_plain)
+    STAR_CAP, TRIANGLE_TOLERANCE, vote)
 from astroburst_tpu_torch.analysis.star_detection import detect_stars_pair
 from astroburst_tpu_torch.ops.resample import catmull_rom, shift_bicubic
 from astroburst_tpu_torch.runtime.device import as_f32, cuda_device
@@ -183,8 +180,7 @@ def _pad_tris(verts: np.ndarray, ratios: np.ndarray):
 
 
 def match_triangles(ref_stars: np.ndarray, tgt_stars: np.ndarray, ref_tris,
-                    tgt_tris, device: Optional[torch.device] = None, *,
-                    plain: bool = False
+                    tgt_tris, device: Optional[torch.device] = None
                     ) -> List[Tuple[float, float, float, float]]:
     """Vote table on ``device`` (default ``cuda_device()``), greedy
     one-to-one pairing on the host (affine.rs:320-384)."""
@@ -196,8 +192,7 @@ def match_triangles(ref_stars: np.ndarray, tgt_stars: np.ndarray, ref_tris,
     args = [torch.from_numpy(a).to(dev) for a in
             (*_pad_tris(ref_verts, ref_ratios)[::-1],
              *_pad_tris(tgt_verts, tgt_ratios)[::-1])]
-    votes = (vote_plain if plain else vote)(*args).cpu().numpy().astype(
-        np.int64)
+    votes = vote(*args).cpu().numpy().astype(np.int64)
 
     flat = votes.reshape(-1)
     order = np.argsort(-flat, kind="stable")
@@ -350,9 +345,9 @@ def check_transform_sanity(result: AffineAlignResult, rows: int,
     return None
 
 
-def _fallback_phase_correlation(reference, target, rows, cols, *,
-                                plain: bool = False) -> AffineAlignResult:
-    pc = phase_correlate(reference, target, plain=plain)
+def _fallback_phase_correlation(reference, target, rows,
+                                cols) -> AffineAlignResult:
+    pc = phase_correlate(reference, target)
     if (abs(pc.dx) > cols * MAX_OFFSET_FRACTION or
             abs(pc.dy) > rows * MAX_OFFSET_FRACTION or pc.confidence < 1.5):
         return AffineAlignResult(AffineTransform.identity(), 0, 0, 0.0,
@@ -362,8 +357,8 @@ def _fallback_phase_correlation(reference, target, rows, cols, *,
 
 
 def align_channel_affine(reference, target,
-                         device: Optional[torch.device] = None, *,
-                         plain: bool = False) -> AffineAlignResult:
+                         device: Optional[torch.device] = None
+                         ) -> AffineAlignResult:
     """Full chain: detect → triangles → vote → RANSAC affine → rigid →
     phase correlation → identity (affine.rs:129-270). The planes go to
     ``device`` (default: the reference's device for a tensor, else
@@ -375,7 +370,7 @@ def align_channel_affine(reference, target,
 
     ref_det, tgt_det = detect_stars_pair(normalize_for_detection(ref),
                                          normalize_for_detection(tgt),
-                                         DETECTION_SIGMA, plain=plain)
+                                         DETECTION_SIGMA)
     ref_stars = np.array([(s.x, s.y) for s in ref_det.stars[:MAX_STARS]])
     tgt_stars = np.array([(s.x, s.y) for s in tgt_det.stars[:MAX_STARS]])
 
@@ -383,21 +378,21 @@ def align_channel_affine(reference, target,
             len(tgt_stars) < MIN_MATCHES_RIGID:
         _LOG.warning("affine: too few stars (ref=%d tgt=%d), falling back "
                      "to phase correlation", len(ref_stars), len(tgt_stars))
-        return _fallback_phase_correlation(ref, tgt, rows, cols, plain=plain)
+        return _fallback_phase_correlation(ref, tgt, rows, cols)
 
     ref_tris = build_triangles(ref_stars)
     tgt_tris = build_triangles(tgt_stars)
     if len(ref_tris[0]) == 0 or len(tgt_tris[0]) == 0:
         _LOG.warning("affine: no usable triangles, falling back to phase "
                      "correlation")
-        return _fallback_phase_correlation(ref, tgt, rows, cols, plain=plain)
+        return _fallback_phase_correlation(ref, tgt, rows, cols)
 
     matches = match_triangles(ref_stars, tgt_stars, ref_tris, tgt_tris,
-                              ref.device, plain=plain)
+                              ref.device)
     if len(matches) < MIN_MATCHES_RIGID:
         _LOG.warning("affine: %d star matches (< %d), falling back to "
                      "phase correlation", len(matches), MIN_MATCHES_RIGID)
-        return _fallback_phase_correlation(ref, tgt, rows, cols, plain=plain)
+        return _fallback_phase_correlation(ref, tgt, rows, cols)
 
     if len(matches) >= MIN_MATCHES_AFFINE:
         result = ransac_affine(matches, "affine")
@@ -417,7 +412,7 @@ def align_channel_affine(reference, target,
 
     _LOG.warning("affine: star-based alignment failed, falling back to "
                  "phase correlation")
-    return _fallback_phase_correlation(ref, tgt, rows, cols, plain=plain)
+    return _fallback_phase_correlation(ref, tgt, rows, cols)
 
 
 # --- warp (affine.rs:663-690) ------------------------------------------------

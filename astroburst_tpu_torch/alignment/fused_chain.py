@@ -40,11 +40,10 @@ The phase-correlation fallback stays on the host: it runs only when
 the star chain fails, which the info vector reports (affine.rs:258-270;
 an algorithmic fallback, not a device one).
 
-On the card the wrappers launch the kernels; ``plain`` runs the plain
-torch versions instead (to hold the kernels to them), and a CPU tensor
-always runs them. Nothing before the info fetch synchronises with the
-host: no ``.item()``, ``nonzero``, boolean-mask indexing or indexing by
-a 0-d tensor.
+On the card the wrappers launch the kernels, and a CPU tensor runs
+their plain torch versions (``runtime/kernels.use_kernel``). Nothing
+before the info fetch synchronises with the host: no ``.item()``,
+``nonzero``, boolean-mask indexing or indexing by a 0-d tensor.
 """
 
 from __future__ import annotations
@@ -56,7 +55,7 @@ import numpy as np
 import torch
 
 from astroburst_tpu_torch.alignment import affine as A
-from astroburst_tpu_torch.alignment.vote_kernel import vote, vote_plain
+from astroburst_tpu_torch.alignment.vote_kernel import vote
 from astroburst_tpu_torch.analysis import star_detection as SD
 from astroburst_tpu_torch.runtime import kernels as K
 from astroburst_tpu_torch.runtime.device import as_f32
@@ -479,30 +478,28 @@ def _envelope(envelope: float, rows: int, cols: int):
             max(int(span_h) + 1, 1).bit_length())
 
 
-def _detect_device(plane: torch.Tensor, max_peaks: int, plain: bool):
+def _detect_device(plane: torch.Tensor, max_peaks: int):
     """normalise → background → detect → dedupe-top60 (fused_chain.py:
     _detect_device): ([2, 60] x/y rows, 0-d count)."""
     rows, cols = plane.shape
     packed = SD._detect(A.normalize_for_detection(plane),
                         SD._tile_size(rows, cols), A.DETECTION_SIGMA,
-                        max_peaks, plain)
-    return (dedupe_topk_plain if plain else dedupe_topk)(packed)
+                        max_peaks)
+    return dedupe_topk(packed)
 
 
-def _chain_body(ref_stars: "RefStars", tgt: torch.Tensor, envelope: float,
-                plain: bool):
+def _chain_body(ref_stars: "RefStars", tgt: torch.Tensor, envelope: float):
     """Everything after the reference's detection (fused_chain.py:
     _chain_body): detect the target, triangles, vote, greedy match,
     RANSAC ×2, gates, warp. Returns (warped plane, info [13] f32: a, b,
     tx, c, d, ty, method (2 affine, 1 rigid, 0 failed), matched,
     inliers, residual, envelope ok, reference stars, target stars)."""
     rows, cols = tgt.shape
-    txy, tn = _detect_device(tgt, ref_stars.max_peaks, plain)
+    txy, tn = _detect_device(tgt, ref_stars.max_peaks)
     txs, tys = txy.unbind(0)
     tr, tv = device_triangles(txs, tys)
-    votes = (vote_plain if plain else vote)(ref_stars.ratios,
-                                            ref_stars.verts, tr, tv)
-    ris, tis, cnt = (greedy_match_plain if plain else greedy_match)(votes)
+    votes = vote(ref_stars.ratios, ref_stars.verts, tr, tv)
+    ris, tis, cnt = greedy_match(votes)
     mvalid = torch.arange(STAR_CAP, device=tgt.device) < cnt
     mx = torch.where(mvalid, torch.take(ref_stars.xs, ris.long()), 0.0)
     my = torch.where(mvalid, torch.take(ref_stars.ys, ris.long()), 0.0)
@@ -561,14 +558,13 @@ class RefStars:
 
 
 def detect_ref_stars(reference, max_peaks: int = SD.MAX_PEAKS, *,
-                     device: Optional[torch.device] = None,
-                     plain: bool = False) -> RefStars:
+                     device: Optional[torch.device] = None) -> RefStars:
     """Detect and describe the reference channel's stars on the device,
     for reuse through ``align_and_warp(..., ref_stars=...)``. The plane
     goes to ``device`` (default: its own device for a tensor, else
     ``cuda_device()``); nothing is fetched."""
     ref = as_f32(reference, device)
-    xy, n = _detect_device(ref, max_peaks, plain)
+    xy, n = _detect_device(ref, max_peaks)
     ratios, verts = device_triangles(xy[0], xy[1])
     return RefStars(xy[0], xy[1], n, ratios, verts, ref.shape, max_peaks)
 
@@ -584,8 +580,7 @@ def _check_ref_stars(ref_stars: RefStars, shape, max_peaks: int) -> None:
 def align_and_warp(reference, target, envelope: float = 0.035,
                    max_peaks: int = SD.MAX_PEAKS,
                    ref_stars: Optional[RefStars] = None, *,
-                   device: Optional[torch.device] = None,
-                   plain: bool = False
+                   device: Optional[torch.device] = None
                    ) -> Tuple[torch.Tensor, A.AffineAlignResult]:
     """Align ``target`` onto ``reference`` and warp it: one device
     program, one host fetch (the 13-slot info vector); the warped plane
@@ -603,27 +598,25 @@ def align_and_warp(reference, target, envelope: float = 0.035,
     tgt = as_f32(target, ref.device)
     rows, cols = ref.shape
     if rows < 16 or cols < 16 or ref.shape != tgt.shape:
-        res = A.align_channel_affine(ref, tgt, plain=plain)
+        res = A.align_channel_affine(ref, tgt)
         return A.warp_image(tgt, res.transform, rows, cols), res
     if ref_stars is None:
-        ref_stars = detect_ref_stars(ref, max_peaks, plain=plain)
+        ref_stars = detect_ref_stars(ref, max_peaks)
     else:
         _check_ref_stars(ref_stars, ref.shape, max_peaks)
-    warped, info = _chain_body(ref_stars, tgt, envelope, plain)
-    return _interpret_info(info.tolist(), ref, tgt, rows, cols, warped,
-                           plain)   # the ONE host fetch
+    warped, info = _chain_body(ref_stars, tgt, envelope)
+    return _interpret_info(info.tolist(), ref, tgt, rows, cols,
+                           warped)   # the ONE host fetch
 
 
-def _interpret_info(info: List[float], ref, tgt, rows, cols, warped,
-                    plain: bool = False):
+def _interpret_info(info: List[float], ref, tgt, rows, cols, warped):
     """The host's reading of one fetched info vector: the result record,
     a failed chain routed to the phase-correlation fallback
     (affine.rs:258-270 semantics), and a transform whose linear part is
     exactly the identity re-warped by `warp_image`'s separable shift."""
     method = int(info[6])
     if method == 0:
-        res = A._fallback_phase_correlation(ref, tgt, rows, cols,
-                                            plain=plain)
+        res = A._fallback_phase_correlation(ref, tgt, rows, cols)
         return A.warp_image(tgt, res.transform, rows, cols), res
     t = A.AffineTransform(*info[:6])
     res = A.AffineAlignResult(t, int(info[7]), int(info[8]), info[9],
@@ -636,8 +629,7 @@ def _interpret_info(info: List[float], ref, tgt, rows, cols, warped,
 def align_and_warp_many(reference, targets, envelope: float = 0.035,
                         max_peaks: int = SD.MAX_PEAKS,
                         ref_stars: Optional[RefStars] = None, *,
-                        device: Optional[torch.device] = None,
-                        plain: bool = False) -> list:
+                        device: Optional[torch.device] = None) -> list:
     """Align EVERY target to ``reference`` with one host fetch of all
     their info vectors; returns ``(warped, AffineAlignResult)`` pairs in
     target order. Shapes the chain does not take go target by target
@@ -648,13 +640,13 @@ def align_and_warp_many(reference, targets, envelope: float = 0.035,
     if (not tgts or rows < 16 or cols < 16
             or any(t.shape != ref.shape for t in tgts)):
         return [align_and_warp(ref, t, envelope, max_peaks,
-                               ref_stars=ref_stars, plain=plain)
+                               ref_stars=ref_stars)
                 for t in tgts]
     if ref_stars is None:
-        ref_stars = detect_ref_stars(ref, max_peaks, plain=plain)
+        ref_stars = detect_ref_stars(ref, max_peaks)
     else:
         _check_ref_stars(ref_stars, ref.shape, max_peaks)
-    outs = [_chain_body(ref_stars, t, envelope, plain) for t in tgts]
+    outs = [_chain_body(ref_stars, t, envelope) for t in tgts]
     infos = torch.stack([i for _, i in outs]).tolist()   # the ONE fetch
-    return [_interpret_info(info, ref, t, rows, cols, w, plain)
+    return [_interpret_info(info, ref, t, rows, cols, w)
             for info, t, (w, _) in zip(infos, tgts, outs)]

@@ -9,9 +9,7 @@ takes it on its TPU; ``ref_stars`` (``fused_chain.detect_ref_stars``)
 then skips detecting a shared reference again. Elsewhere — planes on
 the CPU, or another canvas — it runs the host chain of alignment/affine
 (detect, vote and warp on the device, triangles, matching and RANSAC on
-the host) and warps with ``warp_image``. ``plain`` runs the kernels'
-plain torch versions instead (drizzle's affine route and the compose
-pipeline hold the kernels to them on the card).
+the host) and warps with ``warp_image``.
 """
 
 from __future__ import annotations
@@ -51,23 +49,21 @@ def shift_image_subpixel(image, dy: float, dx: float) -> torch.Tensor:
     return shift_bicubic(img, dy, dx)
 
 
-def estimate_offset(reference, target, method: AlignMethod, *,
-                    plain: bool = False):
+def estimate_offset(reference, target, method: AlignMethod):
     """(dy, dx, confidence) of ``target`` against ``reference``: the
     affine chain's translation (confidence 1 with inliers, else 0), or
     phase correlation."""
     if method == AlignMethod.AFFINE:
-        r = align_channel_affine(reference, target, plain=plain)
+        r = align_channel_affine(reference, target)
         return (r.transform.ty, r.transform.tx,
                 1.0 if r.inliers > 0 else 0.0)
     ref = as_f32(reference)
-    pc = phase_correlate(ref, as_f32(target, ref.device), plain=plain)
+    pc = phase_correlate(ref, as_f32(target, ref.device))
     return pc.dy, pc.dx, pc.confidence
 
 
 def align_pair(reference, target, method: AlignMethod, rows: int,
-               cols: int, ref_stars=None, *,
-               plain: bool = False) -> AlignPairResult:
+               cols: int, ref_stars=None) -> AlignPairResult:
     """Align ``target`` onto ``reference`` and resample it onto a
     rows × cols canvas (affine) or shift it (phase correlation)."""
     if method == AlignMethod.AFFINE:
@@ -77,9 +73,9 @@ def align_pair(reference, target, method: AlignMethod, rows: int,
             # the fused chain warps onto the reference's canvas, so it
             # takes only that canvas; another goes to the host chain
             warped, result = fused_chain.align_and_warp(
-                ref, target, ref_stars=ref_stars, plain=plain)
+                ref, target, ref_stars=ref_stars)
         else:
-            result = align_channel_affine(ref, target, plain=plain)
+            result = align_channel_affine(ref, target)
             warped = warp_image(as_f32(target), result.transform,
                                 rows, cols)
         return AlignPairResult(
@@ -93,7 +89,7 @@ def align_pair(reference, target, method: AlignMethod, rows: int,
         )
     ref = as_f32(reference)
     tgt = as_f32(target, ref.device)
-    pc = phase_correlate(ref, tgt, plain=plain)
+    pc = phase_correlate(ref, tgt)
     shifted = shift_image_subpixel(tgt, pc.dy, pc.dx)
     return AlignPairResult(
         aligned=shifted, offset=(pc.dy, pc.dx), confidence=pc.confidence,
@@ -101,10 +97,10 @@ def align_pair(reference, target, method: AlignMethod, rows: int,
 
 
 def align_pair_with_label(reference, target, method: AlignMethod, rows: int,
-                          cols: int, label: str, ref_stars=None, *,
-                          plain: bool = False) -> AlignPairResult:
+                          cols: int, label: str,
+                          ref_stars=None) -> AlignPairResult:
     result = align_pair(reference, target, method, rows, cols,
-                        ref_stars=ref_stars, plain=plain)
+                        ref_stars=ref_stars)
     log.info("%s alignment: %s, offset=(%.2f, %.2f), confidence=%.4f, "
              "inliers=%d", label, result.method_used, result.offset[0],
              result.offset[1], result.confidence, result.inliers)

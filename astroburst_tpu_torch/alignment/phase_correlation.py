@@ -25,9 +25,10 @@ K1 fills buffers the graphs own, the first graph correlates the coarse
 surfaces and ends in the crop origins, K2 gathers the crops into the
 second graph's input, and the second correlates the crops and gates
 them. The graphs hold no pointer into the caller's stack, run the same
-ops as the eager call, and so give its bits. ``plain``, the CPU and
-planes of at most 512 px a side run eagerly, as does a key's first
-call; ``_GRAPHS`` keeps at most 4 keys.
+ops as the eager call, and so give its bits. The CPU, the plain
+versions (``runtime/kernels.plain_versions``) and planes of at most
+512 px a side run eagerly, as does a key's first call; ``_GRAPHS``
+keeps at most 4 keys.
 """
 
 from __future__ import annotations
@@ -41,12 +42,11 @@ from dataclasses import dataclass
 import torch
 
 from astroburst_tpu_torch.alignment.coarse_kernel import (
-    box_plan, coarse_downsample_stack, coarse_downsample_stack_plain,
-    frame_stats_plain, reduce_row_stats)
+    box_plan, coarse_downsample_stack, frame_stats_plain, reduce_row_stats)
 from astroburst_tpu_torch.ops import fft as F
-from astroburst_tpu_torch.ops.crop_kernel import (gather_crops,
-                                                  gather_crops_plain)
+from astroburst_tpu_torch.ops.crop_kernel import gather_crops
 from astroburst_tpu_torch.ops.window import hann_periodic
+from astroburst_tpu_torch.runtime import kernels as K
 from astroburst_tpu_torch.runtime import trace
 
 COARSE_MAX_DIM = 512        # phase_correlation.rs:10
@@ -261,18 +261,19 @@ def phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor, *,
     On a CUDA stack the coarse surfaces and the per-frame validity gate
     come from kernel K1 and the refine crops from kernel K2, and a
     shape seen before replays its CUDA graphs (module docstring).
-    ``plain`` runs their plain torch versions instead (to hold the
-    kernels to them on the card).
+    ``plain`` runs the call in ``runtime/kernels.plain_versions()``.
     """
+    if plain:
+        with K.plain_versions():
+            return phase_correlate_stack(ref, targets)
     with trace.span("alignment.phase_corr"):
-        return _phase_correlate_stack(ref, targets, plain)
+        return _phase_correlate_stack(ref, targets)
 
 
-def _phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor,
-                           plain: bool):
+def _phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor):
     n, rows, cols = targets.shape
     small = rows <= COARSE_MAX_DIM and cols <= COARSE_MAX_DIM
-    if targets.is_cuda and not plain:
+    if K.use_kernel(targets, "phase_correlate_stack"):
         key = None if small else graph_key(ref, targets)
         graphs = None if key is None else _GRAPHS.get(key)
         if graphs is not None:
@@ -281,20 +282,17 @@ def _phase_correlate_stack(ref: torch.Tensor, targets: torch.Tensor,
     if small:
         return correlate_single(ref, targets)
 
-    coarse = coarse_downsample_stack_plain if plain else \
-        coarse_downsample_stack
-    crop = gather_crops_plain if plain else gather_crops
     with trace.span("alignment.coarse"):
-        ref_ds, by, bx, *ref_stats = coarse(ref[None], COARSE_MAX_DIM,
-                                            with_stats=True)
-        tgt_ds, _, _, *tgt_stats = coarse(targets, COARSE_MAX_DIM,
-                                          with_stats=True)
+        ref_ds, by, bx, *ref_stats = coarse_downsample_stack(
+            ref[None], COARSE_MAX_DIM, with_stats=True)
+        tgt_ds, _, _, *tgt_stats = coarse_downsample_stack(
+            targets, COARSE_MAX_DIM, with_stats=True)
     cdy, cdx, _ = correlate_single(ref_ds[0], tgt_ds)
     tgt_y0, tgt_x0 = _refine_origins(cdy, cdx, by, bx, rows, cols)
     s_r = min(REFINE_CROP_SIZE, rows)
     s_c = min(REFINE_CROP_SIZE, cols)
     with trace.span("alignment.crops"):
-        crops = crop(targets, tgt_y0, tgt_x0, s_r, s_c)
+        crops = gather_crops(targets, tgt_y0, tgt_x0, s_r, s_c)
         ref_crop = _centered_crop_static(ref, REFINE_CROP_SIZE)
     rdy, rdx, rconf = correlate_single(ref_crop, crops)
     return _combine(tgt_y0, tgt_x0, rdy, rdx, rconf, ref_stats, tgt_stats,
@@ -444,14 +442,12 @@ class _StackGraphs:
 _GRAPHS = GraphCache(_StackGraphs)
 
 
-def phase_correlate(reference, target, *,
-                    plain: bool = False) -> PhaseCorrelationResult:
+def phase_correlate(reference, target) -> PhaseCorrelationResult:
     """Host-level API: crop both [H, W] tensors to their common dims,
-    correlate on their device, fetch (dy, dx, confidence). ``plain`` as
-    in ``phase_correlate_stack``."""
+    correlate on their device, fetch (dy, dx, confidence)."""
     rows = min(reference.shape[0], target.shape[0])
     cols = min(reference.shape[1], target.shape[1])
     ref = reference[:rows, :cols].float().contiguous()
     tgt = target[:rows, :cols].float().contiguous()
-    dy, dx, conf = phase_correlate_stack(ref, tgt[None], plain=plain)
+    dy, dx, conf = phase_correlate_stack(ref, tgt[None])
     return PhaseCorrelationResult(float(dy[0]), float(dx[0]), float(conf[0]))

@@ -23,9 +23,6 @@ The JAX package's design is kept, on torch tensors:
    array (``_postprocess_packed``, numpy, a copy of the JAX function),
    or, for the masked stretch, ``dedupe_packed_device``: the same accept
    set with the packed array left on the device.
-
-``plain`` runs the kernels' plain torch versions instead (to hold the
-kernels to them on the card).
 """
 
 from __future__ import annotations
@@ -36,10 +33,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from astroburst_tpu_torch.analysis.tile_sort_kernel import (sort_tiles,
-                                                            sort_tiles_plain)
+from astroburst_tpu_torch.analysis.tile_sort_kernel import sort_tiles
 from astroburst_tpu_torch.analysis.window_kernel import (  # noqa: F401
-    HALF, WINDOW, window_stats, window_stats_plain)
+    HALF, WINDOW, window_stats)
 from astroburst_tpu_torch.constants import MAD_TO_SIGMA
 from astroburst_tpu_torch.runtime.device import as_f32
 
@@ -194,7 +190,7 @@ def _tile_sigma_clipped(sorted_rows, valid_counts, kappa: float = 3.0,
     return torch.where(empty, 0.0, med), torch.where(empty, 1.0, sig)
 
 
-def _background(image: torch.Tensor, tile_size: int, plain: bool = False):
+def _background(image: torch.Tensor, tile_size: int):
     """(median, sigma) of the background as 0-d f32 tensors on the
     image's device (star_detection.py:_estimate_background_kernel)."""
     rows, cols = image.shape
@@ -203,8 +199,7 @@ def _background(image: torch.Tensor, tile_size: int, plain: bool = False):
     tx = -(-cols // step)
     padded = torch.nn.functional.pad(
         image, (0, tx * step - cols, 0, ty * step - rows), value=float("nan"))
-    sorted_rows, counts = (sort_tiles_plain if plain else sort_tiles)(
-        padded, step)
+    sorted_rows, counts = sort_tiles(padded, step)
     med, sig = _tile_sigma_clipped(sorted_rows, counts)
     # tiles with < 8 valid pixels are excluded (star_detection.rs:60)
     ok = counts >= 8
@@ -298,16 +293,15 @@ def _peaks(image: torch.Tensor, threshold: torch.Tensor, max_peaks: int):
 
 
 def _detect(image: torch.Tensor, tile_size: int, sigma_threshold: float,
-            max_peaks: int, plain: bool = False) -> torch.Tensor:
+            max_peaks: int) -> torch.Tensor:
     """Background, peaks, window statistics and the packed [10,
     max_peaks] f32 record (star_detection.py:_detect_fused): rows cy,
     cx, flux, fwhm, ecc, peak, npix, snr, valid, and (bg_med, bg_sig)
     in the first two cells of the last row."""
-    bg_med, bg_sig = _background(image, tile_size, plain)
+    bg_med, bg_sig = _background(image, tile_size)
     threshold = bg_med + sigma_threshold * bg_sig
     py, px, vals, n_valid = _peaks(image, threshold, max_peaks)
-    stats9 = (window_stats_plain if plain else window_stats)(
-        image, py, px, threshold, bg_med, n_valid)
+    stats9 = window_stats(image, py, px, threshold, bg_med, n_valid)
     npixs, fluxes, cy, cx, r2m, sxx, syy, sxy, pvals = stats9.unbind(1)
     safe_flux = torch.clamp(fluxes, min=1e-30)
     fwhms = torch.sqrt(r2m / (2.0 * safe_flux)) * FWHM_FACTOR
@@ -332,8 +326,7 @@ def _detect(image: torch.Tensor, tile_size: int, sigma_threshold: float,
 
 def detect_stars(image, sigma_threshold: float = 5.0,
                  max_peaks: int = MAX_PEAKS,
-                 device: Optional[torch.device] = None, *,
-                 plain: bool = False) -> DetectionResult:
+                 device: Optional[torch.device] = None) -> DetectionResult:
     """Full detection pipeline (star_detection.rs:86-248). ``image``
     goes to ``device`` (default: its own device for a tensor, else
     ``cuda_device()``); one host fetch."""
@@ -342,26 +335,25 @@ def detect_stars(image, sigma_threshold: float = 5.0,
     if rows < 3 or cols < 3:
         return DetectionResult([], 0.0, 1.0, sigma_threshold, cols, rows)
     packed = _detect(img, _tile_size(rows, cols), float(sigma_threshold),
-                     max_peaks, plain).cpu().numpy()
+                     max_peaks).cpu().numpy()
     return _postprocess_packed(packed, float(sigma_threshold), rows, cols)
 
 
 def detect_stars_pair(image_a, image_b, sigma_threshold: float = 5.0,
                       max_peaks: int = MAX_PEAKS,
-                      device: Optional[torch.device] = None, *,
-                      plain: bool = False):
+                      device: Optional[torch.device] = None):
     """detect_stars on two same-shape planes with one host fetch (the
     alignment chain's detect × 2)."""
     a = as_f32(image_a, device)
     b = as_f32(image_b, a.device)
     rows, cols = a.shape
     if rows < 3 or cols < 3 or a.shape != b.shape:
-        return (detect_stars(a, sigma_threshold, max_peaks, plain=plain),
-                detect_stars(b, sigma_threshold, max_peaks, plain=plain))
+        return (detect_stars(a, sigma_threshold, max_peaks),
+                detect_stars(b, sigma_threshold, max_peaks))
     tile = _tile_size(rows, cols)
     both = torch.stack([
-        _detect(a, tile, float(sigma_threshold), max_peaks, plain),
-        _detect(b, tile, float(sigma_threshold), max_peaks, plain)]
+        _detect(a, tile, float(sigma_threshold), max_peaks),
+        _detect(b, tile, float(sigma_threshold), max_peaks)]
     ).cpu().numpy()
     return (_postprocess_packed(both[0], float(sigma_threshold), rows, cols),
             _postprocess_packed(both[1], float(sigma_threshold), rows, cols))

@@ -9,10 +9,9 @@ Planck-curve white references.
 
 The planes stay on their device: the luminance (three f32 products
 summed in order, non-finite values kept: ROADMAP C26), the port's
-``detect_stars`` on it (kernels K10 and K11, or their plain versions
-with ``plain``) and its largest value. The quality filter, the sort by
-SNR, WCS → sky, the catalog and the cross-match run on the host, as in
-the JAX package. For the aperture photometry the card gathers one
+``detect_stars`` on it (kernels K10 and K11) and its largest value.
+The quality filter, the sort by SNR, WCS → sky, the catalog and the
+cross-match run on the host, as in the JAX package. For the aperture photometry the card gathers one
 square window of each plane around every kept star, all in one fetch;
 the host cuts each star's exact aperture box out of its window and runs
 the JAX package's f64 numpy arithmetic on it, so given the same stars
@@ -232,13 +231,13 @@ def luminance(r: torch.Tensor, g: torch.Tensor,
     return 0.2126 * r + 0.7152 * g + 0.0722 * b
 
 
-def select_stars(lum: torch.Tensor, config: SpccConfig,
-                 plain: bool = False) -> List[DetectedStar]:
+def select_stars(lum: torch.Tensor,
+                 config: SpccConfig) -> List[DetectedStar]:
     """Detection at 5 sigma on the luminance (K10, K11), then on the
     host the SNR, saturation and 10 px border filters and the sort by
     SNR, cut to ``config.max_stars`` (spcc.rs:90-110)."""
     h, w = lum.shape
-    detection = detect_stars(lum, 5.0, plain=plain)
+    detection = detect_stars(lum, 5.0)
     sat_limit = compute_image_stats(lum).max * config.saturation_limit
     good = [s for s in detection.stars
             if (s.snr >= config.min_snr and s.peak < sat_limit and
@@ -339,10 +338,9 @@ def compute_correction_factors(matched: Sequence[dict], wr_r: float,
 
 def spcc_calibrate_rgb(r_image, g_image, b_image, header: HduHeader,
                        config: SpccConfig = SpccConfig(), *,
-                       device=None, plain: bool = False) -> SpccResult:
+                       device=None) -> SpccResult:
     """Full SPCC chain (spcc.rs:73-178). The planes go to ``device``
-    (default: the first tensor's device, else ``cuda_device()``);
-    ``plain`` runs the detection kernels' plain versions."""
+    (default: the first tensor's device, else ``cuda_device()``)."""
     try:
         wcs = WcsTransform.from_header(header)
     except InvalidInput as e:
@@ -350,7 +348,7 @@ def spcc_calibrate_rgb(r_image, g_image, b_image, header: HduHeader,
 
     r, g, b = as_f32_all(r_image, g_image, b_image, device=device)
     h, w = r.shape
-    good = select_stars(luminance(r, g, b), config, plain)
+    good = select_stars(luminance(r, g, b), config)
     if len(good) < 5:
         raise InvalidInput(
             f"Only {len(good)} stars passed quality filters (need 5+). "

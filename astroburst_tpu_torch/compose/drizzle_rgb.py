@@ -131,15 +131,14 @@ def process_drizzle_rgb(r_image, g_image, b_image,
 
 def drizzle_rgb(r_frames: Sequence, g_frames: Sequence, b_frames: Sequence,
                 config: DrizzleRgbConfig = DrizzleRgbConfig(),
-                progress: Optional[object] = None, *, plain: bool = False
+                progress: Optional[object] = None
                 ) -> Tuple[ProcessedDrizzleRgb, Dict[str, DrizzleResult]]:
-    """Drizzle each channel, then assemble (drizzle_rgb.rs:159+).
-    ``plain`` drizzles through the kernels' plain torch versions."""
+    """Drizzle each channel, then assemble (drizzle_rgb.rs:159+)."""
     results: Dict[str, DrizzleResult] = {}
     planes = {}
     for name, frames in (("r", r_frames), ("g", g_frames), ("b", b_frames)):
         if frames:
-            res = drizzle_stack(frames, config.drizzle, progress, plain=plain)
+            res = drizzle_stack(frames, config.drizzle, progress)
             results[name] = res
             planes[name] = res.image
             if progress is not None:

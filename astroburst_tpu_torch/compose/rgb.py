@@ -133,11 +133,9 @@ def _synth_all(r, g, b, rows: int, cols: int):
             channel_or_synth(b, r, g, rows, cols))
 
 
-def align_rgb_channels(r, g, b, rows: int, cols: int, method, *,
-                       plain: bool = False):
+def align_rgb_channels(r, g, b, rows: int, cols: int, method):
     """Align G and B to the reference channel (rgb.rs:165-189): the
-    first of R, G, B present. ``plain`` runs the kernels' plain torch
-    versions instead. Returns (r, g, b, offset_g, offset_b)."""
+    first of R, G, B present. Returns (r, g, b, offset_g, offset_b)."""
     ref = r if r is not None else (g if g is not None else b)
     r_img, g_img, b_img = _synth_all(r, g, b, rows, cols)
     off_g = (0.0, 0.0)
@@ -149,9 +147,9 @@ def align_rgb_channels(r, g, b, rows: int, cols: int, method, *,
                 and tuple(ref_t.shape) == (rows, cols)):
             # both aligns share the reference channel: its stars are
             # detected once, and both chains end in one info fetch
-            ref_stars = fused_chain.detect_ref_stars(ref_t, plain=plain)
+            ref_stars = fused_chain.detect_ref_stars(ref_t)
             (g_img, res_g), (b_img, res_b) = fused_chain.align_and_warp_many(
-                ref_t, [g_img, b_img], ref_stars=ref_stars, plain=plain)
+                ref_t, [g_img, b_img], ref_stars=ref_stars)
             for label, res in (("G", res_g), ("B", res_b)):
                 log.info("%s alignment: %s, offset=(%.2f, %.2f), "
                          "inliers=%d", label, res.method,
@@ -160,12 +158,10 @@ def align_rgb_channels(r, g, b, rows: int, cols: int, method, *,
                     (res_g.transform.ty, res_g.transform.tx),
                     (res_b.transform.ty, res_b.transform.tx))
     if g is not None:
-        res = align_pair_with_label(ref, g_img, method, rows, cols, "G",
-                                    plain=plain)
+        res = align_pair_with_label(ref, g_img, method, rows, cols, "G")
         g_img, off_g = res.aligned, res.offset
     if b is not None:
-        res = align_pair_with_label(ref, b_img, method, rows, cols, "B",
-                                    plain=plain)
+        res = align_pair_with_label(ref, b_img, method, rows, cols, "B")
         b_img, off_b = res.aligned, res.offset
     return r_img, g_img, b_img, off_g, off_b
 
@@ -175,11 +171,10 @@ def _mul(img: torch.Tensor, m: float) -> torch.Tensor:
 
 
 def process_rgb(r_channel, g_channel, b_channel,
-                config: RgbComposeConfig = RgbComposeConfig(), *,
-                plain: bool = False) -> ProcessedRgb:
+                config: RgbComposeConfig = RgbComposeConfig()
+                ) -> ProcessedRgb:
     """The full compose pipeline (rgb.rs:209-322) on the channels'
-    device (numpy channels go to ``cuda_device()``). ``plain`` aligns
-    through the kernels' plain torch versions."""
+    device (numpy channels go to ``cuda_device()``)."""
     present = [c for c in (r_channel, g_channel, b_channel) if c is not None]
     if len(present) < 2:
         raise InvalidInput(
@@ -192,7 +187,7 @@ def process_rgb(r_channel, g_channel, b_channel,
 
     if config.align:
         r_img, g_img, b_img, off_g, off_b = align_rgb_channels(
-            r, g, b, rows, cols, config.align_method, plain=plain)
+            r, g, b, rows, cols, config.align_method)
     else:
         r_img, g_img, b_img = _synth_all(r, g, b, rows, cols)
         off_g = off_b = (0.0, 0.0)

@@ -5,23 +5,23 @@
 // (astroburst_tpu/stacking/drizzle.py:_drizzle_kernel_exact) gathers one
 // candidate tensor per band of output rows with XLA and finalizes it with
 // astroburst_tpu/stacking/drizzle_kernel.py:drizzle_finalize_fused (K7).
-// The port did the same band by band (stacking/drizzle.py:_drizzle_bands):
-// per band some 40 small tap ops, an index copy that writes a [n*taps^2,
-// band_rows, w] candidate tensor, K7 and the band's writes, about 10 000
-// launches and 10.7 GB of candidates a call at 10 x 4096^2 -> 8192^2.
+// Done band by band on the card, that is per band some 40 small tap ops,
+// an index copy that writes a [n*taps^2, band_rows, w] candidate tensor,
+// K7 and the band's writes: about 10 000 launches and 10.7 GB of
+// candidates a call at 10 x 4096^2 -> 8192^2.
 //
 // What it computes: for output pixel (y, x) of the padded grid (every band
 // row, n_bands * band_rows of them), push k = (f, t, u) in the reference's
 // order has weight wk = wys_t[y, f*taps+t] * wxs[f*taps+u, x] and value
 // stack[f, iy[y, f*taps+t], ix[f*taps+u, x]]; it is present where wk >
 // 1e-12 and the value is finite (K7's ListCands<true>). The tables are
-// the band loop's own taps (stacking/drizzle.py:_band_row_tables: the row
+// every band's own taps (stacking/drizzle.py:_band_row_tables: the row
 // taps of every band from one batched _exact_taps call, laid out per
 // output row; the x taps once), so the pushes, their order, the cap and
 // the arithmetic of the finalize (drizzle_finalize.cuh) are K7's on the
-// gathered candidates: the planes are bit-equal to the band loop. A
+// gathered candidates: the planes are bit-equal to K7 band by band. A
 // value is read only after its weight passed; an index outside the plane
-// is never present (the band loop's tables clamp their indices into the
+// is never present (the drizzle's tables clamp their indices into the
 // plane, so it does not occur there), so no read leaves the stack.
 //
 // What bounds it on the H100: the per-pixel finalize on the ALU pipe, as
@@ -52,7 +52,7 @@
 //     wrapper launches it over bands of rows so that the scratch stays
 //     bounded; 42 registers.
 // At the bench (depth 20) the kernel takes 14.0 ms on an H100 at 700 W,
-// K9 12.0 ms, the band loop it replaces 155 ms.
+// K9 12.0 ms, the band-by-band route it replaced 155 ms.
 // chip_smoke.py's build phase prints each instance's registers, stack and
 // spills from -Xptxas -v, and fails on a spill or on a register instance
 // with a stack frame.

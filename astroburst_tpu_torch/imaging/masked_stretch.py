@@ -180,26 +180,24 @@ def _paint_records(packed: torch.Tensor, mask_cfg: StarMaskConfig):
 
 def masked_stretch(image, config: MaskedStretchConfig = MaskedStretchConfig(),
                    max_peaks: int = 4096,
-                   device: Optional[torch.device] = None, *,
-                   plain: bool = False) -> MaskedStretchResult:
+                   device: Optional[torch.device] = None
+                   ) -> MaskedStretchResult:
     """Full masked stretch (masked_stretch.rs:42-123): detection, the
     device 3 px dedupe (``_postprocess_packed``'s accept set), the FWHM
     filter, the mask paint and the MTF loop. ``image`` goes to ``device``
-    (default: its own device for a tensor, else ``cuda_device()``);
-    ``plain`` runs the kernels' plain versions (to hold the kernels to
-    them on the card)."""
+    (default: its own device for a tensor, else ``cuda_device()``)."""
     img = as_f32(image, device)
     rows, cols = img.shape
     mask_cfg = _mask_config(config)
     if rows < 3 or cols < 3:
-        mask_result = generate_star_mask(img, mask_cfg, plain=plain)
+        mask_result = generate_star_mask(img, mask_cfg)
         return masked_stretch_with_mask(img, mask_result, config)
     packed = SD._detect(img, SD._tile_size(rows, cols),
-                        float(mask_cfg.detection_sigma), max_peaks, plain)
+                        float(mask_cfg.detection_sigma), max_peaks)
     xs, ys, radii, n_masked = _paint_records(packed, mask_cfg)
     mask, coverage = _mask_kernel(img, xs, ys, radii, mask_cfg.softness,
                                   mask_cfg.luminance_ceiling,
-                                  mask_cfg.luminance_protect, plain=plain)
+                                  mask_cfg.luminance_protect)
     out, iters, final_bg, converged = _stretch_core(img, mask, config)
     n_masked, coverage = torch.stack([n_masked.to(torch.float32),
                                       coverage]).tolist()
@@ -219,13 +217,13 @@ def synthesize_luminance(r, g, b) -> torch.Tensor:
 
 def masked_stretch_rgb_shared(r, g, b, config: MaskedStretchConfig =
                               MaskedStretchConfig(),
-                              device: Optional[torch.device] = None, *,
-                              plain: bool = False) -> dict:
+                              device: Optional[torch.device] = None
+                              ) -> dict:
     """One luminance-derived star mask drives all three channels."""
     r = as_f32(r, device)
     g, b = as_f32(g, r.device), as_f32(b, r.device)
     shared = generate_star_mask(synthesize_luminance(r, g, b),
-                                _mask_config(config), plain=plain)
+                                _mask_config(config))
     return {
         "r": masked_stretch_with_mask(r, shared, config),
         "g": masked_stretch_with_mask(g, shared, config),

@@ -5,7 +5,7 @@ radius FWHM·growth with a smoothstep soft edge, max-combined, optional
 luminance-ceiling protection, coverage fraction.
 
 The raster is kernel K13 (imaging/star_mask_kernel.py: ``paint_mask``;
-its plain version on a CPU tensor or with ``plain=True``). The
+its plain version on a CPU tensor). The
 luminance protection and the coverage (``_mask_finish``) are the JAX
 package's f32 expressions, with the configuration scalars as f32
 tensors so that 1 − ceiling rounds as it does there.
@@ -20,8 +20,7 @@ import numpy as np
 import torch
 
 from astroburst_tpu_torch.analysis.star_detection import detect_stars
-from astroburst_tpu_torch.imaging.star_mask_kernel import (paint_mask,
-                                                           paint_mask_plain)
+from astroburst_tpu_torch.imaging.star_mask_kernel import paint_mask
 from astroburst_tpu_torch.runtime.device import as_f32
 
 
@@ -62,12 +61,10 @@ def _mask_finish(image: torch.Tensor, mask: torch.Tensor,
 
 def _mask_kernel(image: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
                  radii: torch.Tensor, softness: float,
-                 luminance_ceiling: float, luminance_protect: bool, *,
-                 plain: bool = False):
+                 luminance_ceiling: float, luminance_protect: bool):
     """Paint (K13) and finish: (mask [h, w] f32, coverage 0-d f32)."""
     h, w = image.shape
-    mask = (paint_mask_plain if plain else paint_mask)(xs, ys, radii,
-                                                       softness, h, w)
+    mask = paint_mask(xs, ys, radii, softness, h, w)
     return _mask_finish(image, mask, luminance_ceiling, luminance_protect)
 
 
@@ -89,8 +86,7 @@ def _star_arrays(detection, config: StarMaskConfig):
 
 def generate_star_mask_from_detection(
         image, detection, config: StarMaskConfig,
-        device: Optional[torch.device] = None, *,
-        plain: bool = False) -> StarMaskResult:
+        device: Optional[torch.device] = None) -> StarMaskResult:
     """Star mask of ``image`` from a finished detection. ``image`` goes
     to ``device`` (default: its own device for a tensor, else
     ``cuda_device()``); one host fetch (the coverage)."""
@@ -98,17 +94,15 @@ def generate_star_mask_from_detection(
     xs, ys, radii, n_masked = _star_arrays(detection, config)
     mask, coverage = _mask_kernel(
         img, *(torch.from_numpy(a).to(img.device) for a in (xs, ys, radii)),
-        config.softness, config.luminance_ceiling, config.luminance_protect,
-        plain=plain)
+        config.softness, config.luminance_ceiling, config.luminance_protect)
     return StarMaskResult(mask=mask, stars_masked=n_masked,
                           coverage_fraction=float(coverage))
 
 
 def generate_star_mask(image, config: StarMaskConfig = StarMaskConfig(),
-                       device: Optional[torch.device] = None, *,
-                       plain: bool = False) -> StarMaskResult:
+                       device: Optional[torch.device] = None
+                       ) -> StarMaskResult:
     """detect_stars (max_peaks 1024, host dedupe), then the mask."""
     img = as_f32(image, device)
-    detection = detect_stars(img, config.detection_sigma, plain=plain)
-    return generate_star_mask_from_detection(img, detection, config,
-                                             plain=plain)
+    detection = detect_stars(img, config.detection_sigma)
+    return generate_star_mask_from_detection(img, detection, config)

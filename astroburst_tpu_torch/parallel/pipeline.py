@@ -38,38 +38,33 @@ from astroburst_tpu_torch.parallel.mesh import (Mesh, Sharded, as_sharded,
                                                 on_shards)
 from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.stacking.onepass_kernel import (
-    shift_clip_onepass, shift_clip_onepass_plain, shift_clip_onepass_slab,
-    shift_clip_onepass_slab_plain, slab_halo)
+    shift_clip_onepass, shift_clip_onepass_slab, slab_halo)
 
 
 def align_stack_stretch(stack: torch.Tensor, sigma_low: float = 3.0,
                         sigma_high: float = 3.0, max_iter: int = 5,
-                        align: bool = True, exact_pair: bool = False, *,
-                        plain: bool = False) -> dict:
+                        align: bool = True,
+                        exact_pair: bool = False) -> dict:
     """Run the pipeline over a contiguous f32 [N, H, W] stack.
 
     Returns a dict of tensors on the stack's device: combined f32
     [H, W], preview u8 [H, W], offsets [N, 2] f32 (frame 0 is the
     reference, offset 0), confidences [N] f32, rejected (0-d int64),
     stf (shadow, midtone) f32 [2], data_range (min, max) f32 [2].
-    ``plain`` runs the plain torch versions of the kernels instead (to
-    hold the kernels to them on the card).
     """
     with trace.span("pipeline.align_stack_stretch"):
         n = stack.shape[0]
         zeros = torch.zeros(n, dtype=torch.float32, device=stack.device)
         if align and n > 1:
-            dys1, dxs1, confs1 = phase_correlate_stack(stack[0], stack[1:],
-                                                       plain=plain)
+            dys1, dxs1, confs1 = phase_correlate_stack(stack[0], stack[1:])
             dys = torch.cat([zeros[:1], dys1])
             dxs = torch.cat([zeros[:1], dxs1])
             confs = torch.cat([zeros[:1], confs1])
         else:
             dys = dxs = confs = zeros
 
-        clip = shift_clip_onepass_plain if plain else shift_clip_onepass
-        combined, rejected = clip(stack, dys, dxs, sigma_low, sigma_high,
-                                  max_iter)
+        combined, rejected = shift_clip_onepass(stack, dys, dxs, sigma_low,
+                                                sigma_high, max_iter)
         mn, mx, _total, count, med, mad = stats_core(combined, exact_pair)
         with trace.span("stats.stf"):
             sigma = torch.clamp(mad * 1.4826, min=1e-30)
@@ -191,7 +186,7 @@ def _host_offsets(dys, dxs, n: int):
 
 def _halo_clip_local(mesh: Mesh, slabs, dys, dxs, axes, local_h: int,
                      h: int, halo: int, sigma_low: float, sigma_high: float,
-                     max_iter: int, plain: bool):
+                     max_iter: int):
     """Per shard: the halo exchange (edge replicas at the image's
     edges), then K3's slab entry on the extended slab; the rejected
     counts ``psum``med. A shard whose block runs past the image (the
@@ -200,7 +195,6 @@ def _halo_clip_local(mesh: Mesh, slabs, dys, dxs, axes, local_h: int,
     replicas of the last row there. Returns (combined: Sharded rows over
     ``axes``, rejected 0-d int64 on the first shard's device)."""
     ext = exchange_row_halos(mesh, slabs, halo, axes, dim=1)
-    clip = shift_clip_onepass_slab_plain if plain else shift_clip_onepass_slab
 
     def run(i, e):
         g0 = mesh.index(i, axes) * local_h
@@ -210,8 +204,8 @@ def _halo_clip_local(mesh: Mesh, slabs, dys, dxs, axes, local_h: int,
                 (), dtype=torch.int64, device=e.device)
         if rows < local_h:
             e = e[:, :rows + 2 * halo].contiguous()
-        return clip(e, dys, dxs, halo, g0, h, sigma_low, sigma_high,
-                    max_iter)
+        return shift_clip_onepass_slab(e, dys, dxs, halo, g0, h, sigma_low,
+                                       sigma_high, max_iter)
 
     res = on_shards(mesh, run, ext)
     rejected = mesh.psum([r for _, r in res], axes)
@@ -219,8 +213,7 @@ def _halo_clip_local(mesh: Mesh, slabs, dys, dxs, axes, local_h: int,
 
 
 def sharded_shift_clip(mesh: Mesh, stack, dys, dxs, row_axes,
-                       sigma_low: float, sigma_high: float, max_iter: int,
-                       *, plain: bool = False):
+                       sigma_low: float, sigma_high: float, max_iter: int):
     """Row-sharded shift + clip: each shard holds a band of rows of
     every frame (``stack``: a tensor, placed here in equal bands with
     edge rows past the image, or a Sharded of rows split over
@@ -237,7 +230,7 @@ def sharded_shift_clip(mesh: Mesh, stack, dys, dxs, row_axes,
     local_h = slabs.parts[0].shape[1]
     return _halo_clip_local(mesh, slabs.parts, dy, dx, row_axes, local_h,
                             slabs.length, halo, sigma_low, sigma_high,
-                            max_iter, plain)
+                            max_iter)
 
 
 def _frames_to_rows(mesh: Mesh, parts, frames_axis: str, rows_axis: str,
@@ -279,8 +272,7 @@ def reshard_frames_to_rows(mesh: Mesh, x, frames_axis: str,
 
 def sharded_shift_clip_a2a(mesh: Mesh, stack, dys, dxs, frames_axis: str,
                            rows_axis: str, sigma_low: float,
-                           sigma_high: float, max_iter: int, *,
-                           plain: bool = False):
+                           sigma_high: float, max_iter: int):
     """Row-sharded shift + clip taking a FRAMES-sharded stack: each
     frame block is padded to F·R equal row bands (edge rows), one
     ``all_to_all`` over the frames axis gives shard (f, r) all frames
@@ -304,7 +296,7 @@ def sharded_shift_clip_a2a(mesh: Mesh, stack, dys, dxs, frames_axis: str,
     dy, dx = _host_offsets(dys, dxs, n)
     return _halo_clip_local(mesh, slabs, dy, dx, (frames_axis, rows_axis),
                             local_h, h, slab_halo(dy), sigma_low,
-                            sigma_high, max_iter, plain)
+                            sigma_high, max_iter)
 
 
 def _gather_offsets(mesh: Mesh, per_shard, n: int) -> torch.Tensor:
@@ -324,7 +316,7 @@ def _gather_offsets(mesh: Mesh, per_shard, n: int) -> torch.Tensor:
 
 def make_sharded_stack_step(mesh: Mesh, sigma_low: float = 3.0,
                             sigma_high: float = 3.0, max_iter: int = 5,
-                            align: bool = True, *, plain: bool = False):
+                            align: bool = True):
     """The pipeline over a (frames, rows) mesh: ``step(stack)`` for a
     [N, H, W] tensor (or a Sharded of frames split over "frames").
 
@@ -338,7 +330,7 @@ def make_sharded_stack_step(mesh: Mesh, sigma_low: float = 3.0,
     stats, the auto-STF and the u8 STF run per shard on reductions.
     Returns a dict: combined and preview (Sharded rows), offsets [N, 2],
     confidences [N], rejected (0-d int64), stf [2] on the first shard's
-    device. ``plain`` runs the kernels' plain versions.
+    device.
     """
     all_axes = tuple(ax for ax in ("frames", "rows")
                      if ax in mesh.axis_names)
@@ -365,7 +357,7 @@ def make_sharded_stack_step(mesh: Mesh, sigma_low: float = 3.0,
                 if ids.numel() == 0:
                     return None
                 t = part[int(ids[0]):int(ids[-1]) + 1]
-                d = phase_correlate_stack(ref_i, t, plain=plain)
+                d = phase_correlate_stack(ref_i, t)
                 return (ids + k0).to(part.device), torch.stack(d)
 
             off = _gather_offsets(mesh, on_shards(mesh, est, frames.parts,
@@ -380,12 +372,12 @@ def make_sharded_stack_step(mesh: Mesh, sigma_low: float = 3.0,
         if two_axes and n % mesh.shape["frames"] == 0:
             combined, rejected = sharded_shift_clip_a2a(
                 mesh, frames, dys, dxs, "frames", "rows", sigma_low,
-                sigma_high, max_iter, plain=plain)
+                sigma_high, max_iter)
         else:
             combined, rejected = sharded_shift_clip(
                 mesh, stack if isinstance(stack, torch.Tensor)
                 else frames.full(), dys, dxs, all_axes, sigma_low,
-                sigma_high, max_iter, plain=plain)
+                sigma_high, max_iter)
         axes = combined.axes
         mn, mx, _total, count, med, mad = sharded_stats_core(
             mesh, combined.parts, axes, False)

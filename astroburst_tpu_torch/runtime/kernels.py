@@ -25,6 +25,7 @@ nothing here synchronises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -226,11 +227,30 @@ def require_cuda(t: torch.Tensor, name: str, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
+_PLAIN = False   # inside plain_versions()
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within this block every kernel wrapper runs its plain torch
+    version, on a CUDA tensor too. Process-wide; blocks nest, and each
+    restores the state it found, also on an exception."""
+    global _PLAIN
+    was, _PLAIN = _PLAIN, True
+    try:
+        yield
+    finally:
+        _PLAIN = was
+
+
 def use_kernel(t: torch.Tensor, name: str) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU
-    tensor (run the plain version); raise for any other device."""
+    tensor (run the plain version); raise for any other device. Inside
+    ``plain_versions()`` a CUDA tensor runs the plain version too: the
+    switch exists for the tests and the card checks (chip_smoke.py),
+    which hold each kernel to its plain version on the same inputs."""
     if t.is_cuda:
-        return True
+        return not _PLAIN
     if t.device.type == "cpu":
         return False
     raise ValueError(f"{name}: unsupported device {t.device}")

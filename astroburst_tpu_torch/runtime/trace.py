@@ -92,8 +92,9 @@ Name                                Where
                                     ``alignment.phase_corr.graph_capture``
                                     (1 a capture of a key's two graphs)
                                     and ``alignment.phase_corr.eager`` (1
-                                    a call on a CUDA stack, not ``plain``,
-                                    that ran eagerly)
+                                    a call on a CUDA stack, outside
+                                    ``kernels.plain_versions``, that ran
+                                    eagerly)
 ``alignment.coarse``                its coarse surfaces (kernel K1); only
                                     on an eager call, as the two below
 ``alignment.correlate``             each ``correlate_single`` (cuFFT and
@@ -102,19 +103,10 @@ Name                                Where
 ``stacking.shift_clip``             ``stacking.onepass_kernel.
                                     shift_clip_onepass`` (kernel K3)
 ``stacking.drizzle``                the body of ``stacking.drizzle.
-                                    _drizzle_kernel_exact``; counters
+                                    _drizzle_kernel_exact``; counter
                                     ``stacking.drizzle.bands`` (its bands)
-                                    and ``stacking.drizzle.fused`` (1 a
-                                    call that takes the one launch: a CUDA
-                                    stack, not ``plain``)
-``stacking.drizzle.taps``           the one launch's batched tap pass; in
-                                    the band loop each band's row taps
-``stacking.drizzle.gather``         the one launch of
-                                    ``drizzle_gather_banded``; in the band
-                                    loop each band's candidate gather
-``stacking.drizzle.finalize``       the band loop's finalize of a band
-                                    (kernel K7) and its writes into the
-                                    image and weights
+``stacking.drizzle.taps``           its batched tap pass
+``stacking.drizzle.gather``         its one ``drizzle_gather_banded``
 ``trace.dropped``                   counter: records past ``MAX_RECORDS``
 ==================================  ========================================
 """

@@ -18,8 +18,7 @@ from astroburst_tpu_torch.dtypes import StackConfig
 from astroburst_tpu_torch.errors import InvalidInput
 from astroburst_tpu_torch.runtime.device import cuda_device
 from astroburst_tpu_torch.stacking.clip import sigma_clip_core
-from astroburst_tpu_torch.stacking.onepass_kernel import (
-    shift_clip_onepass, shift_clip_onepass_plain)
+from astroburst_tpu_torch.stacking.onepass_kernel import shift_clip_onepass
 
 
 @dataclass
@@ -33,8 +32,7 @@ class StackResult:
 
 def stack_images(images: Sequence, config: StackConfig = StackConfig(),
                  progress: Optional[object] = None,
-                 device: Optional[torch.device] = None, *,
-                 plain: bool = False) -> StackResult:
+                 device: Optional[torch.device] = None) -> StackResult:
     """Crop to common dims, align to frame 0, shift and sigma-clip
     combine (combine.rs:94-192).
 
@@ -42,8 +40,7 @@ def stack_images(images: Sequence, config: StackConfig = StackConfig(),
     (default: the first tensor's device, else ``cuda_device()``).
     ``progress`` is any object with ``tick_with_stage`` and
     ``check_cancelled`` (e.g. runtime/progress.ProgressHandle); it is
-    called only when given. ``plain`` runs the plain torch versions of
-    the kernels (to hold the kernels to them on the card).
+    called only when given.
     """
     if len(images) == 0:
         raise InvalidInput("No images to stack")
@@ -63,8 +60,7 @@ def stack_images(images: Sequence, config: StackConfig = StackConfig(),
     confidences: List[float] = [0.0]
     zeros = torch.zeros(n, dtype=torch.float32, device=device)
     if config.align and n > 1:
-        dys1, dxs1, confs = phase_correlate_stack(stack[0], stack[1:],
-                                                  plain=plain)
+        dys1, dxs1, confs = phase_correlate_stack(stack[0], stack[1:])
         dys = torch.cat([zeros[:1], dys1])
         dxs = torch.cat([zeros[:1], dxs1])
         if progress is not None:
@@ -79,9 +75,9 @@ def stack_images(images: Sequence, config: StackConfig = StackConfig(),
         offsets += [(0, 0)] * (n - 1)
         confidences += [0.0] * (n - 1)
 
-    clip = shift_clip_onepass_plain if plain else shift_clip_onepass
-    combined, rejected = clip(stack, dys, dxs, config.sigma_low,
-                              config.sigma_high, config.max_iterations)
+    combined, rejected = shift_clip_onepass(
+        stack, dys, dxs, config.sigma_low, config.sigma_high,
+        config.max_iterations)
     if progress is not None:
         progress.tick_with_stage("combine")
     return StackResult(image=combined, frame_count=n,

@@ -13,17 +13,16 @@ separable, so each frame's contributions come from per-axis tap
 vectors (index, weight). The exact mode (the default) takes one
 candidate per (frame, y-tap, x-tap) in the reference's push order,
 banded over output rows, and finalizes the capped push list per pixel.
-On the card every band runs in one launch: one tap pass makes the row
-taps of all bands (``_band_row_tables``) and the x taps, and
-``drizzle_gather_banded`` (stacking/drizzle_gather_kernel.py,
-csrc/drizzle_banded.cu) gathers each pixel's candidates from the stack
-through those tables and finalizes them as kernel K7 does; no candidate
-tensor exists. On a CPU stack, or with ``plain``, the band loop runs
-(``_drizzle_bands``: each band's candidate tensor, then K7's plain
-version or the XLA route), with the same bits. The pre-averaging mode
-collapses each frame's contributions to one estimate first;
-``drizzle_stack`` routes to it when no output pixel can receive two
-contributions of one frame (square kernel, 1 + pixfrac·scale ≤ scale).
+Every band runs at once: one tap pass makes the row taps of all bands
+(``_band_row_tables``) and the x taps, and ``drizzle_gather_banded``
+(stacking/drizzle_gather_kernel.py, csrc/drizzle_banded.cu) gathers
+each pixel's candidates from the stack through those tables and
+finalizes them as kernel K7 does; on the card no candidate tensor
+exists, and on a CPU stack its plain version runs K7's over chunks of
+rows. The pre-averaging mode collapses each frame's contributions to
+one estimate first; ``drizzle_stack`` routes to it when no output pixel
+can receive two contributions of one frame (square kernel,
+1 + pixfrac·scale ≤ scale).
 
 Differences from the JAX module, none of them in the arithmetic:
 
@@ -239,7 +238,8 @@ def _frame_candidates_raw(stack, d_ys, d_xs, scale: float, pixfrac: float,
 
 def _masked_candidates(cand_raw: torch.Tensor, w: torch.Tensor):
     """(value, weight) candidate planes as the JAX ``_frame_candidates``
-    makes them: a non-finite value becomes 0 with weight 0."""
+    makes them, kernel K8's input: a non-finite value becomes 0 with
+    weight 0."""
     finite = torch.isfinite(cand_raw)
     return (torch.where(finite, cand_raw, 0.0),
             torch.where(finite, w, 0.0))
@@ -343,29 +343,23 @@ def _drizzle_kernel_exact(stack, d_ys, d_xs, scale: float, pixfrac: float,
                           row0_offset: int = 0):
     """Exact drizzle: per-(frame, tap) candidates with the reference's
     capped push-list semantics, over bands of ``band_rows`` output rows,
-    each the drizzle of a vertically offset output.
-
-    On a CUDA stack every band runs in one launch
+    each the drizzle of a vertically offset output, all in one launch
     (``_drizzle_one_launch``: the bands' row taps from one batched tap
     pass, then ``drizzle_gather_banded``, which gathers each pixel's
-    candidates itself and finalizes them as K7 does). On a CPU stack, or
-    with ``plain``, the band loop (``_drizzle_bands``) runs: each band's
-    candidate tensor finalized by K7's plain version, or with ``plain``
-    by the JAX package's XLA route (the masked candidates of
-    ``_frame_candidates``, ``_masked_candidates`` here, then
-    ``_finalize_exact``), to hold the kernel to it on the card. Both
-    routes give the same bits. ``row0_offset`` makes the call compute rows
-    [row0_offset, row0_offset + out_rows) of the whole output grid (the
-    row-sharded drizzle, parallel/drizzle.py): it is added to every
-    band's origin, as the JAX function adds it
+    candidates itself and finalizes them as K7 does). ``plain`` runs the
+    call in ``runtime/kernels.plain_versions()``. ``row0_offset`` makes
+    the call compute rows [row0_offset, row0_offset + out_rows) of the
+    whole output grid (the row-sharded drizzle, parallel/drizzle.py): it
+    is added to every band's origin, as the JAX function adds it
     (stacking/drizzle.py:302-306). Returns (image [out_rows, out_cols]
     f32, weight map f32, rejected: 0-d int64 tensor, summed over every
     band row as the JAX function sums it)."""
     args = (stack, d_ys, d_xs, scale, pixfrac, kernel, out_rows, out_cols,
             sigma_low, sigma_high, sigma_iterations, band_rows, row0_offset)
     with trace.span("stacking.drizzle"):
-        if plain or not K.use_kernel(stack, "drizzle_gather_banded"):
-            return _drizzle_bands(*args, plain=plain)
+        if plain:
+            with K.plain_versions():
+                return _drizzle_one_launch(*args)
         return _drizzle_one_launch(*args)
 
 
@@ -428,7 +422,6 @@ def _drizzle_one_launch(stack, d_ys, d_xs, scale, pixfrac, kernel, out_rows,
     d_xs = torch.as_tensor(d_xs, dtype=torch.float32, device=dev)
     n_bands = -(-out_rows // band_rows)
     trace.count("stacking.drizzle.bands", n_bands)
-    trace.count("stacking.drizzle.fused")
     with trace.span("stacking.drizzle.taps"):
         tables = _one_launch_tables(stack, d_ys, d_xs, scale, pixfrac,
                                     kernel, out_cols, n_bands, band_rows,
@@ -438,55 +431,6 @@ def _drizzle_one_launch(stack, d_ys, d_xs, scale, pixfrac, kernel, out_rows,
             stack, *tables, max(n * 2, 4), sigma_low, sigma_high,
             sigma_iterations)
     return img[:out_rows], wgt[:out_rows], rej.sum(dtype=torch.int64)
-
-
-def _drizzle_bands(stack, d_ys, d_xs, scale, pixfrac, kernel, out_rows,
-                   out_cols, sigma_low, sigma_high, sigma_iterations,
-                   band_rows, row0_offset, *, plain: bool = False):
-    """The band loop: each band's row taps, candidate tensor and
-    finalize (K7, or with ``plain`` the XLA route) in turn. The x taps
-    are the same for every band and are made once."""
-    from astroburst_tpu_torch.stacking.drizzle_kernel import (
-        drizzle_finalize_fused)
-    n, in_rows, in_cols = stack.shape
-    dev = stack.device
-    cap = max(n * 2, 4)
-    d_ys = torch.as_tensor(d_ys, dtype=torch.float32, device=dev)
-    d_xs = torch.as_tensor(d_xs, dtype=torch.float32, device=dev)
-    idx, wx = _exact_taps(out_cols, in_cols, d_xs, scale, pixfrac, kernel)
-    taps = idx.shape[1]
-    wxs = wx.reshape(n * taps, out_cols)
-
-    n_bands = -(-out_rows // band_rows)
-    r0s = _band_origins(n_bands, band_rows, row0_offset, scale, dev)
-    img = torch.empty((n_bands * band_rows, out_cols), dtype=torch.float32,
-                      device=dev)
-    wgt = torch.empty_like(img)
-    rejected = torch.zeros((), dtype=torch.int64, device=dev)
-    trace.count("stacking.drizzle.bands", n_bands)
-    for b in range(n_bands):
-        # band rows [r0, r0 + band_rows) are the full drizzle of a
-        # vertically offset output: cy' = cy − r0
-        with trace.span("stacking.drizzle.taps"):
-            idy, wy = _exact_taps(band_rows, in_rows, d_ys - r0s[b], scale,
-                                  pixfrac, kernel)
-        with trace.span("stacking.drizzle.gather"):
-            cand = _gather(stack, idy, idx)
-        with trace.span("stacking.drizzle.finalize"):
-            if plain:
-                bi, bw, br = _finalize_exact(
-                    *_masked_candidates(cand, _outer(wy, wx)), cap,
-                    sigma_low, sigma_high, sigma_iterations)
-            else:
-                bi, bw, br = drizzle_finalize_fused(
-                    cand, wy.reshape(n * taps, band_rows).T.contiguous(),
-                    wxs, n, taps, taps, cap, sigma_low, sigma_high,
-                    sigma_iterations)
-            rows = slice(b * band_rows, (b + 1) * band_rows)
-            img[rows] = bi
-            wgt[rows] = bw
-            rejected += br.sum()
-    return img[:out_rows], wgt[:out_rows], rejected
 
 
 def _plan_parity(in_rows: int, in_cols: int, d_ys, d_xs, scale: float,
@@ -560,27 +504,26 @@ def _interleave_parity(planes: torch.Tensor, s: int) -> torch.Tensor:
 def drizzle_exact_parity(stack, d_ys, d_xs, scale: float, pixfrac: float,
                          kernel: DrizzleKernel, out_rows: int, out_cols: int,
                          sigma_low: float, sigma_high: float,
-                         sigma_iterations: int, *, plain: bool = False):
+                         sigma_iterations: int):
     """Exact drizzle through the parity-decomposed gather+finalize
     kernel K9: no candidate tensor exists. ``d_ys``/``d_xs`` are the
     per-frame offsets (fetched to the host for the plan). Returns
     (image, weight map, rejected: 0-d int64 tensor) — the exact banded
     route's result, with no band offset (``_drizzle_kernel_exact`` at
-    one band) — or None where the plan does not apply. ``plain`` runs
-    K9's plain version (to hold the kernel to it on the card). Opt-in,
-    as in the JAX package: ``drizzle_stack`` does not route here."""
+    one band) — or None where the plan does not apply. Opt-in, as in
+    the JAX package: ``drizzle_stack`` does not route here."""
     from astroburst_tpu_torch.stacking.drizzle_gather_kernel import (
-        drizzle_gather_finalize, drizzle_gather_finalize_plain)
+        drizzle_gather_finalize)
     n, in_rows, in_cols = stack.shape
     plan = _plan_parity(in_rows, in_cols, d_ys, d_xs, scale, pixfrac,
                         kernel, out_rows, out_cols)
     if plan is None:
         return None
     dev = stack.device
-    fn = drizzle_gather_finalize_plain if plain else drizzle_gather_finalize
-    img, wgt, rej = fn(stack, *(plan[k].to(dev) for k in (
-        "s_row", "s_col", "wys_t", "wxs")), plan["taps"], max(2 * n, 4),
-        sigma_low, sigma_high, sigma_iterations)
+    img, wgt, rej = drizzle_gather_finalize(
+        stack, *(plan[k].to(dev) for k in ("s_row", "s_col", "wys_t",
+                                           "wxs")),
+        plan["taps"], max(2 * n, 4), sigma_low, sigma_high, sigma_iterations)
     return img, wgt, rej.sum(dtype=torch.int64)
 
 
@@ -652,8 +595,7 @@ class DrizzleResult:
 
 def drizzle_stack(images: Sequence, config: DrizzleConfig = DrizzleConfig(),
                   progress: Optional[object] = None, exact: bool = True,
-                  device: Optional[torch.device] = None, *,
-                  plain: bool = False) -> DrizzleResult:
+                  device: Optional[torch.device] = None) -> DrizzleResult:
     """Full drizzle pipeline (drizzle.rs:226-346).
 
     ``images`` are [H, W] arrays or tensors; they go to ``device``
@@ -663,15 +605,12 @@ def drizzle_stack(images: Sequence, config: DrizzleConfig = DrizzleConfig(),
     ``exact=False`` pre-averages each frame's contributions; the square
     kernel with 1 + pixfrac·scale ≤ scale takes the pre-averaging route
     either way, where the two are identical. ``progress`` is any object
-    with ``tick_with_stage`` and ``check_cancelled``. ``plain`` runs the
-    plain torch versions of the kernels (to hold the kernels to them on
-    the card)."""
+    with ``tick_with_stage`` and ``check_cancelled``."""
     with trace.span("stacking.drizzle_stack"):
-        return _drizzle_stack(images, config, progress, exact, device,
-                              plain)
+        return _drizzle_stack(images, config, progress, exact, device)
 
 
-def _drizzle_stack(images, config, progress, exact, device, plain):
+def _drizzle_stack(images, config, progress, exact, device):
     if len(images) == 0:
         raise InvalidInput("No images to drizzle")
     if len(images) < 2:
@@ -707,14 +646,14 @@ def _drizzle_stack(images, config, progress, exact, device, plain):
     if config.align:
         by_pc = config.alignment_method == AlignmentMethod.PHASE_CORRELATION
         if by_pc:
-            pc = phase_correlate_stack(stack[0], stack[1:], plain=plain)
+            pc = phase_correlate_stack(stack[0], stack[1:])
             pc = torch.stack(pc).cpu().tolist()
         for i in range(1, n):
             if by_pc and not is_low_confidence(pc[2][i - 1]):
                 dy, dx = pc[0][i - 1], pc[1][i - 1]
             else:   # low confidence, or AFFINE/ZNCC (drizzle.rs:302-306)
                 dy, dx, _ = estimate_offset(stack[0], stack[i],
-                                            AlignMethod.AFFINE, plain=plain)
+                                            AlignMethod.AFFINE)
             offsets.append((dx, dy))
             if progress is not None:
                 progress.tick_with_stage(f"align {i}/{n - 1}")
@@ -737,8 +676,7 @@ def _drizzle_stack(images, config, progress, exact, device, plain):
             out_cols, config.sigma_low, config.sigma_high,
             config.sigma_iterations)
     if exact:
-        image, weight_map, rejected = _drizzle_kernel_exact(*args,
-                                                            plain=plain)
+        image, weight_map, rejected = _drizzle_kernel_exact(*args)
     else:
         image, weight_map, rejected = _drizzle_kernel(*args)
     return DrizzleResult(

@@ -25,10 +25,10 @@ banded route's own per-row tap tables (``csrc/drizzle_banded.cu``):
 output pixel (y, x) of the padded grid has candidate (f, t, u) =
 stack[f, iy[y, f·taps + t], ix[f·taps + u, x]] with weight
 wys_t[y, f·taps + t] · wxs[f·taps + u, x]. ``_drizzle_kernel_exact``
-takes it on the card for every band in one launch
+takes it for every band in one call
 (stacking/drizzle.py:_drizzle_one_launch). Its plain version gathers
 the candidates of ``PLAIN_ROWS`` rows at a time and runs K7's plain
-version on them, which is what the band loop runs on a CPU stack.
+version on them.
 
 ``drizzle_gather_finalize`` and ``drizzle_gather_banded`` launch the
 kernel for a CUDA tensor and run the plain version for a CPU tensor;

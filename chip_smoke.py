@@ -106,12 +106,12 @@ exits non-zero, and so does a machine without a CUDA device):
    the JAX test's tolerances, bit-equality and the pixels and rejected
    values that differ reported. Then the exact drizzle in one launch
    (``check_banded_drizzle``: ``_drizzle_kernel_exact`` on the card,
-   one tap pass and ``drizzle_gather_banded``) against the band loop it
-   replaced (``_drizzle_bands``: taps, candidate gather and K7 band by
-   band), bit-equal at the drizzle bench (band 64) and on tie stacks in
-   every instance with the three kernels, a shard's ``row0_offset`` and
-   scale 1.5; its registers, stack and spills; its time beside the band
-   loop's and K9's.
+   one tap pass and ``drizzle_gather_banded``) against the same route
+   in ``plain_versions()`` (the gather's plain version: candidates and
+   K7's plain version), bit-equal at the drizzle bench (band 64) and on
+   tie stacks in every instance with the three kernels, a shard's
+   ``row0_offset`` and scale 1.5; its registers, stack and spills; its
+   time beside K9's.
    (f) the ``stack`` command (``astroburst_tpu_torch.api.stack``): the
    bench frames written as 16 FITS files (BITPIX -32, the port's
    writer) and the 150 frames of 1024^2 as 150 more; the command cold
@@ -198,8 +198,8 @@ exits non-zero, and so does a machine without a CUDA device):
    at 3 x 4096^2 by phase correlation (K1, K2), by the affine method
    (the fused chain: K10, K11, K12 and chain_scan, the reference
    detected once; launches against the prediction, the offsets and
-   planes equal to ``align_and_warp``, held to ``plain=True`` and to
-   the host chain as (n) holds them) and with L; ``align_channels_cmd``,
+   planes equal to ``align_and_warp``, held to its plain versions and
+   to the host chain as (n) holds them) and with L; ``align_channels_cmd``,
    ``crop_channels_cmd`` and ``export_aligned_channels_cmd`` at 3 x
    4096^2; the wizard's colour commands (blend, auto WB, WB + SCNR,
    reset, restretch, update, clear) at 3 x ``COMP_HW``^2;
@@ -263,8 +263,8 @@ exits non-zero, and so does a machine without a CUDA device):
    ``chain_scan_cases`` (duplicates at exactly 3 px, more than 196
    duplicates among the 256 brightest, tied fluxes, fewer than 4 stars,
    none valid, NaN/inf on invalid slots; tied votes, an empty table,
-   three cells, a full row and column); the chain against its
-   ``plain=True`` run with the detections held, against the card's host
+   three cells, a full row and column); the chain against its run in
+   ``plain_versions()`` with the detections held, against the card's host
    chain (``hold_to_host_chain``) and the rotations; its body under
    ``torch.cuda.set_sync_debug_mode("error")``; both routes timed.
    (o) the host FITS codec (``native_codec_path``; it runs after (f),
@@ -327,8 +327,8 @@ well-conditioned form (``check_packed``).
 K12: votes equal. Affine: the same method and inlier count on both
 paths, transform parameters within 1e-3. chain_scan: bit-equal (the
 dedupe's kept x/y and count, the match's pairs and count). The fused
-chain: its info vectors and warped planes bit-equal to ``plain=True``
-with the detections held (free, K11's rounding: the same method and
+chain: its info vectors and warped planes bit-equal to its plain
+versions with the detections held (free, K11's rounding: the same method and
 inliers, the transform within 1e-3); against the host chain on the
 chain's own stars the same method, matched count and inliers and the
 transform within 5e-3 (its f32 RANSAC against the host's f64); against
@@ -706,6 +706,14 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def plain_run(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` in ``runtime.kernels.plain_versions()``:
+    every kernel wrapper runs its plain torch version on the card."""
+    from astroburst_tpu_torch.runtime import kernels as K
+    with K.plain_versions():
+        return fn(*args, **kwargs)
 
 
 def _kernel_name(sym: str) -> str:
@@ -1193,7 +1201,7 @@ def check_window_stats(field, field5) -> dict:
             f"[K11] window_stats {h}x{w}, {int(n_valid)} live of "
             f"{SD.MAX_PEAKS} peaks",
             SD._detect(img, tile, 5.0, SD.MAX_PEAKS),
-            SD._detect(img, tile, 5.0, SD.MAX_PEAKS, plain=True), got, ref))
+            plain_run(SD._detect, img, tile, 5.0, SD.MAX_PEAKS), got, ref))
     for tag, (p, pys, pxs, thr, bg, nv) in window_cases(
             np.random.default_rng(27)).items():
         wargs = (torch.as_tensor(p, device=dev),
@@ -1780,10 +1788,10 @@ def masked_stretch_path(field, counters):
     rgb = (field, 0.8 * field + 5e-4 * torch.randn(
         field.shape, generator=g, device=field.device), 1.2 * field - 4e-3)
 
-    def run(plain=False):
-        out = {"x10": masked_stretch(field, fixed, plain=plain),
-               "converged": masked_stretch(field, conv, plain=plain)}
-        rgb_res = masked_stretch_rgb_shared(*rgb, conv, plain=plain)
+    def run():
+        out = {"x10": masked_stretch(field, fixed),
+               "converged": masked_stretch(field, conv)}
+        rgb_res = masked_stretch_rgb_shared(*rgb, conv)
         for c in "rgb":
             out[f"rgb_{c}"] = rgb_res[c]
         return out
@@ -1811,7 +1819,7 @@ def masked_stretch_path(field, counters):
             raise AssertionError(f"masked_stretch {tag}: {r}")
     if res["x10"].iterations_run != 10 or res["x10"].converged:
         raise AssertionError("the fixed x10 run stopped early")
-    ref = run(plain=True)
+    ref = plain_run(run)
     torch.cuda.synchronize()
     d_img = d_cov = 0.0
     for tag, r in res.items():
@@ -1829,14 +1837,13 @@ def masked_stretch_path(field, counters):
         f"{d_cov:.3e}")
     times = {}
     for name, fn, reps in (
-            ("masked_stretch_x10", lambda p: masked_stretch(
-                field, fixed, plain=p), 5),
-            ("masked_stretch_converged", lambda p: masked_stretch(
-                field, conv, plain=p), 5),
-            ("masked_stretch_rgb_shared", lambda p: masked_stretch_rgb_shared(
-                *rgb, conv, plain=p), 3)):
-        times[name] = (cuda_ms(lambda: fn(False), reps),
-                       cuda_ms(lambda: fn(True), max(1, reps - 2)))
+            ("masked_stretch_x10", lambda: masked_stretch(field, fixed), 5),
+            ("masked_stretch_converged", lambda: masked_stretch(field, conv),
+             5),
+            ("masked_stretch_rgb_shared", lambda: masked_stretch_rgb_shared(
+                *rgb, conv), 3)):
+        times[name] = (cuda_ms(fn, reps),
+                       cuda_ms(lambda: plain_run(fn), max(1, reps - 2)))
     return launches, times, d_img, d_cov
 
 
@@ -1907,22 +1914,22 @@ def same_bits(what: str, got, want) -> None:
     log(f"  {what}: bit-equal {ok}; image max|d|={d_img:.3e}, rejected "
         f"{int(got[2])} vs {int(want[2])}")
     if not ok:
-        raise AssertionError(f"{what}: not bit-equal to the band loop")
+        raise AssertionError(f"{what}: not bit-equal to the plain version")
 
 
 def check_banded_drizzle(dstack, dd_ys, dd_xs, smi) -> dict:
     """The exact drizzle in one launch (``_drizzle_kernel_exact`` on the
-    card: one batched tap pass, ``drizzle_gather_banded``) against the band
-    loop it replaces (``_drizzle_bands``: each band's taps, candidate
-    gather and K7): bit-equal at the drizzle bench (10 x 4096^2 → 8192^2,
-    band 64, pixfrac 0.7: one launch, no K7) and on ``tie_stack`` stacks
-    in every instance (BANDED_INSTANCES) with the square, gaussian and
-    lanczos3 kernels, the whole grid and a shard from row 24 (the
-    row-sharded drizzle's ``row0_offset``), and at scale 1.5. Prints the
-    build's registers, stack and spills of each instance and fails on a
-    spill or a register instance with a stack frame. Times the kernel
-    alone, the route, the band loop and K9 with CUDA events. Returns the
-    report entry."""
+    card: one batched tap pass, ``drizzle_gather_banded``) against the
+    same call in ``plain_versions()`` (the gather's plain version: each
+    chunk's candidates and K7's plain version): bit-equal at the drizzle
+    bench (10 x 4096^2 → 8192^2, band 64, pixfrac 0.7: one launch, no
+    K7) and on ``tie_stack`` stacks in every instance (BANDED_INSTANCES)
+    with the square, gaussian and lanczos3 kernels, the whole grid and a
+    shard from row 24 (the row-sharded drizzle's ``row0_offset``), and
+    at scale 1.5. Prints the build's registers, stack and spills of each
+    instance and fails on a spill or a register instance with a stack
+    frame. Times the kernel alone, the route and K9 with CUDA events.
+    Returns the report entry."""
     import torch
     from astroburst_tpu_torch.dtypes import DrizzleKernel
     from astroburst_tpu_torch.runtime import kernels as K
@@ -1961,10 +1968,11 @@ def check_banded_drizzle(dstack, dd_ys, dd_xs, smi) -> dict:
     if launches != (1, 0):
         raise AssertionError(f"the exact drizzle launched the banded gather "
                              f"and K7 {launches} times, not (1, 0)")
-    want = drz._drizzle_bands(*args, 64, 0)
+    with K.plain_versions():
+        want = drz._drizzle_kernel_exact(*args)
     torch.cuda.synchronize()
     same_bits(f"[banded] _drizzle_kernel_exact {n}x{h}x{w} -> {out}^2, "
-              f"band 64, one launch, vs the band loop (K7)", got, want)
+              f"band 64, one launch, vs its plain version", got, want)
     del got, want
 
     rng = np.random.default_rng(41)
@@ -1981,12 +1989,13 @@ def check_banded_drizzle(dstack, dd_ys, dd_xs, smi) -> dict:
             cases.append((DrizzleKernel.SQUARE, 1.5, 108, 0, 60))
         for k, scale, cols, r0, n_rows in cases:
             a = (es, ed[0], ed[1], scale, 1.0, k, n_rows, cols, 2.5, 3.0, 5)
+            got = drz._drizzle_kernel_exact(*a, band_rows=16, row0_offset=r0)
+            with K.plain_versions():
+                want = drz._drizzle_kernel_exact(*a, band_rows=16,
+                                                 row0_offset=r0)
             same_bits(f"[banded] {nf}x40x72 {k.value} scale {scale}, rows "
                       f"[{r0}, {r0 + n_rows}) in bands of 16, {inst}; ties, "
-                      f"+-0, NaN/inf",
-                      drz._drizzle_kernel_exact(*a, band_rows=16,
-                                                row0_offset=r0),
-                      drz._drizzle_bands(*a, 16, r0))
+                      f"+-0, NaN/inf", got, want)
         if nf == 150:   # the kernel against its own plain version too
             tables = drz._one_launch_tables(es, ed[0], ed[1], 2.0, 1.0,
                                             DrizzleKernel.SQUARE, 144, 5,
@@ -2001,7 +2010,7 @@ def check_banded_drizzle(dstack, dd_ys, dd_xs, smi) -> dict:
             if not torch.equal(k_out[2], p_out[2]):
                 raise AssertionError("rejected maps differ")
 
-    # times at the bench: the kernel alone, the route, the band loop, K9
+    # times at the bench: the kernel alone, the route, K9
     n_bands = -(-out // 64)
     tables = drz._one_launch_tables(dstack, dd_ys, dd_xs, 2.0, 0.7,
                                     DrizzleKernel.SQUARE, out, n_bands, 64, 0)
@@ -2012,9 +2021,6 @@ def check_banded_drizzle(dstack, dd_ys, dd_xs, smi) -> dict:
     torch.cuda.reset_peak_memory_stats()
     route_ms = cuda_ms(lambda: drz._drizzle_kernel_exact(*args), 10)
     peak_route = torch.cuda.max_memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    loop_ms = cuda_ms(lambda: drz._drizzle_bands(*args, 64, 0), 3)
-    peak_loop = torch.cuda.max_memory_allocated()
     pargs = parity_args(dstack, dd_ys, dd_xs, 0.7)
     k9_ms = cuda_ms(lambda: drizzle_gather_finalize(*pargs), 10)
     route2_ms = cuda_ms(lambda: drz._drizzle_kernel_exact(*args), 10)
@@ -2025,9 +2031,7 @@ def check_banded_drizzle(dstack, dd_ys, dd_xs, smi) -> dict:
     t_bytes = 4 * (dstack.numel() + sum(t.numel() for t in tables[:4])) \
         + 12 * out_px
     entry = {"ms": kernel_ms, "route_ms": [route_ms, route2_ms],
-             "band_loop_ms": loop_ms, "k9_ms": k9_ms,
-             "peak_gib": {"route": peak_route / 2**30,
-                          "band_loop": peak_loop / 2**30},
+             "k9_ms": k9_ms, "peak_gib": {"route": peak_route / 2**30},
              "shape": [n, h, w], "candidates": m, "build": build,
              "plain_ms": None, "library_ms": None}
     entry.update(zip(("bound_ms", "bound_by"),
@@ -2035,8 +2039,7 @@ def check_banded_drizzle(dstack, dd_ys, dd_xs, smi) -> dict:
     log(f"[time] {smi}: drizzle_gather_banded {n}x{h}^2 -> {out}^2 band 64 "
         f"{kernel_ms:.3f} ms (bound {entry['bound_ms']:.3f}); "
         f"_drizzle_kernel_exact one launch {route_ms:.3f} / {route2_ms:.3f} "
-        f"ms (peak {peak_route / 2**30:.2f} GiB) | band loop {loop_ms:.3f} "
-        f"ms (peak {peak_loop / 2**30:.2f} GiB) | K9 {k9_ms:.3f} ms")
+        f"ms (peak {peak_route / 2**30:.2f} GiB) | K9 {k9_ms:.3f} ms")
     return entry
 
 
@@ -3136,7 +3139,7 @@ def same_stars(what, got, want):
 
 
 def near_plain(what, got, plain):
-    """A payload's stars against ``detect_stars(..., plain=True)``: the
+    """A payload's stars against ``detect_stars`` in ``plain_run``: the
     same count, each matched to its nearest within 1e-3 px and flux
     within 1e-4 relative (the 4c bounds: K11 sums in another order)."""
     a = np.array([(s["y"], s["x"], s["flux"]) for s in got])
@@ -3349,7 +3352,7 @@ def tone_detect_path(field, truth, counters, smi, comp_hw=COMP_HW):
         launched("detect_stars", ("sort_tiles", "window_stats"))
         same_stars("detect_stars", res["stars"], SD.detect_stars(field, 5.0))
         d_pos, d_flux = near_plain("detect_stars", res["stars"],
-                                   SD.detect_stars(field, 5.0, plain=True))
+                                   plain_run(SD.detect_stars, field, 5.0))
         err["detect_stars_4k_px"] = check_positions(
             "[path] detect_stars (command)", SimpleNamespace(stars=[
                 SimpleNamespace(**s) for s in res["stars"]]), f_ys, f_xs,
@@ -3822,7 +3825,7 @@ def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
                        ent[k].image, getattr(mod, f"pre_stretch_{n}")))
         png_is("compose_rgb_cmd", res["png_path"],
                rgb_u8([mod.r, mod.g, mod.b]))
-        plain = process_rgb(*rgb_in, cfg, plain=True)
+        plain = plain_run(process_rgb, *rgb_in, cfg)
         d_off = max(near("process_rgb kernel vs plain", mod.offset_g,
                          plain.offset_g, 0.05),
                     near("process_rgb kernel vs plain", mod.offset_b,
@@ -3878,7 +3881,7 @@ def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
         aligned_rgb = align_rgb_channels(*aff_in, hw, hw, AlignMethod.AFFINE)
         for n, tgt in (("g", aff_in[1]), ("b", aff_in[2])):
             kw, kr = FC.align_and_warp(aff_in[0], tgt, ref_stars=stars)
-            _, pr = FC.align_and_warp(aff_in[0], tgt, plain=True)
+            _, pr = plain_run(FC.align_and_warp, aff_in[0], tgt)
             rot[n] = kr.transform.rotation_deg()
             d_t = float(np.abs(np.subtract(kr.transform.as_tuple(),
                                            pr.transform.as_tuple())).max())
@@ -3902,7 +3905,7 @@ def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
             f"{res['offset_b']} (generator {AFF_SHIFT_B}), rotation "
             f"{rot['g']:.4f} deg; ORIG and PNG equal to process_rgb, the "
             f"offsets and planes to align_and_warp; transform against "
-            f"plain=True {err['aff_g_plain_transform']:.2e}, "
+            f"the plain versions {err['aff_g_plain_transform']:.2e}, "
             f"{err['aff_b_plain_transform']:.2e}, against the host chain "
             f"{err['aff_g_host_chain']}, {err['aff_b_host_chain']}; launches "
             f"{launches['compose_rgb_cmd_affine']}")
@@ -4109,7 +4112,7 @@ def compose_path(field, truth, counters, smi, wiz_hw=COMP_HW):
         expect("drizzle_rgb: dims", drz.out_dims == (2 * DRZ_RGB_HW,) * 2 and
                drz.frame_counts == {"r": DRZ_RGB_N, "g": DRZ_RGB_N,
                                     "b": DRZ_RGB_N}, drz.out_dims)
-        drz_p, dres_p = drizzle_rgb(*chans, plain=True)
+        drz_p, dres_p = plain_run(drizzle_rgb, *chans)
         for n in "rgb":
             off = np.asarray(dres[n].offsets)[:, ::-1]
             err[f"drizzle_rgb_{n}_offsets"] = near(
@@ -4847,8 +4850,8 @@ def astrometry_spcc_path(field, bench_frame, counters, smi):
       config: min_snr 20, max_stars 200, the built-in catalog): K10 and
       K11 launched; the kept stars equal in number and order to the
       plain detection's (positions within 1e-3 px: K11 sums in another
-      order), the result against ``spcc_calibrate_rgb(plain=True)`` on
-      the card and against the port on the CPU on the fetched planes
+      order), the result against ``spcc_calibrate_rgb`` in ``plain_run``
+      on the card and against the port on the CPU on the fetched planes
       (the same counts, factors within rel 1e-4 and 1e-6); r < b;
     - the same with ``catalog="gaia_dr3"`` and ``ASTROBURST_GAIA_TAP=1``:
       the stand-in answers the TAP POST with the kept stars' sky
@@ -5063,11 +5066,11 @@ def astrometry_spcc_path(field, bench_frame, counters, smi):
         res = got[1]
         lum = SP.luminance(*planes)
         kept = SP.select_stars(lum, cfg)
-        kept_plain = SP.select_stars(lum, cfg, plain=True)
+        kept_plain = plain_run(SP.select_stars, lum, cfg)
         d_pos = max(math.hypot(a.x - b.x, a.y - b.y)
                     for a, b in zip(kept, kept_plain))
-        plain = SP.spcc_calibrate_rgb(*planes, header, cfg, plain=True) \
-            .to_dict()
+        plain = plain_run(SP.spcc_calibrate_rgb, *planes, header,
+                          cfg).to_dict()
         on_cpu = SP.spcc_calibrate_rgb(*(p.cpu() for p in planes), header,
                                        cfg, device=cpu).to_dict()
         f_res = factors(res)
@@ -5081,13 +5084,13 @@ def astrometry_spcc_path(field, bench_frame, counters, smi):
             f"{res['stars_matched']} matched, r {res['r_factor']:.9f} g "
             f"{res['g_factor']} b {res['b_factor']:.9f}; kept stars against "
             f"the plain detection max {d_pos:.3e} px; factors against "
-            f"plain=True rel {err['spcc_vs_plain_rel']:.3e} (bit-equal: "
-            f"{err['spcc_vs_plain_bit_equal']}), against the CPU rel "
-            f"{err['spcc_vs_cpu_rel']:.3e}")
+            f"the plain versions rel {err['spcc_vs_plain_rel']:.3e} "
+            f"(bit-equal: {err['spcc_vs_plain_bit_equal']}), against the "
+            f"CPU rel {err['spcc_vs_cpu_rel']:.3e}")
         expect("spcc: kept stars against the plain detection",
                len(kept) == len(kept_plain) == res["stars_total"]
                and d_pos <= 1e-3, f"{len(kept)} / {len(kept_plain)}")
-        for what, other, rel in (("plain=True", plain, 1e-4),
+        for what, other, rel in (("the plain versions", plain, 1e-4),
                                  ("the CPU", on_cpu, 1e-6)):
             expect(f"spcc against {what}: counts", all(
                 res[k] == other[k] for k in ("stars_total", "stars_matched",
@@ -5635,8 +5638,8 @@ def main() -> None:
         f"generator (+-{BIG_SHIFT}); rejected {res.rejected_pixels}")
 
     # the same entry points through the plain versions on the card
-    out_p = align_stack_stretch(stack, plain=True)
-    res_p = stack_images(big_list, plain=True)
+    out_p = plain_run(align_stack_stretch, stack)
+    res_p = plain_run(stack_images, big_list)
     torch.cuda.synchronize()
     d_off = float((out["offsets"] - out_p["offsets"]).abs().max())
     d_stf = float((out["stf"] - out_p["stf"]).abs().max())
@@ -5657,10 +5660,10 @@ def main() -> None:
     ms_k = cuda_ms(lambda: align_stack_stretch(stack), 10)
     peak_k = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ms_p = cuda_ms(lambda: align_stack_stretch(stack, plain=True), 3)
+    ms_p = cuda_ms(lambda: plain_run(align_stack_stretch, stack), 3)
     peak_p = torch.cuda.max_memory_allocated()
     ms_s = cuda_ms(lambda: stack_images(big_list), 3)
-    ms_sp = cuda_ms(lambda: stack_images(big_list, plain=True), 2)
+    ms_sp = cuda_ms(lambda: plain_run(stack_images, big_list), 2)
     log(f"[time] {smi}: align_stack_stretch {N_FRAMES}x{H}x{W} kernels "
         f"{ms_k:.3f} ms ({mpx / ms_k * 1e3:.1f} Mpx/s, peak "
         f"{peak_k / 2**30:.2f} GiB) | plain {ms_p:.3f} ms "
@@ -5695,7 +5698,7 @@ def main() -> None:
             not bool(torch.isfinite(res.image).all()):
         raise AssertionError(f"stack_images {MANY_N} frames: image is not "
                              f"a finite plane")
-    res_p = stack_images(many_list, plain=True)
+    res_p = plain_run(stack_images, many_list)
     torch.cuda.synchronize()
     if res.offsets != res_p.offsets:
         raise AssertionError("stack_images offsets differ from plain")
@@ -5706,7 +5709,7 @@ def main() -> None:
         f"generator (+-{MANY_SHIFT}); rejected {res.rejected_pixels}")
     del res, res_p
     ms_m = cuda_ms(lambda: stack_images(many_list), 2)
-    ms_mp = cuda_ms(lambda: stack_images(many_list, plain=True), 1)
+    ms_mp = cuda_ms(lambda: plain_run(stack_images, many_list), 1)
     log(f"[time] {smi}: stack_images {MANY_N}x{MANY_HW}^2 kernels "
         f"{ms_m:.3f} ms | plain {ms_mp:.3f} ms (host offsets fetch "
         f"included)")
@@ -5768,7 +5771,7 @@ def main() -> None:
         raise AssertionError(f"drizzle offsets off by {doff_err} px: "
                              f"{doff.tolist()} vs {dith.tolist()}")
 
-    dres_p = drizzle_stack(calibrated, DrizzleConfig(), plain=True)
+    dres_p = plain_run(drizzle_stack, calibrated, DrizzleConfig())
     dstf_p, _ = stf_preview(dres_p.image)
     torch.cuda.synchronize()
     d_off = float(np.abs(np.asarray(dres.offsets)
@@ -5796,8 +5799,8 @@ def main() -> None:
     ms_d = cuda_ms(lambda: drizzle_stack(calibrated, DrizzleConfig()), 2)
     peak_d = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ms_dp = cuda_ms(lambda: drizzle_stack(calibrated, DrizzleConfig(),
-                                          plain=True), 1)
+    ms_dp = cuda_ms(lambda: plain_run(drizzle_stack, calibrated,
+                                      DrizzleConfig()), 1)
     peak_dp = torch.cuda.max_memory_allocated()
     ms_full = cuda_ms(lambda: stf_preview(drizzle_stack(
         calibrate(bias, darks, flats, lights), DrizzleConfig()).image), 1)
@@ -5806,8 +5809,8 @@ def main() -> None:
         *exact_args, band_rows=DRZ_BAND), 2)
     peak_b = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ms_bp = cuda_ms(lambda: _drizzle_kernel_exact(
-        *exact_args, band_rows=DRZ_BAND, plain=True), 1)
+    ms_bp = cuda_ms(lambda: plain_run(
+        _drizzle_kernel_exact, *exact_args, band_rows=DRZ_BAND), 1)
     peak_bp = torch.cuda.max_memory_allocated()
     log(f"[time] {smi}: drizzle_stack {DRZ_N}x{DRZ_HW}^2 -> {out_hw}^2 "
         f"(band 64, offsets fetch included) kernels {ms_d:.3f} ms (peak "
@@ -5862,7 +5865,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     ms_par = cuda_ms(lambda: drizzle_exact_parity(*exact_args), 5)
     peak_par = torch.cuda.max_memory_allocated()
-    ms_par_p = cuda_ms(lambda: drizzle_exact_parity(*exact_args, plain=True),
+    ms_par_p = cuda_ms(lambda: plain_run(drizzle_exact_parity, *exact_args),
                        1)
     ms_par_b = cuda_ms(lambda: drizzle_exact_parity(*bench_args), 5)
     torch.cuda.reset_peak_memory_stats()
@@ -5881,7 +5884,7 @@ def main() -> None:
                     "drizzle_stack_band64": (ms_d, ms_dp),
                     "drizzle_kernel_exact_band1024": (ms_b, ms_bp),
                     "drizzle_kernel_exact_one_band": (ms_one, None)}
-    # the exact drizzle in one launch against the band loop it replaces
+    # the exact drizzle in one launch against its plain version
     report["drizzle_gather_banded"] = check_banded_drizzle(
         dstack, dd_ys, dd_xs, smi)
     del cal_stack, dstack, exact_args, bench_args
@@ -5907,16 +5910,16 @@ def main() -> None:
         f"frames (made in {time.perf_counter() - t0:.1f} s)")
     drz_affine = DrizzleConfig(alignment_method=AlignmentMethod.AFFINE)
 
-    def affine_path(plain=False):
-        out = {"det4k": SD.detect_stars(field, plain=plain),
-               "det5k": SD.detect_stars(field5, plain=plain)}
+    def affine_path():
+        out = {"det4k": SD.detect_stars(field),
+               "det5k": SD.detect_stars(field5)}
         for tag, ref_, tgt_ in (("5k", a5_ref, a5_tgt),
                                 ("4k", a4_ref, a4_tgt)):
-            res = AF.align_channel_affine(ref_, tgt_, plain=plain)
+            res = AF.align_channel_affine(ref_, tgt_)
             out[f"aff{tag}"] = res
             out[f"warp{tag}"] = AF.warp_image(tgt_, res.transform,
                                               *ref_.shape)
-        out["drizzle"] = drizzle_stack(a_frames, drz_affine, plain=plain)
+        out["drizzle"] = drizzle_stack(a_frames, drz_affine)
         return out
 
     for fn in counters.values():
@@ -5964,7 +5967,7 @@ def main() -> None:
         raise AssertionError(f"drizzle AFFINE offsets off by {adoff_err}")
 
     # the same entry points through the plain versions on the card
-    pp = affine_path(plain=True)
+    pp = plain_run(affine_path)
     torch.cuda.synchronize()
     for tag in ("det4k", "det5k"):
         # the same stars; their brightest-first order may swap where two
@@ -6002,20 +6005,18 @@ def main() -> None:
 
     times_c = {}
     for name, fn, reps in (
-            ("detect_stars_4096", lambda p: SD.detect_stars(field, plain=p),
-             5),
-            ("detect_stars_5655x2206",
-             lambda p: SD.detect_stars(field5, plain=p), 5),
+            ("detect_stars_4096", lambda: SD.detect_stars(field), 5),
+            ("detect_stars_5655x2206", lambda: SD.detect_stars(field5), 5),
             ("align_channel_affine+warp_5655x2206",
-             lambda p: AF.warp_image(a5_tgt, AF.align_channel_affine(
-                 a5_ref, a5_tgt, plain=p).transform, H, W), 3),
+             lambda: AF.warp_image(a5_tgt, AF.align_channel_affine(
+                 a5_ref, a5_tgt).transform, H, W), 3),
             ("align_channel_affine+warp_4096",
-             lambda p: AF.warp_image(a4_tgt, AF.align_channel_affine(
-                 a4_ref, a4_tgt, plain=p).transform, DET_HW, DET_HW), 3),
+             lambda: AF.warp_image(a4_tgt, AF.align_channel_affine(
+                 a4_ref, a4_tgt).transform, DET_HW, DET_HW), 3),
             ("drizzle_stack_affine_4x1024",
-             lambda p: drizzle_stack(a_frames, drz_affine, plain=p), 2)):
-        times_c[name] = (cuda_ms(lambda: fn(False), reps),
-                         cuda_ms(lambda: fn(True), max(1, reps - 2)))
+             lambda: drizzle_stack(a_frames, drz_affine), 2)):
+        times_c[name] = (cuda_ms(fn, reps),
+                         cuda_ms(lambda: plain_run(fn), max(1, reps - 2)))
         log(f"[time] {smi}: {name} kernels {times_c[name][0]:.3f} ms | "
             f"plain {times_c[name][1]:.3f} ms (host fetches included)")
 
@@ -6639,7 +6640,7 @@ def host_chain_on_stars(ref_stars, tgt, rows: int, cols: int):
     from astroburst_tpu_torch.alignment import affine as AF
     from astroburst_tpu_torch.alignment import fused_chain as FC
     from astroburst_tpu_torch.analysis import star_detection as SD
-    txy, tn = FC._detect_device(tgt, SD.MAX_PEAKS, False)
+    txy, tn = FC._detect_device(tgt, SD.MAX_PEAKS)
     lists = []
     for xy, n in ((torch.stack([ref_stars.xs, ref_stars.ys]), ref_stars.n),
                   (txy, tn)):
@@ -6774,7 +6775,7 @@ def fused_chain_path(counters, smi):
     both. Checks:
 
     - csrc/chain_scan.cu against its plain loops (``check_chain_scan``);
-    - the chain against its ``plain=True`` run with the detections held
+    - the chain against its run in ``plain_run`` with the detections held
       (each plane's detection record from the kernel path replayed):
       info vectors and warped planes bit for bit; and free (K11 rounds
       its sums in another order than its plain version: 4c's rule, the
@@ -6892,7 +6893,7 @@ def fused_chain_path(counters, smi):
                                  f"by {deg}")
         err[f"rotation_{k}"] = abs(abs(rot) - abs(deg))
 
-    # the chain against plain=True, detections held: bit for bit
+    # the chain against its plain versions, detections held: bit for bit
     record, infos = [], []
     orig_detect, orig_interpret = SD._detect, FC._interpret_info
 
@@ -6908,14 +6909,14 @@ def fused_chain_path(counters, smi):
         SD._detect, FC._interpret_info = recording, interpreting
         kern = FC.align_and_warp_many(ref, tgts)
         SD._detect = lambda *a, **kw: record.pop(0)
-        held = FC.align_and_warp_many(ref, tgts, plain=True)
+        held = plain_run(FC.align_and_warp_many, ref, tgts)
     finally:
         SD._detect, FC._interpret_info = orig_detect, orig_interpret
     if record or infos[:2] != infos[2:] or not all(
             bits(a[0], b[0]) for a, b in zip(kern, held)):
         raise AssertionError(f"the chain with its detections held differs "
-                             f"from plain=True: {infos}")
-    free = FC.align_and_warp_many(ref, tgts, plain=True)
+                             f"from the plain versions: {infos}")
+    free = plain_run(FC.align_and_warp_many, ref, tgts)
     for k, ((_, a), (wb, b)) in enumerate(zip(kern, free)):
         d = float(np.abs(np.subtract(a.transform.as_tuple(),
                                      b.transform.as_tuple())).max())
@@ -6923,8 +6924,8 @@ def fused_chain_path(counters, smi):
             raise AssertionError(f"target {k}: kernels {a} vs plain {b}")
         err[f"plain_{k}"] = d
         err[f"plain_{k}_bit_equal"] = same(a, b) and bits(kern[k][0], wb)
-    log(f"[path] fused chain vs plain=True: detections held, info vectors "
-        f"and planes bit-equal; free, transform max|d| "
+    log(f"[path] fused chain vs its plain versions: detections held, info "
+        f"vectors and planes bit-equal; free, transform max|d| "
         f"{[err['plain_0'], err['plain_1']]} (bit-equal: "
         f"{[err['plain_0_bit_equal'], err['plain_1_bit_equal']]})")
     del kern, held, free
@@ -6934,7 +6935,7 @@ def fused_chain_path(counters, smi):
     torch.cuda.set_sync_debug_mode("error")
     try:
         rs_sync = FC.detect_ref_stars(ref)
-        body = [FC._chain_body(rs_sync, t, 0.035, False) for t in tgts]
+        body = [FC._chain_body(rs_sync, t, 0.035) for t in tgts]
         info = torch.stack([i for _, i in body])
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -6951,7 +6952,7 @@ def fused_chain_path(counters, smi):
               for p in (ref, *tgts)]
     votes = []
     for t in tgts:
-        txy, _ = FC._detect_device(t, SD.MAX_PEAKS, False)
+        txy, _ = FC._detect_device(t, SD.MAX_PEAKS)
         votes.append(vote(rs.ratios, rs.verts,
                           *FC.device_triangles(txy[0], txy[1])))
     entry = check_chain_scan(dev, packed, votes)

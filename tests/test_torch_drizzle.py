@@ -23,15 +23,16 @@ tolerances of tests/test_reference_impl.py:295-299 (image atol 2e-4 /
 rtol 1e-6, weights atol 1e-5, rejected count equal), and bit-equal to
 the port's own one-band ``_drizzle_kernel_exact``.
 
-The card's one-launch route (``_drizzle_one_launch``: one batched tap
-pass, then ``drizzle_gather_banded``) with the gather's plain version:
-its per-row tap tables bit-equal to the band loop's per-band taps, its
-result bit-equal to the band loop in every depth instance.
+The exact drizzle's one route (``_drizzle_one_launch``: one batched
+tap pass, then ``drizzle_gather_banded``) with the gather's plain
+version: its per-row tap tables bit-equal to each band's own taps, its
+result against the JAX package's band loop in every depth instance.
 
 The CUDA kernels themselves run only on the card: chip_smoke.py holds
 them to these plain versions there.
 """
 
+import contextlib
 import math
 
 import jax
@@ -46,6 +47,7 @@ from astroburst_tpu.stacking.drizzle_kernel import (
     drizzle_finalize_fused as jk7, drizzle_finalize_pallas as jk8)
 from astroburst_tpu_torch import dtypes as tdt
 from astroburst_tpu_torch.convert import stack_from_numpy
+from astroburst_tpu_torch.runtime import kernels as K
 from astroburst_tpu_torch.stacking import drizzle as tdz
 from astroburst_tpu_torch.stacking import drizzle_gather_kernel as tdg
 from astroburst_tpu_torch.stacking import drizzle_kernel as tdk
@@ -201,10 +203,11 @@ def test_drizzle_kernel_exact_matches_jax(rng, kern):
         jk, 28, 40, 3.0, 3.0, 3, band_rows=8, use_pallas=False)
     ts = stack_from_numpy(stack, CPU)
     for plain in (False, True):
-        gi, gw, gr = tdz._drizzle_kernel_exact(
-            ts, torch.from_numpy(d_ys), torch.from_numpy(d_xs), 2.0, 1.0,
-            tdt.DrizzleKernel(kern), 28, 40, 3.0, 3.0, 3, band_rows=8,
-            plain=plain)
+        with K.plain_versions() if plain else contextlib.nullcontext():
+            gi, gw, gr = tdz._drizzle_kernel_exact(
+                ts, torch.from_numpy(d_ys), torch.from_numpy(d_xs), 2.0,
+                1.0, tdt.DrizzleKernel(kern), 28, 40, 3.0, 3.0, 3,
+                band_rows=8)
         assert gi.shape == (28, 40) and gw.shape == (28, 40)
         _close(gi, ri, 2e-4, 1e-6, f"{kern} image plain={plain}")
         _close(gw, rw, 1e-5, 0.0, f"{kern} weights plain={plain}")
@@ -414,8 +417,8 @@ def test_drizzle_taps_match_jax_vectors():
     ("square", 2.0, 0.7), ("gaussian", 2.0, 1.0), ("lanczos3", 1.5, 0.8)])
 @pytest.mark.parametrize("row0", [0, 37])
 def test_band_row_tables_equal_per_band_taps(kern, scale, pixfrac, row0):
-    """One batched tap pass equals the band loop's per-band
-    ``_exact_taps`` calls bit for bit, band by band and row by row (28
+    """One batched tap pass equals per-band ``_exact_taps`` calls bit
+    for bit, band by band and row by row (28
     output rows in bands of 8: the last band is padded)."""
     d_ys = torch.tensor([0.0, -0.37, 1.61, -2.2])
     k = tdt.DrizzleKernel(kern)
@@ -441,9 +444,12 @@ def test_band_row_tables_equal_per_band_taps(kern, scale, pixfrac, row0):
     ids=["square-depth8", "gaussian-depth8-row0", "lanczos3-depth8",
          "square-depth40-row0", "square-depth260"])
 def test_one_launch_plain_equals_band_loop(rng, kern, n, row0):
-    """The card's route with the gather's plain version equals the band
-    loop (K7's plain version, and the XLA route) bit for bit: image and
-    weights by ``torch.equal``, the same rejected count; the depth
+    """``_drizzle_kernel_exact`` on the CPU (the one launch with the
+    gather's plain version) against the JAX package's band loop on its
+    XLA route at the same ``band_rows`` and ``row0_offset``, at
+    ``test_drizzle_kernel_exact_matches_jax``'s tolerances (past 128
+    frames the weights at ``test_exact_drizzle_above_128_frames_matches_
+    jax``'s: sums of 520 weights); the depth
     min(2n, n·taps²) in each of the kernel's instances (registers,
     shared memory, the global scratch). The call computes 14 of the 28
     output rows from ``row0``, as a shard of the row-sharded drizzle."""
@@ -451,17 +457,19 @@ def test_one_launch_plain_equals_band_loop(rng, kern, n, row0):
     d_ys = rng.uniform(-1.5, 1.5, n).astype(np.float32)
     d_xs = rng.uniform(-1.5, 1.5, n).astype(np.float32)
     d_ys[0] = d_xs[0] = 0.0
-    args = (stack_from_numpy(stack, CPU), torch.from_numpy(d_ys),
-            torch.from_numpy(d_xs), 2.0, 1.0, tdt.DrizzleKernel(kern), 14,
-            20, 2.5, 3.0, 5)
-    got = tdz._drizzle_one_launch(*args, 4, row0)
+    got = tdz._drizzle_kernel_exact(
+        stack_from_numpy(stack, CPU), torch.from_numpy(d_ys),
+        torch.from_numpy(d_xs), 2.0, 1.0, tdt.DrizzleKernel(kern), 14, 20,
+        2.5, 3.0, 5, band_rows=4, row0_offset=row0)
+    want = jdz._drizzle_kernel_exact(
+        jnp.asarray(stack), jnp.asarray(d_ys), jnp.asarray(d_xs), 2.0, 1.0,
+        jdt.DrizzleKernel(kern), 14, 20, 2.5, 3.0, 5, band_rows=4,
+        use_pallas=False, row0_offset=row0)
     assert got[0].shape == got[1].shape == (14, 20)
-    for plain in (False, True):
-        want = tdz._drizzle_kernel_exact(*args, band_rows=4, plain=plain,
-                                         row0_offset=row0)
-        assert torch.equal(got[0], want[0]), plain
-        assert torch.equal(got[1], want[1]), plain
-        assert int(got[2]) == int(want[2]), plain
+    _close(got[0], want[0], 2e-4, 1e-6, f"{kern} image")
+    _close(got[1], want[1], 1e-5, 1e-6 if n > 128 else 0.0,
+           f"{kern} weights")
+    assert _rej_ok(kern, got[2], want[2]), (kern, int(got[2]), int(want[2]))
     assert int(got[2]) > 0
 
 
@@ -534,7 +542,9 @@ def test_drizzle_exact_parity_matches_jax(rng, kern):
     band = tdz._drizzle_kernel_exact(*args, band_rows=28)
     for a, b in zip(got, band):
         assert torch.equal(a, b), kern
-    for a, b in zip(got, tdz.drizzle_exact_parity(*args, plain=True)):
+    with K.plain_versions():
+        again = tdz.drizzle_exact_parity(*args)
+    for a, b in zip(got, again):
         assert torch.equal(a, b), kern
 
 

@@ -33,7 +33,8 @@ once, in a module-scoped fixture. Tolerances, and why:
   triangles on the same positions, bit for bit.
 
 On the card chip_smoke.py phase 4n holds the chain's two CUDA kernels to
-their plain loops and the chain to its ``plain=True`` run.
+their plain loops and the chain to its run under
+``runtime.kernels.plain_versions()``.
 """
 
 import math

@@ -13,12 +13,14 @@ package changes. Tolerances:
 - crops: bit-equal.
 """
 
+import contextlib
 import os
 import re
 import shutil
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -302,6 +304,83 @@ def test_kernel_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="device"):
         drizzle_gather_finalize(meta, base, base, meta[0, :, :4],
                                 meta[0, :4], 2, 4, 3.0, 3.0, 5)
+
+
+# ---- the switch to the plain versions ----------------------------------------
+
+CARD = SimpleNamespace(is_cuda=True)   # what use_kernel reads of a tensor
+
+
+def test_use_kernel_inside_and_outside_plain_versions():
+    cpu, meta = torch.zeros(1), torch.zeros(1, device="meta")
+    assert K.use_kernel(CARD, "k") and not K.use_kernel(cpu, "k")
+    with K.plain_versions():
+        assert not K.use_kernel(CARD, "k")
+        assert not K.use_kernel(cpu, "k")
+        with pytest.raises(ValueError, match="device"):
+            K.use_kernel(meta, "k")
+    assert K.use_kernel(CARD, "k")
+
+
+def test_plain_versions_nest():
+    with K.plain_versions():
+        with K.plain_versions():
+            assert not K.use_kernel(CARD, "k")
+        assert not K.use_kernel(CARD, "k")
+    assert K.use_kernel(CARD, "k")
+
+
+def test_plain_versions_restores_after_an_exception():
+    with pytest.raises(KeyError):
+        with K.plain_versions():
+            raise KeyError("inside")
+    assert K.use_kernel(CARD, "k")
+    with K.plain_versions():
+        with pytest.raises(KeyError):
+            with K.plain_versions():
+                raise KeyError("nested")
+        assert not K.use_kernel(CARD, "k")
+    assert K.use_kernel(CARD, "k")
+
+
+def _phase_correlate_stack(plain):
+    from astroburst_tpu_torch.alignment.phase_correlation import (
+        phase_correlate_stack)
+    stack = torch.rand((3, 40, 48), generator=torch.Generator().manual_seed(5))
+    return phase_correlate_stack(stack[0], stack[1:], **plain)
+
+
+def _drizzle_kernel_exact(plain):
+    from astroburst_tpu_torch.dtypes import DrizzleKernel
+    from astroburst_tpu_torch.stacking.drizzle import _drizzle_kernel_exact
+    stack = torch.rand((3, 12, 10), generator=torch.Generator().manual_seed(5))
+    return _drizzle_kernel_exact(
+        stack, torch.tensor([0.0, 0.3, -0.4]), torch.tensor([0.0, -0.2, 0.5]),
+        2.0, 0.7, DrizzleKernel.SQUARE, 24, 20, 3.0, 3.0, 5, band_rows=8,
+        **plain)
+
+
+@pytest.mark.parametrize("call", [_phase_correlate_stack,
+                                  _drizzle_kernel_exact])
+def test_plain_keyword_enters_plain_versions(call, monkeypatch):
+    """The two ``plain`` keywords left (for the benchmark's reference
+    tests) run their call in ``plain_versions``, with its results."""
+    want = call({})
+    entered = []
+    inner = K.plain_versions
+
+    @contextlib.contextmanager
+    def counted():
+        entered.append(1)
+        with inner():
+            yield
+    monkeypatch.setattr(K, "plain_versions", counted)
+    call({"plain": False})
+    assert entered == []
+    got = call({"plain": True})
+    assert entered == [1]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 # ---- masking / resample / fft ------------------------------------------------

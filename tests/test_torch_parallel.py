@@ -95,6 +95,7 @@ from astroburst_tpu_torch.parallel.pipeline import (
     align_stack_stretch, make_sharded_stack_step, reshard_frames_to_rows,
     sharded_shift_clip, sharded_shift_clip_a2a, sharded_stats_core)
 from astroburst_tpu_torch.parallel.warp import make_sharded_warp
+from astroburst_tpu_torch.runtime import kernels as K
 from astroburst_tpu_torch.stacking.drizzle import _drizzle_kernel_exact
 from astroburst_tpu_torch.stacking.onepass_kernel import (
     shift_clip_onepass, shift_clip_onepass_slab, slab_halo)
@@ -263,7 +264,8 @@ def test_sharded_step_on_cpu_runs_the_plain_versions(step_frames):
     stack = torch.from_numpy(step_frames[:4])
     mesh = cpu_mesh((2, 2), ("frames", "rows"))
     a = make_sharded_stack_step(mesh, max_iter=3)(stack)
-    b = make_sharded_stack_step(mesh, max_iter=3, plain=True)(stack)
+    with K.plain_versions():
+        b = make_sharded_stack_step(mesh, max_iter=3)(stack)
     assert shift_clip_onepass_slab.launches == before
     assert _equal(a["combined"].full(), b["combined"].full())
     placed = shard(mesh, stack, 0, "frames")

@@ -13,7 +13,10 @@ with another stack of the same shape.
 
 Marked ``card`` (skip without a CUDA card; this file imports no JAX,
 so on the card it runs with ``--noconftest``): the captured graphs
-against the eager call at the two benchmark shapes.
+against the eager call at the two benchmark shapes, and
+``align_stack_stretch`` in ``kernels.plain_versions()``: no launch of
+K1, K2 or K3, and the bits of a run that calls their plain versions by
+name.
 """
 
 import contextlib
@@ -24,6 +27,7 @@ import torch
 
 from astroburst_tpu_torch.alignment import phase_correlation as pc
 from astroburst_tpu_torch.ops.window import hann_periodic
+from astroburst_tpu_torch.runtime import kernels as K
 from astroburst_tpu_torch.runtime import trace
 
 CPU = torch.device("cpu")
@@ -183,10 +187,10 @@ class _Asked(Exception):
 
 def test_only_cuda_non_plain_large_calls_reach_the_cache(monkeypatch,
                                                          tracing):
-    """The route, with ``is_cuda`` faked on CPU tensors: ``plain`` and
-    planes of at most 512 px never ask the cache (the small one counts
-    as eager), a large non-``plain`` call asks it with its key; on real
-    CPU tensors no call asks."""
+    """The route, with ``is_cuda`` faked on CPU tensors: calls in
+    ``kernels.plain_versions()`` and planes of at most 512 px never ask
+    the cache (the small one counts as eager), a large call outside it
+    asks it with its key; on real CPU tensors no call asks."""
     asked = []
 
     class Cache:
@@ -196,13 +200,15 @@ def test_only_cuda_non_plain_large_calls_reach_the_cache(monkeypatch,
     monkeypatch.setattr(pc, "_GRAPHS", Cache())
     large, small = _scene(5, 600, 700, 2025), _scene(4, 200, 300, 2025)
     for stack in (large, small):
-        for plain in (False, True):
-            pc.phase_correlate_stack(stack[0], stack[1:], plain=plain)
+        pc.phase_correlate_stack(stack[0], stack[1:])
+        with K.plain_versions():
+            pc.phase_correlate_stack(stack[0], stack[1:])
     assert asked == [] and trace.drain().counters == {}
 
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    pc.phase_correlate_stack(large[0], large[1:], plain=True)
-    pc.phase_correlate_stack(small[0], small[1:], plain=True)
+    with K.plain_versions():
+        pc.phase_correlate_stack(large[0], large[1:])
+        pc.phase_correlate_stack(small[0], small[1:])
     assert asked == [] and trace.drain().counters == {}
     pc.phase_correlate_stack(small[0], small[1:])
     assert asked == []
@@ -385,3 +391,38 @@ def test_card_replay_is_bit_equal_to_eager(shape, tracing):
     assert counters["alignment.phase_corr.graph_capture"] == 1
     assert counters["alignment.phase_corr.graph_replay"] == 4
     assert counters["alignment.phase_corr.eager"] == 4
+
+
+@pytest.mark.card
+def test_card_plain_versions_launch_no_kernel(monkeypatch):
+    """On the card ``align_stack_stretch`` in ``plain_versions()`` adds
+    nothing to K1's, K2's or K3's launches and gives the bits of the
+    run that names their plain versions (eager: the graphs never
+    replay)."""
+    from astroburst_tpu_torch.alignment.coarse_kernel import (
+        coarse_downsample_stack_plain)
+    from astroburst_tpu_torch.ops.crop_kernel import gather_crops_plain
+    from astroburst_tpu_torch.parallel import pipeline
+    from astroburst_tpu_torch.stacking.onepass_kernel import (
+        shift_clip_onepass_plain)
+    dev = _card()
+    stack = _card_stack(8, 2206, 1400, 2025, dev)
+    kernels = (pc.coarse_downsample_stack, pc.gather_crops,
+               pipeline.shift_clip_onepass)
+    before = [k.launches for k in kernels]
+    with K.plain_versions():
+        got = pipeline.align_stack_stretch(stack)
+        got = pipeline.align_stack_stretch(stack)   # a key seen before
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+    with _cache(pc.GraphCache(pc._StackGraphs, capacity=0)):
+        monkeypatch.setattr(pc, "coarse_downsample_stack",
+                            coarse_downsample_stack_plain)
+        monkeypatch.setattr(pc, "gather_crops", gather_crops_plain)
+        monkeypatch.setattr(pipeline, "shift_clip_onepass",
+                            shift_clip_onepass_plain)
+        want = pipeline.align_stack_stretch(stack)
+    assert got.keys() == want.keys()
+    for k in got:
+        assert torch.equal(got[k].reshape(-1).view(torch.uint8),
+                           want[k].reshape(-1).view(torch.uint8)), k

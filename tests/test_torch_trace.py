@@ -16,7 +16,6 @@ spans its main paths record, on the CPU.
 import os
 import threading
 import time
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -289,32 +288,22 @@ def _drizzle_args():
 
 
 def test_drizzle_bands_each_record_their_steps(tracing):
+    """80 output rows from row 40 in bands of 24: 4 bands, counted, all
+    made by one tap pass and one gather."""
+    drz._drizzle_kernel_exact(*_drizzle_args(), band_rows=24,
+                              row0_offset=40)
+    got = trace.drain()
+    root = _root(got.spans, "stacking.drizzle")
+    assert got.counters == {"stacking.drizzle.bands": 4}
+    assert [s.name for s in _children(got.spans, root)] == [
+        "stacking.drizzle.taps", "stacking.drizzle.gather"]
+
+
+def test_drizzle_one_launch_records_one_step_each(tracing):
     drz._drizzle_kernel_exact(*_drizzle_args(), band_rows=16)
     got = trace.drain()
     root = _root(got.spans, "stacking.drizzle")
-    bands = got.counters["stacking.drizzle.bands"]
-    assert bands == 5
-    kids = _children(got.spans, root)
-    assert [s.name for s in kids] == [
-        "stacking.drizzle.taps", "stacking.drizzle.gather",
-        "stacking.drizzle.finalize"] * bands
-    assert "stacking.drizzle.fused" not in got.counters
-
-
-def _one_launch_route(monkeypatch):
-    """``_drizzle_kernel_exact`` routed as for a CUDA stack: its one
-    launch (``_drizzle_one_launch``), the gather's plain version here."""
-    monkeypatch.setattr(drz, "K", SimpleNamespace(
-        use_kernel=lambda t, name: True))
-
-
-def test_drizzle_one_launch_records_one_step_each(tracing, monkeypatch):
-    _one_launch_route(monkeypatch)
-    drz._drizzle_kernel_exact(*_drizzle_args(), band_rows=16)
-    got = trace.drain()
-    root = _root(got.spans, "stacking.drizzle")
-    assert got.counters["stacking.drizzle.bands"] == 5
-    assert got.counters["stacking.drizzle.fused"] == 1
+    assert got.counters == {"stacking.drizzle.bands": 5}
     assert [s.name for s in _children(got.spans, root)] == [
         "stacking.drizzle.taps", "stacking.drizzle.gather"]
     # called directly, the route records the same steps and count
@@ -322,8 +311,7 @@ def test_drizzle_one_launch_records_one_step_each(tracing, monkeypatch):
     got = trace.drain()
     assert [s.name for s in got.spans] == [
         "stacking.drizzle.taps", "stacking.drizzle.gather"]
-    assert got.counters == {"stacking.drizzle.bands": 5,
-                            "stacking.drizzle.fused": 1}
+    assert got.counters == {"stacking.drizzle.bands": 5}
 
 
 def test_drizzle_stack_spans(tracing):
@@ -367,8 +355,9 @@ def _stretch(tmp_path):
     return align_stack_stretch(_frames((3, COARSE_MAX_DIM + 88, 520)))
 
 
-def _drizzle_bands(tmp_path):
-    return drz._drizzle_kernel_exact(*_drizzle_args(), band_rows=16)
+def _drizzle_kernel_exact(tmp_path):
+    return drz._drizzle_kernel_exact(*_drizzle_args(), band_rows=24,
+                                     row0_offset=40)
 
 
 def _drizzle_one_launch(tmp_path):
@@ -382,7 +371,7 @@ def _drizzle_stack(tmp_path):
     return vars(res)
 
 
-@pytest.mark.parametrize("call", [_open, _stretch, _drizzle_bands,
+@pytest.mark.parametrize("call", [_open, _stretch, _drizzle_kernel_exact,
                                   _drizzle_stack, _drizzle_one_launch],
                          ids=["process_fits_full", "align_stack_stretch",
                               "drizzle_kernel_exact", "drizzle_stack",
