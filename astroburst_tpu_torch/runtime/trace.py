@@ -71,9 +71,12 @@ Name                                Where
                                     the host waits for the card
                                     (``api.helpers``)
 ``io.png.scanlines``                the filter-byte scanlines (``io.png``)
-``io.png.deflate``                  ``zlib.compress`` of them; counters
-                                    ``io.png.raw_bytes`` (bytes in) and
-                                    ``io.png.out_bytes`` (bytes out)
+``io.png.deflate``                  the deflate of them (row bands on a
+                                    pool when more than one); counters
+                                    ``io.png.raw_bytes`` (bytes in),
+                                    ``io.png.out_bytes`` (bytes out) and
+                                    ``io.png.bands`` (its bands, 1 for
+                                    one ``zlib.compress``)
 ``io.write``                        a PNG or mono FITS file written
                                     (``io.png._save``,
                                     ``io.fits_writer.write_fits_mono``)

@@ -228,10 +228,16 @@ def _decode_png(path):
     return px.reshape((h, w) if chans == 1 else (h, w, 3)), depth, colour
 
 
-@pytest.mark.parametrize("bit_depth", [8, 16])
-def test_gray_png_decodes_to_jax_pixels(tmp_path, rng, bit_depth):
+# The second size of each depth makes ~4.2 MB of scanlines: two deflate
+# bands (io/png.band_rows) over an odd row count.
+@pytest.mark.parametrize("bit_depth,shape", [
+    pytest.param(8, (29, 41), id="8"),
+    pytest.param(16, (29, 41), id="16"),
+    pytest.param(8, (1031, 4099), id="8-banded"),
+    pytest.param(16, (1031, 2050), id="16-banded")])
+def test_gray_png_decodes_to_jax_pixels(tmp_path, rng, bit_depth, shape):
     top = 255 if bit_depth == 8 else 65535
-    px = rng.integers(0, top + 1, (29, 41))
+    px = rng.integers(0, top + 1, shape)
     px[0, :2] = (0, top)
     a, b = str(tmp_path / "t.png"), str(tmp_path / "j.png")
     tpng.save_gray_png(px, a, bit_depth)
@@ -242,10 +248,14 @@ def test_gray_png_decodes_to_jax_pixels(tmp_path, rng, bit_depth):
     np.testing.assert_array_equal(got, px)
 
 
-@pytest.mark.parametrize("bit_depth", [8, 16])
-def test_rgb_png_decodes_to_jax_pixels(tmp_path, rng, bit_depth):
+@pytest.mark.parametrize("bit_depth,shape", [
+    pytest.param(8, (13, 19), id="8"),
+    pytest.param(16, (13, 19), id="16"),
+    pytest.param(8, (1031, 1366), id="8-banded"),
+    pytest.param(16, (1031, 683), id="16-banded")])
+def test_rgb_png_decodes_to_jax_pixels(tmp_path, rng, bit_depth, shape):
     top = 255 if bit_depth == 8 else 65535
-    r, g, b_ = (rng.integers(0, top + 1, (13, 19)) for _ in range(3))
+    r, g, b_ = (rng.integers(0, top + 1, shape) for _ in range(3))
     a, b = str(tmp_path / "t.png"), str(tmp_path / "j.png")
     tpng.save_rgb_png(r, g, b_, a, bit_depth)
     jpng.save_rgb_png(r, g, b_, b, bit_depth)
