@@ -38,7 +38,12 @@ the device:
 
 The phase-correlation fallback stays on the host: it runs only when
 the star chain fails, which the info vector reports (affine.rs:258-270;
-an algorithmic fallback, not a device one).
+an algorithmic fallback, not a device one). Each plane's list is its own
+60 brightest sources, as in the reference, so the chain needs the
+channels' brightest sources to be largely the same. Across filters far
+apart in wavelength they may not be: a short-wave plane whose brightest
+are blue stars against a long-wave one whose brightest are red galaxies
+shares too few triangles, and both the chain and the reference fall back.
 
 On the card the wrappers launch the kernels, and a CPU tensor runs
 their plain torch versions (``runtime/kernels.use_kernel``). Nothing
@@ -58,6 +63,7 @@ from astroburst_tpu_torch.alignment import affine as A
 from astroburst_tpu_torch.alignment.vote_kernel import vote
 from astroburst_tpu_torch.analysis import star_detection as SD
 from astroburst_tpu_torch.runtime import kernels as K
+from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.runtime.device import as_f32
 
 STAR_CAP = 64          # star slots in the vote table (> TRIANGLE_STAR_LIMIT)
@@ -482,10 +488,11 @@ def _detect_device(plane: torch.Tensor, max_peaks: int):
     """normalise → background → detect → dedupe-top60 (fused_chain.py:
     _detect_device): ([2, 60] x/y rows, 0-d count)."""
     rows, cols = plane.shape
-    packed = SD._detect(A.normalize_for_detection(plane),
-                        SD._tile_size(rows, cols), A.DETECTION_SIGMA,
-                        max_peaks)
-    return dedupe_topk(packed)
+    with trace.span("alignment.affine.detect"):
+        packed = SD._detect(A.normalize_for_detection(plane),
+                            SD._tile_size(rows, cols), A.DETECTION_SIGMA,
+                            max_peaks)
+        return dedupe_topk(packed)
 
 
 def _chain_body(ref_stars: "RefStars", tgt: torch.Tensor, envelope: float):
@@ -496,39 +503,42 @@ def _chain_body(ref_stars: "RefStars", tgt: torch.Tensor, envelope: float):
     inliers, residual, envelope ok, reference stars, target stars)."""
     rows, cols = tgt.shape
     txy, tn = _detect_device(tgt, ref_stars.max_peaks)
-    txs, tys = txy.unbind(0)
-    tr, tv = device_triangles(txs, tys)
-    votes = vote(ref_stars.ratios, ref_stars.verts, tr, tv)
-    ris, tis, cnt = greedy_match(votes)
-    mvalid = torch.arange(STAR_CAP, device=tgt.device) < cnt
-    mx = torch.where(mvalid, torch.take(ref_stars.xs, ris.long()), 0.0)
-    my = torch.where(mvalid, torch.take(ref_stars.ys, ris.long()), 0.0)
-    mu = torch.where(mvalid, torch.take(txs, tis.long()), 0.0)
-    mv = torch.where(mvalid, torch.take(tys, tis.long()), 0.0)
+    with trace.span("alignment.affine.match"):
+        txs, tys = txy.unbind(0)
+        tr, tv = device_triangles(txs, tys)
+        votes = vote(ref_stars.ratios, ref_stars.verts, tr, tv)
+        ris, tis, cnt = greedy_match(votes)
+        mvalid = torch.arange(STAR_CAP, device=tgt.device) < cnt
+        mx = torch.where(mvalid, torch.take(ref_stars.xs, ris.long()), 0.0)
+        my = torch.where(mvalid, torch.take(ref_stars.ys, ris.long()), 0.0)
+        mu = torch.where(mvalid, torch.take(txs, tis.long()), 0.0)
+        mv = torch.where(mvalid, torch.take(tys, tis.long()), 0.0)
 
-    pa_aff, ok_aff, inl_aff, res_aff = ransac_device(
-        mx, my, mu, mv, mvalid, cnt, rows, cols, "affine")
-    pa_rig, ok_rig, inl_rig, res_rig = ransac_device(
-        mx, my, mu, mv, mvalid, cnt, rows, cols, "rigid")
+        pa_aff, ok_aff, inl_aff, res_aff = ransac_device(
+            mx, my, mu, mv, mvalid, cnt, rows, cols, "affine")
+        pa_rig, ok_rig, inl_rig, res_rig = ransac_device(
+            mx, my, mu, mv, mvalid, cnt, rows, cols, "rigid")
 
-    use_aff = ok_aff
-    use_rig = ~ok_aff & ok_rig
-    method = torch.where(use_aff, 2, torch.where(use_rig, 1, 0))
-    identity = _constants(tgt.device)[2]
-    params = torch.where(use_aff, pa_aff, torch.where(use_rig, pa_rig,
-                                                      identity))
+        use_aff = ok_aff
+        use_rig = ~ok_aff & ok_rig
+        method = torch.where(use_aff, 2, torch.where(use_rig, 1, 0))
+        identity = _constants(tgt.device)[2]
+        params = torch.where(use_aff, pa_aff, torch.where(use_rig, pa_rig,
+                                                          identity))
 
-    # info slot 10: the JAX package's shear-envelope test (reported only)
-    m_v, m_h, nbits_v, nbits_h = _envelope(envelope, rows, cols)
-    a_, b_, _, c_, _, _ = params.unbind()
-    q = c_ / torch.where(torch.abs(a_) < 1e-6, _f32(1e-6), a_)
-    span_v = torch.abs(q) * (cols - 1)
-    span_h = torch.abs(b_) * (rows - 1)
-    env_ok = ((torch.abs(a_) >= _f32(1e-3)) & (span_v <= m_v - 4) &
-              (span_h <= m_h - 4) & (span_v < 2.0 ** nbits_v - 1) &
-              (span_h < 2.0 ** nbits_h - 1))
+        # info slot 10: the JAX package's shear-envelope test (reported
+        # only)
+        m_v, m_h, nbits_v, nbits_h = _envelope(envelope, rows, cols)
+        a_, b_, _, c_, _, _ = params.unbind()
+        q = c_ / torch.where(torch.abs(a_) < 1e-6, _f32(1e-6), a_)
+        span_v = torch.abs(q) * (cols - 1)
+        span_h = torch.abs(b_) * (rows - 1)
+        env_ok = ((torch.abs(a_) >= _f32(1e-3)) & (span_v <= m_v - 4) &
+                  (span_h <= m_h - 4) & (span_v < 2.0 ** nbits_v - 1) &
+                  (span_h < 2.0 ** nbits_h - 1))
 
-    warped = A._warp_direct(tgt, params, rows, cols)
+    with trace.span("alignment.affine.warp"):
+        warped = A._warp_direct(tgt, params, rows, cols)
 
     inliers = torch.where(use_aff, inl_aff, torch.where(use_rig, inl_rig, 0))
     resid = torch.where(use_aff, res_aff, torch.where(use_rig, res_rig, 0.0))
@@ -565,7 +575,8 @@ def detect_ref_stars(reference, max_peaks: int = SD.MAX_PEAKS, *,
     ``cuda_device()``); nothing is fetched."""
     ref = as_f32(reference, device)
     xy, n = _detect_device(ref, max_peaks)
-    ratios, verts = device_triangles(xy[0], xy[1])
+    with trace.span("alignment.affine.match"):
+        ratios, verts = device_triangles(xy[0], xy[1])
     return RefStars(xy[0], xy[1], n, ratios, verts, ref.shape, max_peaks)
 
 
@@ -605,8 +616,9 @@ def align_and_warp(reference, target, envelope: float = 0.035,
     else:
         _check_ref_stars(ref_stars, ref.shape, max_peaks)
     warped, info = _chain_body(ref_stars, tgt, envelope)
-    return _interpret_info(info.tolist(), ref, tgt, rows, cols,
-                           warped)   # the ONE host fetch
+    with trace.span("alignment.affine.match"):
+        info = info.tolist()          # the ONE host fetch
+    return _interpret_info(info, ref, tgt, rows, cols, warped)
 
 
 def _interpret_info(info: List[float], ref, tgt, rows, cols, warped):
@@ -615,6 +627,9 @@ def _interpret_info(info: List[float], ref, tgt, rows, cols, warped):
     (affine.rs:258-270 semantics), and a transform whose linear part is
     exactly the identity re-warped by `warp_image`'s separable shift."""
     method = int(info[6])
+    trace.count("alignment.affine.star" if method else
+                "alignment.affine.fallback")
+    trace.count("alignment.affine.inliers", int(info[8]))
     if method == 0:
         res = A._fallback_phase_correlation(ref, tgt, rows, cols)
         return A.warp_image(tgt, res.transform, rows, cols), res
@@ -647,6 +662,8 @@ def align_and_warp_many(reference, targets, envelope: float = 0.035,
     else:
         _check_ref_stars(ref_stars, ref.shape, max_peaks)
     outs = [_chain_body(ref_stars, t, envelope) for t in tgts]
-    infos = torch.stack([i for _, i in outs]).tolist()   # the ONE fetch
+    with trace.span("alignment.affine.match"):
+        # the ONE fetch
+        infos = torch.stack([i for _, i in outs]).tolist()
     return [_interpret_info(info, ref, t, rows, cols, w)
             for info, t, (w, _) in zip(infos, tgts, outs)]

@@ -43,6 +43,7 @@ from astroburst_tpu_torch.imaging.resample import resample_image
 from astroburst_tpu_torch.imaging.scnr import apply_scnr
 from astroburst_tpu_torch.imaging.stf import apply_stf_f32, auto_stf
 from astroburst_tpu_torch.ops.stats import compute_image_stats
+from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.runtime.cache import GLOBAL_IMAGE_CACHE
 from astroburst_tpu_torch.runtime.device import device_or_cuda
 from astroburst_tpu_torch.runtime.output import resolve_output_dir
@@ -71,70 +72,73 @@ def compose_rgb_cmd(output_dir: str = "", l_path: Optional[str] = None,
     """The full compose command (cmd/compose/rgb.rs:43): process_rgb,
     ORIG + KEY seeded with the pre-stretch planes, optional LRGB, the
     RGB preview."""
-    t0 = Timer()
-    device = device_or_cuda(device)
-    out_dir = resolve_output_dir(output_dir)
-    given = [p for p in (l_path, r_path, g_path, b_path) if p]
-    loaded = dict(zip(given, load_cached_many(given, device=device)))
-    l_entry, r_entry, g_entry, b_entry = (
-        loaded[p] if p else None for p in (l_path, r_path, g_path, b_path))
+    with trace.span("api.compose_rgb"):
+        t0 = Timer()
+        device = device_or_cuda(device)
+        out_dir = resolve_output_dir(output_dir)
+        given = [p for p in (l_path, r_path, g_path, b_path) if p]
+        loaded = dict(zip(given, load_cached_many(given, device=device)))
+        l_entry, r_entry, g_entry, b_entry = (
+            loaded[p] if p else None
+            for p in (l_path, r_path, g_path, b_path))
 
-    config = RgbComposeConfig(
-        white_balance=helpers.parse_wb(wb_mode, wb_r, wb_g, wb_b),
-        auto_stretch=auto_stretch if auto_stretch is not None else True,
-        linked_stf=linked_stf if linked_stf is not None else False,
-        align=align if align is not None else True,
-        align_method=helpers.parse_align_method(align_method),
-        scnr=helpers.parse_scnr_config(scnr_enabled, scnr_method,
-                                       scnr_amount, None))
+        config = RgbComposeConfig(
+            white_balance=helpers.parse_wb(wb_mode, wb_r, wb_g, wb_b),
+            auto_stretch=auto_stretch if auto_stretch is not None else True,
+            linked_stf=linked_stf if linked_stf is not None else False,
+            align=align if align is not None else True,
+            align_method=helpers.parse_align_method(align_method),
+            scnr=helpers.parse_scnr_config(scnr_enabled, scnr_method,
+                                           scnr_amount, None))
 
-    processed = process_rgb(
-        r_entry.image if r_entry else None,
-        g_entry.image if g_entry else None,
-        b_entry.image if b_entry else None, config)
+        processed = process_rgb(
+            r_entry.image if r_entry else None,
+            g_entry.image if g_entry else None,
+            b_entry.image if b_entry else None, config)
 
-    helpers.insert_composite_and_orig(
-        processed.pre_stretch_r, processed.pre_stretch_g,
-        processed.pre_stretch_b, processed.stats_wb_r, processed.stats_wb_g,
-        processed.stats_wb_b)
+        helpers.insert_composite_and_orig(
+            processed.pre_stretch_r, processed.pre_stretch_g,
+            processed.pre_stretch_b, processed.stats_wb_r,
+            processed.stats_wb_g, processed.stats_wb_b)
 
-    lrgb_applied = False
-    r_img, g_img, b_img = processed.r, processed.g, processed.b
-    if l_entry is not None:
-        l_data = resample_image(l_entry.image, processed.rows,
-                                processed.cols)
-        if config.auto_stretch:
-            l_stats = compute_image_stats(l_data)
-            l_data = apply_stf_f32(l_data, auto_stf(l_stats), l_stats)
-        r_img, g_img, b_img = apply_lrgb(
-            l_data, r_img, g_img, b_img,
-            lrgb_lightness if lrgb_lightness is not None else 1.0,
-            lrgb_chrominance if lrgb_chrominance is not None else 1.0)
-        lrgb_applied = True
+        lrgb_applied = False
+        r_img, g_img, b_img = processed.r, processed.g, processed.b
+        if l_entry is not None:
+            l_data = resample_image(l_entry.image, processed.rows,
+                                    processed.cols)
+            if config.auto_stretch:
+                l_stats = compute_image_stats(l_data)
+                l_data = apply_stf_f32(l_data, auto_stf(l_stats), l_stats)
+            r_img, g_img, b_img = apply_lrgb(
+                l_data, r_img, g_img, b_img,
+                lrgb_lightness if lrgb_lightness is not None else 1.0,
+                lrgb_chrominance if lrgb_chrominance is not None else 1.0)
+            lrgb_applied = True
 
-    png_path = helpers.composite_png_path(out_dir)
-    helpers.render_rgb_preview(r_img, g_img, b_img, png_path,
-                               MAX_PREVIEW_DIM)
-    resampled = bool(processed.dimension_info and
-                     processed.dimension_info.resampled)
-    return {
-        C.RES_PNG_PATH: png_path,
-        C.RES_DIMENSIONS: [processed.cols, processed.rows],
-        C.RES_SCNR_APPLIED: processed.scnr_applied,
-        C.RES_OFFSET_G: list(processed.offset_g),
-        C.RES_OFFSET_B: list(processed.offset_b),
-        C.RES_DIMENSION_INFO: (processed.dimension_info.to_dict()
-                               if processed.dimension_info else None),
-        C.RESAMPLED: resampled,
-        C.LRGB_APPLIED: lrgb_applied,
-        C.STF_R: processed.stf_r.to_dict(),
-        C.STF_G: processed.stf_g.to_dict(),
-        C.STF_B: processed.stf_b.to_dict(),
-        C.RES_STATS_R: helpers.stats_brief(processed.stats_r),
-        C.RES_STATS_G: helpers.stats_brief(processed.stats_g),
-        C.RES_STATS_B: helpers.stats_brief(processed.stats_b),
-        C.RES_ELAPSED_MS: t0.elapsed_ms(),
-    }
+        png_path = helpers.composite_png_path(out_dir)
+        with trace.span("compose.preview"):
+            helpers.render_rgb_preview(r_img, g_img, b_img, png_path,
+                                       MAX_PREVIEW_DIM)
+        resampled = bool(processed.dimension_info and
+                         processed.dimension_info.resampled)
+        return {
+            C.RES_PNG_PATH: png_path,
+            C.RES_DIMENSIONS: [processed.cols, processed.rows],
+            C.RES_SCNR_APPLIED: processed.scnr_applied,
+            C.RES_OFFSET_G: list(processed.offset_g),
+            C.RES_OFFSET_B: list(processed.offset_b),
+            C.RES_DIMENSION_INFO: (processed.dimension_info.to_dict()
+                                   if processed.dimension_info else None),
+            C.RESAMPLED: resampled,
+            C.LRGB_APPLIED: lrgb_applied,
+            C.STF_R: processed.stf_r.to_dict(),
+            C.STF_G: processed.stf_g.to_dict(),
+            C.STF_B: processed.stf_b.to_dict(),
+            C.RES_STATS_R: helpers.stats_brief(processed.stats_r),
+            C.RES_STATS_G: helpers.stats_brief(processed.stats_g),
+            C.RES_STATS_B: helpers.stats_brief(processed.stats_b),
+            C.RES_ELAPSED_MS: t0.elapsed_ms(),
+        }
 
 
 def restretch_composite_cmd(output_dir: str,

@@ -34,6 +34,7 @@ from astroburst_tpu_torch.imaging.resample import resample_image
 from astroburst_tpu_torch.imaging.scnr import apply_scnr
 from astroburst_tpu_torch.imaging.stf import apply_stf_f32, auto_stf
 from astroburst_tpu_torch.ops.stats import compute_image_stats
+from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.runtime.device import as_f32, as_f32_all
 
 log = logging.getLogger("astroburst_tpu_torch.align")
@@ -183,62 +184,68 @@ def process_rgb(r_channel, g_channel, b_channel,
     r, g, b = (None if c is None else next(it)
                for c in (r_channel, g_channel, b_channel))
 
-    r, g, b, rows, cols, dim_info = harmonize_dimensions(r, g, b)
+    with trace.span("compose.harmonize"):
+        r, g, b, rows, cols, dim_info = harmonize_dimensions(r, g, b)
 
     if config.align:
-        r_img, g_img, b_img, off_g, off_b = align_rgb_channels(
-            r, g, b, rows, cols, config.align_method)
+        with trace.span("compose.align"):
+            r_img, g_img, b_img, off_g, off_b = align_rgb_channels(
+                r, g, b, rows, cols, config.align_method)
     else:
         r_img, g_img, b_img = _synth_all(r, g, b, rows, cols)
         off_g = off_b = (0.0, 0.0)
 
-    stats_r = compute_image_stats(r_img)
-    stats_g = compute_image_stats(g_img)
-    stats_b = compute_image_stats(b_img)
+    with trace.span("compose.color"):
+        stats_r = compute_image_stats(r_img)
+        stats_g = compute_image_stats(g_img)
+        stats_b = compute_image_stats(b_img)
 
-    mode = config.white_balance.mode
-    if mode == WhiteBalanceMode.AUTO:
-        wb = select_wb_reference(stats_r, stats_g, stats_b)
-    elif mode == WhiteBalanceMode.MANUAL:
-        wb = (config.white_balance.r, config.white_balance.g,
-              config.white_balance.b)
-    else:
-        wb = (1.0, 1.0, 1.0)
-
-    r_img = _mul(r_img, wb[0])
-    g_img = _mul(g_img, wb[1])
-    b_img = _mul(b_img, wb[2])
-
-    sr = compute_image_stats(r_img)
-    sg = compute_image_stats(g_img)
-    sb = compute_image_stats(b_img)
-    if config.auto_stretch:
-        if config.linked_stf:
-            # the merge multiplies by 1/3 (drizzle_rgb divides by 3)
-            st = compute_image_stats((r_img + g_img + b_img) * (1.0 / 3.0))
-            pr = pg = pb = auto_stf(st, config.auto_stf)
+        mode = config.white_balance.mode
+        if mode == WhiteBalanceMode.AUTO:
+            wb = select_wb_reference(stats_r, stats_g, stats_b)
+        elif mode == WhiteBalanceMode.MANUAL:
+            wb = (config.white_balance.r, config.white_balance.g,
+                  config.white_balance.b)
         else:
-            pr = auto_stf(sr, config.auto_stf)
-            pg = auto_stf(sg, config.auto_stf)
-            pb = auto_stf(sb, config.auto_stf)
-    else:
-        ident = StfParams(shadow=0.0, midtone=0.5, highlight=1.0)
-        pr = config.stf_r or ident
-        pg = config.stf_g or ident
-        pb = config.stf_b or ident
+            wb = (1.0, 1.0, 1.0)
 
-    pre_r, pre_g, pre_b = r_img, g_img, b_img
+        r_img = _mul(r_img, wb[0])
+        g_img = _mul(g_img, wb[1])
+        b_img = _mul(b_img, wb[2])
 
-    # the composite's STF (rgb.rs:195-208) has apply_stf_f32's validity
-    # rule (finite and > 1e-7, else 0) and parameter scalars
-    r_img = apply_stf_f32(r_img, pr, sr)
-    g_img = apply_stf_f32(g_img, pg, sg)
-    b_img = apply_stf_f32(b_img, pb, sb)
+        sr = compute_image_stats(r_img)
+        sg = compute_image_stats(g_img)
+        sb = compute_image_stats(b_img)
+        if config.auto_stretch:
+            if config.linked_stf:
+                # the merge multiplies by 1/3 (drizzle_rgb divides by 3)
+                st = compute_image_stats(
+                    (r_img + g_img + b_img) * (1.0 / 3.0))
+                pr = pg = pb = auto_stf(st, config.auto_stf)
+            else:
+                pr = auto_stf(sr, config.auto_stf)
+                pg = auto_stf(sg, config.auto_stf)
+                pb = auto_stf(sb, config.auto_stf)
+        else:
+            ident = StfParams(shadow=0.0, midtone=0.5, highlight=1.0)
+            pr = config.stf_r or ident
+            pg = config.stf_g or ident
+            pb = config.stf_b or ident
 
-    scnr_applied = False
-    if config.scnr is not None and r_img.shape == g_img.shape == b_img.shape:
-        r_img, g_img, b_img = apply_scnr(r_img, g_img, b_img, config.scnr)
-        scnr_applied = True
+        pre_r, pre_g, pre_b = r_img, g_img, b_img
+
+        # the composite's STF (rgb.rs:195-208) has apply_stf_f32's
+        # validity rule (finite and > 1e-7, else 0) and parameter scalars
+        r_img = apply_stf_f32(r_img, pr, sr)
+        g_img = apply_stf_f32(g_img, pg, sg)
+        b_img = apply_stf_f32(b_img, pb, sb)
+
+        scnr_applied = False
+        if (config.scnr is not None
+                and r_img.shape == g_img.shape == b_img.shape):
+            r_img, g_img, b_img = apply_scnr(r_img, g_img, b_img,
+                                             config.scnr)
+            scnr_applied = True
 
     return ProcessedRgb(
         r=r_img, g=g_img, b=b_img, rows=rows, cols=cols,

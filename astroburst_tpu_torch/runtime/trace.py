@@ -52,6 +52,30 @@ Name                                Where
 ``stacking.drizzle_stack``          the body of
                                     ``stacking.drizzle.drizzle_stack``
 ``api.process_cube``                the body of ``api.cube.process_cube_cmd``
+``api.compose_rgb``                 the body of ``api.compose.compose_rgb_cmd``
+``compose.harmonize``               in ``compose.rgb.process_rgb``: the
+                                    bicubic resample of channels to the
+                                    largest dimensions
+``compose.align``                   in ``process_rgb``: G and B aligned to
+                                    the reference (``align_rgb_channels``)
+``compose.color``                   in ``process_rgb``: the six stats,
+                                    white balance, STF and SCNR
+``compose.preview``                 in ``compose_rgb_cmd``: the RGB
+                                    preview's u8, fetch and PNG
+``alignment.affine.detect``         ``alignment.fused_chain._detect_device``:
+                                    normalize, detect (K10, K11), dedupe
+``alignment.affine.match``          in the fused chain: the triangles, the
+                                    vote (K12), the greedy match, both
+                                    RANSACs, and the one info fetch that
+                                    waits for them; counters
+                                    ``alignment.affine.star`` (1 a target
+                                    aligned by stars),
+                                    ``alignment.affine.fallback`` (1 a
+                                    target sent to the phase-correlation
+                                    fallback) and
+                                    ``alignment.affine.inliers`` (the
+                                    inliers), read from the fetched info
+``alignment.affine.warp``           the fused chain's direct warp
 ``cube.load``                       ``io.prefetch.load_cube``: the cube's
                                     decode and upload; counter
                                     ``cube.load_bytes``: the f32 bytes put

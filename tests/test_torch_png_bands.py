@@ -3,8 +3,8 @@
 - one band is today's stream: ``zlib.compress`` of the scanlines at
   level 6, byte for byte;
 - several bands make one zlib stream in one IDAT that inflates to the
-  scanlines, gray and RGB, 8 and 16 bits, at 2, 3 and 8 bands over row
-  counts the band count does not divide;
+  scanlines, gray and RGB, 8 and 16 bits, at 2, 3, 8 and 16 bands (9
+  rounded up) over row counts the band count does not divide;
 - the band plan; ``adler32_combine`` against ``zlib.adler32`` of the
   whole;
 - the bytes do not depend on the pool's size, nor on callers on other
@@ -91,7 +91,8 @@ _WIDTHS = {("gray", 8): 4099, ("gray", 16): 2050,
            ("rgb", 8): 1366, ("rgb", 16): 683}
 
 
-@pytest.mark.parametrize("rows,bands", [(1031, 2), (1543, 3), (4097, 8)])
+@pytest.mark.parametrize("rows,bands", [(1031, 2), (1543, 3), (4097, 8),
+                                        (4605, 16)])
 @pytest.mark.parametrize("kind,bit_depth", list(_WIDTHS))
 def test_bands_inflate_to_the_scanlines(tmp_path, rng, kind, bit_depth, rows,
                                         bands):
@@ -120,6 +121,10 @@ def test_bands_inflate_to_the_scanlines(tmp_path, rng, kind, bit_depth, rows,
     (4096, 4096 * 4097, 8),           # the 4096² u8 preview
     (512, 512 * 513, 1),              # a cube's 512² preview
     (4096, 4096 * (1 + 3 * 4096), 24),  # a 4096² RGB u8
+    (1598, 1598 * (1 + 3 * 4096), 16),  # 9 bands, rounded up to 16
+    (4096, 4096 * (1 + 4 * 4096), 32),  # 32: a multiple of 8 already
+    (4096, 4096 * (1 + 3 * 4800), 32),  # 28 bands, rounded up to 32
+    (12, 12 * (1 << 20), 6),          # 12 MiB: 6 bands, not rounded
     (3, 3 * (5 << 20), 3),            # rows past a band each: one a row
     (2, 2 * (9 << 20), 2),
     (1, 1, 1), (0, 0, 1)])
