@@ -6,17 +6,21 @@ per-pixel spectrum, spectral-axis classification from CTYPE3/CUNIT3,
 linear wavelength axis, global asinh-normalize stats (1%/99.9%
 percentile clamp, α = 10).
 
-Plain torch, as it is XLA in the JAX package. The collapses run over
-chunks of pixel columns, so a 2 GiB cube needs no more than a few
-hundred MB beside itself. ``collapse_median`` sorts each column over
-the spectral axis (+inf fill) and reads index cnt // 2, as the JAX
-package's sort + ``_rank_select`` does: bit-equal. The global stats
-select their ranks and the MAD exactly from the values sorted a chunk
-at a time (``ops/select.py``: a 2 GiB cube needs a 2 GiB buffer and
-one chunk's sort beside it, where one sort of it needed ~20 GiB),
-where the JAX package uses its compare-count quantile (within
-range/8⁶, ROADMAP C21). The classification and the wavelength axis are host
-code, copied.
+The collapses are plain torch, as they are XLA in the JAX package.
+They run over chunks of pixel columns, so a 2 GiB cube needs no more
+than a few hundred MB beside itself. ``collapse_median`` sorts each
+column over the spectral axis (+inf fill) and reads index cnt // 2, as
+the JAX package's sort + ``_rank_select`` does: bit-equal. The global
+stats are exact order statistics (``ops/select.global_stats``), where
+the JAX package uses its compare-count quantile (within range/8⁶,
+ROADMAP C21). On a CUDA cube they are the radix select of
+``csrc/radix_select.cu``: six histogram passes over the cube in place,
+no sort and no copy of it (trace counter ``cube.stats.radix_select``).
+On the CPU, and on the card inside ``kernels.plain_versions()``
+(counter ``cube.stats.plain``), the plain version sorts the values a
+16 M chunk at a time into one buffer the cube's size and bisects over
+their keys; the two give the same bits. The classification and the
+wavelength axis are host code, copied.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ import torch
 
 from astroburst_tpu_torch.constants import MAD_TO_SIGMA
 from astroburst_tpu_torch.io.header import HduHeader
-from astroburst_tpu_torch.ops.select import (rank_indices, select_ranks,
-                                             sorted_rows)
+from astroburst_tpu_torch.ops.select import global_stats
+from astroburst_tpu_torch.runtime import kernels as K
+from astroburst_tpu_torch.runtime import trace
 
 SPECTRAL_CTYPES = ("WAVE", "FREQ", "VELO", "AWAV", "VRAD", "VOPT", "ZOPT",
                    "BETA", "ENER")
@@ -155,22 +160,15 @@ class GlobalCubeStats:
 def compute_global_stats(cube: torch.Tensor) -> GlobalCubeStats:
     """Median, MAD-sigma and the 1% / 99.9% values of the finite
     non-zero values of ``cube`` (any shape), exactly, with one fetch
-    (eager.rs:185-205)."""
+    (eager.rs:185-205). On a CUDA cube counts trace counter
+    ``cube.stats.radix_select`` (the kernel ran) or ``cube.stats.plain``
+    (inside ``kernels.plain_versions()``)."""
     flat = cube.reshape(-1)
-    inf = float("inf")
-
-    def valid(s):
-        return torch.isfinite(s) & (s != 0.0)
-    rows = sorted_rows(flat, lambda s: torch.where(valid(s), s, inf))
-    cnt = torch.isfinite(rows).sum()
-    ks = rank_indices(cnt, (0.5, 0.01, 0.999))
-    med, low, high = select_ranks(rows, ks).unbind()
-    del rows
-    dev = sorted_rows(flat, lambda s: torch.where(valid(s),
-                                                  torch.abs(s - med), inf))
-    mad = select_ranks(dev, ks[:1])[0]
-    cnt, med, mad, low, high = torch.stack(
-        [v.to(torch.float64) for v in (cnt, med, mad, low, high)]).tolist()
+    if flat.is_cuda:
+        trace.count("cube.stats.radix_select"
+                    if K.use_kernel(flat, "global_stats")
+                    else "cube.stats.plain", 1)
+    cnt, med, mad, low, high = global_stats(flat).tolist()
     if int(cnt) == 0:
         return GlobalCubeStats(0.0, 1.0, 0.0, 1.0)
     return GlobalCubeStats(median=med,

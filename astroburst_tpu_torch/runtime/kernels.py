@@ -17,9 +17,10 @@ since the CPU tests import every module on machines without nvcc.
 
 Calling convention of every C entry point: pointers and the CUDA
 stream are ``void*`` (``ctypes.c_void_p``; a Python int passed as a
-plain int would be cut to 32 bits), sizes are ``int``, and the return
-value is ``cudaGetLastError()`` right after the launch. ``launch``
-raises when it is not 0. Kernels run on PyTorch's current stream and
+plain int would be cut to 32 bits), sizes are ``int`` (``long long``
+for an element count that may pass 2^31), and the return value is
+``cudaGetLastError()`` right after the launch. ``launch`` raises when it
+is not 0. Kernels run on PyTorch's current stream and
 nothing here synchronises.
 """
 
@@ -50,6 +51,7 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry point → argtypes (restype is int: the cudaError_t code)
 SIGNATURES = {
@@ -96,6 +98,10 @@ SIGNATURES = {
     "abt_dedupe_topk": (_P, _I, _P, _P, _P),
     # votes, min_votes, ris, tis, count, stream
     "abt_greedy_match": (_P, _I, _P, _P, _P, _P),
+    # x, n, workspace, stream
+    "abt_radix_count": (_P, _L, _P, _P),
+    # x, n, ks (int64), workspace, out (f64), stream
+    "abt_radix_select": (_P, _L, _P, _P, _P, _P),
 }
 
 

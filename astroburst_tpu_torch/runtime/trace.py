@@ -81,7 +81,18 @@ Name                                Where
                                     ``cube.load_bytes``: the f32 bytes put
                                     on the device
 ``cube.stats``                      in ``process_cube_cmd``: the global
-                                    stats (``compute_global_stats``)
+                                    stats (``compute_global_stats``);
+                                    counters ``cube.stats.radix_select``
+                                    (1 a call that launched the radix
+                                    select, ``csrc/radix_select.cu``) and
+                                    ``cube.stats.plain`` (1 a call on a
+                                    CUDA cube, inside
+                                    ``kernels.plain_versions``, that ran
+                                    the plain sorts and bisection; the
+                                    CPU runs them uncounted), counted in
+                                    ``compute_global_stats``, so also for
+                                    the lazy command's mean image and
+                                    ``get_cube_frame``, outside this span
 ``cube.collapse``                   there: the mean and median collapses
 ``cube.previews``                   there: the normalizations, fetches and
                                     PNGs of the collapses and the frames

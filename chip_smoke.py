@@ -17,6 +17,7 @@
     python3 chip_smoke.py --phase-4e-banded       # the one-launch exact
                                                   # drizzle of phase 4e
     python3 chip_smoke.py --phase-4p              # phase 4p alone
+    python3 chip_smoke.py --phase-4q              # phase 4q alone
 
 Phases, each of which fails loudly (nothing is caught; any failure
 exits non-zero, and so does a machine without a CUDA device):
@@ -293,6 +294,22 @@ exits non-zero, and so does a machine without a CUDA device):
    ``torch.cuda.set_sync_debug_mode("error")``; K1 twice and K2 once a
    replayed call; eager against replay timed (the host's enqueue, CUDA
    events, the wall, the profiler's device-busy time).
+   (q) the cube's global statistics by radix select
+   (``check_radix_select``; csrc/radix_select.cu, which the eager cube
+   command runs, in ``ifu-cube-2gib-eager`` too; this check itself runs
+   in no benchmark cell): ``ops.select.global_stats`` bit for bit
+   against its plain version on the card, on the IFU cell's 2048 x
+   512^2 cube (the benchmark's own generator) and on ``radix_cases``: every value equal, none valid,
+   one valid, negatives only, +-0 beside values, subnormals, +-inf and
+   NaN, over 99% in one top-11-bit bin, the 1% rank at 0 and the 99.9%
+   rank at cnt - 1, counts that are no multiple of 4 and views that
+   start off the 16-byte boundary; ``compute_global_stats`` once on the
+   cube; the trace counters of both routes; the wrapper's launch count
+   over one call of each route; device operations a call
+   (torch.profiler) and peak memory beyond the cube, kernel and plain;
+   both timed with CUDA events beside the
+   bound (six reads of the cube, and the two the work needs) and one
+   ``torch.kthvalue`` median of the valid values.
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
@@ -4228,8 +4245,9 @@ def cube_synth_path(field, bench_frame, counters, smi,
     - a CUBE_SHAPE f32 cube (2 GiB, CUBE_CARDS) made on the card:
       ``get_cube_info`` (the open), ``process_cube_lazy_cmd``,
       ``get_cube_frame``, ``get_cube_spectrum`` and ``process_cube_cmd``
-      (eager, on the card): the geometry, classification and
-      wavelengths, spectra bit-equal to the cube, PNGs equal to the u8
+      (eager, on the card; the lazy mean image's, the frame's and the
+      eager cube's global stats launch the radix select): the geometry,
+      classification and wavelengths, spectra bit-equal to the cube, PNGs equal to the u8
       of the card's planes, the global stats and the median collapse on
       the card bit-equal to the CPU's on a 64-channel slice;
     - ``generate_tiles`` on the 4096^2 file at tile 256 and
@@ -4518,14 +4536,14 @@ def cube_synth_path(field, bench_frame, counters, smi,
             and info[0][C.RES_WAVELENGTHS][0] == 0.6, info[0])
         lazy = counted("process_cube_lazy_cmd",
                        lambda i: api.process_cube_lazy_cmd(p_cube, out))
-        launched("process_cube_lazy_cmd", ())
+        launched("process_cube_lazy_cmd", ("global_stats",))
         centre = cube[:, ch // 2, cw // 2].cpu()
         expect("process_cube_lazy_cmd", lazy[1][C.RES_FRAME_COUNT] == 16
                and lazy[1]["total_frames"] == depth and same_bits(
                    torch.tensor(lazy[1]["center_spectrum"]), centre))
         fr = counted("get_cube_frame",
                      lambda i: api.get_cube_frame(p_cube, depth // 2, out))
-        launched("get_cube_frame", ())
+        launched("get_cube_frame", ("global_stats",))
         plane = cube[depth // 2]
         expect("get_cube_frame PNG", np.array_equal(
             decode_png(fr[1][C.RES_PNG_PATH]), cube_api._norm_u8(
@@ -4538,7 +4556,7 @@ def cube_synth_path(field, bench_frame, counters, smi,
             sp[1][C.RES_SPECTRUM]), cube[:, sy, sx]))
         eager = counted("process_cube_cmd",
                         lambda i: api.process_cube_cmd(p_cube, out))
-        launched("process_cube_cmd", ())
+        launched("process_cube_cmd", ("global_stats",))
         gst = CE.compute_global_stats(cube)
         expect("process_cube_cmd", eager[1][C.RES_FRAME_COUNT] == 16 and
                eager[1]["center_spectrum"] == lazy[1]["center_spectrum"] and
@@ -5222,6 +5240,7 @@ def main() -> None:
     from astroburst_tpu_torch.dtypes import (AlignmentMethod, DrizzleConfig,
                                              DrizzleKernel)
     from astroburst_tpu_torch.ops.crop_kernel import gather_crops
+    from astroburst_tpu_torch.ops.select import global_stats
     from astroburst_tpu_torch.parallel.pipeline import align_stack_stretch
     from astroburst_tpu_torch.runtime import kernels as K
     from astroburst_tpu_torch.runtime.device import (cuda_device,
@@ -5276,7 +5295,8 @@ def main() -> None:
             "drizzle_gather_shared_kernel", "drizzle_gather_scratch_kernel",
             "drizzle_banded_kernel", "drizzle_banded_shared_kernel",
             "drizzle_banded_scratch_kernel", "star_mask_kernel",
-            "dedupe_topk_kernel", "greedy_match_kernel"}
+            "dedupe_topk_kernel", "greedy_match_kernel",
+            "radix_pass_kernel", "radix_choose_kernel"}
     if not want <= built:
         raise AssertionError(f"kernels missing from the build: "
                              f"{want - built}")
@@ -5601,7 +5621,8 @@ def main() -> None:
                 "drizzle_gather_finalize": drizzle_gather_finalize,
                 "drizzle_gather_banded": drizzle_gather_banded,
                 "dedupe_topk": dedupe_topk,
-                "greedy_match": greedy_match}
+                "greedy_match": greedy_match,
+                "global_stats": global_stats}
     big_list = [torch.as_tensor(f, device=dev) for f in big_frames]
     del big_frames
     torch.cuda.synchronize()
@@ -5716,6 +5737,9 @@ def main() -> None:
 
     # ---- 4p. the phase correlation's CUDA graphs ----------------------
     times_graphs = check_phase_corr_graphs(stack, dstack, smi)
+
+    # ---- 4q. the cube's global statistics by radix select --------------
+    report["radix_select"] = check_radix_select(smi)
 
     # ---- 4m. the multi-device layer: 4 shards on this card -------------
     launches_sharded, report["shift_clip_slab"], times_sharded = \
@@ -6156,6 +6180,17 @@ def main() -> None:
              "launches": sum(by_path.values()), "launches_by_path": by_path}
     entry.update(report["drizzle_gather_banded"])
     kernels.append(entry)
+    # not a TPU port: the chunked sorts and key bisection of the cube's
+    # global statistics (the JAX package takes a compare-count quantile)
+    by_path = {path: counts["global_stats"] for path, counts in paths.items()}
+    entry = {"name": "radix_select", "route": "cuda",
+             "source": "astroburst_tpu_torch/csrc/radix_select.cu",
+             "replaces": "astroburst_tpu/cube/eager.py:150",
+             "replaces_note": "no pl.pallas_call: the port's plain version "
+                              "sorts 16 M chunks and bisects over the keys",
+             "launches": sum(by_path.values()), "launches_by_path": by_path}
+    entry.update(report["radix_select"])
+    kernels.append(entry)
     kernels[0]["also_replaces"] = [
         "astroburst_tpu/stacking/fused_kernel.py:223",
         "astroburst_tpu/stacking/rolling_kernel.py:226",
@@ -6280,6 +6315,7 @@ def phase_4k_alone(sides) -> None:
         sort_tiles, sort_tiles_chunked)
     from astroburst_tpu_torch.analysis.window_kernel import window_stats
     from astroburst_tpu_torch.ops.crop_kernel import gather_crops
+    from astroburst_tpu_torch.ops.select import global_stats
     from astroburst_tpu_torch.runtime import kernels as K
     from astroburst_tpu_torch.runtime.device import cuda_device
     from astroburst_tpu_torch.stacking.onepass_kernel import \
@@ -6296,7 +6332,7 @@ def phase_4k_alone(sides) -> None:
                 "coarse_box": coarse_downsample_stack,
                 "gather_crops": gather_crops, "sort_tiles": sort_tiles,
                 "sort_tiles_chunked": sort_tiles_chunked,
-                "window_stats": window_stats}
+                "window_stats": window_stats, "global_stats": global_stats}
     for side in sides:
         t0 = time.perf_counter()
         total, _ = cube_synth_path(field, bench_frame, counters, smi,
@@ -7606,6 +7642,206 @@ def phase_4p_alone() -> None:
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
 
 
+# --- phase 4q: the cube's global statistics by radix select ---------------
+
+RADIX_SEED = 29
+
+
+def radix_cases(dev) -> dict:
+    """name → 1-D f32 tensor on ``dev``: the radix select's edges (see
+    ``check_radix_select``), ~1 M values each unless said."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(RADIX_SEED)
+    n = 1 << 20
+
+    def randn(m):
+        return torch.randn(m, generator=g, device=dev)
+
+    def rand(m):
+        return torch.rand(m, generator=g, device=dev)
+    nan, inf = float("nan"), float("inf")
+    specials = torch.tensor([nan, 0.0, -0.0, inf, -inf], device=dev)
+    one = torch.full((n + 1,), nan, device=dev)
+    one[::3] = 0.0
+    one[n // 2 + 1] = 7.25
+    zeros = randn(n + 2)
+    r = rand(n + 2)
+    zeros[r < 0.3] = 0.0
+    zeros[(r >= 0.3) & (r < 0.6)] = -0.0
+    infs = randn(n + 3) * 2.0 + 5.0
+    r = rand(n + 3)
+    infs[r < 0.1] = inf
+    infs[(r >= 0.1) & (r < 0.2)] = -inf
+    infs[(r >= 0.2) & (r < 0.3)] = nan
+    one_bin = 1.0 + 0.25 * rand(n)
+    one_bin[:n // 200] = randn(n // 200) * 100.0
+    odd = torch.exp(2.0 * randn(n + 16))
+    return {
+        "all_equal": torch.full((n + 3,), 3.5, device=dev),
+        "none_valid": specials[torch.randint(0, 5, (n + 1,), generator=g,
+                                             device=dev)],
+        "one_valid": one,
+        "negative": -torch.exp(randn(n)) - 0.1,
+        "signed_zeros": zeros,
+        "subnormals": torch.cat([randn(n) * 1e-39, randn(1000) * 1e-44,
+                                 torch.tensor([1.5, -2.5], device=dev)]),
+        "inf_nan": infs,
+        "one_bin (99.5% in [1, 1.25))": one_bin,
+        "rank_ends (57 values)": randn(57) + 2.0,
+        "odd_n (n + 1)": odd[:n + 1],
+        "offset 1 (n + 7)": odd[1:n + 8],
+        "offset 2 (n + 5)": odd[2:n + 7],
+        "offset 3 (5)": odd[3:8],
+        "offset 3 (3)": odd[3:6],
+        "empty": odd[:0],
+    }
+
+
+def check_radix_select(smi) -> dict:
+    """Phase 4q: ``ops.select.global_stats`` (csrc/radix_select.cu)
+    against its run in ``plain_versions()``, bit for bit (the f64 [5]
+    row: count, median, MAD, 1% and 99.9% values), on ``radix_cases``
+    and on the IFU cell's cube (2048 x 512^2,
+    ``benchmark/core/cube_fields.render`` from RADIX_SEED), and
+    ``compute_global_stats`` so once, on that cube; the trace counters of
+    each route and the wrapper's launch count over one call of each; the
+    device operations of one call (torch.profiler: kernels, fills and
+    copies) and the peak memory beyond the cube, kernel and plain; the
+    kernel, the plain version and ``torch.kthvalue`` (one median of the
+    valid values) by CUDA events. Raises on any difference; returns the
+    report entry (``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``: the
+    two reads the work needs; ``bound_ms_six_reads``: the kernel's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from astroburst_tpu_torch.cube import eager as CE
+    from astroburst_tpu_torch.ops import select as S
+    from astroburst_tpu_torch.runtime import trace
+    from astroburst_tpu_torch.runtime.device import cuda_device
+    from benchmark.core import cube_fields
+    dev = cuda_device()
+    t0 = time.perf_counter()
+
+    def same(what, t):
+        got = S.global_stats(t)
+        want = plain_run(S.global_stats, t)
+        ok = torch.equal(got.view(torch.int64), want.view(torch.int64))
+        log(f"  [4q] {what}: n {t.numel()}, row {got.tolist()}; bit-equal "
+            f"{ok}")
+        if not ok:
+            raise AssertionError(f"[4q] {what}: {got.tolist()} against the "
+                                 f"plain version's {want.tolist()}")
+
+    for name, t in radix_cases(dev).items():
+        same(name, t)
+
+    config = json.load(open("benchmark/configs/ifu-cube-2gib.json"))
+    cube = cube_fields.render(config["data"], RADIX_SEED, dev)
+    flat = cube.reshape(-1)
+    same(f"IFU cube {tuple(cube.shape)}", flat)
+
+    def kernel():
+        return S.global_stats(flat)
+
+    def plain():
+        return plain_run(S.global_stats, flat)
+
+    trace.enable()
+    try:
+        trace.drain()
+        got = CE.compute_global_stats(cube)
+        want = plain_run(CE.compute_global_stats, cube)
+        counters = trace.drain().counters
+    finally:
+        trace.disable()
+    if got.__dict__ != want.__dict__ or any(
+            math.copysign(1.0, a) != math.copysign(1.0, b)
+            for a, b in zip(got.__dict__.values(), want.__dict__.values())):
+        raise AssertionError(f"[4q] compute_global_stats {got} against the "
+                             f"plain version's {want}")
+    if (counters.get("cube.stats.radix_select"),
+            counters.get("cube.stats.plain")) != (1, 1):
+        raise AssertionError(f"[4q] trace counters {counters}")
+    launches = {}
+    for route, fn in (("kernel", kernel), ("plain", plain)):
+        torch.cuda.synchronize()
+        S.global_stats.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        launches[route] = S.global_stats.launches
+    if launches != {"kernel": 1, "plain": 0}:
+        raise AssertionError(f"[4q] wrapper launch counts {launches}")
+
+    def device_ops(fn) -> int:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    def peak_gib(fn) -> float:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    ops = {"kernel": device_ops(kernel), "plain": device_ops(plain)}
+    peak = {"kernel": peak_gib(kernel), "plain": peak_gib(plain)}
+    ms, plain_ms = cuda_ms(kernel, 10), cuda_ms(plain, 2)
+    cgs_ms = cuda_ms(lambda: CE.compute_global_stats(cube), 10)
+    valid = flat[torch.isfinite(flat) & (flat != 0.0)]
+    k_med = int(S.rank_indices(torch.tensor(valid.numel()),
+                               S.RANK_FRACS)[0]) + 1
+    try:
+        med = torch.kthvalue(valid, k_med).values
+        same_med = float(med) == float(kernel()[1])
+        library_ms = cuda_ms(lambda: torch.kthvalue(valid, k_med), 3)
+    except torch.OutOfMemoryError as e:
+        same_med, library_ms = None, f"none ({str(e)[:80]})"
+    del valid
+    nbytes = 4 * flat.numel()
+    entry = {"shape": list(cube.shape), "ms": ms, "plain_ms": plain_ms,
+             "library_ms": library_ms,
+             "library": "torch.kthvalue, the median of the valid values",
+             "compute_global_stats_ms": cgs_ms,
+             "bound_ms_six_reads": bound(6 * nbytes, 0)[0],
+             "kthvalue_median_equal": same_med, "device_ops": ops,
+             "peak_gib_beyond_cube": peak,
+             "wrapper_launches_one_call": launches, "counters": counters,
+             "seconds": time.perf_counter() - t0}
+    entry.update(zip(("bound_ms", "bound_by"), bound(2 * nbytes, 0)))
+    log(f"[4q] {smi}: " + json.dumps(entry))
+    del cube, flat
+    return entry
+
+
+def phase_4q_alone() -> None:
+    """Phase 4q alone: the build (and the radix kernels' registers),
+    then ``check_radix_select``; prints the card's name and power limit,
+    the entry and the seconds."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                 "is false); this script runs only on the card")
+    from astroburst_tpu_torch.runtime import kernels as K
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    lib = K.library()
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvcc {lib.build_seconds:.1f} s")
+    for name, regs, smem, stack_b, sst, sld in ptxas_summary(lib.build_log):
+        if name.startswith("radix_"):
+            log(f"[build]   {name}: {regs} registers, {smem} B smem, "
+                f"{stack_b} B stack, spills {sst}/{sld} B")
+            if sst or sld:
+                raise AssertionError(f"{name} spills registers")
+    check_radix_select(smi)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
+
+
 def phase_4e_banded_alone() -> None:
     """The one-launch exact drizzle alone: the build, the drizzle bench
     stack of phase 3, then ``check_banded_drizzle``; prints the card's
@@ -7632,6 +7868,8 @@ if __name__ == "__main__":
         phase_4e_banded_alone()
     elif sys.argv[1:2] == ["--phase-4p"]:
         phase_4p_alone()
+    elif sys.argv[1:2] == ["--phase-4q"]:
+        phase_4q_alone()
     elif sys.argv[1:2] == ["--phase-4o"]:
         phase_4o_alone()
     elif sys.argv[1:2] == ["--phase-4n"]:

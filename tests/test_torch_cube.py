@@ -235,15 +235,15 @@ def test_lazy_cube_equals_jax(tmp_path, depth, hw, bitpix):
             tl.spectrum(hw, 0)
 
 
-@pytest.mark.parametrize("case", ["normal", "ties", "extremes", "one",
-                                  "chunks"])
-def test_select_ranks_equal_np_partition(monkeypatch, case):
-    """ops/select.py: rows sorted a chunk at a time (12 rows of 256 in
-    the "chunks" case, the last padded), then the bisection over f32
-    keys, give
-    np.partition's values bit for bit (values and deviations about the median), NaN
-    never counted, ranks past the count +inf, zeros as +0.0."""
-    from astroburst_tpu_torch.ops import select as S
+def select_case(case):
+    """The values of one ``test_select_ranks_equal_np_partition`` case:
+    the first five are plain samples; the rest are the radix select's
+    edges (csrc/radix_select.cu): every value equal; nothing finite and
+    non-zero; one valid value among NaN and zeros; negative values
+    only; ±0 beside values; subnormals; many ±inf and NaN; over 99% in
+    one top-11-bit key bin ([1, 1.25)); a count at which the 1% rank is
+    0 and the 99.9% rank cnt − 1; and a count that is no multiple of
+    the 16-byte vector width."""
     rng = np.random.default_rng(11)
     x = {"normal": rng.normal(0, 3, 5000),
          "ties": rng.integers(-3, 4, 4000) * 0.5,
@@ -251,7 +251,54 @@ def test_select_ranks_equal_np_partition(monkeypatch, case):
                                      [np.inf, -np.inf, 3e38, -3e38, 1e-45],
                                      rng.normal(5, 1, 100)]),
          "one": np.array([2.5]),
-         "chunks": rng.random(3000) - 0.25}[case].astype(np.float32)
+         "chunks": rng.random(3000) - 0.25}.get(case)
+    if x is not None:
+        return x.astype(np.float32)
+    if case == "signed_zeros":
+        x = rng.normal(0, 1, 2000)
+        x[rng.random(2000) < 0.3] = 0.0
+        x[rng.random(2000) < 0.3] = -0.0
+    elif case == "inf_nan":
+        x = rng.normal(5, 2, 3000)
+        r = rng.random(3000)
+        x[r < 0.1] = np.inf
+        x[(r >= 0.1) & (r < 0.2)] = -np.inf
+        x[(r >= 0.2) & (r < 0.3)] = np.nan
+    elif case == "one_valid":
+        x = np.full(1000, np.nan)
+        x[::3] = 0.0
+        x[500] = 7.25
+    else:
+        x = {"all_equal": lambda: np.full(3001, 3.5),
+             "none_valid": lambda: rng.permutation(np.repeat(
+                 [np.nan, 0.0, -0.0, np.inf, -np.inf], 500)),
+             "negative": lambda: -rng.gamma(2.0, 3.0, 3000) - 0.1,
+             "subnormals": lambda: np.concatenate([
+                 rng.normal(0, 1e-39, 3000), rng.normal(0, 1e-44, 200),
+                 [1.5, -2.5]]),
+             "one_bin": lambda: np.concatenate([
+                 1.0 + 0.25 * rng.random(4000), rng.normal(0, 100, 20)]),
+             "rank_ends": lambda: rng.normal(2, 1, 66),
+             "odd_n": lambda: rng.lognormal(0, 2, 4999)}[case]()
+    return x.astype(np.float32)
+
+
+SELECT_CASES = ["normal", "ties", "extremes", "one", "chunks", "all_equal",
+                "none_valid", "one_valid", "negative", "signed_zeros",
+                "subnormals", "inf_nan", "one_bin", "rank_ends", "odd_n"]
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_select_ranks_equal_np_partition(monkeypatch, case):
+    """ops/select.py: rows sorted a chunk at a time (12 rows of 256 in
+    the "chunks" case, the last padded), then the bisection over f32
+    keys, give
+    np.partition's values bit for bit (values and deviations about the median), NaN
+    never counted, ranks past the count +inf, zeros as +0.0; and
+    ``compute_global_stats`` (its plain route, as the CPU runs it) the
+    oracle's statistics of the finite non-zero values."""
+    from astroburst_tpu_torch.ops import select as S
+    x = select_case(case)
     if case == "chunks":
         monkeypatch.setattr(S, "CHUNK", 256)
     xm = x.copy()
@@ -264,14 +311,144 @@ def test_select_ranks_equal_np_partition(monkeypatch, case):
                 seg = torch.abs(seg - around)
             return torch.where(torch.isnan(seg), float("inf"), seg)
         return S.sorted_rows(torch.from_numpy(xm), prep)
+    def nth(a, k):
+        w = np.partition(a, k)[k]
+        return np.float32(0.0) if w == 0 else w      # ±0 as +0.0
     got = S.select_ranks(rows(), torch.from_numpy(ks)).numpy()
-    want = np.array([np.partition(v, k)[k] for k in ks], np.float32)
+    want = np.array([nth(v, k) for k in ks], np.float32)
     np.testing.assert_array_equal(bits(got), bits(want))
     med = want[np.searchsorted(ks, v.size // 2)]
     dev = np.abs(v - med)
     got = S.select_ranks(rows(torch.tensor(med)),
                          torch.from_numpy(ks)).numpy()
-    want = np.array([np.partition(dev, k)[k] for k in ks], np.float32)
+    want = np.array([nth(dev, k) for k in ks], np.float32)
     np.testing.assert_array_equal(bits(got), bits(want))
     past = S.select_ranks(rows(), torch.tensor([v.size, v.size + 5])).numpy()
     assert np.isposinf(past).all()
+    g = te.compute_global_stats(torch.from_numpy(xm))
+    assert (g.median, g.sigma, g.low, g.high) == global_oracle(xm)
+    if case == "rank_ends":
+        n = np.float32(np.count_nonzero(np.isfinite(xm) & (xm != 0)))
+        assert np.floor(n * np.float32(0.01)) == 0
+        assert np.floor(n * np.float32(0.999)) >= n - 1
+
+
+def radix_keys(a):
+    """csrc/radix_select.cu's key_of: f32 bits, the sign bit set for a
+    positive value, every bit flipped for a negative one."""
+    b = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
+
+
+def radix_value(u):
+    """value_of: the f32 of a key, +0.0 for either zero."""
+    u = np.uint32(u)
+    b = u ^ np.uint32(0x80000000) if u & 0x80000000 else ~u
+    f = np.array([b], np.uint32).view(np.float32)[0]
+    return np.float32(0.0) if f == 0 else f
+
+
+def radix_select_model(keys, k):
+    """The kernel's passes and choose steps for one rank k, in numpy:
+    the 11-bit top digits' histogram, then 11 and 10 bits over the keys
+    whose higher digits match the prefix chosen so far; a choose step
+    takes the first bin whose running count passes k and keeps the rank
+    left inside it. +inf when k is at or past the count."""
+    pre, krem = None, int(k)
+    for hi, shift, nbits in ((None, 21, 11), (21, 10, 11), (10, 0, 10)):
+        sel = keys if pre is None else keys[(keys >> hi) == pre]
+        hist = np.bincount((sel >> shift) & ((1 << nbits) - 1),
+                           minlength=1 << nbits)
+        cum = np.cumsum(hist)
+        if krem >= cum[-1]:
+            return np.float32(np.inf)
+        b = int(np.searchsorted(cum, krem, side="right"))
+        krem -= int(cum[b] - hist[b])
+        pre = b if pre is None else (pre << nbits) | b
+    return radix_value(pre)
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_radix_select_model_equals_np_partition(case):
+    """The radix select's digit and rank plan (csrc/radix_select.cu,
+    mirrored in numpy: keys, prefixes, histograms, the choose steps) at
+    the ranks of ``rank_indices`` and at 0, cnt − 1 and past the count:
+    the values and the MAD bit-equal to np.partition's, zeros as
+    +0.0, +inf past the count. The keys order as the floats do."""
+    from astroburst_tpu_torch.ops.select import RANK_FRACS, rank_indices
+    x = select_case(case)
+    valid = x[np.isfinite(x) & (x != 0)]
+    n = valid.size
+    ks = rank_indices(torch.tensor(n), RANK_FRACS).tolist()
+    keys = radix_keys(valid)
+    assert np.all(np.diff(keys[np.argsort(valid, kind="stable")].astype(
+        np.int64)) >= 0)
+    def nth(a, k):
+        w = np.partition(a, k)[k] if k < a.size else np.float32(np.inf)
+        return np.float32(0.0) if w == 0 else w
+    for k in ks + [0, max(n - 1, 0), n, n + 3]:
+        assert bits(radix_select_model(keys, k)) == bits(nth(valid, k)), k
+    med = radix_select_model(keys, ks[0])
+    dev = np.abs(valid - med).astype(np.float32)
+    assert bits(radix_select_model(radix_keys(dev), ks[0])) == \
+        bits(nth(dev, ks[0]))
+
+
+def test_radix_workspace_matches_the_kernel_layout():
+    """ops/select.WORKSPACE_WORDS is the u64 words the kernel's layout
+    asserts: 16 of counts and rank slots, then six histograms."""
+    import re
+    from astroburst_tpu_torch.ops import select as S
+    from astroburst_tpu_torch.runtime import kernels as K
+    src = (K.CSRC / "radix_select.cu").read_text()
+    m = re.search(r"static_assert\(kHistM2 \+ 1024 == (\d+) \+ (\d+)", src)
+    assert int(m.group(1)) + int(m.group(2)) == S.WORKSPACE_WORDS
+    assert S.WORKSPACE_WORDS == 16 + 2048 + 3 * 2048 + 3 * 1024 + 2048 + \
+        2048 + 1024
+
+
+def test_global_stats_plain_route_counts_nothing_on_the_cpu():
+    """On the CPU ``compute_global_stats`` runs the plain version and
+    counts neither ``cube.stats.plain`` (kept for a CUDA cube inside
+    ``plain_versions()``) nor ``cube.stats.radix_select``; both names
+    sit in runtime/trace.py's table."""
+    from astroburst_tpu_torch.ops import select as S
+    from astroburst_tpu_torch.runtime import trace
+    trace.enable()
+    try:
+        trace.drain()
+        launches = S.global_stats.launches
+        g = te.compute_global_stats(torch.from_numpy(make_cube(8, 24, 3)))
+        got = trace.drain()
+    finally:
+        trace.disable()
+    assert (g.median, g.sigma, g.low, g.high) == global_oracle(
+        make_cube(8, 24, 3))
+    assert "cube.stats.plain" not in got.counters
+    assert "cube.stats.radix_select" not in got.counters
+    assert S.global_stats.launches == launches
+    for name in ("cube.stats.plain", "cube.stats.radix_select"):
+        assert f"``{name}``" in trace.__doc__
+
+
+def test_process_cube_cmd_calls_compute_global_stats_as_api_cube_binds_it(
+        tmp_path, monkeypatch):
+    """The benchmark's outside wrapper replaces
+    ``astroburst_tpu_torch.api.cube:compute_global_stats``; the eager
+    command calls that name, once, on the whole cube."""
+    calls = []
+    real = tapi_cube.compute_global_stats
+
+    def recorded(cube):
+        calls.append(tuple(cube.shape))
+        return real(cube)
+    monkeypatch.setattr(tapi_cube, "compute_global_stats", recorded)
+    cube = make_cube(8, 24, 4)
+    p = write_cube(tmp_path, cube)
+    try:
+        tapi_cube.process_cube_cmd(p, str(tmp_path / "out"), device=CPU)
+    finally:
+        for c in tapi_cube._LAZY_CUBES.values():
+            c.close()
+        tapi_cube._LAZY_CUBES.clear()
+    assert calls == [cube.shape]
