@@ -17,12 +17,15 @@ The JAX package's design is kept, on torch tensors:
    reduced to one candidate per 2 × 2 block, then the top ``max_peaks``
    by a stable descending sort (value first, then flat index: the order
    ``jax.lax.top_k`` gives; its two-level form is a TPU device that
-   selects the same set);
+   selects the same set). With ``max_peaks=None`` the capacity follows
+   the data: the candidates are counted on the device, fetched once and
+   rounded up to a multiple of ``PEAK_BUCKET`` (``peak_capacity``), so
+   every candidate is kept (the reference caps nothing; ROADMAP C49);
 3. per-peak window statistics (kernel K11, analysis/window_kernel.py);
 4. host-side brightest-first 3 px dedup of one fetched [10, max_peaks]
    array (``_postprocess_packed``, numpy, a copy of the JAX function),
    or, for the masked stretch, ``dedupe_packed_device``: the same accept
-   set with the packed array left on the device.
+   set with the packed array left on the device, at any capacity.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ from astroburst_tpu_torch.runtime.device import as_f32
 
 FWHM_FACTOR = 2.3548200450309493
 MAX_PEAKS = 1024
+PEAK_BUCKET = 1024     # data-driven capacities are multiples of this
+DEDUPE_PX = 3.0        # the dedupe's radius (star_detection.rs:215)
 
 
 @dataclass
@@ -250,9 +255,19 @@ def _local_maxima(img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return mask & strict
 
 
-def _peaks(image: torch.Tensor, threshold: torch.Tensor, max_peaks: int):
+def peak_capacity(n: int) -> int:
+    """The capacity that holds ``n`` candidates: ``n`` rounded up to a
+    multiple of PEAK_BUCKET (at least one bucket), so that a plane's
+    shapes repeat from call to call."""
+    return max(1, -(-int(n) // PEAK_BUCKET)) * PEAK_BUCKET
+
+
+def _peaks(image: torch.Tensor, threshold: torch.Tensor,
+           max_peaks: Optional[int]):
     """Peak selection of star_detection.py:261-333: (py, px i32 [K],
-    values [K] f32 with -inf on dead slots, n_valid 0-d i32)."""
+    values [K] f32 with -inf on dead slots, n_valid 0-d i32). K is
+    ``max_peaks``, or with None ``peak_capacity`` of the candidates
+    (one host fetch of their count)."""
     rows, cols = image.shape
     dev = image.device
     finite = torch.isfinite(image)
@@ -267,6 +282,8 @@ def _peaks(image: torch.Tensor, threshold: torch.Tensor, max_peaks: int):
                                  value=float("-inf"))
     cols_b = c2 // 2
     bmax = sp.reshape(r2 // 2, 2, cols_b, 2).amax(dim=(1, 3)).reshape(-1)
+    if max_peaks is None:
+        max_peaks = peak_capacity(torch.isfinite(bmax).sum())
     k_flat = min(max_peaks, bmax.numel())
     # jax.lax.top_k order: descending values, lower index first on ties
     vals, bidx = torch.sort(bmax, descending=True, stable=True)
@@ -293,11 +310,13 @@ def _peaks(image: torch.Tensor, threshold: torch.Tensor, max_peaks: int):
 
 
 def _detect(image: torch.Tensor, tile_size: int, sigma_threshold: float,
-            max_peaks: int) -> torch.Tensor:
-    """Background, peaks, window statistics and the packed [10,
-    max_peaks] f32 record (star_detection.py:_detect_fused): rows cy,
-    cx, flux, fwhm, ecc, peak, npix, snr, valid, and (bg_med, bg_sig)
-    in the first two cells of the last row."""
+            max_peaks: Optional[int]) -> torch.Tensor:
+    """Background, peaks, window statistics and the packed [10, K] f32
+    record (star_detection.py:_detect_fused): rows cy, cx, flux, fwhm,
+    ecc, peak, npix, snr, valid, and (bg_med, bg_sig) in the first two
+    cells of the last row. K is ``max_peaks``, or with None the
+    data-driven capacity of ``_peaks``; a live candidate's npix is at
+    least 1 (its peak), a dead slot's 0."""
     bg_med, bg_sig = _background(image, tile_size)
     threshold = bg_med + sigma_threshold * bg_sig
     py, px, vals, n_valid = _peaks(image, threshold, max_peaks)
@@ -317,7 +336,8 @@ def _detect(image: torch.Tensor, tile_size: int, sigma_threshold: float,
     snrs = torch.where(bg_sig <= 1e-300, 0.0, pvals / bg_sig)
     valid = (torch.isfinite(vals) & (npixs >= 3) & (npixs <= 5000)
              & (fluxes > 0.0) & (fwhms >= 0.5) & (fwhms <= 30.0))
-    bg_row = torch.zeros(max_peaks, dtype=torch.float32, device=image.device)
+    bg_row = torch.zeros(py.shape[0], dtype=torch.float32,
+                         device=image.device)
     bg_row[0] = bg_med
     bg_row[1] = bg_sig
     return torch.stack([cys, cxs, fluxes, fwhms, eccs, pvals, npixs, snrs,
@@ -359,43 +379,112 @@ def detect_stars_pair(image_a, image_b, sigma_threshold: float = 5.0,
             _postprocess_packed(both[1], float(sigma_threshold), rows, cols))
 
 
-def dedupe_packed_device(packed: torch.Tensor,
-                         scan_cap: int = 512) -> torch.Tensor:
-    """Brightest-first 3 px greedy dedupe of the packed candidates
-    (star_detection.py:492-534), reproducing ``_postprocess_packed``'s
-    accept set. Returns accepted [max_peaks] bool on the packed array's
-    device.
+# the 9 cells around a 3 px cell, as offsets of its key (row << 32 | col)
+_CELL_OFFSETS = [dy * (1 << 32) + dx for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+_COL_BIAS = 1 << 31
+# rounds of the greedy between two checks of whether it has settled
+_ROUNDS_PER_CHECK = 4
 
-    A valid candidate with no other valid candidate within 3 px can
-    neither suppress nor be suppressed: it is accepted, in parallel
-    (one [K, K] pair test on the device). Only the conflicted subset
-    depends on the order: its first ``scan_cap`` members in flux-
-    descending order (a stable sort, as ``jnp.argsort``; the dimmest
-    conflicted extras past the cap are dropped, as in JAX) run the
-    greedy scan ON THE HOST, over one fetch of their positions — the
-    scan is sequential in JAX too, and a few hundred steps of tiny
-    device kernels would cost more than the fetch."""
+
+def _close_pairs(cys: torch.Tensor, cxs: torch.Tensor, live: torch.Tensor):
+    """(i, j) int64 of every ordered pair of distinct ``live`` candidates
+    closer than DEDUPE_PX, found through a grid of DEDUPE_PX cells: a
+    sort of the live cells' keys, then for each live candidate the runs
+    of the 9 cells around its own (one host fetch: the pair count).
+    Distances are float64 from the float32 positions, each product and
+    sum rounded as ``_postprocess_packed``'s Python floats round them."""
+    dev = cys.device
+    k = cys.shape[0]
+    ys = torch.where(live, cys, 0.0).double()
+    xs = torch.where(live, cxs, 0.0).double()
+    gy = torch.floor(ys / DEDUPE_PX).long()
+    gx = torch.floor(xs / DEDUPE_PX).long()
+    cell = gy * (1 << 32) + (gx + _COL_BIAS)
+    skey, sidx = torch.sort(torch.where(live, cell,
+                                        torch.iinfo(torch.int64).max))
+    probe = cell[:, None] + torch.tensor(_CELL_OFFSETS, device=dev)
+    lo = torch.searchsorted(skey, probe)
+    cnt = torch.where(live[:, None],
+                      torch.searchsorted(skey, probe, right=True) - lo, 0)
+    cnt = cnt.reshape(-1)
+    total = int(cnt.sum())                          # the one fetch
+    run = torch.repeat_interleave(
+        torch.arange(k * len(_CELL_OFFSETS), device=dev), cnt,
+        output_size=total)
+    first = torch.cumsum(cnt, 0) - cnt
+    pos = lo.reshape(-1)[run] + (torch.arange(total, device=dev)
+                                 - first[run])
+    i = torch.div(run, len(_CELL_OFFSETS), rounding_mode="floor")
+    j = sidx[pos]
+    dy = ys[j] - ys[i]
+    dx = xs[j] - xs[i]
+    close = (dy * dy + dx * dx < DEDUPE_PX * DEDUPE_PX) & (i != j)
+    return i[close], j[close]
+
+
+def _greedy_rounds(scanned: torch.Tensor, rank: torch.Tensor,
+                   i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """accepted [K] bool of the greedy over the ``scanned`` candidates in
+    ``rank`` order (lower first): one is kept unless a kept one of lower
+    rank lies within DEDUPE_PX. (i, j) are the close pairs. Decided in
+    rounds: a candidate is dropped once a closer, earlier one is kept,
+    and kept once every earlier close one is decided and none was kept;
+    the earliest undecided one is decided in each round, and the rounds
+    reach the sequential scan's own fixed point."""
+    k = scanned.shape[0]
+    edge = scanned[i] & scanned[j] & (rank[j] < rank[i])
+    child, parent = i[edge], j[edge]
+    undecided = scanned.clone()
+    kept = torch.zeros_like(scanned)
+    while True:
+        for _ in range(_ROUNDS_PER_CHECK):
+            by_kept = torch.zeros(k, dtype=torch.int32, device=scanned.device
+                                  ).index_add_(0, child, kept[parent].int())
+            by_open = torch.zeros(k, dtype=torch.int32, device=scanned.device
+                                  ).index_add_(0, child,
+                                               undecided[parent].int())
+            keep = undecided & (by_kept == 0) & (by_open == 0)
+            kept = kept | keep
+            undecided = undecided & ~keep & (by_kept == 0)
+        if not bool(undecided.any()):               # one fetch a check
+            return kept
+
+
+def dedupe_packed_device(packed: torch.Tensor,
+                         scan_cap: Optional[int] = None) -> torch.Tensor:
+    """Brightest-first 3 px greedy dedupe of the packed candidates
+    (star_detection.rs:215), ``_postprocess_packed``'s accept set at any
+    capacity. Returns accepted [K] bool on the packed array's device.
+
+    The close pairs come from a grid of 3 px cells (``_close_pairs``), so
+    the work grows with the candidates and their neighbours, not with
+    K². A valid candidate with no valid one within 3 px is accepted. The
+    conflicted ones are resolved brightest first (a stable sort of the
+    fluxes, as ``jnp.argsort`` and the reference's ``sort_by``) by
+    ``_greedy_rounds``, which keeps exactly the set the sequential scan
+    keeps. Two peaks of one component can carry equal fluxes and
+    centroids an ulp apart; ``_postprocess_packed``'s numpy sort is not
+    stable and may keep the other twin. ``scan_cap``, the JAX
+    package's bound, scans only the first ``scan_cap`` conflicted ones
+    and drops the dimmer rest, as JAX does; None scans them all."""
     cys, cxs, fluxes = packed[0], packed[1], packed[2]
     valid = packed[8] > 0.5
-    dy = cys[:, None] - cys[None, :]
-    dx = cxs[:, None] - cxs[None, :]
-    pair = valid[:, None] & valid[None, :] & (dy * dy + dx * dx < 9.0)
-    pair.fill_diagonal_(False)
-    conflicted = pair.any(dim=1) & valid
-    del dy, dx, pair
-    accepted = valid & ~conflicted
-
-    score = torch.where(conflicted, -fluxes, float("inf"))
-    order = torch.sort(score, stable=True).indices[:scan_cap]
-    sub = torch.stack([cys[order], cxs[order],
-                       conflicted[order].to(torch.float32)]).cpu().numpy()
-    ys, xs, val = sub[0], sub[1], sub[2] > 0.5
-    acc = np.zeros(order.shape[0], bool)
-    for i in np.flatnonzero(val):     # f32 distances, as on the device
-        dd = (ys - ys[i]) * (ys - ys[i]) + (xs - xs[i]) * (xs - xs[i])
-        acc[i] = not bool((acc & (dd < np.float32(9.0))).any())
-    accepted[order] |= torch.from_numpy(acc).to(accepted.device)
-    return accepted
+    k = valid.shape[0]
+    i, j = _close_pairs(cys, cxs, valid)
+    conflicted = torch.zeros(k, dtype=torch.int32, device=valid.device
+                             ).index_add_(0, i, torch.ones_like(i,
+                                          dtype=torch.int32)) > 0
+    order = torch.sort(torch.where(valid, -fluxes, float("inf")),
+                       stable=True).indices
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(k, device=order.device)
+    scanned = conflicted
+    if scan_cap is not None:
+        nth = torch.cumsum(conflicted[order].long(), 0) - 1
+        within = torch.empty_like(conflicted)
+        within[order] = nth < scan_cap
+        scanned = conflicted & within
+    return (valid & ~conflicted) | _greedy_rounds(scanned, rank, i, j)
 
 
 def _postprocess_packed(packed: np.ndarray, sigma_threshold: float,

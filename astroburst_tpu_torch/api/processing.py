@@ -51,6 +51,7 @@ from astroburst_tpu_torch.imaging.wavelet import (WaveletConfig,
 from astroburst_tpu_torch.io import write_fits_mono
 from astroburst_tpu_torch.io.header import HduHeader
 from astroburst_tpu_torch.ops.stats import compute_image_stats
+from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.runtime.device import device_or_cuda
 from astroburst_tpu_torch.runtime.output import resolve_output_dir
 from astroburst_tpu_torch.runtime.progress import ProgressHandle
@@ -328,54 +329,57 @@ def masked_stretch_composite_cmd(output_dir: str,
                                  ) -> dict:
     """Masked stretch of the composite (cmd/processing/stretch.rs): one
     star mask per channel, or with ``shared_mask`` one mask from the
-    luminance for all three."""
-    t0 = Timer()
-    device = device_or_cuda(device)
-    out_dir = resolve_output_dir(output_dir)
-    er, eg, eb = helpers.load_composite_rgb(device)
-    config = _masked_stretch_config(iterations, target_background,
-                                    mask_growth, mask_softness,
-                                    protection_amount, luminance_protect)
+    luminance for all three; every detected star is masked (ROADMAP
+    C49)."""
+    with trace.span("api.masked_stretch_composite"):
+        t0 = Timer()
+        device = device_or_cuda(device)
+        out_dir = resolve_output_dir(output_dir)
+        er, eg, eb = helpers.load_composite_rgb(device)
+        config = _masked_stretch_config(iterations, target_background,
+                                        mask_growth, mask_softness,
+                                        protection_amount, luminance_protect)
 
-    def ch_json(res):
-        return {C.RES_ITERATIONS_RUN: res.iterations_run,
-                C.RES_FINAL_BACKGROUND: res.final_background,
-                C.RES_CONVERGED: res.converged}
+        def ch_json(res):
+            return {C.RES_ITERATIONS_RUN: res.iterations_run,
+                    C.RES_FINAL_BACKGROUND: res.final_background,
+                    C.RES_CONVERGED: res.converged}
 
-    if shared_mask:
-        result = masked_stretch_rgb_shared(er.image, eg.image, eb.image,
-                                           config)
-        r_img = result["r"].image
-        g_img = result["g"].image
-        b_img = result["b"].image
-        per_channel = {"r": ch_json(result["r"]), "g": ch_json(result["g"]),
-                       "b": ch_json(result["b"])}
-        stars = result["shared_stars_masked"]
-        coverage = result["shared_mask_coverage"]
-        mask_mode = "shared_luminance"
-    else:
-        rr = masked_stretch(er.image, config)
-        gg = masked_stretch(eg.image, config)
-        bb = masked_stretch(eb.image, config)
-        r_img, g_img, b_img = rr.image, gg.image, bb.image
-        per_channel = {"r": ch_json(rr), "g": ch_json(gg), "b": ch_json(bb)}
-        stars = rr.stars_masked + gg.stars_masked + bb.stars_masked
-        coverage = (rr.mask_coverage + gg.mask_coverage +
-                    bb.mask_coverage) / 3.0
-        mask_mode = "per_channel"
+        if shared_mask:
+            result = masked_stretch_rgb_shared(er.image, eg.image, eb.image,
+                                               config)
+            r_img = result["r"].image
+            g_img = result["g"].image
+            b_img = result["b"].image
+            per_channel = {c: ch_json(result[c]) for c in "rgb"}
+            stars = result["shared_stars_masked"]
+            coverage = result["shared_mask_coverage"]
+            mask_mode = "shared_luminance"
+        else:
+            rr = masked_stretch(er.image, config)
+            gg = masked_stretch(eg.image, config)
+            bb = masked_stretch(eb.image, config)
+            r_img, g_img, b_img = rr.image, gg.image, bb.image
+            per_channel = {"r": ch_json(rr), "g": ch_json(gg),
+                           "b": ch_json(bb)}
+            stars = rr.stars_masked + gg.stars_masked + bb.stars_masked
+            coverage = (rr.mask_coverage + gg.mask_coverage +
+                        bb.mask_coverage) / 3.0
+            mask_mode = "per_channel"
 
-    png_path = os.path.join(
-        out_dir, f"composite_masked_{int(time.time()*1000)}.png")
-    helpers.render_rgb_preview(r_img, g_img, b_img, png_path,
-                               MAX_PREVIEW_DIM)
-    return {
-        C.RES_PNG_PATH: png_path,
-        C.RES_STARS_MASKED: stars,
-        C.RES_MASK_COVERAGE: coverage,
-        "mask_mode": mask_mode,
-        C.CHANNELS: per_channel,
-        C.RES_ELAPSED_MS: t0.elapsed_ms(),
-    }
+        png_path = os.path.join(
+            out_dir, f"composite_masked_{int(time.time()*1000)}.png")
+        with trace.span("stretch.masked.preview"):
+            helpers.render_rgb_preview(r_img, g_img, b_img, png_path,
+                                       MAX_PREVIEW_DIM)
+        return {
+            C.RES_PNG_PATH: png_path,
+            C.RES_STARS_MASKED: stars,
+            C.RES_MASK_COVERAGE: coverage,
+            "mask_mode": mask_mode,
+            C.CHANNELS: per_channel,
+            C.RES_ELAPSED_MS: t0.elapsed_ms(),
+        }
 
 
 def _levels_of(d: Optional[dict]) -> LevelsParams:

@@ -7,10 +7,17 @@ mtf_balance → blend dst = dst·(m·α) + stretched·(1 − m·α); stop when
 |bg − target| < threshold or the background stagnates. RGB uses a
 shared luminance-derived mask (masked_stretch.rs:157-190).
 
-``masked_stretch`` runs detection (``max_peaks`` 4096, kernels K10 and
-K11), the dedupe of ``dedupe_packed_device``, the FWHM filter, the paint
-(K13) and the MTF loop on the device; the host reads the dedupe's
-conflicted subset once and the loop's stop flags once per iteration.
+``masked_stretch`` and ``masked_stretch_rgb_shared`` (on the BT.709
+luminance) build the star mask on the device: detection (kernels K10
+and K11) with a capacity that follows the data, the exact 3 px dedupe of
+``dedupe_packed_device``, the FWHM filter and the paint (K13), so every
+star the reference's detection keeps is masked (ROADMAP C49: the JAX
+package caps them at 4096 and 1024 peaks and 512 conflicted ones;
+``masked_stretch``'s ``max_peaks`` and ``star_mask_device``'s
+``max_peaks`` and ``scan_cap`` take those caps back). The host
+reads the candidates' count once, the dedupe's pair count and its
+settling checks, the mask's counts once, and the loop's stop flags once
+per iteration.
 
 Differences from the JAX module:
 
@@ -35,12 +42,12 @@ from typing import Optional
 import torch
 
 from astroburst_tpu_torch.analysis import star_detection as SD
+from astroburst_tpu_torch.imaging import star_mask as SM
 from astroburst_tpu_torch.imaging.star_mask import (StarMaskConfig,
-                                                    StarMaskResult,
-                                                    _mask_kernel,
-                                                    generate_star_mask)
+                                                    StarMaskResult)
 from astroburst_tpu_torch.ops.masking import validity_mask
 from astroburst_tpu_torch.ops.stats import select_half
+from astroburst_tpu_torch.runtime import trace
 from astroburst_tpu_torch.runtime.device import as_f32
 
 
@@ -116,7 +123,7 @@ def _stretch_core(image: torch.Tensor, mask: torch.Tensor,
     working = torch.where(rng < 1e-10, 0.0, working)
     blend = mask * protection
 
-    iterations_run, converged = 0, False
+    iterations_run, converged, stopped = 0, False, False
     prev_bg = f32(0.0)
     for it in range(config.iterations):
         bg = _masked_median(working, _background_mask(working, mask))
@@ -133,11 +140,14 @@ def _stretch_core(image: torch.Tensor, mask: torch.Tensor,
         flags = torch.stack([at_target, stagnated]).tolist()  # one fetch
         iterations_run = it + 1
         if flags[0] or (it > 0 and flags[1]):
-            converged = flags[0]
+            converged, stopped = flags[0], True
             break
         working, prev_bg = new_working, bg
 
     final_bg = _masked_median(working, _background_mask(working, mask))
+    trace.count("stretch.masked.iterations", iterations_run)
+    trace.count("stretch.masked.loops")
+    trace.count("stretch.masked.ran_out", int(not stopped))
     return (torch.clamp(working, 0.0, 1.0), iterations_run, float(final_bg),
             converged)
 
@@ -163,12 +173,13 @@ def _mask_config(config: MaskedStretchConfig) -> StarMaskConfig:
         luminance_ceiling=config.luminance_ceiling)
 
 
-def _paint_records(packed: torch.Tensor, mask_cfg: StarMaskConfig):
+def _paint_records(packed: torch.Tensor, mask_cfg: StarMaskConfig,
+                   scan_cap: Optional[int] = None):
     """(xs, ys, radii [K] f32, painted count 0-d) of the packed detection
     records: the device dedupe's accept set, FWHM-filtered, with radius
     FWHM·growth; unpainted slots are zeroed, since they can carry NaN
     positions (masked_stretch.py:171-180)."""
-    accepted = SD.dedupe_packed_device(packed)
+    accepted = SD.dedupe_packed_device(packed, scan_cap)
     fwhms = packed[3]
     painted = accepted & (fwhms >= mask_cfg.min_fwhm) & \
         (fwhms <= mask_cfg.max_fwhm)
@@ -178,33 +189,51 @@ def _paint_records(packed: torch.Tensor, mask_cfg: StarMaskConfig):
             painted.sum())
 
 
+def star_mask_device(image: torch.Tensor, mask_cfg: StarMaskConfig,
+                     max_peaks: Optional[int] = None,
+                     scan_cap: Optional[int] = None) -> StarMaskResult:
+    """The star mask of ``image`` built on its device: detection
+    (capacity ``max_peaks``, None: every candidate), the exact 3 px
+    dedupe (``scan_cap`` None: every conflicted candidate), the FWHM
+    filter, the paint (K13) and the luminance protection; one fetch of
+    the counts. Counters ``stretch.masked.candidates`` (the detection's
+    peaks) and ``stretch.masked.stars`` (the stars painted). A plane
+    under 3 px a side has no stars: its mask is the protection alone."""
+    rows, cols = image.shape
+    if rows < 3 or cols < 3:
+        mask, coverage = SM._mask_finish(image, torch.zeros_like(image),
+                                         mask_cfg.luminance_ceiling,
+                                         mask_cfg.luminance_protect)
+        return StarMaskResult(mask=mask, stars_masked=0,
+                              coverage_fraction=float(coverage))
+    packed = SD._detect(image, SD._tile_size(rows, cols),
+                        float(mask_cfg.detection_sigma), max_peaks)
+    xs, ys, radii, n_masked = _paint_records(packed, mask_cfg, scan_cap)
+    mask, coverage = SM._mask_kernel(image, xs, ys, radii, mask_cfg.softness,
+                                     mask_cfg.luminance_ceiling,
+                                     mask_cfg.luminance_protect)
+    n_masked, coverage, candidates = torch.stack([
+        n_masked.to(torch.float32), coverage,
+        (packed[6] > 0).sum().to(torch.float32)]).tolist()
+    trace.count("stretch.masked.candidates", int(candidates))
+    trace.count("stretch.masked.stars", int(n_masked))
+    return StarMaskResult(mask=mask, stars_masked=int(n_masked),
+                          coverage_fraction=coverage)
+
+
 def masked_stretch(image, config: MaskedStretchConfig = MaskedStretchConfig(),
-                   max_peaks: int = 4096,
+                   max_peaks: Optional[int] = None,
                    device: Optional[torch.device] = None
                    ) -> MaskedStretchResult:
-    """Full masked stretch (masked_stretch.rs:42-123): detection, the
-    device 3 px dedupe (``_postprocess_packed``'s accept set), the FWHM
-    filter, the mask paint and the MTF loop. ``image`` goes to ``device``
+    """Full masked stretch (masked_stretch.rs:42-123): the star mask of
+    ``star_mask_device`` (span ``stretch.masked.mask``), then the MTF
+    loop (span ``stretch.masked.mtf``). ``image`` goes to ``device``
     (default: its own device for a tensor, else ``cuda_device()``)."""
     img = as_f32(image, device)
-    rows, cols = img.shape
-    mask_cfg = _mask_config(config)
-    if rows < 3 or cols < 3:
-        mask_result = generate_star_mask(img, mask_cfg)
+    with trace.span("stretch.masked.mask"):
+        mask_result = star_mask_device(img, _mask_config(config), max_peaks)
+    with trace.span("stretch.masked.mtf"):
         return masked_stretch_with_mask(img, mask_result, config)
-    packed = SD._detect(img, SD._tile_size(rows, cols),
-                        float(mask_cfg.detection_sigma), max_peaks)
-    xs, ys, radii, n_masked = _paint_records(packed, mask_cfg)
-    mask, coverage = _mask_kernel(img, xs, ys, radii, mask_cfg.softness,
-                                  mask_cfg.luminance_ceiling,
-                                  mask_cfg.luminance_protect)
-    out, iters, final_bg, converged = _stretch_core(img, mask, config)
-    n_masked, coverage = torch.stack([n_masked.to(torch.float32),
-                                      coverage]).tolist()
-    return MaskedStretchResult(
-        image=out, iterations_run=iters, final_background=final_bg,
-        stars_masked=int(n_masked), mask_coverage=coverage,
-        converged=converged)
 
 
 def synthesize_luminance(r, g, b) -> torch.Tensor:
@@ -219,15 +248,17 @@ def masked_stretch_rgb_shared(r, g, b, config: MaskedStretchConfig =
                               MaskedStretchConfig(),
                               device: Optional[torch.device] = None
                               ) -> dict:
-    """One luminance-derived star mask drives all three channels."""
+    """One luminance-derived star mask (``star_mask_device`` on the
+    BT.709 luminance; span ``stretch.masked.mask``) drives all three
+    channels' MTF loops (span ``stretch.masked.mtf``)."""
     r = as_f32(r, device)
     g, b = as_f32(g, r.device), as_f32(b, r.device)
-    shared = generate_star_mask(synthesize_luminance(r, g, b),
-                                _mask_config(config))
-    return {
-        "r": masked_stretch_with_mask(r, shared, config),
-        "g": masked_stretch_with_mask(g, shared, config),
-        "b": masked_stretch_with_mask(b, shared, config),
-        "shared_mask_coverage": shared.coverage_fraction,
-        "shared_stars_masked": shared.stars_masked,
-    }
+    with trace.span("stretch.masked.mask"):
+        shared = star_mask_device(synthesize_luminance(r, g, b),
+                                  _mask_config(config))
+    with trace.span("stretch.masked.mtf"):
+        out = {c: masked_stretch_with_mask(p, shared, config)
+               for c, p in (("r", r), ("g", g), ("b", b))}
+    out["shared_mask_coverage"] = shared.coverage_fraction
+    out["shared_stars_masked"] = shared.stars_masked
+    return out

@@ -16,11 +16,11 @@ table for scalar prefetch) does not exist here: ``paint_mask`` makes one
 launch and allocates its output, nothing else.
 
 The plain version, ``paint_mask_plain``, is the direct per-star window
-form of the sequential oracle (tests/test_imaging.py:271-294): every
-window's values at once, then one ``scatter_reduce_(..., "amax")`` into
-a zero plane. A max over values ≥ 0 does not depend on the order, so it
-is exact. (The TPU's ``lax.map`` tile raster exists only to work around
-the TPU.)
+form of the sequential oracle (tests/test_imaging.py:271-294): the
+windows' values a chunk of stars at a time, each chunk by one
+``scatter_reduce_(..., "amax")`` into a zero plane. A max over values
+≥ 0 does not depend on the order, so it is exact. (The TPU's
+``lax.map`` tile raster exists only to work around the TPU.)
 
 ``paint_mask`` launches the kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; it never falls back. Positions must be finite
@@ -61,25 +61,32 @@ def _soft_disk(d2, radius, softness: float):
     return torch.where(radius > 0.0, val, 0.0)
 
 
+PLAIN_CHUNK = 2048   # stars whose windows the plain version holds at once
+
+
 def paint_mask_plain(xs: torch.Tensor, ys: torch.Tensor,
                      radii: torch.Tensor, softness: float, h: int,
                      w: int) -> torch.Tensor:
-    """[h, w] f32 mask: every star's 96 × 96 window at once, max-combined
-    by ``scatter_reduce_``."""
+    """[h, w] f32 mask: the stars' 96 × 96 windows, PLAIN_CHUNK stars at
+    a time, max-combined by ``scatter_reduce_``."""
     dev = xs.device
-    y0, x0 = _anchors(xs, ys, h, w)
-    off = torch.arange(WINDOW, dtype=torch.int64, device=dev) - HALF
-    rows = y0.to(torch.int64)[:, None] + off            # [k, 96]
-    cols = x0.to(torch.int64)[:, None] + off
-    dy = rows.to(torch.float32) - ys[:, None]
-    dx = cols.to(torch.float32) - xs[:, None]
-    d2 = (dx * dx)[:, None, :] + (dy * dy)[:, :, None]  # [k, 96, 96]
-    val = _soft_disk(d2, radii[:, None, None], softness)
-    inside = ((rows >= 0) & (rows < h))[:, :, None] & \
-        ((cols >= 0) & (cols < w))[:, None, :]
-    idx = torch.where(inside, rows[:, :, None] * w + cols[:, None, :], h * w)
     plane = torch.zeros(h * w + 1, dtype=torch.float32, device=dev)
-    plane.scatter_reduce_(0, idx.reshape(-1), val.reshape(-1), reduce="amax")
+    off = torch.arange(WINDOW, dtype=torch.int64, device=dev) - HALF
+    for s in range(0, xs.shape[0], PLAIN_CHUNK):
+        cx, cy = xs[s:s + PLAIN_CHUNK], ys[s:s + PLAIN_CHUNK]
+        y0, x0 = _anchors(cx, cy, h, w)
+        rows = y0.to(torch.int64)[:, None] + off            # [k, 96]
+        cols = x0.to(torch.int64)[:, None] + off
+        dy = rows.to(torch.float32) - cy[:, None]
+        dx = cols.to(torch.float32) - cx[:, None]
+        d2 = (dx * dx)[:, None, :] + (dy * dy)[:, :, None]  # [k, 96, 96]
+        val = _soft_disk(d2, radii[s:s + PLAIN_CHUNK, None, None], softness)
+        inside = ((rows >= 0) & (rows < h))[:, :, None] & \
+            ((cols >= 0) & (cols < w))[:, None, :]
+        idx = torch.where(inside, rows[:, :, None] * w + cols[:, None, :],
+                          h * w)
+        plane.scatter_reduce_(0, idx.reshape(-1), val.reshape(-1),
+                              reduce="amax")
     return plane[:h * w].reshape(h, w)
 
 

@@ -53,6 +53,27 @@ Name                                Where
                                     ``stacking.drizzle.drizzle_stack``
 ``api.process_cube``                the body of ``api.cube.process_cube_cmd``
 ``api.compose_rgb``                 the body of ``api.compose.compose_rgb_cmd``
+``api.masked_stretch_composite``    the body of ``api.processing.
+                                    masked_stretch_composite_cmd``
+``stretch.masked.mask``             ``imaging.masked_stretch``: the star
+                                    mask (the luminance in the shared
+                                    form, detection with K10 and K11, the
+                                    dedupe, the paint with K13, the
+                                    protection, one fetch of the counts);
+                                    counters ``stretch.masked.candidates``
+                                    (the detection's peaks) and
+                                    ``stretch.masked.stars`` (the stars
+                                    painted)
+``stretch.masked.mtf``              there: the MTF loops under the mask
+                                    (one, or the shared mask's three);
+                                    counters ``stretch.masked.iterations``
+                                    (each loop's ``iterations_run``),
+                                    ``stretch.masked.loops`` (one a loop)
+                                    and ``stretch.masked.ran_out`` (the
+                                    loops that used every iteration
+                                    without stopping on their test)
+``stretch.masked.preview``          in ``masked_stretch_composite_cmd``:
+                                    the RGB preview's u8, fetch and PNG
 ``compose.harmonize``               in ``compose.rgb.process_rgb``: the
                                     bicubic resample of channels to the
                                     largest dimensions

@@ -18,6 +18,7 @@
                                                   # drizzle of phase 4e
     python3 chip_smoke.py --phase-4p              # phase 4p alone
     python3 chip_smoke.py --phase-4q              # phase 4q alone
+    python3 chip_smoke.py --phase-4r              # phase 4r alone
 
 Phases, each of which fails loudly (nothing is caught; any failure
 exits non-zero, and so does a machine without a CUDA device):
@@ -310,6 +311,14 @@ exits non-zero, and so does a machine without a CUDA device):
    both timed with CUDA events beside the
    bound (six reads of the cube, and the two the work needs) and one
    ``torch.kthvalue`` median of the valid values.
+   (r) the masked stretch at the full-resolution cell's capacity
+   (``check_masked_capacity``): the luminance of the
+   ``nircam-fullres-masked`` cell's three 13759 x 12451 planes (the
+   benchmark's own generator), detection with the capacity that follows
+   the data, ``dedupe_packed_device`` against the host greedy
+   ``_postprocess_packed`` (the accept set equal), K13 against its plain
+   version on the card bit for bit at that capacity and on its first
+   4096 slots, each timed, and the shared masked stretch once.
    Then every entry point again through the plain versions on the card,
    compared with the kernel path, and both paths timed with CUDA events
    (``stack_images`` at 150 frames; ``drizzle_stack`` as is, band 64,
@@ -402,7 +411,7 @@ DET_HW, DET_STARS = 4096, 3000         # BASELINE.md:13
 AFF_STARS_5K, AFF_STARS_4K = 90, 80    # bench_ops.py:299, BASELINE.md:17
 AFF_MOVES = ((0.4, 3.2, -2.1), (-0.3, -1.7, 2.6))   # bench_ops.py:811-812
 DRA_N, DRA_HW = 4, 1024                # drizzle by the AFFINE method
-MS_PEAKS = 4096                        # masked_stretch.py:206
+MS_PEAKS = 4096   # phase 4's K13 slots: the JAX package's masked_stretch cap
 MS_SCALE = 4000.0   # the star field / 4000: background 0.025, peaks < 0.8
 FLIP_ATOL = 5e-3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -5741,6 +5750,9 @@ def main() -> None:
     # ---- 4q. the cube's global statistics by radix select --------------
     report["radix_select"] = check_radix_select(smi)
 
+    # ---- 4r. the masked stretch at the full-resolution cell's capacity --
+    report["masked_capacity"] = check_masked_capacity(smi)
+
     # ---- 4m. the multi-device layer: 4 shards on this card -------------
     launches_sharded, report["shift_clip_slab"], times_sharded = \
         sharded_path(stack, counters, smi)
@@ -7842,6 +7854,206 @@ def phase_4q_alone() -> None:
     log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
 
 
+# --- phase 4r: the masked stretch at the full-resolution cell's capacity ---
+
+MASKED_SEED = 31
+
+
+def twin_gap(got: list, want: list) -> dict:
+    """Two accept sets of (y, x) against each other where the greedy's
+    order may differ on equal fluxes: ``_postprocess_packed``'s numpy
+    sort is not stable, and two peaks of one component (equal windows,
+    equal fluxes, centroids an ulp apart) can then keep the other twin.
+    Raises unless the counts are equal and every position of one lies
+    within 1e-3 px of one of the other; returns the positions not equal
+    and the largest gap."""
+    if len(got) != len(want):
+        raise AssertionError(f"[4r] the device dedupe keeps {len(got)}, "
+                             f"_postprocess_packed {len(want)}")
+    a = np.asarray(got, np.float64).reshape(-1, 2)
+    b = np.asarray(want, np.float64).reshape(-1, 2)
+    only = sorted(set(map(tuple, a)) ^ set(map(tuple, b)))
+    gap = 0.0
+    for y, x in only:
+        other = b if (y, x) in set(map(tuple, a)) else a
+        gap = max(gap, float(np.hypot(other[:, 0] - y,
+                                      other[:, 1] - x).min()))
+    if gap > 1e-3:
+        raise AssertionError(f"[4r] the accept sets differ by {gap} px")
+    return {"differ": len(only) // 2, "max_px": gap}
+
+
+def check_masked_capacity(smi) -> dict:
+    """Phase 4r: the star mask of the ``nircam-fullres-masked`` cell at
+    its own capacity. The cell's three planes
+    (``benchmark/core/rgb_fields.render`` from MASKED_SEED) give the
+    BT.709 luminance; detection with the capacity that follows the data
+    (``_detect(..., None)``), held to its plain version through
+    ``check_packed``; K10 (``sort_tiles``) on the plane's tiles and K11
+    (``window_stats``) on its peaks at that capacity, each against its
+    plain version (K10 bit for bit; K11 npix equal, the rest within
+    rtol 1e-4 / atol 1e-3, as ``check_window_stats``);
+    ``dedupe_packed_device`` against the host
+    greedy in the same stable order (the benchmark reference's
+    ``dedupe``: the accept set equal) and against ``_postprocess_packed``
+    (``twin_gap``); K13
+    (``paint_mask``) against its plain version on the card, bit for bit,
+    on the painted records at that capacity and on their first 4096 slots
+    (the masked stretch's capacity before); each by CUDA events (the host
+    greedy by the host clock); ``star_mask_device`` and
+    ``masked_stretch_rgb_shared`` on the three planes once each. Raises
+    on any difference; returns the report entry (``accepted_fwhm_px``:
+    percentiles of the accepted stars' FWHM and how many fall under the
+    mask's filter; ``bound_ms``: K13's plane written once)."""
+    import importlib
+    import torch
+    from astroburst_tpu_torch.analysis import star_detection as SD
+    from astroburst_tpu_torch.analysis.tile_sort_kernel import (
+        sort_tiles, sort_tiles_plain)
+    from astroburst_tpu_torch.analysis.window_kernel import (
+        window_stats, window_stats_plain)
+    from astroburst_tpu_torch.imaging.star_mask_kernel import (
+        paint_mask, paint_mask_plain)
+    from astroburst_tpu_torch.runtime.device import cuda_device
+    from benchmark.core import rgb_fields
+    from benchmark.reference import masked_stretch as masked_reference
+    ms_mod = importlib.import_module(
+        "astroburst_tpu_torch.imaging.masked_stretch")
+    dev = cuda_device()
+    t0 = time.perf_counter()
+    config = json.load(open("benchmark/configs/nircam-fullres-rgb.json"))
+    planes, _ = rgb_fields.render(config["data"], MASKED_SEED, dev)
+    r, g, b = (planes.pop(c) for c in "rgb")
+    lum = ms_mod.synthesize_luminance(r, g, b)
+    h, w = lum.shape
+    tile = SD._tile_size(h, w)
+    cfg = ms_mod._mask_config(ms_mod.MaskedStretchConfig())
+    ty, tx = -(-h // tile), -(-w // tile)
+    padded = torch.nn.functional.pad(
+        lum, (0, tx * tile - w, 0, ty * tile - h),
+        value=float("nan")).contiguous()
+    got, ref = sort_tiles(padded, tile), sort_tiles_plain(padded, tile)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError(f"[4r] K10 differs from the plain version on "
+                             f"the {ty * tx} tiles of {tile}^2")
+    del got, ref
+    k10 = {"tiles": ty * tx, "step": tile,
+           "ms": cuda_ms(lambda: sort_tiles(padded, tile), 5),
+           "plain_ms": cuda_ms(lambda: sort_tiles_plain(padded, tile), 2)}
+    log(f"  [4r] K10 {h}x{w}: {k10}, bit-equal")
+    del padded
+    bg_med, bg_sig = SD._background(lum, tile)
+    thr = bg_med + 5.0 * bg_sig
+    pys, pxs, _, n_valid = SD._peaks(lum, thr, None)
+    wargs = (lum, pys, pxs, thr, bg_med, n_valid)
+    got9, ref9 = window_stats(*wargs), window_stats_plain(*wargs)
+    torch.cuda.synchronize()
+    if not torch.equal(got9[:, 0], ref9[:, 0]) or \
+            not torch.allclose(got9, ref9, rtol=1e-4, atol=1e-3):
+        raise AssertionError(f"[4r] K11 differs from the plain version on "
+                             f"{int(n_valid)} live of {pys.shape[0]} peaks")
+    k11 = {"peaks": pys.shape[0], "live": int(n_valid),
+           "max_abs_err": float((got9 - ref9).abs().max()),
+           "ms": cuda_ms(lambda: window_stats(*wargs), 5),
+           "plain_ms": cuda_ms(lambda: window_stats_plain(*wargs), 2)}
+    log(f"  [4r] K11 {h}x{w}: {k11}, within rtol 1e-4 / atol 1e-3")
+    packed = SD._detect(lum, tile, 5.0, None)
+    detect_rel = check_packed(
+        f"[4r] _detect {h}x{w} at capacity {packed.shape[1]}", packed,
+        plain_run(SD._detect, lum, tile, 5.0, None), got9, ref9)
+    del wargs, got9, ref9, pys, pxs
+    detect_ms = cuda_ms(lambda: SD._detect(lum, tile, 5.0, None), 3)
+    accepted = SD.dedupe_packed_device(packed)
+    host = packed.cpu().numpy()
+    t = time.perf_counter()
+    det = SD._postprocess_packed(host, 5.0, h, w)
+    host_ms = (time.perf_counter() - t) * 1e3
+    acc = accepted.cpu().numpy()
+    valid = np.flatnonzero(host[8] > 0.5)
+    kept = valid[masked_reference.dedupe(host[0, valid], host[1, valid],
+                                         host[2, valid])]
+    got = sorted(zip(host[0, acc], host[1, acc]))
+    if got != sorted(zip(host[0, kept], host[1, kept])):
+        raise AssertionError("[4r] the device dedupe's accept set differs "
+                             "from the stable host greedy's")
+    twins = twin_gap(got, sorted((s.y, s.x) for s in det.stars))
+    dedupe_ms = cuda_ms(lambda: SD.dedupe_packed_device(packed), 5)
+    xs, ys, radii, n = ms_mod._paint_records(packed, cfg)
+    fwhm = host[3, acc]
+    fwhm_pct = dict(zip(("p1", "p5", "p50", "p95"), np.percentile(
+        fwhm, [1, 5, 50, 95]).round(4).tolist()))
+    fwhm_pct["under_min"] = int((fwhm < cfg.min_fwhm).sum())
+    k13 = {}
+    for tag, cut in (("capacity", packed.shape[1]), ("first_4096", 4096)):
+        rec = (xs[:cut].contiguous(), ys[:cut].contiguous(),
+               radii[:cut].contiguous())
+        got = paint_mask(*rec, cfg.softness, h, w)
+        ref = paint_mask_plain(*rec, cfg.softness, h, w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"[4r] K13 differs from the plain version "
+                                 f"on the {tag} records")
+        del got, ref
+        k13[tag] = {"slots": cut, "painted": int((rec[2] > 0).sum()),
+                    "ms": cuda_ms(lambda: paint_mask(*rec, cfg.softness, h,
+                                                     w), 10)}
+        log(f"  [4r] K13 {h}x{w}, {tag}: {k13[tag]}, bit-equal")
+    plain_ms = cuda_ms(lambda: paint_mask_plain(xs, ys, radii, cfg.softness,
+                                                h, w), 2)
+    mask_ms = cuda_ms(lambda: ms_mod.star_mask_device(lum, cfg), 3)
+    del lum
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    res = ms_mod.masked_stretch_rgb_shared(r, g, b)
+    torch.cuda.synchronize()
+    shared_s = time.perf_counter() - t
+    entry = {"shape": [h, w], "capacity": packed.shape[1],
+             "candidates": int((packed[6] > 0).sum()),
+             "valid": int((packed[8] > 0.5).sum()),
+             "accepted": int(acc.sum()), "painted": int(n),
+             "accepted_fwhm_px": fwhm_pct,
+             "host_greedy_twins": twins, "k10": k10, "k11": k11,
+             "detect_max_rel_err": detect_rel,
+             "detect_ms": detect_ms, "dedupe_ms": dedupe_ms,
+             "dedupe_host_greedy_ms": host_ms, "k13": k13,
+             "k13_plain_ms": plain_ms, "star_mask_device_ms": mask_ms,
+             "shared_stretch_s": shared_s,
+             "shared_stars_masked": res["shared_stars_masked"],
+             "shared_iterations": [res[c].iterations_run for c in "rgb"],
+             "shared_peak_gib_beyond_planes":
+                 (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+             "seconds": time.perf_counter() - t0}
+    entry.update(zip(("bound_ms", "bound_by"), bound(4 * h * w, 0)))
+    log(f"[4r] {smi}: " + json.dumps(entry))
+    del r, g, b, res, packed
+    return entry
+
+
+def phase_4r_alone() -> None:
+    """Phase 4r alone: the build (and K13's registers), then
+    ``check_masked_capacity``; prints the card's name and power limit,
+    the entry and the seconds."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                 "is false); this script runs only on the card")
+    from astroburst_tpu_torch.runtime import kernels as K
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    lib = K.library()
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvcc {lib.build_seconds:.1f} s")
+    for name, regs, smem, stack_b, sst, sld in ptxas_summary(lib.build_log):
+        if name.startswith("star_mask"):
+            log(f"[build]   {name}: {regs} registers, {smem} B smem, "
+                f"{stack_b} B stack, spills {sst}/{sld} B")
+    check_masked_capacity(smi)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after start")
+
+
 def phase_4e_banded_alone() -> None:
     """The one-launch exact drizzle alone: the build, the drizzle bench
     stack of phase 3, then ``check_banded_drizzle``; prints the card's
@@ -7870,6 +8082,8 @@ if __name__ == "__main__":
         phase_4p_alone()
     elif sys.argv[1:2] == ["--phase-4q"]:
         phase_4q_alone()
+    elif sys.argv[1:2] == ["--phase-4r"]:
+        phase_4r_alone()
     elif sys.argv[1:2] == ["--phase-4o"]:
         phase_4o_alone()
     elif sys.argv[1:2] == ["--phase-4n"]:

@@ -73,7 +73,7 @@ def _stars(rng, h, w, k, margin=10.0, zero_frac=0.0):
 
 
 @pytest.mark.parametrize("h,w,k", [(128, 160, 7), (300, 200, 60),
-                                   (97, 513, 25)])
+                                   (97, 513, 25), (600, 520, 5000)])
 def test_paint_mask_plain_bit_equal_to_sequential_oracle(h, w, k):
     """The shapes of tests/test_imaging.py:297, off-plane stars (up to
     60 px beyond the edges) and zero radii."""
